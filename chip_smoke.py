@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of Biathlon on one CUDA card and check what it does.
+
+Run from the root of a checkout, with no arguments:
+
+    PYTHONPATH=src python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result line is printed):
+
+1. print the card (``nvidia-smi`` name and power limit) and build the four
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
+   in parallel), with their build time;
+2. hold each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it, and time both with CUDA events;
+3. build the full-width ``turbofan`` bundle (20000 rows per group, 400
+   train groups, 24 serve groups; random forest of 40 trees, depth 8) and
+   serve 8 requests with ``BiathlonConfig()`` under ``afc_backend="auto"``
+   (incremental AFC), under ``"ref"`` (the rescan) and through the plain
+   versions on the card; launch counts are reset just before each run and
+   read just after, and every kernel of a run's path must have launched;
+4. the same at ``rows_per_group=500``, where "auto" takes the rescan path;
+5. print one ``{"kernels": [...]}`` line, then the result line
+   ``{"ok": true, "device": {...}}``.
+
+It refuses to run without a CUDA device, and imports nothing of JAX or of
+the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+N_SERVE = 8
+TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _events_ms(run, reps: int) -> float:
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_ms(fn, reps: int = 20) -> tuple[float, float]:
+    """``(device ms, eager ms)`` per call of ``fn`` (L2 warm).
+
+    Device time: ``reps`` calls captured in one CUDA graph and replayed, so
+    host launch overhead is out of the measurement.  Eager time: the same
+    calls launched back to back from Python, as the serving loop launches
+    them (for a tiny kernel this is the launch rate, not the kernel).
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    device = _events_ms(graph.replay, 5) / reps
+    return device, _events_ms(fn, reps)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time (ms) for the work: bytes over HBM rate vs ops over f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def heavy_tailed(n=60000, seed=7) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    v = rng.normal(1.25, 0.12, n).astype(np.float32)
+    v[0] = 100.0
+    return v
+
+
+def timings(kernel, plain) -> dict:
+    (ms, eager_ms), (plain_ms, _) = time_ms(kernel), time_ms(plain)
+    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms)
+
+
+# ------------------------------------------------------------------ phase 2
+def moments_record(bundle, dev, alpha: float) -> dict:
+    """``sampled_moments`` on the inputs of the rescan's first evaluation.
+
+    Request 0 of ``bundle`` is gathered as the server gathers it (its
+    power-of-two cap bucket) with the plan z⁰ = ceil(α·n): the shape and data
+    each rescan evaluation of that path gives the kernel.  Held against the
+    plain version, timed, and bounded by the live columns it must read.
+    """
+    from repro_torch.core.planner import initial_plan
+    from repro_torch.data.store import bucket_size
+    from repro_torch.kernels.sampled_agg import ops
+
+    p, req = bundle.pipeline, bundle.requests[0]
+    cap = bucket_size(int(max(p.group_sizes(bundle.store, req).max(), 1)))
+    vals, sizes = bundle.store.request_buffers(p.agg_specs(req), cap, dev)
+    z = initial_plan(sizes, alpha)
+    shift = vals[:, 0].contiguous()
+    got = ops.moments(vals, z, shift)
+    want = ops.moments(vals, z, shift, use_kernel=False)
+    torch.testing.assert_close(got, want, **TABLE_TOL)
+    k, live = vals.shape[0], int(z.sum())
+    # live values read once, z and shift read, (k, 5) written
+    b = bound(live * 4 + k * 8 + k * 20, live * 8)
+    return dict(
+        shape=[k, cap], z=z.cpu().tolist(), max_abs_err=float((got - want).abs().max()),
+        **timings(lambda: ops.moments(vals, z, shift),
+                  lambda: ops.moments(vals, z, shift, use_kernel=False)),
+        bound_ms=b[0], bound_by=b[1],
+    )
+
+
+def check_kernels(dev, bundle, alpha: float) -> dict:
+    """Each kernel against its plain version; returns per-kernel records."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sobol.ops import points
+    from repro_torch.kernels.tree_qmc.ops import predict_sum
+    from repro_torch.models.tabular.trees import GradientBoosting
+
+    rf_ensemble = bundle.pipeline.model.ensemble
+    rec = {}
+    rng = np.random.default_rng(0)
+
+    # sobol_points: bit-exact at the executor's two grids and with skip > 0
+    err = 0
+    for m, d, skip in [(1000, 9, 0), (256, 18, 0), (1000, 9, 12345)]:
+        got = points(m, d, skip, device=dev)
+        want = points(m, d, skip, device=dev, use_kernel=False)
+        err = max(err, int((got - want).abs().max()))
+        require(torch.equal(got, want), f"sobol_points differs from plain at {(m, d, skip)}")
+    m, d = 1000, 9
+    # the function maps (d, 32) uint32 to (m, d) uint32: 4 bytes a value (the
+    # port holds them in int64, which doubles what the kernel itself moves)
+    b = bound(m * d * 4 + d * 32 * 4, m * d * 32 * 2)
+    rec["sobol_points"] = dict(
+        shape=[m, d], max_abs_err=float(err),
+        phases=["bit_exact_1000x9", "bit_exact_256x18", "skip"],
+        **timings(lambda: points(m, d, device=dev),
+                  lambda: points(m, d, device=dev, use_kernel=False)),
+        bound_ms=b[0], bound_by=b[1],
+    )
+
+    # prefix_power_sums / sampled_moments at 60k heavy-tailed rows vs float64
+    v = heavy_tailed()
+    t = torch.from_numpy(v[None]).to(dev)
+    want64 = np.stack([(v.astype(np.float64) ** p).cumsum() for p in range(1, 5)], axis=-1)
+    tab = ops.prefix_power_sums(t)[0].cpu().numpy()
+    require((np.abs(tab - want64) / np.abs(want64)).max() < 1e-6,
+            "prefix_power_sums: 60k heavy-tailed row not within 1e-6 of float64")
+    mom = ops.moments(t, torch.tensor([v.size], device=dev))[0].cpu().numpy()
+    require((np.abs(mom[1:] - want64[-1]) / np.abs(want64[-1])).max() < 1e-6
+            and mom[0] == v.size,
+            "sampled_moments: 60k heavy-tailed row not within 1e-6 of float64")
+
+    # the serving shapes: k = 9, cap 32768 (incremental) and random z (rescan)
+    k, cap = 9, 32768
+    vals = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
+    shift = vals[:, 0].contiguous()
+    got = ops.prefix_power_sums(vals, shift)
+    want = ops.prefix_power_sums(vals, shift, use_kernel=False)
+    torch.testing.assert_close(got, want, **TABLE_TOL)
+    b = bound(k * cap * 4 + k * 4 + k * cap * 16, k * cap * 8)
+    rec["prefix_power_sums"] = dict(
+        shape=[k, cap], max_abs_err=float((got - want).abs().max()),
+        phases=["f64_60k", "plain_9x32768"],
+        **timings(lambda: ops.prefix_power_sums(vals, shift),
+                  lambda: ops.prefix_power_sums(vals, shift, use_kernel=False)),
+        bound_ms=b[0], bound_by=b[1],
+    )
+    z = torch.from_numpy(rng.integers(0, cap + 1, k).astype(np.int32)).to(dev)
+    z[0] = 0
+    got = ops.moments(vals, z, shift)
+    want = ops.moments(vals, z, shift, use_kernel=False)
+    torch.testing.assert_close(got, want, **TABLE_TOL)
+    require(bool((got[0] == 0).all()), "sampled_moments: a z = 0 row is not all-zero")
+    rec["sampled_moments"] = dict(
+        moments_record(bundle, dev, alpha),
+        phases=["f64_60k", "plain_9x32768_random_z", "zero_rows", "request_0_z0"],
+    )
+    rec["sampled_moments"]["max_abs_err"] = max(
+        rec["sampled_moments"]["max_abs_err"], float((got - want).abs().max()))
+
+    # ensemble_sum: the turbofan forest and a 60 x 63 (depth 5) boosted model
+    X = rng.normal(0, 1, (2000, 9)).astype(np.float32)
+    gbm = GradientBoosting(n_trees=60, max_depth=5, learning_rate=0.15).fit(
+        X, X[:, 0] * 2 + np.sin(3 * X[:, 1])).to(dev)
+    require(tuple(gbm.ensemble.feature.shape) == (60, 63), "GBM shape is not 60 x 63")
+    require(tuple(rf_ensemble.feature.shape) == (40, 511) and rf_ensemble.depth == 8,
+            "turbofan forest is not 40 x 511, depth 8")
+    err = 0.0
+    for ens in (rf_ensemble, gbm.ensemble):
+        for m in (3817, 1001, 2816):
+            x = torch.from_numpy(rng.normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
+            a, a2 = predict_sum(ens, x), predict_sum(ens, x)
+            want = predict_sum(ens, x, use_kernel=False)
+            require(torch.equal(a, a2), f"ensemble_sum not bitwise stable at m={m}")
+            require(bool(((a - want).abs() <= 1e-5 * (1 + want.abs())).all()),
+                    f"ensemble_sum differs from plain at m={m}")
+            err = max(err, float((a - want).abs().max()))
+    m, (T, M), F = 3817, rf_ensemble.feature.shape, 9
+    x = torch.from_numpy(rng.normal(0, 1, (m, F)).astype(np.float32)).to(dev)
+    b = bound(m * F * 4 + 5 * T * M * 4 + m * 4, m * T * (2 * rf_ensemble.depth + 1))
+    rec["ensemble_sum"] = dict(
+        shape=[m, F, T, M], max_abs_err=err,
+        phases=["rf_40x511", "gbm_60x63", "m_3817_1001_2816", "bitwise_stable"],
+        **timings(lambda: predict_sum(rf_ensemble, x),
+                  lambda: predict_sum(rf_ensemble, x, use_kernel=False)),
+        bound_ms=b[0], bound_by=b[1],
+    )
+    build.reset_launch_counts()
+    return rec
+
+
+# ---------------------------------------------------------------- phase 3/4
+def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
+    """Build a server and serve ``n_req`` requests after one warm-up request.
+
+    Returns (outputs, p50 latency seconds, launch counts of the whole run,
+    launch counts of the server's construction alone).  The counts are
+    reset once, before the server is built; the construction's are read
+    when it returns, the whole run's after the last request.
+    """
+    from repro_torch.kernels import build
+    from repro_torch.serving import BiathlonServer
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    srv = BiathlonServer(bundle, cfg, afc_backend=afc_backend, device=dev,
+                         use_kernel=use_kernel)
+    at_build = dict(build.LAUNCHES)
+    reqs = bundle.requests[:n_req]
+    srv.serve(reqs[0])  # warm-up
+    outs = [srv.serve(r) for r in reqs]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    return outs, statistics.median(o["latency"] for o in outs), launches, at_build
+
+
+def profile_request(bundle, cfg, dev, request, path: Path) -> dict:
+    """Device time of one served request by kernel, from ``torch.profiler``.
+
+    Writes the table to ``path``; returns the device-busy total and the top
+    entries.  The profiled latency carries the profiler's own overhead.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import BiathlonServer
+
+    srv = BiathlonServer(bundle, cfg, device=dev)
+    srv.serve(request)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = srv.serve(request)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((float(dev_us), e.key, int(e.count), float(e.self_cpu_time_total)))
+    rows.sort(reverse=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("self_device_us  count  self_cpu_us  name\n" + "\n".join(
+        f"{d:14.1f} {c:6d} {h:12.1f}  {k}" for d, k, c, h in rows))
+    # device activity (kernels, copies) has no host time of its own; host
+    # operators carry their kernels' time too, so only the former is summed
+    device = [r for r in rows if r[3] == 0.0 and r[0] > 0.0]
+    return dict(device_busy_ms=sum(r[0] for r in device) / 1e3,
+                device_launches=sum(r[2] for r in device),
+                host_ops=sum(r[2] for r in rows if r[3] > 0.0), iters=out["iters"],
+                profiled_latency_ms=out["latency"] * 1e3,
+                top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:6]])
+
+
+def compare_runs(name, base, other, cfg):
+    for i, (a, b) in enumerate(zip(base, other)):
+        require(a["iters"] == b["iters"] and (a["z"] == b["z"]).all(),
+                f"{name}: request {i} plan differs: {a['z']} x{a['iters']} vs "
+                f"{b['z']} x{b['iters']}")
+        require(abs(a["y_hat"] - b["y_hat"]) <= 1e-4 * max(1.0, abs(a["y_hat"])),
+                f"{name}: request {i} y_hat {a['y_hat']} vs {b['y_hat']}")
+    for i, o in enumerate(other):
+        require(np.isfinite(o["y_hat"]), f"{name}: request {i} y_hat not finite")
+        done = o["prob"] >= cfg.tau or (o["z"] == o["n"]).all() or o["iters"] == cfg.max_iters
+        require(done, f"{name}: request {i} stopped with prob {o['prob']} < tau, plan left")
+
+
+def expect_launched(name, launches, kernels, absent=()):
+    for kname in kernels:
+        require(launches.get(kname, 0) > 0, f"{name}: kernel {kname} never launched")
+    for kname in absent:
+        require(launches.get(kname, 0) == 0, f"{name}: kernel {kname} launched off its path")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run it from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.executor import BiathlonConfig
+    from repro_torch.core.executor_fused import guarantee_prob
+    from repro_torch.data.synthetic import make_pipeline
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    build_s = build.build_all()["total"]
+    print(f"build: {build_s:.2f} s for {len(build.SOURCES)} kernels (nvcc, sm_90a)", flush=True)
+
+    # degenerate sigma: a float32-subnormal bias is not within delta = 0
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    require(float(guarantee_prob(f(0.0), f(1e-38), f(0.0), f(0.0))) == 0.0,
+            "guarantee_prob: subnormal bias accepted at delta = 0")
+
+    t0 = time.perf_counter()
+    full = make_pipeline("turbofan", device=dev)
+    print(f"turbofan bundle: {full.table_rows} rows, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = BiathlonConfig()
+    rec = check_kernels(dev, full, cfg.alpha)
+    print("kernels vs plain: ok", flush=True)
+
+    results = {}
+    runs = {
+        "auto": dict(afc_backend="auto", use_kernel=True),
+        "ref": dict(afc_backend="ref", use_kernel=True),
+        "plain": dict(afc_backend="auto", use_kernel=False),
+    }
+    for name, kw in runs.items():
+        results[name] = serve_run(full, cfg, dev, n_req=N_SERVE, **kw)
+    # a tighter error bound makes full-width requests enter the planner loop
+    tight = BiathlonConfig(delta=full.pipeline.delta_default * 0.3)
+    for name in ("auto", "plain"):
+        results[f"{name}_tight"] = serve_run(full, tight, dev, n_req=N_SERVE, **runs[name])
+    compare_runs("tight auto vs plain", results["plain_tight"][0],
+                 results["auto_tight"][0], tight)
+    caps = sorted({o["cap"] for o in results["auto"][0]})
+    require(min(caps) > 1024, f"full-width caps {caps} do not take the incremental path")
+    expect_launched("auto", results["auto"][2],
+                    ["prefix_power_sums", "ensemble_sum", "sobol_points"], ["sampled_moments"])
+    expect_launched("ref", results["ref"][2],
+                    ["sampled_moments", "ensemble_sum", "sobol_points"], ["prefix_power_sums"])
+    require(not results["plain"][2], f"plain run launched kernels {results['plain'][2]}")
+    expect_launched("auto tight", results["auto_tight"][2],
+                    ["prefix_power_sums", "ensemble_sum", "sobol_points"], ["sampled_moments"])
+    compare_runs("auto vs plain", results["plain"][0], results["auto"][0], cfg)
+    compare_runs("ref vs plain", results["plain"][0], results["ref"][0], cfg)
+    for name, (outs, p50, launches, _) in results.items():
+        print(f"serve {name}: p50 {p50 * 1e3:.3f} ms over {len(outs)} requests, "
+              f"iters {[o['iters'] for o in outs]}, caps {sorted({o['cap'] for o in outs})}, "
+              f"launches {launches} [{card}]", flush=True)
+
+    outs = results["auto_tight"][0]
+    busiest = max(range(N_SERVE), key=lambda i: outs[i]["iters"])
+    prof = profile_request(full, tight, dev, full.requests[busiest],
+                           ROOT / "build" / "chip_smoke_profile.txt")
+    prof["latency_ms"] = outs[busiest]["latency"] * 1e3
+    print(f"profile of tight request {busiest}: {json.dumps(prof)} [{card}]", flush=True)
+
+    small = make_pipeline("turbofan", rows_per_group=500, device=dev)
+    sm = {name: serve_run(small, cfg, dev, n_req=4, **kw)
+          for name, kw in (("auto", runs["auto"]), ("plain", runs["plain"]))}
+    require(max(o["cap"] for o in sm["auto"][0]) <= 1024, "reduced-depth caps exceed 1024")
+    expect_launched("reduced auto", sm["auto"][2],
+                    ["sampled_moments", "ensemble_sum", "sobol_points"], ["prefix_power_sums"])
+    compare_runs("reduced auto vs plain", sm["plain"][0], sm["auto"][0], cfg)
+    for name, (outs, p50, launches, _) in sm.items():
+        print(f"serve reduced {name}: p50 {p50 * 1e3:.3f} ms over {len(outs)} requests, "
+              f"iters {[o['iters'] for o in outs]}, launches {launches} [{card}]", flush=True)
+
+    def per_request(run, kname, n_req):
+        """Launches of a run's requests (warm-up included), apart from its build."""
+        _, _, launches, at_build = run
+        return (launches.get(kname, 0) - at_build.get(kname, 0)) / (n_req + 1)
+
+    path_run = {"prefix_power_sums": "auto", "sampled_moments": "ref",
+                "ensemble_sum": "auto", "sobol_points": "auto"}
+    # the rescan as "auto" serves it at reduced depth: its own inputs and counts
+    rec["sampled_moments"]["reduced_depth"] = dict(
+        moments_record(small, dev, cfg.alpha),
+        launches=sm["auto"][2].get("sampled_moments", 0),
+        launches_per_request=per_request(sm["auto"], "sampled_moments", 4))
+    sources = {
+        "prefix_power_sums": ("prefix_stats.cu", "src/repro/kernels/sampled_agg/prefix_stats.py:124"),
+        "sampled_moments": ("sampled_agg.cu", "src/repro/kernels/sampled_agg/sampled_agg.py:74"),
+        "ensemble_sum": ("tree_qmc.cu", "src/repro/kernels/tree_qmc/tree_qmc.py:62"),
+        "sobol_points": ("sobol.cu", "src/repro/kernels/sobol/sobol.py:38"),
+    }
+    kernels = []
+    for kname, (src, replaces) in sources.items():
+        r = rec[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=replaces,
+            launches=results["auto"][2].get(kname, 0) + results["ref"][2].get(kname, 0),
+            launches_per_request=per_request(results[path_run[kname]], kname, N_SERVE),
+            launches_per_executor_build=results[path_run[kname]][3].get(kname, 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], eager_ms=r["eager_ms"],
+            plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            shape=r["shape"], phases=r["phases"],
+            **{key: r[key] for key in ("z", "reduced_depth") if key in r},
+        ))
+    serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
+             for name, (outs, p50, *_) in results.items()}
+    serve.update({f"reduced_{name}": dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
+                  for name, (outs, p50, *_) in sm.items()})
+    print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
+                      "seconds": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except (SmokeFailure, AssertionError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,87 @@
+"""Build the port's objects from plain numpy arrays and Python metadata.
+
+The bridge lets a caller hand the port a store and a trained pipeline that
+were made elsewhere — by the JAX reference in the parity tests, or read from
+files — without either package importing the other.  Everything it takes is
+numpy arrays, Python scalars, strings, lists and dicts:
+
+* a store: per table, its ``columns`` (name -> array), ``group_ptr``,
+  ``perm`` and ``group_ids`` (external key -> dense group index);
+* a pipeline: its ``name``, ``task``, ``n_classes``, ``agg_features`` and
+  ``exact_features`` (lists of field dicts), ``scaler_mean``,
+  ``scaler_scale``, ``delta_default`` and a ``model`` dict with the tree
+  arrays (``feature``, ``threshold``, ``left``, ``right``, ``value``), its
+  ``depth``, ``base``, ``task`` and ``kind`` (``"rf"`` or ``"gbm"``);
+* a bundle: ``pipeline``, ``store``, ``requests``, ``labels``, ``name``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+from repro_torch.core.pipeline import AggFeature, ExactFeature, Pipeline
+from repro_torch.data.store import ColumnStore, Table
+from repro_torch.data.synthetic import PipelineBundle
+from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
+
+__all__ = ["bundle_from_numpy", "model_from_numpy", "pipeline_from_numpy", "store_from_numpy"]
+
+_MODEL_KINDS = {"rf": RandomForest, "gbm": GradientBoosting}
+
+
+def store_from_numpy(tables: Mapping[str, Mapping]) -> ColumnStore:
+    """A :class:`ColumnStore` from ``{name: {columns, group_ptr, perm, group_ids}}``."""
+    store = ColumnStore()
+    for name, t in tables.items():
+        store.add(name, Table(
+            columns={c: np.asarray(v) for c, v in t["columns"].items()},
+            group_ptr=np.asarray(t["group_ptr"], np.int64),
+            perm=np.asarray(t["perm"], np.int64),
+            group_ids={int(k): int(v) for k, v in t["group_ids"].items()},
+            name=name,
+        ))
+    return store
+
+
+def model_from_numpy(spec: Mapping):
+    """A tree model (on the CPU) from its arrays, ``depth``, ``base``, ``task``, ``kind``."""
+    if spec["kind"] not in _MODEL_KINDS:
+        raise ValueError(f"unknown model kind {spec['kind']!r}; choose from {tuple(_MODEL_KINDS)}")
+    ens = TreeEnsemble(
+        spec["feature"], spec["threshold"], spec["left"], spec["right"], spec["value"],
+        depth=int(spec["depth"]),
+    )
+    model = _MODEL_KINDS[spec["kind"]](n_trees=ens.n_trees, max_depth=ens.depth,
+                                       task=spec["task"])
+    model.ensemble = ens
+    model.base = float(spec["base"])
+    return model
+
+
+def pipeline_from_numpy(spec: Mapping) -> Pipeline:
+    """A :class:`Pipeline` from feature specs, scaler, model arrays and delta."""
+    return Pipeline(
+        name=spec["name"],
+        agg_features=[AggFeature(**f) for f in spec["agg_features"]],
+        exact_features=[ExactFeature(**f) for f in spec["exact_features"]],
+        model=model_from_numpy(spec["model"]),
+        task=spec["task"],
+        n_classes=int(spec.get("n_classes", 0)),
+        scaler_mean=np.asarray(spec["scaler_mean"], np.float32),
+        scaler_scale=np.asarray(spec["scaler_scale"], np.float32),
+        delta_default=float(spec["delta_default"]),
+    )
+
+
+def bundle_from_numpy(spec: Mapping) -> PipelineBundle:
+    """A :class:`PipelineBundle` from ``{pipeline, store, requests, labels, name}``."""
+    store = store_from_numpy(spec["store"])
+    return PipelineBundle(
+        pipeline=pipeline_from_numpy(spec["pipeline"]),
+        store=store,
+        requests=[dict(r) for r in spec["requests"]],
+        labels=np.asarray(spec["labels"]),
+        table_rows=sum(t.n_rows for t in store.tables.values()),
+        name=spec.get("name", ""),
+    )

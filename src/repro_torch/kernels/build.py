@@ -1,0 +1,147 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), loaded with ``ctypes``.  The build happens at first use,
+never at import: all missing libraries are compiled at once, one ``nvcc``
+process per source started together.  Outputs go to ``build/repro_torch/``
+at the root of the checkout, named by a hash of the sources and flags, so
+an edited kernel is rebuilt and an unchanged one is not.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after the launch; :func:`check` raises on a
+non-zero code.  Each wrapper adds one to :data:`LAUNCHES` under its kernel's
+name where it launches the kernel, and nowhere else, so a run can show
+which kernels its path went through.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "BUILD_DIR",
+    "LAUNCHES",
+    "SOURCES",
+    "build_all",
+    "check",
+    "check_tensor",
+    "library",
+    "reset_launch_counts",
+    "stream_of",
+]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("prefix_stats", "sampled_agg", "tree_qmc", "sobol")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: Kernel launches by kernel name (see the module docstring).
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError(
+        "repro_torch: nvcc not found (looked in $CUDA_HOME/bin, "
+        "/usr/local/cuda/bin and PATH); the CUDA kernels cannot be built"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, float]:
+    """Compile every missing library, one ``nvcc`` per source in parallel.
+
+    Returns the wall seconds of the build (0.0 when nothing was missing)
+    under ``"total"``, and writes each compiler's output (``-Xptxas -v``
+    registers and spills) next to its library as ``<name>.log``.
+    """
+    with _lock:
+        missing = [(n, _lib_path(n)) for n in SOURCES if not _lib_path(n).exists()]
+        if not missing:
+            return {"total": 0.0}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        procs = []
+        for name, path in missing:
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs.append((name, path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failed = []
+        for name, path, tmp, proc in procs:
+            log, _ = proc.communicate()
+            (BUILD_DIR / f"{name}.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name} (rc {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("repro_torch: nvcc failed for " + "\n".join(failed))
+        return {"total": time.perf_counter() - t0}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"repro_torch: kernel {name} failed to launch (cudaError {err})")
+
+
+def check_tensor(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
+    """A kernel input must be a contiguous CUDA tensor of the given type and rank."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def stream_of(t: torch.Tensor) -> tuple[int, int]:
+    """``(device index, current stream handle)`` for launching on ``t``'s card."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream

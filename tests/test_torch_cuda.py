@@ -1,0 +1,122 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device: it is marked ``cuda`` and skips
+without one.  The file imports neither JAX nor the JAX package, so it runs
+on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.executor import BiathlonConfig
+from repro_torch.core.executor_fused import guarantee_prob
+from repro_torch.data.synthetic import make_pipeline
+from repro_torch.kernels import build
+from repro_torch.kernels.sampled_agg import ops
+from repro_torch.kernels.sobol.ops import points
+from repro_torch.kernels.tree_qmc.ops import predict_sum
+from repro_torch.models.tabular.trees import GradientBoosting, RandomForest
+from repro_torch.serving import BiathlonServer
+
+pytestmark = pytest.mark.cuda
+TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _heavy_tailed(n=60000, seed=7):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(1.25, 0.12, n).astype(np.float32)
+    v[0] = 100.0
+    return v
+
+
+@pytest.mark.parametrize("m,d,skip", [(1000, 9, 0), (256, 18, 0), (1000, 9, 4096), (1, 1, 0)])
+def test_sobol_points_bit_exact_with_plain(dev, m, d, skip):
+    got = points(m, d, skip, device=dev)
+    want = points(m, d, skip, device=dev, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,cap", [(9, 32768), (9, 16384), (9, 1024), (5, 129), (1, 1)])
+def test_afc_kernels_match_plain(dev, k, cap):
+    rng = np.random.default_rng(cap)
+    v = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
+    z = torch.from_numpy(rng.integers(0, cap + 1, k).astype(np.int32)).to(dev)
+    z[0] = 0
+    shift = v[:, 0].contiguous()
+    torch.testing.assert_close(ops.prefix_power_sums(v, shift),
+                               ops.prefix_power_sums(v, shift, use_kernel=False), **TABLE_TOL)
+    got = ops.moments(v, z, shift)
+    torch.testing.assert_close(got, ops.moments(v, z, shift, use_kernel=False), **TABLE_TOL)
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all()
+
+
+def test_afc_kernels_at_60k_within_1e6_of_float64(dev):
+    v = _heavy_tailed()
+    t = torch.from_numpy(v[None]).to(dev)
+    want = np.stack([(v.astype(np.float64) ** p).cumsum() for p in range(1, 5)], axis=-1)
+    tab = ops.prefix_power_sums(t)[0].cpu().numpy()
+    assert (np.abs(tab - want) / np.abs(want)).max() < 1e-6
+    mom = ops.moments(t, torch.tensor([v.size], device=dev))[0].cpu().numpy()
+    assert mom[0] == v.size
+    assert (np.abs(mom[1:] - want[-1]) / np.abs(want[-1])).max() < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["rf", "gbm"])
+@pytest.mark.parametrize("m", [3817, 1001, 2816, 5])
+def test_ensemble_sum_matches_plain_and_is_bitwise_stable(dev, kind, m):
+    rng = np.random.default_rng(m)
+    X = rng.normal(0, 1, (800, 9)).astype(np.float32)
+    y = X[:, 0] * 2 + np.sin(3 * X[:, 1])
+    model = (RandomForest(n_trees=13, max_depth=6) if kind == "rf"
+             else GradientBoosting(n_trees=10, max_depth=5)).fit(X, y).to(dev)
+    x = torch.from_numpy(rng.normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
+    a, b = predict_sum(model.ensemble, x), predict_sum(model.ensemble, x)
+    want = predict_sum(model.ensemble, x, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, want, rtol=0, atol=1e-5)
+
+
+def test_wrappers_reject_cpu_tensors(dev):
+    from repro_torch.kernels.sampled_agg.prefix_stats import prefix_power_sums
+
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        prefix_power_sums(torch.zeros((2, 8)))
+
+
+def test_guarantee_prob_degenerate_sigma_on_card(dev):
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    assert float(guarantee_prob(f(0.0), f(1e-38), f(0.0), f(0.0))) == 0.0
+
+
+@pytest.mark.parametrize("afc_backend", ["auto", "ref", "incremental"])
+def test_kernel_path_matches_plain_path(dev, afc_backend):
+    """Served on the card through the kernels and through the plain
+    versions: equal plans; every kernel of the path launched."""
+    bundle = make_pipeline("turbofan", rows_per_group=1200, n_train_groups=100,
+                           n_serve_groups=5, n_requests=4, device=dev)
+    cfg = BiathlonConfig(m=192, m_sobol=48, delta=bundle.pipeline.delta_default * 0.3)
+    build.reset_launch_counts()
+    ks = BiathlonServer(bundle, cfg, afc_backend=afc_backend, device=dev)
+    kernel_out = [ks.serve(r) for r in bundle.requests]
+    launched = dict(build.LAUNCHES)
+    ps = BiathlonServer(bundle, cfg, afc_backend=afc_backend, device=dev, use_kernel=False)
+    for a, b in zip([ps.serve(r) for r in bundle.requests], kernel_out):
+        assert a["iters"] == b["iters"] and (a["z"] == b["z"]).all()
+        assert abs(a["y_hat"] - b["y_hat"]) <= 1e-4 * max(1.0, abs(a["y_hat"]))
+        assert abs(a["prob"] - b["prob"]) <= 1e-4
+    # caps are 2048 here, so "auto" takes the incremental path
+    afc = "sampled_moments" if afc_backend == "ref" else "prefix_power_sums"
+    for name in ("sobol_points", "ensemble_sum", afc):
+        assert launched.get(name, 0) > 0, name
