@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero before the result line is printed):
 
-1. print the card (``nvidia-smi`` name and power limit) and build the four
+1. print the card (``nvidia-smi`` name and power limit) and build the five
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    in parallel), with their build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -19,7 +19,16 @@ Phases (any failure exits non-zero before the result line is printed):
    versions on the card; launch counts are reset just before each run and
    read just after, and every kernel of a run's path must have launched;
 4. the same at ``rows_per_group=500``, where "auto" takes the rescan path;
-5. print one ``{"kernels": [...]}`` line, then the result line
+5. the holistic pipeline ``sensor_health`` (five aggregates, three of them
+   MEDIAN/QUANTILE; gradient boosting, 60 trees of depth 5) at full width:
+   ``masked_select_ranks`` against its plain version on request 0's own
+   holistic buffers, its plan z⁰ and the 1 + 256 rank targets of its z⁰
+   evaluation (bitwise), then 8 requests under "auto" (incremental: the
+   rank index, no ``masked_select_ranks``), "ref" (the rescan through
+   ``masked_select_ranks``) and the plain versions, and under "auto" and
+   plain at 0.3 × δ so that the loop is entered; then the same kernel
+   check and 4 requests at ``rows_per_group=500``, where "auto" rescans;
+6. print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -247,6 +256,68 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     return rec
 
 
+def select_record(bundle, dev, cfg) -> dict:
+    """``masked_select_ranks`` on the inputs of the rescan's z⁰ evaluation.
+
+    Request 0's holistic buffers at its cap bucket, the plan z⁰ and the
+    (h, 1 + B) rank targets that evaluation draws (key ``fold_in(PRNGKey(0),
+    0)``).  The kernel must equal its plain version bitwise.  Also times
+    ``torch.sort`` plus ``take_along_dim`` on the same masked buffer, a
+    yardstick of two PyTorch calls that the port never makes.
+    """
+    from repro_torch.core import threefry
+    from repro_torch.core.executor_fused import pipeline_executor_kwargs
+    from repro_torch.core.planner import initial_plan
+    from repro_torch.data.store import bucket_size
+    from repro_torch.kernels.sampled_agg import ops
+
+    p, req = bundle.pipeline, bundle.requests[0]
+    cap = bucket_size(int(max(p.group_sizes(bundle.store, req).max(), 1)))
+    vals, sizes = bundle.store.request_buffers(p.agg_specs(req), cap, dev)
+    kw = pipeline_executor_kwargs(p.agg_features, dev)
+    hol = torch.tensor(kw["holistic"], device=dev)
+    qs = torch.tensor(kw["quantiles"], dtype=torch.float32, device=dev)
+    vh = vals[hol]
+    z = initial_plan(sizes, cfg.alpha)[hol]
+    key = threefry.fold_in(threefry.PRNGKey(0), 0)
+    targets = ops.bootstrap_rank_targets(z, qs, key, cfg.n_bootstrap)
+    got = ops.select_ranks(vh, z, targets)
+    want = ops.select_ranks(vh, z, targets, use_kernel=False)
+    require(torch.equal(got, want), f"masked_select_ranks differs from plain at cap {cap}")
+    require(bool(torch.isfinite(got).all()), "masked_select_ranks: a z⁰ target selected +inf")
+    err = float(torch.where(got == want, 0.0, (got - want).abs()).max())
+    cols = torch.arange(cap, device=dev)
+    padded = torch.where(cols[None, :] < z[:, None], vh, torch.inf)
+    clipped = torch.clamp(targets.to(torch.int64), 0, cap - 1)
+    sort_gather = lambda: torch.take_along_dim(  # noqa: E731
+        torch.sort(padded, dim=1).values, clipped, dim=1)
+    require(torch.equal(sort_gather(), got), "sort + gather disagrees with the kernel")
+    h, r = targets.shape
+    live = int(z.sum())
+    # live prefix, z and targets read once, (h, R) written; a selection does no arithmetic
+    b = bound(live * 4 + h * 4 + h * r * 4 + h * r * 4, 0)
+    rec = dict(shape=[h, cap, r], z=z.cpu().tolist(), max_abs_err=err,
+               **timings(lambda: ops.select_ranks(vh, z, targets),
+                         lambda: ops.select_ranks(vh, z, targets, use_kernel=False)),
+               bound_ms=b[0], bound_by=b[1])
+    rec["sort_gather_ms"] = time_ms(sort_gather)[0]
+    return rec
+
+
+def select_full_prefix(dev, cap: int, h: int = 3, r: int = 257) -> dict:
+    """The kernel at a full prefix, z = cap (its compare count is h·cap²)."""
+    from repro_torch.kernels.sampled_agg import ops
+
+    rng = np.random.default_rng(cap)
+    v = torch.from_numpy(np.round(rng.normal(0, 2, (h, cap)), 2).astype(np.float32)).to(dev)
+    z = torch.full((h,), cap, dtype=torch.int32, device=dev)
+    t = torch.from_numpy(rng.integers(0, cap, (h, r)).astype(np.int32)).to(dev)
+    got, want = ops.select_ranks(v, z, t), ops.select_ranks(v, z, t, use_kernel=False)
+    require(torch.equal(got, want), f"masked_select_ranks differs from plain at z = cap = {cap}")
+    return dict(shape=[h, cap, r], compares=h * cap * cap,
+                ms=time_ms(lambda: ops.select_ranks(v, z, t), reps=5)[0])
+
+
 # ---------------------------------------------------------------- phase 3/4
 def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
     """Build a server and serve ``n_req`` requests after one warm-up request.
@@ -411,44 +482,115 @@ def main() -> int:
         print(f"serve reduced {name}: p50 {p50 * 1e3:.3f} ms over {len(outs)} requests, "
               f"iters {[o['iters'] for o in outs]}, launches {launches} [{card}]", flush=True)
 
+    # sensor_health: the holistic path
+    t0 = time.perf_counter()
+    health = make_pipeline("sensor_health", device=dev)
+    print(f"sensor_health bundle: {health.table_rows} rows, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rec["masked_select_ranks"] = select_record(health, dev, cfg)
+    rec["masked_select_ranks"]["full_prefix"] = select_full_prefix(dev, 32768)
+    hs = {name: serve_run(health, cfg, dev, n_req=N_SERVE, **kw) for name, kw in runs.items()}
+    h_tight = BiathlonConfig(delta=health.pipeline.delta_default * 0.3)
+    for name in ("auto", "plain"):
+        hs[f"{name}_tight"] = serve_run(health, h_tight, dev, n_req=N_SERVE, **runs[name])
+    caps = sorted({o["cap"] for o in hs["auto"][0]})
+    require(min(caps) > 1024, f"sensor_health caps {caps} do not take the incremental path")
+    expect_launched("sensor_health ref", hs["ref"][2],
+                    ["masked_select_ranks", "sampled_moments", "ensemble_sum"],
+                    ["prefix_power_sums"])
+    for name in ("auto", "auto_tight"):
+        expect_launched(f"sensor_health {name}", hs[name][2],
+                        ["prefix_power_sums", "ensemble_sum"],
+                        ["masked_select_ranks", "sampled_moments"])
+    for name in ("plain", "plain_tight"):
+        require(not hs[name][2], f"sensor_health {name} launched kernels {hs[name][2]}")
+    compare_runs("sensor_health auto vs plain", hs["plain"][0], hs["auto"][0], cfg)
+    compare_runs("sensor_health ref vs plain", hs["plain"][0], hs["ref"][0], cfg)
+    compare_runs("sensor_health tight auto vs plain", hs["plain_tight"][0],
+                 hs["auto_tight"][0], h_tight)
+    for name, (outs, p50, launches, _) in hs.items():
+        print(f"serve sensor_health {name}: p50 {p50 * 1e3:.3f} ms over {len(outs)} requests, "
+              f"iters {[o['iters'] for o in outs]}, caps {sorted({o['cap'] for o in outs})}, "
+              f"launches {launches} [{card}]", flush=True)
+    outs = hs["auto_tight"][0]
+    busiest = max(range(N_SERVE), key=lambda i: outs[i]["iters"])
+    h_prof = profile_request(health, h_tight, dev, health.requests[busiest],
+                             ROOT / "build" / "chip_smoke_profile_sensor_health.txt")
+    h_prof["latency_ms"] = outs[busiest]["latency"] * 1e3
+    print(f"profile of sensor_health tight request {busiest}: {json.dumps(h_prof)} [{card}]",
+          flush=True)
+
+    h_small = make_pipeline("sensor_health", rows_per_group=500, device=dev)
+    hsm = {name: serve_run(h_small, cfg, dev, n_req=4, **kw)
+           for name, kw in (("auto", runs["auto"]), ("plain", runs["plain"]))}
+    require(max(o["cap"] for o in hsm["auto"][0]) <= 1024,
+            "sensor_health reduced-depth caps exceed 1024")
+    expect_launched("sensor_health reduced auto", hsm["auto"][2],
+                    ["masked_select_ranks", "sampled_moments", "ensemble_sum"],
+                    ["prefix_power_sums"])
+    require(not hsm["plain"][2], f"sensor_health reduced plain launched {hsm['plain'][2]}")
+    compare_runs("sensor_health reduced auto vs plain", hsm["plain"][0], hsm["auto"][0], cfg)
+    for name, (outs, p50, launches, _) in hsm.items():
+        print(f"serve sensor_health reduced {name}: p50 {p50 * 1e3:.3f} ms over {len(outs)} "
+              f"requests, iters {[o['iters'] for o in outs]}, launches {launches} [{card}]",
+              flush=True)
+
     def per_request(run, kname, n_req):
         """Launches of a run's requests (warm-up included), apart from its build."""
         _, _, launches, at_build = run
         return (launches.get(kname, 0) - at_build.get(kname, 0)) / (n_req + 1)
 
     path_run = {"prefix_power_sums": "auto", "sampled_moments": "ref",
-                "ensemble_sum": "auto", "sobol_points": "auto"}
+                "ensemble_sum": "auto", "sobol_points": "auto", "masked_select_ranks": "ref"}
     # the rescan as "auto" serves it at reduced depth: its own inputs and counts
     rec["sampled_moments"]["reduced_depth"] = dict(
         moments_record(small, dev, cfg.alpha),
         launches=sm["auto"][2].get("sampled_moments", 0),
         launches_per_request=per_request(sm["auto"], "sampled_moments", 4))
+    rec["masked_select_ranks"]["reduced_depth"] = dict(
+        select_record(h_small, dev, cfg),
+        launches=hsm["auto"][2].get("masked_select_ranks", 0),
+        launches_per_request=per_request(hsm["auto"], "masked_select_ranks", 4))
+    rec["masked_select_ranks"]["phases"] = [
+        "request_0_z0_bitwise", "sort_gather_equal", "full_prefix_32768_bitwise",
+        "reduced_depth_request_0_z0_bitwise"]
     sources = {
         "prefix_power_sums": ("prefix_stats.cu", "src/repro/kernels/sampled_agg/prefix_stats.py:124"),
         "sampled_moments": ("sampled_agg.cu", "src/repro/kernels/sampled_agg/sampled_agg.py:74"),
         "ensemble_sum": ("tree_qmc.cu", "src/repro/kernels/tree_qmc/tree_qmc.py:62"),
         "sobol_points": ("sobol.cu", "src/repro/kernels/sobol/sobol.py:38"),
+        "masked_select_ranks": ("quantile_select.cu",
+                                "src/repro/kernels/sampled_agg/quantile_select.py:81"),
     }
     kernels = []
     for kname, (src, replaces) in sources.items():
         r = rec[kname]
+        # the turbofan runs, or for masked_select_ranks the sensor_health runs
+        runs_k = hs if kname == "masked_select_ranks" else results
+        path = runs_k[path_run[kname]]
         kernels.append(dict(
             name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=replaces,
-            launches=results["auto"][2].get(kname, 0) + results["ref"][2].get(kname, 0),
-            launches_per_request=per_request(results[path_run[kname]], kname, N_SERVE),
-            launches_per_executor_build=results[path_run[kname]][3].get(kname, 0),
+            launches=runs_k["auto"][2].get(kname, 0) + runs_k["ref"][2].get(kname, 0),
+            launches_per_request=per_request(path, kname, N_SERVE),
+            launches_per_executor_build=path[3].get(kname, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], eager_ms=r["eager_ms"],
             plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             shape=r["shape"], phases=r["phases"],
-            **{key: r[key] for key in ("z", "reduced_depth") if key in r},
+            **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "full_prefix")
+               if key in r},
         ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
     serve.update({f"reduced_{name}": dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
                   for name, (outs, p50, *_) in sm.items()})
+    for prefix, group in (("sensor_health_", hs), ("sensor_health_reduced_", hsm)):
+        serve.update({f"{prefix}{name}": dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs],
+                                              launches=launches)
+                      for name, (outs, p50, launches, _) in group.items()})
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
+                      "profile_sensor_health": h_prof,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

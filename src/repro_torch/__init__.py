@@ -8,8 +8,10 @@ ported path is a CUDA kernel for Hopper under ``kernels/csrc/``, built with
 ``nvcc`` at first use (``kernels/build.py``) and held against its plain
 PyTorch version, which is also what runs on the CPU.
 
-This slice serves one parametric request end to end:
-``serving.server.BiathlonServer(mode="fused")``.
+It serves one request at a time end to end,
+``serving.server.BiathlonServer(mode="fused")``, for pipelines with
+parametric (AVG/SUM/COUNT/VAR/STD) and holistic (MEDIAN/QUANTILE)
+aggregates: ``turbofan`` and ``sensor_health``.
 """
 from repro_torch.device import resolve_device
 

@@ -21,3 +21,4 @@ class BiathlonConfig:
     m: int = 1000              # QMC samples for AMI
     m_sobol: int = 256         # QMC base samples for Saltelli indices
     max_iters: int = 64        # safety cap (the loop terminates at z = N anyway)
+    n_bootstrap: int = 256     # bootstrap replicates B for MEDIAN/QUANTILE features

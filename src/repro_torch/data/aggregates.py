@@ -4,8 +4,9 @@ Port of the batched parametric tail of ``repro/data/aggregates.py``: the
 power sums ``[count, Σu, Σu², Σu³, Σu⁴]`` of a z-prefix (``u = v − shift``)
 become a point estimate and a Normal error σ per feature, with the
 finite-population correction for sampling without replacement.  Holistic
-operators (MEDIAN/QUANTILE) keep their ids here; their bootstrap path is a
-later slice of the port.
+operators (MEDIAN/QUANTILE) keep their ids here; their estimates come from
+the bootstrap path (``kernels/sampled_agg/ops.py::masked_quantile_estimates``
+and the rank index in ``prefix_stats.py``), which overrides their slots.
 """
 from __future__ import annotations
 

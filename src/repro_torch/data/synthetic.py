@@ -1,18 +1,26 @@
-"""The synthetic ``turbofan`` workload, built without JAX.
+"""The synthetic ``turbofan`` and ``sensor_health`` workloads, built without JAX.
 
-Port of the parts of ``repro/data/synthetic.py`` that build ``turbofan``:
-a 40-tree random-forest regressor over nine parametric AVG/STD/SUM
-aggregates of six sensor channels.  The generator draws from numpy in the
-reference's order and trains the model with the same numpy CART, so the
-store and the tree arrays are bit-identical to the reference's for the same
-arguments; only ``delta_default`` (the model's held-out MAE, computed by the
-port's own inference) may differ in its last bits.  The other pipelines
-need models (linear, MLP, gradient boosting on holistic features) that
-later slices port.
+Port of the parts of ``repro/data/synthetic.py`` that build them:
+
+* ``turbofan``: a 40-tree random-forest regressor over nine parametric
+  AVG/STD/SUM aggregates of six sensor channels;
+* ``sensor_health``: a 60-tree gradient-boosted regressor over five
+  aggregates of a ``telemetry`` table, three of them holistic
+  (``median(temp)``, ``quantile(vib, 0.9)``, ``median(vib)``) and two
+  parametric (``avg(pressure)``, ``std(temp)``), plus the request field
+  ``age``.
+
+The generator draws from numpy in the reference's order and trains the
+model with the same numpy CART, so the store and the tree arrays are
+bit-identical to the reference's for the same arguments; only
+``delta_default`` (the model's held-out MAE, computed by the port's own
+inference) may differ in its last bits.  The other pipelines need models
+(linear, MLP) that later slices port.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from statistics import NormalDist
 from typing import Callable
 
 import numpy as np
@@ -50,17 +58,31 @@ class _PipeSpec:
     name: str
     table: str
     cols: tuple[_ColSpec, ...]
-    aggs: tuple[tuple[str, str], ...]        # (op, column), parametric ops only
+    aggs: tuple[tuple, ...]                  # (op, column) or (op, column, q)
     exact_fields: tuple[str, ...]            # request-provided scalars
     model_kind: str                          # lgbm | xgb | rf | lr | mlp
     task: str                                # regression | classification
     label_fn: Callable = None
 
 
-def _agg_latent(op, group_mean, group_std, n, row_noise):
-    """Population value of a parametric aggregate from the group parameters."""
-    if op == "avg":
+def _norm_agg(entry: tuple) -> tuple[str, str, float]:
+    """An agg spec entry as (op, column, q); q is 0.5 unless given."""
+    if len(entry) == 2:
+        return entry[0], entry[1], 0.5
+    return entry
+
+
+def _agg_latent(op, group_mean, group_std, n, row_noise, q=0.5):
+    """Population value of an aggregate from the group parameters.
+
+    Rows are drawn as ``mean + noise·std·row_noise``, symmetric about the
+    group mean, so a median's latent is the mean and a q-quantile's is the
+    Normal quantile.
+    """
+    if op in ("avg", "median"):
         return group_mean
+    if op == "quantile":
+        return group_mean + group_std * row_noise * NormalDist().inv_cdf(q)
     if op in ("sum", "count"):
         return group_mean * n
     if op == "std":
@@ -104,13 +126,14 @@ def _build_from_spec(spec, seed, rows_per_group, n_train_groups, n_serve_groups,
     sizes = rng.integers(
         max(int(rows_per_group * 0.75), 8), int(rows_per_group * 1.25) + 1, G
     )
+    norm_aggs = tuple(_norm_agg(a) for a in spec.aggs)
     agg_pop = np.stack(
         [
             _agg_latent(
                 op, group_mean[cname], group_std[cname], sizes,
-                1.0 if cols[cname].kind == "indicator" else cols[cname].row_noise,
+                1.0 if cols[cname].kind == "indicator" else cols[cname].row_noise, q,
             )
-            for (op, cname) in spec.aggs
+            for (op, cname, q) in norm_aggs
         ],
         axis=1,
     )  # (G, k)
@@ -137,11 +160,15 @@ def _build_from_spec(spec, seed, rows_per_group, n_train_groups, n_serve_groups,
 
     # exact aggregates of serve groups (the held-out MAE is taken on them)
     serve_exact_aggs = np.zeros((n_serve_groups, k), np.float32)
-    for j, (op, cname) in enumerate(spec.aggs):
+    for j, (op, cname, q) in enumerate(norm_aggs):
         for g in range(n_serve_groups):
             vals = table.full_values(cname, g)
             if op == "avg":
                 serve_exact_aggs[g, j] = vals.mean()
+            elif op == "median":
+                serve_exact_aggs[g, j] = np.median(vals)
+            elif op == "quantile":
+                serve_exact_aggs[g, j] = np.quantile(vals, q)
             elif op in ("sum", "count"):
                 serve_exact_aggs[g, j] = vals.sum()
             elif op == "std":
@@ -168,9 +195,9 @@ def _build_from_spec(spec, seed, rows_per_group, n_train_groups, n_serve_groups,
     delta = float(np.mean(np.abs(pred_serve - y_serve))) if spec.task == "regression" else 0.0
 
     agg_features = [
-        AggFeature(name=f"{op}_{cname}", table=spec.table, column=cname, agg=op,
-                   group_field="gid")
-        for (op, cname) in spec.aggs
+        AggFeature(name=f"{op}{int(q * 100) if op == 'quantile' else ''}_{cname}",
+                   table=spec.table, column=cname, agg=op, group_field="gid", quantile=q)
+        for (op, cname, q) in norm_aggs
     ]
     exact_features = [
         ExactFeature(name=f, kind="request", request_field=f) for f in spec.exact_fields
@@ -237,7 +264,46 @@ def _spec_turbofan():
     )
 
 
-_SPECS = {"turbofan": _spec_turbofan}
+def _spec_sensor_health():
+    # Holistic-featured workload (beyond Table 1): MEDIAN + tail QUANTILE
+    # next to parametric AVG/STD over noisy sensor channels; LGBM
+    # regression; 5 AGG, 1 non-AGG.
+    def label(agg, ex, rng):
+        med_t, p90_v, avg_p, std_t, med_v = agg.T
+        age = ex[:, 0]
+        health = (
+            50.0
+            - 2.2 * med_t
+            - 1.4 * p90_v
+            + 0.9 * avg_p
+            - 1.1 * std_t * np.abs(med_v)
+            - 1.5 * np.tanh(age)
+        )
+        return health + rng.normal(0, 0.4, len(med_t))
+
+    return _PipeSpec(
+        name="sensor_health",
+        table="telemetry",
+        cols=(
+            _ColSpec("temp", row_noise=1.4),
+            _ColSpec("vib"),
+            _ColSpec("pressure", row_noise=0.6),
+        ),
+        aggs=(
+            ("median", "temp"),
+            ("quantile", "vib", 0.9),
+            ("avg", "pressure"),
+            ("std", "temp"),
+            ("median", "vib"),
+        ),
+        exact_fields=("age",),
+        model_kind="lgbm",
+        task="regression",
+        label_fn=label,
+    )
+
+
+_SPECS = {"turbofan": _spec_turbofan, "sensor_health": _spec_sensor_health}
 PIPELINE_NAMES = tuple(_SPECS)
 
 

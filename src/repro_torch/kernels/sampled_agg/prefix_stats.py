@@ -7,13 +7,23 @@ that builds the inclusive running power sums
 :func:`prefix_power_sums_ref` is its plain version (a compensated scan).
 The AFC (value, σ) at any plan z is then one gather of the table row at
 ``z − 1`` (:func:`prefix_moments_at`) fed through
-``aggregates.estimates_from_power_sums``.  The holistic rank index is a
-later slice of the port.
+``aggregates.estimates_from_power_sums``.
+
+The holistic (MEDIAN/QUANTILE) twin is :func:`build_rank_index` /
+:func:`select_ranks_indexed`: each column is stable-argsorted once per
+request with its original positions attached (ties break on position,
+exactly as ``masked_select_ranks`` breaks them), and because the planner
+only visits ``z ∈ {min(z⁰ + i·γ, n)}``, prefix-membership counts are
+precomputed per candidate z at block granularity.  An order statistic of
+the live prefix is then an unrolled binary search over the block counts
+plus one S-element scan.  The reference writes these in jnp, not Pallas,
+so they are plain PyTorch here.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,10 +31,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.sampled_agg.compensated import comp_cumsum
 
 __all__ = [
+    "BLOCK_S",
+    "HolisticRankIndex",
     "N_POWERS",
+    "build_rank_index",
     "prefix_moments_at",
     "prefix_power_sums",
     "prefix_power_sums_ref",
+    "rank_counts_from_sorted",
+    "rank_index_from_sorted",
+    "select_ranks_indexed",
 ]
 
 N_POWERS = 4  # [Σu, Σu², Σu³, Σu⁴] — the count at z is z
@@ -84,3 +100,107 @@ def prefix_moments_at(ptab: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     row = torch.gather(ptab, 1, idx[:, None, None].expand(-1, 1, N_POWERS))[:, 0]
     row = torch.where(z[:, None] > 0, row, torch.zeros_like(row))
     return torch.cat([z.to(torch.float32)[:, None], row], dim=1)
+
+
+class HolisticRankIndex(NamedTuple):
+    """Argsort-with-original-index structure for holistic columns.
+
+    sorted_vals: (h, capp) f32 ascending; positions ≥ n (and pad) are +inf.
+    sorted_idx:  (h, capp) int32 original buffer position of each element
+                 (stable: ties in column order).
+    blk_cnt:     (h, n_z, n_blk + 1) int32; ``blk_cnt[f, i, b]`` counts the
+                 sorted positions p < b·S whose original index is below
+                 ``zcand[f, i]`` (exclusive block-start counts; entry n_blk
+                 is the total).
+    zcand:       (h, n_z) int32 plan ladder ``min(z⁰ + i·γ, n)``; every z
+                 the planner reaches is one of these.
+    """
+
+    sorted_vals: torch.Tensor
+    sorted_idx: torch.Tensor
+    blk_cnt: torch.Tensor
+    zcand: torch.Tensor
+
+
+BLOCK_S = 128  # block-scan granularity S of the membership counts
+
+
+def build_rank_index(
+    vals: torch.Tensor, n: torch.Tensor, zcand: torch.Tensor, *, block: int = BLOCK_S
+) -> HolisticRankIndex:
+    """Once-per-request index of (h, cap) buffers with sizes n over a plan ladder."""
+    h, cap = vals.shape
+    block = min(block, cap)
+    capp = -(-cap // block) * block
+    pos = torch.arange(cap, dtype=torch.int32, device=vals.device)
+    padded = torch.where(pos[None, :] < n[:, None], vals.to(torch.float32), torch.inf)
+    if capp != cap:
+        padded = torch.nn.functional.pad(padded, (0, capp - cap), value=torch.inf)
+    order = torch.argsort(padded, dim=1, stable=True)
+    svals = torch.take_along_dim(padded, order, dim=1)
+    return rank_index_from_sorted(svals, order.to(torch.int32), zcand, block=block)
+
+
+def rank_counts_from_sorted(
+    sidx: torch.Tensor, zcand: torch.Tensor, *, block: int = BLOCK_S
+) -> torch.Tensor:
+    """Exclusive block-start prefix-membership counts ``(h, n_z, n_blk + 1)``."""
+    h, capp = sidx.shape
+    member = sidx[:, None, :] < zcand[:, :, None]                 # (h, n_z, capp)
+    per_blk = member.reshape(h, zcand.shape[1], capp // block, block).sum(
+        dim=-1, dtype=torch.int32
+    )
+    zeros = torch.zeros((h, zcand.shape[1], 1), dtype=torch.int32, device=sidx.device)
+    return torch.cat([zeros, torch.cumsum(per_blk, dim=-1, dtype=torch.int32)], dim=-1)
+
+
+def rank_index_from_sorted(
+    svals: torch.Tensor, sidx: torch.Tensor, zcand: torch.Tensor, *, block: int = BLOCK_S
+) -> HolisticRankIndex:
+    """A :class:`HolisticRankIndex` from presorted value / position rows."""
+    return HolisticRankIndex(
+        sorted_vals=svals,
+        sorted_idx=sidx.to(torch.int32),
+        blk_cnt=rank_counts_from_sorted(sidx, zcand, block=block),
+        zcand=zcand,
+    )
+
+
+def select_ranks_indexed(
+    index: HolisticRankIndex, z: torch.Tensor, targets: torch.Tensor
+) -> torch.Tensor:
+    """(h, R) order statistics of each z-prefix (z on the ladder), from the index.
+
+    Per query an unrolled ``bisect_right`` over the candidate's block
+    counts finds the block that holds prefix rank r, then one S-element
+    scan picks the element whose running membership count reaches r + 1.
+    A rank at or past z (every rank when z = 0) gives +inf, as
+    ``masked_select_ranks`` does.
+    """
+    svals, sidx, blk_cnt, zcand = index
+    h, capp = svals.shape
+    n_blk = blk_cnt.shape[-1] - 1
+    block = capp // n_blk
+    r = targets.to(torch.int32)
+
+    iz = (zcand < z[:, None]).sum(dim=1)                          # ladder row of z
+    cnt = torch.take_along_dim(blk_cnt, iz[:, None, None], dim=1)[:, 0]   # (h, n_blk+1)
+
+    lo = torch.zeros_like(r)
+    hi = torch.full_like(r, n_blk)
+    for _ in range(max(1, (n_blk + 1).bit_length())):
+        mid = torch.div(lo + hi + 1, 2, rounding_mode="floor")
+        go = torch.take_along_dim(cnt, mid.to(torch.int64), dim=1) <= r
+        lo = torch.where(go, mid, lo)
+        hi = torch.where(go, hi, mid - 1)
+    b = torch.clamp(lo, max=n_blk - 1).to(torch.int64)           # (h, R)
+
+    base = torch.take_along_dim(cnt, b, dim=1)
+    posn = (b[:, :, None] * block + torch.arange(block, device=svals.device)).reshape(h, -1)
+    gi = torch.take_along_dim(sidx, posn, dim=1).reshape(h, -1, block)
+    gv = torch.take_along_dim(svals, posn, dim=1).reshape(h, -1, block)
+    member = gi < z[:, None, None]
+    running = base[:, :, None] + torch.cumsum(member, dim=-1, dtype=torch.int32)
+    hit = member & (running == (r + 1)[:, :, None])
+    val = torch.where(hit, gv, torch.zeros_like(gv)).sum(dim=-1)
+    return torch.where(hit.any(dim=-1), val, torch.full_like(val, torch.inf))

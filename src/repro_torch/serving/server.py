@@ -65,6 +65,7 @@ class BiathlonServer:
             gamma=cfg.gamma,
             tau=cfg.tau,
             max_iters=cfg.max_iters,
+            n_boot=cfg.n_bootstrap,
             afc_backend=afc_backend,
             device=self.device,
             use_kernel=use_kernel,

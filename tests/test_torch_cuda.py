@@ -88,11 +88,32 @@ def test_ensemble_sum_matches_plain_and_is_bitwise_stable(dev, kind, m):
     torch.testing.assert_close(a, want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("cap", [512, 32768])
+def test_masked_select_ranks_bitwise_equal_to_plain(dev, cap):
+    """z = 0, 1, ~5% and 100% of the buffer, values with ties, targets in
+    and out of the prefix and the buffer."""
+    rng = np.random.default_rng(cap)
+    h = 4
+    vals = torch.from_numpy(np.round(rng.normal(0, 2, (h, cap)), 1).astype(np.float32)).to(dev)
+    z = torch.tensor([0, 1, cap // 20, cap], dtype=torch.int32, device=dev)
+    targets = torch.from_numpy(rng.integers(-3, cap + 3, (h, 257)).astype(np.int32)).to(dev)
+    targets[2, :5] = torch.arange(5, dtype=torch.int32)
+    got = ops.select_ranks(vals, z, targets)
+    want = ops.select_ranks(vals, z, targets, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.isinf(got[0]).all() and torch.isfinite(got[3]).all()
+
+
 def test_wrappers_reject_cpu_tensors(dev):
     from repro_torch.kernels.sampled_agg.prefix_stats import prefix_power_sums
+    from repro_torch.kernels.sampled_agg.quantile_select import masked_select_ranks
 
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         prefix_power_sums(torch.zeros((2, 8)))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        masked_select_ranks(torch.zeros((2, 8)), torch.zeros(2, dtype=torch.int32),
+                            torch.zeros((2, 3), dtype=torch.int32))
 
 
 def test_guarantee_prob_degenerate_sigma_on_card(dev):
@@ -120,3 +141,25 @@ def test_kernel_path_matches_plain_path(dev, afc_backend):
     afc = "sampled_moments" if afc_backend == "ref" else "prefix_power_sums"
     for name in ("sobol_points", "ensemble_sum", afc):
         assert launched.get(name, 0) > 0, name
+
+
+@pytest.mark.parametrize("afc_backend", ["auto", "ref", "incremental"])
+def test_sensor_health_kernel_plans_equal_plain_plans(dev, afc_backend):
+    """The holistic pipeline on the card: kernel and plain paths give one
+    plan; the rescan ("ref", and "auto" at these caps of 1024 or less)
+    launches ``masked_select_ranks``, the incremental path does not."""
+    bundle = make_pipeline("sensor_health", rows_per_group=500, n_train_groups=100,
+                           n_serve_groups=5, n_requests=4, device=dev)
+    cfg = BiathlonConfig(m=192, m_sobol=48, delta=bundle.pipeline.delta_default * 0.3)
+    build.reset_launch_counts()
+    ks = BiathlonServer(bundle, cfg, afc_backend=afc_backend, device=dev)
+    kernel_out = [ks.serve(r) for r in bundle.requests]
+    launched = dict(build.LAUNCHES)
+    ps = BiathlonServer(bundle, cfg, afc_backend=afc_backend, device=dev, use_kernel=False)
+    for a, b in zip([ps.serve(r) for r in bundle.requests], kernel_out):
+        assert a["iters"] == b["iters"] and (a["z"] == b["z"]).all()
+        assert abs(a["y_hat"] - b["y_hat"]) <= 1e-4 * max(1.0, abs(a["y_hat"]))
+    assert max(o["cap"] for o in kernel_out) <= 1024
+    rescan = afc_backend != "incremental"
+    assert (launched.get("masked_select_ranks", 0) > 0) == rescan
+    assert launched.get("ensemble_sum", 0) > 0

@@ -104,7 +104,7 @@ def test_executor_calls_the_model_once_per_iteration(bundles):
     assert int(res.samples_used) == int(res.z.sum())
 
 
-def test_holistic_features_raise_naming_the_later_slice():
-    with pytest.raises(NotImplementedError, match="masked_select_ranks"):
-        build_fused_executor(lambda r, e: r[:, 0], k=2, task="regression",
+def test_classification_raises_naming_the_later_slice():
+    with pytest.raises(NotImplementedError, match="classification pipelines"):
+        build_fused_executor(lambda r, e: r[:, 0], k=2, task="classification",
                              holistic=(1,), device="cpu")
