@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero before the result line is printed):
 
-1. print the card (``nvidia-smi`` name and power limit) and build the five
+1. print the card (``nvidia-smi`` name and power limit) and build the six
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    in parallel), with their build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -28,7 +28,21 @@ Phases (any failure exits non-zero before the result line is printed):
    ``masked_select_ranks``) and the plain versions, and under "auto" and
    plain at 0.3 × δ so that the loop is entered; then the same kernel
    check and 4 requests at ``rows_per_group=500``, where "auto" rescans;
-6. print one ``{"kernels": [...]}`` line, then the result line
+6. ``flash_attention`` against its plain version: the LM-head prompt
+   (1, 16, 48, 64) and a (1, 16, 4096, 64) prefill in bf16, causal; a
+   float32 non-causal case; Sq ≠ Sk; GQA through ``ops.attention``; timed
+   beside ``F.scaled_dot_product_attention`` (a yardstick the port never
+   calls);
+7. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
+   full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
+   from a seed): 6 requests through the kernels, exactly 24
+   ``flash_attention`` launches and one ``prefix_power_sums`` per request;
+   the same requests under ``use_kernel=False`` (no launch), pooled states
+   within bf16 tolerance of the kernel path's, and equal plans when both
+   executors are fed the same pooled state; a profile of one request;
+8. one 1 × 4096-token backbone forward, profiled: its latency,
+   ``flash_attention``'s share of device time and the device's idle share;
+9. print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -49,8 +63,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16, dense tensor cores
 N_SERVE = 8
+N_LM_REQ = 6
 TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
+# flash_attention vs its plain version: float32 differs in summation order
+# only; bf16 outputs are the float32 results rounded once (one bf16 ulp)
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# pooled states of the kernel and plain LM paths, max |diff| over max |state|:
+# one bf16 ulp in an attention output moves later layers' bf16 roundings
+STATE_REL_TOL = 3e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -104,9 +126,9 @@ def time_ms(fn, reps: int = 20) -> tuple[float, float]:
     return device, _events_ms(fn, reps)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time (ms) for the work: bytes over HBM rate vs ops over f32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least time (ms) for the work: bytes over HBM rate vs ops over the type's peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -343,22 +365,9 @@ def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
     return outs, statistics.median(o["latency"] for o in outs), launches, at_build
 
 
-def profile_request(bundle, cfg, dev, request, path: Path) -> dict:
-    """Device time of one served request by kernel, from ``torch.profiler``.
-
-    Writes the table to ``path``; returns the device-busy total and the top
-    entries.  The profiled latency carries the profiler's own overhead.
-    """
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.serving import BiathlonServer
-
-    srv = BiathlonServer(bundle, cfg, device=dev)
-    srv.serve(request)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = srv.serve(request)
-        torch.cuda.synchronize()
+def profile_rows(prof, path: Path) -> tuple[list, list]:
+    """``(all rows, device rows)`` of a profile, each ``(device us, name, count,
+    host us)`` sorted by device time; the table is written to ``path``."""
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -371,12 +380,41 @@ def profile_request(bundle, cfg, dev, request, path: Path) -> dict:
         f"{d:14.1f} {c:6d} {h:12.1f}  {k}" for d, k, c, h in rows))
     # device activity (kernels, copies) has no host time of its own; host
     # operators carry their kernels' time too, so only the former is summed
-    device = [r for r in rows if r[3] == 0.0 and r[0] > 0.0]
+    return rows, [r for r in rows if r[3] == 0.0 and r[0] > 0.0]
+
+
+def profile_served(serve_once, path: Path) -> dict:
+    """Device time of one served request by kernel, from ``torch.profiler``.
+
+    ``serve_once()`` serves the request and returns its output dict; it is
+    called once to warm up, then once under the profiler.  Writes the table
+    to ``path``; returns the device-busy total, the device time of the
+    flash_attention kernel and the top entries.  The profiled latency
+    carries the profiler's own overhead.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    serve_once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = serve_once()
+        torch.cuda.synchronize()
+    rows, device = profile_rows(prof, path)
     return dict(device_busy_ms=sum(r[0] for r in device) / 1e3,
                 device_launches=sum(r[2] for r in device),
                 host_ops=sum(r[2] for r in rows if r[3] > 0.0), iters=out["iters"],
+                flash_attention_device_ms=sum(r[0] for r in device
+                                              if "flash_attention" in r[1]) / 1e3,
                 profiled_latency_ms=out["latency"] * 1e3,
                 top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:6]])
+
+
+def profile_request(bundle, cfg, dev, request, path: Path) -> dict:
+    """:func:`profile_served` of one request of a fresh server."""
+    from repro_torch.serving import BiathlonServer
+
+    srv = BiathlonServer(bundle, cfg, device=dev)
+    return profile_served(lambda: srv.serve(request), path)
 
 
 def compare_runs(name, base, other, cfg):
@@ -397,6 +435,224 @@ def expect_launched(name, launches, kernels, absent=()):
         require(launches.get(kname, 0) > 0, f"{name}: kernel {kname} never launched")
     for kname in absent:
         require(launches.get(kname, 0) == 0, f"{name}: kernel {kname} launched off its path")
+
+
+# ---------------------------------------------------------------- phase 6-8
+def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of one attention call: q, k, v read once and o written
+    once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask)."""
+    if not causal:
+        pairs = sq * sk
+    elif sq <= sk:
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+    nbytes = itemsize * (b * h * sq * d + b * hkv * sk * (d + dv) + b * h * sq * dv)
+    return nbytes, b * h * pairs * (2 * d + 2 * dv)
+
+
+def attention_check(dev, name, shape, dtype, causal, seed):
+    """The kernel against its plain version on seeded inputs; returns
+    (inputs, max |err|), failing beyond ``ATTN_TOL``."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    b, h, hkv, sq, sk, d, dv = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
+               for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
+    got = flash_attention(q, k, v, causal=causal)
+    rep = h // hkv
+    want = flash_attention_ref(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+                               causal=causal)
+    err = float((got.float() - want.float()).abs().max())
+    require(torch.allclose(got.float(), want.float(), **ATTN_TOL[dtype]),
+            f"flash_attention {name}: max |err| {err} beyond {ATTN_TOL[dtype]}")
+    print(f"flash_attention {name}: max |err| {err:.3g} (tolerance {ATTN_TOL[dtype]})",
+          flush=True)
+    return (q, k, v), err
+
+
+def attention_timings(dev, qkv, causal: bool, reps: int) -> dict:
+    """Kernel, plain version and ``F.scaled_dot_product_attention`` on one input."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = qkv
+    b, h, sq, d = q.shape
+    _, hkv, sk, dv = v.shape
+    ms, eager_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal), reps)[0]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                         reps)[0]
+    lib_err = float((F.scaled_dot_product_attention(q, k, v, is_causal=causal).float()
+                     - flash_attention_ref(q, k, v, causal=causal).float()).abs().max())
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    b_ms, b_by = bound(*attention_work(b, h, hkv, sq, sk, d, dv, causal, q.element_size()),
+                       ops_per_s=peak)
+    return dict(shape=[b, h, sq, d], dtype=str(q.dtype).removeprefix("torch."), causal=causal,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
+
+
+def flash_record(dev) -> dict:
+    """``flash_attention`` against its plain version at every listed shape, timed."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    errors = {}
+    inputs = {}
+    for i, (name, shape, dtype, causal) in enumerate([
+        ("lm_head_1x16x48x64_bf16_causal", (1, 16, 16, 48, 48, 64, 64), bf16, True),
+        ("prefill_1x16x4096x64_bf16_causal", (1, 16, 16, 4096, 4096, 64, 64), bf16, True),
+        ("f32_1x16x512x64_noncausal", (1, 16, 16, 512, 512, 64, 64), f32, False),
+        ("sq100_sk260_bf16_causal", (1, 16, 16, 100, 260, 64, 64), bf16, True),
+    ]):
+        inputs[name], errors[name] = attention_check(dev, name, shape, dtype, causal, seed=i)
+    # GQA through the model-layout entry point: 16 query heads on 4 KV heads
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, bf16)
+               for s in ((1, 256, 16, 64), (1, 256, 4, 64), (1, 256, 4, 64)))
+    got, want = attn_ops.attention(q, k, v), attn_ops.attention(q, k, v, use_kernel=False)
+    errors["gqa_ops_1x256x16on4x64_bf16_causal"] = err = float((got - want).float().abs().max())
+    require(torch.allclose(got.float(), want.float(), **ATTN_TOL[bf16]),
+            f"flash_attention GQA through ops.attention: max |err| {err}")
+    print(f"flash_attention gqa_ops: max |err| {err:.3g} (tolerance {ATTN_TOL[bf16]})",
+          flush=True)
+    rec = attention_timings(dev, inputs["prefill_1x16x4096x64_bf16_causal"], True, reps=5)
+    rec["lm_head_shape"] = attention_timings(dev, inputs["lm_head_1x16x48x64_bf16_causal"],
+                                             True, reps=20)
+    rec.update(max_abs_err=max(errors.values()), errors=errors, phases=list(errors))
+    build.reset_launch_counts()
+    return rec
+
+
+def lm_head_phase(dev, card: str) -> dict:
+    """The LM-head pipeline at full qwen1.5-0.5b width, kernel path and plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm_head as ex
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("qwen1.5-0.5b")
+    t0 = time.perf_counter()
+    sc = ex.build(cfg, dev)
+    leaves = tree_leaves(sc.params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"lm_head: {cfg.arch_id} backbone {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters, {n_bytes} bytes ({leaves[0].dtype}); event store "
+          f"{sc.store['events'].n_rows} rows; built with the head in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    requests = ex.draw_requests(sc, N_LM_REQ)
+    runs = {}
+    for use_kernel in (True, False):
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        executor = ex.make_executor(sc, use_kernel=use_kernel)
+        at_build = dict(build.LAUNCHES)
+        outs = ex.serve(sc, executor, requests, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        runs[use_kernel] = (outs, dict(build.LAUNCHES), at_build, executor)
+    outs, launches, at_build, _ = runs[True]
+    served = {n: launches.get(n, 0) - at_build.get(n, 0) for n in launches}
+    require(served.get("flash_attention", 0) == cfg.n_layers * N_LM_REQ,
+            f"lm_head: {served.get('flash_attention', 0)} flash_attention launches for "
+            f"{N_LM_REQ} requests, expected {cfg.n_layers} per request")
+    require(served.get("prefix_power_sums", 0) == N_LM_REQ,
+            f"lm_head: prefix_power_sums launched {served.get('prefix_power_sums', 0)} times "
+            f"for {N_LM_REQ} requests, expected once per request")
+    expect_launched("lm_head", launches, ["sobol_points"], ["sampled_moments"])
+    plain_outs, plain_launches = runs[False][0], runs[False][1]
+    require(not plain_launches, f"lm_head plain run launched kernels {plain_launches}")
+    state_err = 0.0
+    for i, (a, b) in enumerate(zip(outs, plain_outs)):
+        require(bool(torch.isfinite(a["state"]).all()) and a["state"].shape == (cfg.d_model,),
+                f"lm_head: request {i} pooled state not finite of shape ({cfg.d_model},)")
+        err = float((a["state"] - b["state"]).abs().max() / b["state"].abs().max())
+        require(err < STATE_REL_TOL, f"lm_head: request {i} pooled states differ by {err}")
+        state_err = max(state_err, err)
+    # both executors fed the kernel path's pooled states
+    fed = ex.serve(sc, runs[False][3], requests, use_kernel=False,
+                   states=[o["state"] for o in outs])
+    for i, (a, b) in enumerate(zip(outs, fed)):
+        require(np.isfinite(a["y_hat"]) and 0.0 <= a["prob"] <= 1.0,
+                f"lm_head: request {i} y_hat {a['y_hat']} prob {a['prob']}")
+        require(a["iters"] == b["iters"] and (a["z"] == b["z"]).all(),
+                f"lm_head: request {i} plan {a['z']} x{a['iters']} vs plain {b['z']} "
+                f"x{b['iters']}")
+        require(abs(a["y_hat"] - b["y_hat"]) <= 1e-4 * max(1.0, abs(a["y_hat"])),
+                f"lm_head: request {i} y_hat {a['y_hat']} vs plain {b['y_hat']}")
+        done = a["prob"] >= 0.95 or a["iters"] == 32 or (a["frac"] == 1.0)
+        require(done, f"lm_head: request {i} stopped at prob {a['prob']} with plan left")
+    result = {}
+    for name, group in (("kernel", outs), ("plain", plain_outs)):
+        for o in group:
+            print(f"lm_head {name} user {o['user']:>3}: latency {o['latency'] * 1e3:.3f} ms, "
+                  f"iters {o['iters']}, frac {o['frac']:.4f}, y_hat {o['y_hat']:.5f}, "
+                  f"prob {o['prob']:.4f}", flush=True)
+        p50 = statistics.median(o["latency"] for o in group) * 1e3
+        print(f"lm_head {name}: p50 {p50:.3f} ms over {len(group)} requests [{card}]",
+              flush=True)
+        result[name] = dict(p50_ms=p50, latency_ms=[o["latency"] * 1e3 for o in group],
+                            iters=[o["iters"] for o in group],
+                            frac=[o["frac"] for o in group],
+                            y_hat=[o["y_hat"] for o in group], prob=[o["prob"] for o in group])
+    result.update(params=n_params, param_bytes=n_bytes, launches=launches,
+                  launches_at_build=at_build, state_max_rel_err=state_err)
+    prof = profile_served(lambda: ex.serve(sc, runs[True][3], requests[:1])[0],
+                          ROOT / "build" / "chip_smoke_profile_lm_head.txt")
+    prof["device_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"] / result["kernel"]["p50_ms"])
+    print(f"profile of lm_head request 0: {json.dumps(prof)} [{card}]", flush=True)
+    result["profile"] = prof
+    return result, sc
+
+
+def backbone_profile(sc, dev, path: Path) -> dict:
+    """One 1 × 4096-token backbone forward: latency and a device-time profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import LM
+
+    cfg = sc.cfg
+    tokens = torch.from_numpy(np.random.default_rng(4096).integers(0, cfg.vocab, (1, 4096)))
+    tokens = tokens.to(dev)
+    lat = {}
+    with torch.no_grad():
+        for use_kernel in (True, False):
+            lm = LM(cfg, use_kernel=use_kernel)
+            fwd = lambda: lm._backbone(sc.params, lm.embed(sc.params, tokens))  # noqa: E731
+            h = fwd()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = fwd()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            require(bool(torch.isfinite(h).all()), "4096-token forward is not finite")
+            lat[use_kernel] = statistics.median(times)
+        lm = LM(cfg)
+        build.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lm._backbone(sc.params, lm.embed(sc.params, tokens))
+            torch.cuda.synchronize()
+        launches = build.LAUNCHES["flash_attention"]
+    require(launches == cfg.n_layers,
+            f"4096-token forward: {launches} flash_attention launches, expected {cfg.n_layers}")
+    _, device = profile_rows(prof, path)
+    busy_ms = sum(r[0] for r in device) / 1e3
+    flash_ms = sum(r[0] for r in device if "flash_attention" in r[1]) / 1e3
+    require(flash_ms > 0.0, "profile shows no flash_attention device time")
+    return dict(tokens=4096, latency_ms=lat[True], plain_latency_ms=lat[False],
+                flash_attention_launches=launches, device_busy_ms=busy_ms,
+                flash_attention_device_ms=flash_ms, flash_attention_share=flash_ms / busy_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / lat[True]),
+                top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:6]])
 
 
 def main() -> int:
@@ -432,6 +688,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg = BiathlonConfig()
     rec = check_kernels(dev, full, cfg.alpha)
+    rec["flash_attention"] = flash_record(dev)
     print("kernels vs plain: ok", flush=True)
 
     results = {}
@@ -535,6 +792,11 @@ def main() -> int:
               f"requests, iters {[o['iters'] for o in outs]}, launches {launches} [{card}]",
               flush=True)
 
+    lm_head, lm_scenario = lm_head_phase(dev, card)
+    backbone = backbone_profile(lm_scenario, dev,
+                                ROOT / "build" / "chip_smoke_profile_backbone4096.txt")
+    print(f"backbone 1x4096 forward: {json.dumps(backbone)} [{card}]", flush=True)
+
     def per_request(run, kname, n_req):
         """Launches of a run's requests (warm-up included), apart from its build."""
         _, _, launches, at_build = run
@@ -581,6 +843,21 @@ def main() -> int:
             **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "full_prefix")
                if key in r},
         ))
+    fa = rec["flash_attention"]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:74",
+        launches=lm_head["launches"].get("flash_attention", 0),
+        launches_per_request=(lm_head["launches"].get("flash_attention", 0)
+                              - lm_head["launches_at_build"].get("flash_attention", 0))
+        / N_LM_REQ,
+        launches_per_executor_build=lm_head["launches_at_build"].get("flash_attention", 0),
+        **{key: fa[key] for key in ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_max_abs_err", "shape",
+                                    "dtype", "causal", "phases", "errors", "lm_head_shape")},
+        backbone_4096_launches=backbone["flash_attention_launches"],
+    ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
     serve.update({f"reduced_{name}": dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
@@ -589,8 +866,10 @@ def main() -> int:
         serve.update({f"{prefix}{name}": dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs],
                                               launches=launches)
                       for name, (outs, p50, launches, _) in group.items()})
+    serve["lm_head"] = {key: val for key, val in lm_head.items()
+                        if key not in ("launches", "launches_at_build")}
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
-                      "profile_sensor_health": h_prof,
+                      "profile_sensor_health": h_prof, "backbone_4096": backbone,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

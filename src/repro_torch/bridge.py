@@ -12,20 +12,33 @@ numpy arrays, Python scalars, strings, lists and dicts:
   ``scaler_scale``, ``delta_default`` and a ``model`` dict with the tree
   arrays (``feature``, ``threshold``, ``left``, ``right``, ``value``), its
   ``depth``, ``base``, ``task`` and ``kind`` (``"rf"`` or ``"gbm"``);
-* a bundle: ``pipeline``, ``store``, ``requests``, ``labels``, ``name``.
+* a bundle: ``pipeline``, ``store``, ``requests``, ``labels``, ``name``;
+* an LM's parameter tree: nested dicts of arrays (``embed``, ``unembed``,
+  ``final_norm`` and the stacked ``blocks.{ln1, ln2, attn.{wq, wk, wv, wo,
+  bq, bk, bv}, ffn.{w_gate, w_up, w_down}}`` leaves with their leading
+  ``(L, …)`` axis), in float32 or in ``ml_dtypes`` bfloat16;
+* an MLP's parameters: a list of ``{"w", "b"}`` dicts of arrays.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.pipeline import AggFeature, ExactFeature, Pipeline
 from repro_torch.data.store import ColumnStore, Table
 from repro_torch.data.synthetic import PipelineBundle
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
 
-__all__ = ["bundle_from_numpy", "model_from_numpy", "pipeline_from_numpy", "store_from_numpy"]
+__all__ = [
+    "bundle_from_numpy",
+    "lm_params_from_numpy",
+    "mlp_params_from_numpy",
+    "model_from_numpy",
+    "pipeline_from_numpy",
+    "store_from_numpy",
+]
 
 _MODEL_KINDS = {"rf": RandomForest, "gbm": GradientBoosting}
 
@@ -85,3 +98,27 @@ def bundle_from_numpy(spec: Mapping) -> PipelineBundle:
         table_rows=sum(t.n_rows for t in store.tables.values()),
         name=spec.get("name", ""),
     )
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret its bits
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree: Mapping, dtype: torch.dtype, device="cpu") -> dict:
+    """An LM parameter tree of ``dtype`` tensors on ``device`` from nested dicts of arrays."""
+    return {
+        key: lm_params_from_numpy(val, dtype, device) if isinstance(val, Mapping)
+        else _tensor(val, dtype, device)
+        for key, val in tree.items()
+    }
+
+
+def mlp_params_from_numpy(layers, device="cpu") -> list[dict]:
+    """MLP parameters (float32) from a list of ``{"w": (fan_in, fan_out), "b": (fan_out,)}``."""
+    return [{"w": _tensor(layer["w"], torch.float32, device),
+             "b": _tensor(layer["b"], torch.float32, device)} for layer in layers]

@@ -1,0 +1,82 @@
+"""Wrapper of the CUDA ``flash_attention`` kernel (``csrc/flash_attention.cu``).
+
+Replaces ``repro/kernels/flash_attention/flash_attention.py::flash_attention``
+for any ``Sq``, ``Sk`` (no tile-multiple asserts) and ``D``, ``Dv`` up to
+256.  Takes the reference's ``(B, H, S, D)`` layout as tensors or strided
+views whose last axis is contiguous, and KV heads that divide the query
+heads (query head h reads KV head ``h // (H // Hkv)``, as a repeat of the
+KV heads would give).  The plain version is ``ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["MAX_HEAD_DIM", "flash_attention"]
+
+NAME = "flash_attention"
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _fn():
+    fn = build.library("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"flash_attention {what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"flash_attention {what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != 4 or t.stride(-1) != 1:
+        raise ValueError(f"flash_attention {what}: expected 4 dims with a contiguous last "
+                         f"axis, got shape {tuple(t.shape)} strides {t.stride()}")
+
+
+def flash_attention(
+    q: torch.Tensor,   # (B, H, Sq, D)
+    k: torch.Tensor,   # (B, Hkv, Sk, D)
+    v: torch.Tensor,   # (B, Hkv, Sk, Dv)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """(B, H, Sq, Dv) attention in q's type, laid out in memory as q is."""
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, what, q.dtype)
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (b, hkv, sk, d) or v.shape[:3] != (b, hkv, sk):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if h % hkv:
+        raise ValueError(f"flash_attention: {hkv} KV heads do not divide {h} query heads")
+    if max(d, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: batch·heads = {b * h} exceeds 65535")
+    # the output takes q's memory order: (B, S, H, Dv) for a transposed model-layout q
+    if q.stride(1) < q.stride(2):
+        out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    if sq == 0 or sk == 0 or b * h == 0:
+        return out.zero_()
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    device, stream = build.stream_of(q)
+    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+                b, h, hkv, sq, sk, d, dv, int(causal), d ** -0.5, _DTYPES[q.dtype],
+                device, stream)
+    build.check(err, NAME)
+    build.LAUNCHES[NAME] += 1
+    return out

@@ -1,0 +1,36 @@
+"""Attention in the model layout, routed by device and ``use_kernel``.
+
+Port of ``repro/kernels/flash_attention/ops.py::attention``, which computes
+``use_kernel`` and then ignores it; here it is honoured.  A CUDA tensor
+goes to the ``flash_attention`` kernel, which reads the ``(B, S, H, D)``
+tensors through strided views and the KV head of each query head in place.
+A CPU tensor, or ``use_kernel=False``, goes to the plain version, on KV
+heads expanded by a repeat as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+__all__ = ["attention"]
+
+
+def attention(
+    q: torch.Tensor,   # (B, S, H, D)   — model layout
+    k: torch.Tensor,   # (B, S, Hkv, D)
+    v: torch.Tensor,   # (B, S, Hkv, Dv)
+    *,
+    causal: bool = True,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Returns (B, S, H, Dv)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if use_kernel and q.is_cuda:
+        return flash_attention(qt, kt, vt, causal=causal).transpose(1, 2)
+    h, hkv = q.shape[2], k.shape[2]
+    if hkv != h:
+        kt = kt.repeat_interleave(h // hkv, dim=1)
+        vt = vt.repeat_interleave(h // hkv, dim=1)
+    return flash_attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)

@@ -1,0 +1,83 @@
+"""AdamW: ``adamw_init`` and ``adamw_update`` of ``repro/optim/adamw.py``.
+
+The optimizer state mirrors the params tree (nested dicts, lists and
+tuples of tensors).  Moments are float32 whatever the parameters' type; the
+update is computed in float32 and cast back to each parameter's type.
+Clipping and schedules are not ported (no caller in the port).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "tree_leaves", "tree_map"]
+
+f32 = torch.float32
+PyTree = Any
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # () int32
+    mu: PyTree          # first moment
+    nu: PyTree          # second moment
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the tensor leaves of ``tree`` and trees of the same structure."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *leaves) for leaves in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def adamw_init(params: PyTree) -> AdamWState:
+    device = next(iter(tree_leaves(params))).device
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        mu=tree_map(lambda p: torch.zeros_like(p, dtype=f32), params),
+        nu=tree_map(lambda p: torch.zeros_like(p, dtype=f32), params),
+    )
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The tensor leaves of ``tree``, in its order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+@torch.no_grad()
+def adamw_update(
+    grads: PyTree,
+    state: AdamWState,
+    params: PyTree,
+    lr: torch.Tensor | float,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> tuple[PyTree, AdamWState]:
+    """One AdamW step; returns (new_params, new_state)."""
+    step = state.step + 1
+    t = step.to(f32)
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=f32, device=t.device), t)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=f32, device=t.device), t)
+
+    def upd(g, m, v, p):
+        g = g.to(f32)
+        m = b1 * m + (1.0 - b1) * g
+        v = b2 * v + (1.0 - b2) * g * g
+        delta = (m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * p.to(f32)
+        return (p.to(f32) - lr * delta).to(p.dtype), m, v
+
+    new: list = []
+    tree_map(lambda *leaves: new.append(upd(*leaves)), grads, state.mu, state.nu, params)
+
+    def rebuild(i):
+        it = iter(out[i] for out in new)
+        return tree_map(lambda _: next(it), grads)
+
+    return rebuild(0), AdamWState(step=step, mu=rebuild(1), nu=rebuild(2))

@@ -113,25 +113,30 @@ sys.path.insert(0, {src!r})
 from repro_torch.core.executor import BiathlonConfig
 from repro_torch.data.synthetic import make_pipeline
 from repro_torch.serving import BiathlonServer
+from repro_torch.configs import get_config
+from repro_torch.examples import serve_lm_head as ex
 b = make_pipeline("turbofan", rows_per_group=300, n_train_groups=60,
                   n_serve_groups=3, n_requests=1, device="cpu")
 out = BiathlonServer(b, BiathlonConfig(m=64, m_sobol=16), device="cpu").serve(b.requests[0])
+sc = ex.build(get_config("qwen1.5-0.5b").reduced(), "cpu", n_users=2, n_events=500)
+lm = ex.serve(sc, ex.make_executor(sc, m=32, m_sobol=8), ex.draw_requests(sc, 1))[0]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({{"bad": bad, "y_hat": out["y_hat"]}}))
+print(json.dumps({{"bad": bad, "y_hat": out["y_hat"], "lm_y_hat": lm["y_hat"]}}))
 """
 
 
 def test_port_imports_and_serves_without_jax():
-    """A fresh interpreter imports the port and serves on the CPU with no
-    ``jax`` and no ``repro.*`` module ever loaded."""
+    """A fresh interpreter imports the port and serves on the CPU (a turbofan
+    request and an LM-head request) with no ``jax`` and no ``repro.*``
+    module ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert np.isfinite(out["y_hat"])
+    assert np.isfinite(out["y_hat"]) and np.isfinite(out["lm_y_hat"])
 
 
 def _imported_modules(path: Path):
@@ -144,8 +149,13 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    port = ROOT / "src" / "repro_torch"
+    files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    walked = {f.parent.relative_to(port).as_posix() for f in files[:-1]}
+    for sub in ("configs", "models/lm", "models/tabular", "optim", "examples",
+                "kernels/flash_attention"):
+        assert sub in walked, sub
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

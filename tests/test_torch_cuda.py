@@ -10,18 +10,29 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.executor import BiathlonConfig
 from repro_torch.core.executor_fused import guarantee_prob
 from repro_torch.data.synthetic import make_pipeline
+from repro_torch.device import resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.sampled_agg import ops
 from repro_torch.kernels.sobol.ops import points
 from repro_torch.kernels.tree_qmc.ops import predict_sum
+from repro_torch.models.lm import LM
+from repro_torch.models.lm.layers import attention_block
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest
 from repro_torch.serving import BiathlonServer
 
 pytestmark = pytest.mark.cuda
 TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
+# flash_attention vs its plain version: float32 differs in summation order
+# only; bf16 outputs are the float32 results rounded once, so within one
+# bf16 ulp (at most 2^-7 relative)
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 
 
 @pytest.fixture
@@ -112,6 +123,10 @@ def test_wrappers_reject_cpu_tensors(dev):
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         prefix_power_sums(torch.zeros((2, 8)))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        flash_attention(*(torch.zeros((1, 2, 8, 32)) for _ in range(3)))
+    with pytest.raises(ValueError, match="exceed 256"):
+        flash_attention(*(torch.zeros((1, 2, 8, 288), device=dev) for _ in range(3)))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
         masked_select_ranks(torch.zeros((2, 8)), torch.zeros(2, dtype=torch.int32),
                             torch.zeros((2, 3), dtype=torch.int32))
 
@@ -163,3 +178,72 @@ def test_sensor_health_kernel_plans_equal_plain_plans(dev, afc_backend):
     rescan = afc_backend != "incremental"
     assert (launched.get("masked_select_ranks", 0) > 0) == rescan
     assert launched.get("ensemble_sum", 0) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv", [
+    (1, 4, 4, 48, 48, 64, 64),       # the LM-head prompt, ragged against the tiles
+    (2, 4, 2, 100, 100, 32, 32),     # ragged, GQA
+    (1, 2, 2, 100, 37, 128, 128),    # Sq > Sk
+    (1, 2, 1, 48, 130, 256, 256),    # Sq < Sk, D = 256
+    (1, 2, 2, 64, 64, 192, 128),     # D != Dv (MLA's 192/128)
+])
+def test_flash_attention_matches_plain(dev, dtype, causal, b, h, hkv, sq, sk, d, dv):
+    rng = np.random.default_rng(sq * 1000 + sk + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
+               for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
+    got = flash_attention(q, k, v, causal=causal)
+    rep = h // hkv
+    want = flash_attention_ref(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+                               causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, sq, dv)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_attention_routes_to_the_kernel_on_the_card(dev):
+    """A CUDA tensor launches the kernel (one count per call, reading the
+    model layout in place); ``use_kernel=False`` launches nothing; sliding
+    windows raise on the card."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, torch.bfloat16)
+               for s in ((2, 48, 4, 32), (2, 48, 2, 32), (2, 48, 2, 32)))
+    build.reset_launch_counts()
+    got = attn_ops.attention(q, k, v)
+    assert build.LAUNCHES["flash_attention"] == 1
+    want = attn_ops.attention(q, k, v, use_kernel=False)
+    assert build.LAUNCHES["flash_attention"] == 1
+    torch.cuda.synchronize()
+    assert got.shape == (2, 48, 4, 32) and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[torch.bfloat16])
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    layer0 = {n: t[0] for n, t in params["blocks"]["attn"].items()}
+    x = torch.zeros((1, 48, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        attention_block(layer0, x, cfg, window=16)
+
+
+def test_lm_backbone_kernel_matches_plain(dev):
+    """The reduced qwen1.5-0.5b (GQA) on the card: one launch per layer, and
+    the plain path's hidden states within two bf16 ulps of the largest."""
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 48))).to(dev)
+    outs = {}
+    for use_kernel in (True, False):
+        lm = LM(cfg, use_kernel=use_kernel)
+        build.reset_launch_counts()
+        outs[use_kernel] = lm._backbone(params, lm.embed(params, tokens)).float()
+        assert build.LAUNCHES["flash_attention"] == (cfg.n_layers if use_kernel else 0)
+    torch.cuda.synchronize()
+    err = (outs[True] - outs[False]).abs().max() / outs[False].abs().max()
+    assert float(err) < 3e-2
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,79 @@
+"""The port's plain flash attention against the JAX Pallas kernel.
+
+The JAX side runs the Pallas kernel in interpret mode, as
+``tests/test_kernels.py`` runs it on the CPU; the port's side is its plain
+version (``kernels/flash_attention/ref.py``), which a CPU tensor always
+reaches.  Inputs are made from a seed with numpy.  Tolerances: float32
+within 1e-5 (both compute in float32 and differ only in summation order);
+bf16 at the reference's own 3e-2 (one bf16 rounding of the output).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as ref_ops
+from repro.kernels.flash_attention.flash_attention import flash_attention as ref_flash
+from repro.models.lm.layers import attention_full as ref_attention_full
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+
+
+def _qkv(seed, q_shape, k_shape, v_shape):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(0, 1, s).astype(np.float32) for s in (q_shape, k_shape, v_shape))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s,d,bq,bk", [
+    (1, 2, 128, 64, 64, 64),
+    (2, 1, 256, 32, 128, 128),
+    (1, 2, 256, 64, 128, 64),
+])
+def test_plain_matches_pallas_kernel_f32(causal, b, h, s, d, bq, bk):
+    q, k, v = _qkv(s + d, *(3 * [(b, h, s, d)]))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                     block_q=bq, block_k=bk, interpret=True)
+    got = flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=causal)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_plain_matches_pallas_kernel_bf16():
+    q, k, v = _qkv(9, *(3 * [(1, 2, 128, 64)]))
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = ref_flash(jq, jk, jv, causal=True, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_ref(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
+
+
+def test_plain_aligns_the_causal_mask_at_the_top_left():
+    """Sq != Sk: query row i sees keys 0..i, as the reference's attention_full
+    with no q offset (the Pallas kernel only takes tile multiples)."""
+    q, k, v = _qkv(3, (1, 48, 2, 32), (1, 80, 2, 32), (1, 80, 2, 16))
+    want = ref_attention_full(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    got = flash_attention_ref(*(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+                              causal=True).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_attention_matches_reference_with_gqa(causal):
+    """H = 4 query heads on Hkv = 2 KV heads, model layout (B, S, H, D); a CPU
+    tensor takes the plain version whatever ``use_kernel`` says."""
+    q, k, v = _qkv(11, (2, 128, 4, 32), (2, 128, 2, 32), (2, 128, 2, 32))
+    want = ref_ops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    build.reset_launch_counts()
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ops.attention(tq, tk, tv, causal=causal)
+    assert got.shape == (2, 128, 4, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    assert torch.equal(got, ops.attention(tq, tk, tv, causal=causal, use_kernel=False))
+    assert not build.LAUNCHES
