@@ -29,10 +29,13 @@ Phases (any failure exits non-zero before the result line is printed):
    plain at 0.3 × δ so that the loop is entered; then the same kernel
    check and 4 requests at ``rows_per_group=500``, where "auto" rescans;
 6. ``flash_attention`` against its plain version: the LM-head prompt
-   (1, 16, 48, 64) and a (1, 16, 4096, 64) prefill in bf16, causal; a
-   float32 non-causal case; Sq ≠ Sk; GQA through ``ops.attention``; timed
-   beside ``F.scaled_dot_product_attention`` (a yardstick the port never
-   calls);
+   (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
+   in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
+   scalar kernel); Sq ≠ Sk; GQA through ``ops.attention``; the three bf16
+   shapes timed beside ``F.scaled_dot_product_attention`` (a yardstick the
+   port never calls), with the ratio to it, the share of the bound, the
+   time before the redesign and each bf16 instance's registers and spills
+   from the build log;
 7. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
    full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
    from a seed): 6 requests through the kernels, exactly 24
@@ -51,6 +54,7 @@ the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,6 +77,10 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol
 # pooled states of the kernel and plain LM paths, max |diff| over max |state|:
 # one bf16 ulp in an attention output moves later layers' bf16 roundings
 STATE_REL_TOL = 3e-2
+# the bf16 flash_attention kernel against its roundings emulated in PyTorch
+# (kernels/flash_attention/emulation.py): both outputs are bf16, so one ulp
+# (2^-7 relative) of the rounding apart at most
+EMULATION_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
 
 
 class SmokeFailure(RuntimeError):
@@ -453,7 +461,11 @@ def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tup
 
 def attention_check(dev, name, shape, dtype, causal, seed):
     """The kernel against its plain version on seeded inputs; returns
-    (inputs, max |err|), failing beyond ``ATTN_TOL``."""
+    (inputs, max |err|), failing beyond ``ATTN_TOL``.  A bf16 call must have
+    taken the TMA path and be within ``EMULATION_TOL`` of its emulated
+    roundings too."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.emulation import bf16_path, key_tile
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -461,15 +473,27 @@ def attention_check(dev, name, shape, dtype, causal, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
                for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
+    build.reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
+    path = "tma" if dtype == torch.bfloat16 else "simt"
+    require(build.PATHS == {f"flash_attention.{path}": 1},
+            f"flash_attention {name}: took {dict(build.PATHS)}, expected the {path} path")
     rep = h // hkv
-    want = flash_attention_ref(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
-                               causal=causal)
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    want = flash_attention_ref(q, kr, vr, causal=causal)
     err = float((got.float() - want.float()).abs().max())
     require(torch.allclose(got.float(), want.float(), **ATTN_TOL[dtype]),
             f"flash_attention {name}: max |err| {err} beyond {ATTN_TOL[dtype]}")
-    print(f"flash_attention {name}: max |err| {err:.3g} (tolerance {ATTN_TOL[dtype]})",
-          flush=True)
+    line = f"flash_attention {name} ({path}): max |err| {err:.3g} (tolerance {ATTN_TOL[dtype]})"
+    if dtype == torch.bfloat16:
+        emulated = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv)).float()
+        em_err = float((got.float() - emulated).abs().max())
+        require(torch.allclose(got.float(), emulated, **EMULATION_TOL),
+                f"flash_attention {name}: max |err| {em_err} from the emulated roundings, "
+                f"beyond {EMULATION_TOL}")
+        line += f"; from the emulated roundings {em_err:.3g} (tolerance {EMULATION_TOL})"
+        del emulated
+    print(line, flush=True)
     return (q, k, v), err
 
 
@@ -497,6 +521,31 @@ def attention_timings(dev, qkv, causal: bool, reps: int) -> dict:
                 library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
 
 
+def ptxas_report(name: str) -> dict:
+    """Registers and spill bytes of each bf16 ``flash_attention`` instance
+    (``sm90::flash_attention_kernel<DP>``), from the ``-Xptxas -v`` log of
+    the library that was loaded, with any ``setmaxnreg`` warning of the
+    compiler."""
+    from repro_torch.kernels import build
+
+    out, entry = {}, None
+    for line in build.log_path(name).read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"4sm90\w*flash_attention_kernelILi(\d+)E", line)
+            entry = f"dp{m.group(1)}" if m else None
+            if entry:
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[entry].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        if "setmaxnreg" in line:
+            out.setdefault("warnings", []).append(line.strip())
+    require(out, f"{build.log_path(name)} lists no bf16 flash_attention instance")
+    return out
+
+
 def flash_record(dev) -> dict:
     """``flash_attention`` against its plain version at every listed shape, timed."""
     from repro_torch.kernels import build
@@ -510,6 +559,7 @@ def flash_record(dev) -> dict:
         ("prefill_1x16x4096x64_bf16_causal", (1, 16, 16, 4096, 4096, 64, 64), bf16, True),
         ("f32_1x16x512x64_noncausal", (1, 16, 16, 512, 512, 64, 64), f32, False),
         ("sq100_sk260_bf16_causal", (1, 16, 16, 100, 260, 64, 64), bf16, True),
+        ("prefill_1x16x4096x128_bf16_causal", (1, 16, 16, 4096, 4096, 128, 128), bf16, True),
     ]):
         inputs[name], errors[name] = attention_check(dev, name, shape, dtype, causal, seed=i)
     # GQA through the model-layout entry point: 16 query heads on 4 KV heads
@@ -525,7 +575,12 @@ def flash_record(dev) -> dict:
     rec = attention_timings(dev, inputs["prefill_1x16x4096x64_bf16_causal"], True, reps=5)
     rec["lm_head_shape"] = attention_timings(dev, inputs["lm_head_1x16x48x64_bf16_causal"],
                                              True, reps=20)
-    rec.update(max_abs_err=max(errors.values()), errors=errors, phases=list(errors))
+    rec["prefill_d128"] = attention_timings(dev, inputs["prefill_1x16x4096x128_bf16_causal"],
+                                            True, reps=5)
+    for r in (rec, rec["lm_head_shape"], rec["prefill_d128"]):
+        r.update(ratio_to_library=r["ms"] / r["library_ms"], bound_share=r["bound_ms"] / r["ms"])
+    rec.update(max_abs_err=max(errors.values()), errors=errors, phases=list(errors),
+               instances=ptxas_report("flash_attention"))
     build.reset_launch_counts()
     return rec
 
@@ -554,14 +609,18 @@ def lm_head_phase(dev, card: str) -> dict:
         build.reset_launch_counts()
         executor = ex.make_executor(sc, use_kernel=use_kernel)
         at_build = dict(build.LAUNCHES)
+        paths_at_build = dict(build.PATHS)
         outs = ex.serve(sc, executor, requests, use_kernel=use_kernel)
         torch.cuda.synchronize()
-        runs[use_kernel] = (outs, dict(build.LAUNCHES), at_build, executor)
-    outs, launches, at_build, _ = runs[True]
+        paths = {n: c - paths_at_build.get(n, 0) for n, c in build.PATHS.items()}
+        runs[use_kernel] = (outs, dict(build.LAUNCHES), at_build, executor, paths)
+    outs, launches, at_build, _, paths = runs[True]
     served = {n: launches.get(n, 0) - at_build.get(n, 0) for n in launches}
     require(served.get("flash_attention", 0) == cfg.n_layers * N_LM_REQ,
             f"lm_head: {served.get('flash_attention', 0)} flash_attention launches for "
             f"{N_LM_REQ} requests, expected {cfg.n_layers} per request")
+    require(paths == {"flash_attention.tma": cfg.n_layers * N_LM_REQ},
+            f"lm_head: flash_attention took {paths}, expected the TMA path on every launch")
     require(served.get("prefix_power_sums", 0) == N_LM_REQ,
             f"lm_head: prefix_power_sums launched {served.get('prefix_power_sums', 0)} times "
             f"for {N_LM_REQ} requests, expected once per request")
@@ -602,7 +661,8 @@ def lm_head_phase(dev, card: str) -> dict:
                             frac=[o["frac"] for o in group],
                             y_hat=[o["y_hat"] for o in group], prob=[o["prob"] for o in group])
     result.update(params=n_params, param_bytes=n_bytes, launches=launches,
-                  launches_at_build=at_build, state_max_rel_err=state_err)
+                  launches_at_build=at_build, flash_attention_paths=paths,
+                  state_max_rel_err=state_err)
     prof = profile_served(lambda: ex.serve(sc, runs[True][3], requests[:1])[0],
                           ROOT / "build" / "chip_smoke_profile_lm_head.txt")
     prof["device_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"] / result["kernel"]["p50_ms"])
@@ -642,8 +702,11 @@ def backbone_profile(sc, dev, path: Path) -> dict:
             lm._backbone(sc.params, lm.embed(sc.params, tokens))
             torch.cuda.synchronize()
         launches = build.LAUNCHES["flash_attention"]
+        tma = build.PATHS["flash_attention.tma"]
     require(launches == cfg.n_layers,
             f"4096-token forward: {launches} flash_attention launches, expected {cfg.n_layers}")
+    require(tma == launches, f"4096-token forward: {tma} of {launches} flash_attention "
+                             "launches took the TMA path")
     _, device = profile_rows(prof, path)
     busy_ms = sum(r[0] for r in device) / 1e3
     flash_ms = sum(r[0] for r in device if "flash_attention" in r[1]) / 1e3
@@ -853,9 +916,12 @@ def main() -> int:
                               - lm_head["launches_at_build"].get("flash_attention", 0))
         / N_LM_REQ,
         launches_per_executor_build=lm_head["launches_at_build"].get("flash_attention", 0),
+        paths=lm_head["flash_attention_paths"],
         **{key: fa[key] for key in ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library_max_abs_err", "shape",
-                                    "dtype", "causal", "phases", "errors", "lm_head_shape")},
+                                    "dtype", "causal", "phases", "errors", "lm_head_shape",
+                                    "prefill_d128", "ratio_to_library",
+                                    "bound_share", "instances")},
         backbone_4096_launches=backbone["flash_attention_launches"],
     ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])

@@ -12,7 +12,9 @@ Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after the launch; :func:`check` raises on a
 non-zero code.  Each wrapper adds one to :data:`LAUNCHES` under its kernel's
 name where it launches the kernel, and nowhere else, so a run can show
-which kernels its path went through.
+which kernels its path went through.  A kernel with more than one path
+inside (``flash_attention``: its float32 kernel, its bf16 kernel fed by TMA,
+or by plain loads) also adds one to :data:`PATHS` under the path taken.
 """
 from __future__ import annotations
 
@@ -31,11 +33,14 @@ import torch
 __all__ = [
     "BUILD_DIR",
     "LAUNCHES",
+    "PATHS",
     "SOURCES",
     "build_all",
     "check",
     "check_tensor",
+    "compile_command",
     "library",
+    "log_path",
     "reset_launch_counts",
     "stream_of",
 ]
@@ -51,6 +56,8 @@ NVCC_FLAGS = (
 
 #: Kernel launches by kernel name (see the module docstring).
 LAUNCHES: collections.Counter = collections.Counter()
+#: Launches by ``"<kernel>.<path>"`` (see the module docstring).
+PATHS: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,6 +65,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    PATHS.clear()
 
 
 def _nvcc() -> str:
@@ -79,32 +87,41 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's output (``-Xptxas -v``) for the library that
+    :func:`library` loads for ``name``: it bears the library's hash."""
+    return _lib_path(name).with_suffix(".log")
+
+
+def compile_command(source: Path, out: Path) -> list[str]:
+    """The ``nvcc`` command that builds ``source`` into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(source)]
+
+
 def build_all() -> dict[str, float]:
     """Compile every missing library, one ``nvcc`` per source in parallel.
 
     Returns the wall seconds of the build (0.0 when nothing was missing)
     under ``"total"``, and writes each compiler's output (``-Xptxas -v``
-    registers and spills) next to its library as ``<name>.log``.
+    registers and spills) next to its library, at :func:`log_path`.
     """
     with _lock:
         missing = [(n, _lib_path(n)) for n in SOURCES if not _lib_path(n).exists()]
         if not missing:
             return {"total": 0.0}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
         t0 = time.perf_counter()
         procs = []
         for name, path in missing:
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
             procs.append((name, path, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                compile_command(CSRC / f"{name}.cu", tmp),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
         failed = []
         for name, path, tmp, proc in procs:
             log, _ = proc.communicate()
-            (BUILD_DIR / f"{name}.log").write_text(log)
+            path.with_suffix(".log").write_text(log)
             if proc.returncode != 0:
                 failed.append(f"{name} (rc {proc.returncode}):\n{log}")
             else:

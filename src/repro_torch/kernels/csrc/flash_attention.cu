@@ -2,62 +2,137 @@
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention/flash_attention.py
 // (flash_attention, body _kernel): q (B, H, Sq, D), k (B, Hkv, Sk, D),
-// v (B, Hkv, Sk, Dv) -> (B, H, Sq, Dv) in q's type.  Scores are taken in
-// float32 from q·D^-½ (the scale applied to q, as there); causal scores
-// above the diagonal are −1e30 with the mask aligned at the top left (query
-// row i sees keys 0..i); the running max, denominator and output
-// accumulator are float32; the denominator is clamped at 1e-30.  Query
-// head h reads KV head h / (H / Hkv), which equals the reference's repeat
-// of the KV heads.  Inputs are float or bf16 (read through the intrinsics,
-// which is exact for bf16); the output is written with __float2bfloat16_rn.
+// v (B, Hkv, Sk, Dv) -> (B, H, Sq, Dv) in q's type.  Causal scores above the
+// diagonal are −1e30 with the mask aligned at the top left (query row i sees
+// keys 0..i); the running max, denominator and output accumulator are
+// float32; the denominator is clamped at 1e-30.  Query head h reads KV head
+// h / (H / Hkv), which equals the reference's repeat of the KV heads.
 // Tensors may be strided views (only the last axis must be contiguous), so
 // the model's (B, S, H, D) layout is read and written without transposes.
+// Any Sq and Sk; D, Dv <= 256.  One entry point, two kernels picked by type:
 //
-// Design.  One block per (q tile of 32 rows, b·h); the longest causal tiles
-// are scheduled first.  The block loops over KV tiles of 64 keys (in place
-// of the TPU's sequential third grid axis) and, under causal, stops at the
-// tile holding its last row's diagonal: the work above the diagonal is
-// never done.  The q tile (pre-scaled) and each K/V tile are staged in
-// float32 in shared memory (K rows padded to an odd stride, so a warp's
-// lanes read 32 banks).  Each of the 8 warps owns 4 query rows: a lane
-// computes the scores of 2 keys × 4 rows with scalar FMAs, the row max and
-// sum go through warp shuffles, the probabilities go through shared memory
-// and each lane accumulates P·V for Dv/32 output columns in registers.
-// Ragged Sq and Sk are masked here; D, Dv <= 256.  Dynamic shared memory:
-// 4·(32·D + 64·(D|1) + 64·⌈Dv/32⌉·32 + 8·4·64) bytes, 49 KB at D = Dv = 64.
+// bf16 (the model's type): `sm90::flash_attention_kernel`, on the tensor
+// cores.  One block of three warpgroups per (q tile of 128 rows, b·h), the
+// longest causal tiles launched first.  Warpgroup 0 is the producer: it
+// gives its registers away (setmaxnreg 40) and one thread loads the q tile
+// once and then the K/V tiles of Bc keys into a ring of shared-memory
+// stages (3 at DP <= 128, 2 at DP = 256) with TMA (`cp.async.bulk.tensor`,
+// tensor maps encoded on the host through cudaGetDriverEntryPoint, so the
+// build needs no -lcuda), each stage completing on an mbarrier while the
+// consumers compute on the others.  Warpgroups 1 and 2 (setmaxnreg 232) own
+// 64 query rows each:
+//   S = Q·Kᵀ   wgmma m64nBck16, Q and K both K-major in shared memory;
+//   softmax    on the accumulator fragments: the row max over a quad of
+//              lanes by two shuffles, p = ex2(s·(log2(e)·D^-½) − m) (one
+//              FFMA and one ex2 a score), the mask only on tiles that cross
+//              the diagonal or the ragged end of Sk;
+//   O += P·V   wgmma m64nDvk16 with P from registers (the S fragments
+//              rounded to bf16 in place) and V MN-major in shared memory,
+//              so V is never transposed;
+// tile t's Q·Kᵀ is issued together with tile t−1's P·V, and tile t's
+// softmax runs while that P·V is in flight; then each consumer warp
+// releases tile t−1's stage.  The two consumers issue their batches of
+// wgmma in turns (two named barriers), so that one's softmax runs against
+// the other's products.  The first tile is peeled off the loop, and both
+// consumers compute every tile of the block (a tile past a warpgroup's
+// causal rows is masked whole; a warpgroup wholly past Sq computes on zero
+// rows and stores nothing), so no wgmma sits in a data-dependent branch,
+// where ptxas would serialize it, and the turns pair up.
+// Tiles are 128-byte-swizzled
+// panels of 64 columns (what TMA writes and wgmma reads); D and Dv are
+// padded with zero columns to DP = 64, 128 or 256 (the larger of the two)
+// and Bc = 128 keys at DP <= 128, 64 at DP = 256, so registers and the
+// stages fit.  Rows past Sq or Sk come back from TMA as zeros, and a key
+// past Sk is masked, so it adds exactly 0.  Where a view breaks TMA's rules
+// (a 16-byte-aligned base, strides that are multiples of 16 bytes), the
+// producer warpgroup fills the same ring with plain loads instead: slower,
+// still overlapped with the math.  Only those views take the loads: a
+// driver without cuTensorMapEncodeTiled, or one that refuses a view within
+// the rules, fails the launch, and the entry point reports which path each
+// launch took.  Numerics against the plain version
+// (float32 throughout, scale on q): the scale is applied to the float32
+// scores (exact at D = 64 and 256, where D^-½ is a power of two; a float32
+// rounding otherwise), P is rounded to bf16 before P·V (the denominator
+// sums the float32 p), ex2.approx has a 2-ulp error, and the summation
+// order differs.
+//
+// float32: `simt::flash_attention_kernel`, scalar FMAs.  One block of 8
+// warps per (q tile of 32 rows, b·h); 64-key tiles staged in float32 in
+// shared memory; each warp owns 4 query rows, a lane 2 keys' scores and
+// Dv/32 output columns; scores from q·D^-½ as the reference takes them.
+// The port turns TF32 off, and this kernel keeps float32 within summation
+// order of the plain version.  It is not on the model's path.
 //
 // Bound.  At (1, 16, 4096, 64) causal the function does ≈ 3.4e10 FLOPs
 // (the 4096·4097/2 live (q, k) pairs per head, 4·64 FLOPs each): ≈ 0.035 ms
 // at the H100's 989 TFLOP/s bf16 tensor-core rate, above its ≈ 33.5 MB of
-// q/k/v/o at 3.35 TB/s (≈ 0.010 ms), so it is bound by operations.  At the
-// LM-head path's (1, 16, 48, 64) the bound is far below launch latency.
-//
-// What this simple design leaves on the table: it does its products with
-// scalar float32 FMAs out of shared memory (6 shared loads per 8 FMAs, so
-// it runs at a fraction of the 67 TFLOP/s float32 rate), while the bound
-// assumes the bf16 tensor cores; no mma.sync / wgmma, no TMA or cp.async
-// double buffering of the K/V tiles (loads and math do not overlap), K/V
-// staged as float32 (twice the shared memory of bf16), and 32-row q tiles
-// re-read K/V from L2 once per tile.
+// q/k/v/o at 3.35 TB/s (≈ 0.010 ms), so it is bound by operations; its
+// 1.4e8 exponentials take about as long again at 16 ex2 per SM per clock.
+// What the bf16 design leaves: the output is stored from registers rather
+// than by TMA, the grid is not persistent, and each score still costs an
+// FFMA and an ex2.  Measured times are in PERF.md.
+#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
 
 #include "device_guard.cuh"
 
 namespace {
+
+constexpr int kMaxDim = 256;
+constexpr int kMaxDevices = 64;
+constexpr int kMaxSmemBytes = 232448;  // what one block of an H100 may use
+// The path a launch took, returned through the entry point's `path`.
+constexpr int kPathSimt = 0;   // float32: the scalar kernel
+constexpr int kPathTma = 1;    // bf16: K/V and Q loaded by TMA
+constexpr int kPathLoads = 2;  // bf16: a view TMA cannot read, loaded by the producer
+
+// Element strides of the batch, head and sequence axes (the last is 1).
+struct Strides {
+  long long b, h, s;
+};
+
+// One call's arguments, as the entry point receives them.
+struct Problem {
+  const void *q, *k, *v;
+  void* o;
+  Strides qs, ks, vs, os;
+  int batch, n_heads, group, sq, sk, d, dv, causal;
+  float scale;
+  int device;
+  cudaStream_t stream;
+};
+
+// The dynamic shared memory limit is raised once per kernel and card, at
+// the first launch, so that no attribute call falls inside a CUDA-graph
+// capture (the callers warm up before they capture).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&configured)[kMaxDevices], int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidValue;
+  if (!configured[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured[device] = true;
+  }
+  return cudaSuccess;
+}
+
+namespace simt {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;
 constexpr int kBlockK = 64;
-constexpr int kMaxDim = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -70,11 +145,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
-
-// Element strides of the batch, head and sequence axes (the last is 1).
-struct Strides {
-  long long b, h, s;
-};
 
 __host__ __device__ __forceinline__ int padded_k_stride(int d) { return d | 1; }
 
@@ -208,79 +278,698 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The dynamic shared memory limit is raised once per instantiation and card,
-// at the first launch, so that no attribute call falls inside a CUDA-graph
-// capture (the callers warm up before they capture).
-constexpr int kMaxDevices = 64;
-constexpr int kMaxSmemBytes = 232448;  // what one block of an H100 may use
-
-template <typename T, int DVL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-                   Strides ks, Strides vs, Strides os, int batch, int n_heads, int group,
-                   int sq, int sk, int d, int dv, int causal, float scale, int device,
-                   cudaStream_t stream) {
+template <int DVL>
+cudaError_t launch(const Problem& a) {
   static bool configured[kMaxDevices] = {};
-  const size_t bytes = smem_bytes(d, DVL);
-  if (bytes > static_cast<size_t>(kMaxSmemBytes) || device < 0 || device >= kMaxDevices) {
-    return cudaErrorInvalidValue;
-  }
-  if (!configured[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DVL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmemBytes);
-    if (err != cudaSuccess) return err;
-    configured[device] = true;
-  }
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * n_heads);
-  flash_attention_kernel<T, DVL><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), qs, ks, vs, os, n_heads, group, sq, sk, d, dv, causal, scale);
+  const size_t bytes = smem_bytes(a.d, DVL);
+  if (bytes > static_cast<size_t>(kMaxSmemBytes)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(flash_attention_kernel<float, DVL>, configured, a.device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.batch * a.n_heads);
+  flash_attention_kernel<float, DVL><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks, a.vs, a.os,
+      a.n_heads, a.group, a.sq, a.sk, a.d, a.dv, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int dvl, const void* q, const void* k, const void* v, void* o,
-                     Strides qs, Strides ks, Strides vs, Strides os, int batch, int n_heads,
-                     int group, int sq, int sk, int d, int dv, int causal, float scale,
-                     int device, cudaStream_t stream) {
-#define FA_CASE(N)                                                                      \
-  case N:                                                                               \
-    return launch<T, N>(q, k, v, o, qs, ks, vs, os, batch, n_heads, group, sq, sk, d,  \
-                        dv, causal, scale, device, stream);
-  switch (dvl) {
-    FA_CASE(1) FA_CASE(2) FA_CASE(3) FA_CASE(4) FA_CASE(5) FA_CASE(6) FA_CASE(7) FA_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch(const Problem& a) {
+  switch ((a.dv + 31) / 32) {
+    case 1: return launch<1>(a);
+    case 2: return launch<2>(a);
+    case 3: return launch<3>(a);
+    case 4: return launch<4>(a);
+    case 5: return launch<5>(a);
+    case 6: return launch<6>(a);
+    case 7: return launch<7>(a);
+    case 8: return launch<8>(a);
+    default: return cudaErrorInvalidValue;
   }
-#undef FA_CASE
 }
+
+}  // namespace simt
+
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kConsumers = 2;                     // warpgroups of 64 query rows each
+constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 is the producer
+constexpr int kBlockQ = 64 * kConsumers;
+constexpr int kPanel = 64;  // bf16 columns in one 128-byte swizzled panel row
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128·40 + 256·232 = 384·168
+
+// Shared memory of a block for DP, the padded head dim.  Each tile is kept
+// as DP / 64 panels of rows x 128 bytes whose 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8): what TMA's SWIZZLE_128B writes and a wgmma
+// descriptor of layout type 128B reads.  Panels start 1024-byte aligned.
+template <int DP>
+struct Tile {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kBc = DP <= 128 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kStages = DP <= 128 ? 3 : 2;  // K/V stages in the ring
+  static constexpr int kQPanelBytes = kBlockQ * 128;
+  static constexpr int kKVPanelBytes = kBc * 128;
+  static constexpr int kQBytes = kPanels * kQPanelBytes;
+  static constexpr int kKBytes = kPanels * kKVPanelBytes;  // and as many for V
+  static constexpr int kStageBytes = 2 * kKBytes;
+  static constexpr int kSmemBytes = 1024 + kQBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages);
+  static_assert(kSmemBytes <= kMaxSmemBytes, "the tiles do not fit in shared memory");
+};
+
+struct Params {
+  const bf16 *q, *k, *v;
+  bf16* o;
+  Strides qs, ks, vs, os;
+  int n_heads, group, sq, sk, d, dv, causal;
+  int use_tma;   // else the producer warpgroup loads the ring itself
+  int o_pairs;   // the output takes aligned bf16x2 stores
+  float scale_log2;  // D^-½ · log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a (columns, rows, heads, batch) tensor map into shared memory,
+// completing on `bar`; rows and columns outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head),
+      "r"(batch)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand: start address, leading
+// and stride byte offsets (in 16-byte units), layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
+         1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from reading an accumulator before wgmma_wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d(64 x N) = A·B + (scale_d ? d : 0), A (64 x 16) and B (16 x N) bf16 in
+// shared memory, both K-major.
+template <int N>
+__device__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+// The same with A from registers (four bf16 pairs a thread) and B MN-major.
+template <int N>
+__device__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void zero_smem(uint8_t* dst, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16) {
+    *reinterpret_cast<uint4*>(dst + i) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The producer's path where TMA cannot read a view: `rows` rows of `panels`
+// panels from src (row stride `stride`), rows past n_rows and columns past
+// n_cols zero, written swizzled by the 128 producer threads.
+__device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, long long stride, int row0,
+                                          int n_rows, int n_cols, int rows, int panels, int tid) {
+  const int chunks = panels * 8;  // 16-byte chunks a row
+  for (int i = tid; i < rows * chunks; i += 128) {
+    const int r = i / chunks, c = i % chunks, row = row0 + r;
+    alignas(16) bf16 x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = c * 8 + e;
+      x[e] = row < n_rows && col < n_cols ? src[row * stride + col] : __float2bfloat16_rn(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + (c / 8) * rows * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16) =
+        *reinterpret_cast<const uint4*>(x);
+  }
+}
+
+// Generic stores of the producer threads become visible to wgmma, then one
+// arrival completes the stage.
+__device__ __forceinline__ void publish(uint64_t* bar, int tid) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync 1, 128;" ::: "memory");
+  if (tid == 0) mbar_arrive(bar);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Tile<DP>;
+  constexpr int kBc = L::kBc, kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* kv_s = q_s + L::kQBytes;  // stage s: K panels, then V panels
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv_s + kStages * L::kStageBytes);
+  uint64_t* full = q_full + 1;        // [kStages]: the stage has arrived
+  uint64_t* empty = full + kStages;   // [kStages]: every consumer warp is done with it
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest causal tiles first
+  const int b = blockIdx.y / p.n_heads, h = blockIdx.y % p.n_heads, hk = h / p.group;
+  const int qk_panels = (p.d + kPanel - 1) / kPanel, v_panels = (p.dv + kPanel - 1) / kPanel;
+  int n_kt = (p.sk + kBc - 1) / kBc;
+  if (p.causal) n_kt = min(n_kt, (min(q0 + kBlockQ, p.sq) - 1) / kBc + 1);
+
+  // panels wholly past D or Dv are never loaded: zero columns, once
+  zero_smem(q_s + qk_panels * L::kQPanelBytes, (L::kPanels - qk_panels) * L::kQPanelBytes);
+  for (int s = 0; s < kStages; ++s) {
+    uint8_t* k_st = kv_s + s * L::kStageBytes;
+    zero_smem(k_st + qk_panels * L::kKVPanelBytes, (L::kPanels - qk_panels) * L::kKVPanelBytes);
+    zero_smem(k_st + L::kKBytes + v_panels * L::kKVPanelBytes,
+              (L::kPanels - v_panels) * L::kKVPanelBytes);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (p.use_tma) {
+      if (tid == 0) {
+        mbar_expect_tx(q_full, qk_panels * L::kQPanelBytes);
+        for (int pn = 0; pn < qk_panels; ++pn) {
+          tma_load(q_s + pn * L::kQPanelBytes, &tq, q_full, pn * kPanel, q0, h, b);
+        }
+        for (int kt = 0; kt < n_kt; ++kt) {
+          const int s = kt % kStages;
+          if (kt >= kStages) mbar_wait(&empty[s], (kt / kStages - 1) & 1);
+          uint8_t* k_st = kv_s + s * L::kStageBytes;
+          uint8_t* v_st = k_st + L::kKBytes;
+          mbar_expect_tx(&full[s], (qk_panels + v_panels) * L::kKVPanelBytes);
+          for (int pn = 0; pn < qk_panels; ++pn) {
+            tma_load(k_st + pn * L::kKVPanelBytes, &tk, &full[s], pn * kPanel, kt * kBc, hk, b);
+          }
+          for (int pn = 0; pn < v_panels; ++pn) {
+            tma_load(v_st + pn * L::kKVPanelBytes, &tv, &full[s], pn * kPanel, kt * kBc, hk, b);
+          }
+        }
+      }
+    } else {
+      const bf16* qb = p.q + b * p.qs.b + h * p.qs.h;
+      const bf16* kb = p.k + b * p.ks.b + hk * p.ks.h;
+      const bf16* vb = p.v + b * p.vs.b + hk * p.vs.h;
+      load_tile(q_s, qb, p.qs.s, q0, p.sq, p.d, kBlockQ, qk_panels, tid);
+      publish(q_full, tid);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], (kt / kStages - 1) & 1);
+        uint8_t* k_st = kv_s + s * L::kStageBytes;
+        load_tile(k_st, kb, p.ks.s, kt * kBc, p.sk, p.d, kBc, qk_panels, tid);
+        load_tile(k_st + L::kKBytes, vb, p.vs.s, kt * kBc, p.sk, p.dv, kBc, v_panels, tid);
+        publish(&full[s], tid);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int cw = wg - 1, warp = tid / 32, lane = tid % 32;
+    const int row_base = q0 + 64 * cw;
+    const int r0 = row_base + 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
+    const bool active = row_base < p.sq;
+    // Both consumers compute all n_kt tiles of the block (under causal a
+    // tile past a warpgroup's rows is masked whole and adds 0), and a
+    // warpgroup wholly past Sq computes on zero rows and stores nothing:
+    // no branch holds a wgmma, and the two take equal turns below.
+    const uint8_t* q_w = q_s + cw * 64 * 128;
+    auto k_stage = [&](int kt) { return kv_s + (kt % kStages) * L::kStageBytes; };
+    auto release = [&](int kt) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[kt % kStages]);
+    };
+    // The consumers issue their batches of wgmma in turns (named barrier
+    // 2 + w is warpgroup w's turn), so that one's softmax runs against the
+    // other's products; consumer 0 starts.
+    auto wait_turn = [&]() { asm volatile("bar.sync %0, 256;" ::"r"(2 + cw) : "memory"); };
+    auto pass_turn = [&]() { asm volatile("bar.arrive %0, 256;" ::"r"(3 - cw) : "memory"); };
+
+    float o[DP / 2], sc[kBc / 2];
+    uint32_t pa[kBc / 16][4];  // a tile's P, bf16 pairs as wgmma's A operand
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2], sum[2];
+
+    // S = Q·Kᵀ of tile kt into sc, 16 columns of D a step
+    auto issue_s = [&](int kt) {
+      const uint8_t* k_st = k_stage(kt);
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const int pn = ks / 4, off = (ks % 4) * 32;
+        mma_ss<kBc>(sc, desc(q_w + pn * L::kQPanelBytes + off, 16, 1024),
+                    desc(k_st + pn * L::kKVPanelBytes + off, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P·V of tile kt, 16 keys a step; V panels are 64 columns of Dv apart
+    auto issue_pv = [&](int kt) {
+      const uint8_t* v_st = k_stage(kt) + L::kKBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) {
+        mma_rs<DP>(o, pa[kk], desc(v_st + kk * 16 * 128, L::kKVPanelBytes, 1024), 1);
+      }
+      wgmma_commit();
+    };
+    // The online softmax of tile kt: masks sc, moves the running max m and
+    // leaves P = 2^(S·scale·log2(e) − m) in sc, the rescale of the earlier
+    // tiles in corr and the tile's row sums (of this thread) in sum.
+    // sc[4j + e] is (row r0 + 8·(e / 2), key k0 + 8j + 2·(lane % 4) + e % 2).
+    auto softmax = [&](int kt) {
+      const int k0 = kt * kBc;
+      if (k0 + kBc > p.sk || (p.causal && k0 + kBc - 1 > row_base)) {
+#pragma unroll
+        for (int j = 0; j < kBc / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+            if (key >= p.sk || (p.causal && key > r0 + 8 * (e >> 1))) sc[4 * j + e] = -INFINITY;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, neg_m[2];
+#pragma unroll
+      for (int i = 0; i < kBc / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * p.scale_log2);
+        neg_m[r] = m_new == -INFINITY ? 0.f : -m_new;
+        corr[r] = ex2(m[r] + neg_m[r]);
+        m[r] = m_new;
+        sum[r] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBc / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], p.scale_log2, neg_m[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += sc[i];
+      }
+    };
+    // after the tile's P·V has landed: rescale, and P of the new tile to bf16
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j) {
+        pa[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    };
+
+    if (cw == 1) pass_turn();
+    mbar_wait(q_full, 0);
+    mbar_wait(&full[0], 0);
+    wait_turn();
+    wgmma_fence();
+    issue_s(0);
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0);
+    rescale_and_pack();
+    // Tile kt's Q·Kᵀ is issued together with tile kt − 1's P·V, and tile
+    // kt's softmax runs while that P·V is in flight.
+    for (int kt = 1; kt < n_kt; ++kt) {
+      mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
+      wait_turn();
+      wgmma_fence();
+      issue_s(kt);
+      issue_pv(kt - 1);
+      pass_turn();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax(kt);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(kt - 1);
+      rescale_and_pack();
+    }
+    wait_turn();
+    wgmma_fence();
+    issue_pv(n_kt - 1);
+    if (cw == 0) pass_turn();  // consumer 1's last batch hands no turn back
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(n_kt - 1);
+
+    if (!active) return;
+    bf16* ob = p.o + b * p.os.b + h * p.os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col >= p.dv) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= p.sq) continue;
+        const float x0 = o[4 * j + 2 * r] / l[r], x1 = o[4 * j + 2 * r + 1] / l[r];
+        bf16* dst = ob + row * p.os.s + col;
+        if (p.o_pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          dst[0] = __float2bfloat16_rn(x0);
+          if (col + 1 < p.dv) dst[1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against the driver.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 view as TMA reads it: (columns, rows, heads, batch) and the byte
+// strides of the last three axes.  `ok` is false where the view breaks
+// TMA's rules: a base or a stride that is not a multiple of 16 bytes, or a
+// stride of 2^40 bytes or more.  Only then does the producer load the ring.
+struct TmaView {
+  cuuint64_t dims[4];
+  cuuint64_t strides[3];
+  bool ok;
+};
+
+TmaView tma_view(const void* base, int cols, int rows, int heads, int batch, Strides st) {
+  TmaView t{{static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+             static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)},
+            {},
+            reinterpret_cast<uintptr_t>(base) % 16 == 0};
+  const long long elems[3] = {st.s, st.h, st.b};
+  cuuint64_t span = (2ull * cols + 15) / 16 * 16;  // bytes spanned by the axes so far
+  for (int i = 0; i < 3; ++i) {
+    if (t.dims[i + 1] == 1) {
+      t.strides[i] = span;  // never stepped: any legal stride
+    } else {
+      const long long bytes = 2 * elems[i];
+      if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1ll << 40)) t.ok = false;
+      t.strides[i] = static_cast<cuuint64_t>(bytes);
+    }
+    span = std::max(span, t.strides[i] * t.dims[i + 1]);
+  }
+  return t;
+}
+
+// The map of a view that TMA can read: boxes of 64 columns x box_rows rows,
+// 128-byte swizzle, zeros outside.  An error where the driver offers no
+// cuTensorMapEncodeTiled or refuses the view, so that a view within TMA's
+// rules never goes to the slower loads unnoticed.
+cudaError_t encode(CUtensorMap* map, const void* base, const TmaView& t, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                        t.dims, t.strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP>
+cudaError_t launch(const Problem& a, int* path) {
+  using L = Tile<DP>;
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = allow_smem(flash_attention_kernel<DP>, configured, a.device);
+  if (err != cudaSuccess) return err;
+  const int hkv = a.n_heads / a.group;
+  const TmaView vq = tma_view(a.q, a.d, a.sq, a.n_heads, a.batch, a.qs);
+  const TmaView vk = tma_view(a.k, a.d, a.sk, hkv, a.batch, a.ks);
+  const TmaView vv = tma_view(a.v, a.dv, a.sk, hkv, a.batch, a.vs);
+  const bool tma = vq.ok && vk.ok && vv.ok;
+  CUtensorMap tq{}, tk{}, tv{};
+  if (tma) {
+    err = encode(&tq, a.q, vq, kBlockQ);
+    if (err == cudaSuccess) err = encode(&tk, a.k, vk, L::kBc);
+    if (err == cudaSuccess) err = encode(&tv, a.v, vv, L::kBc);
+    if (err != cudaSuccess) return err;
+  }
+  Params p;
+  p.q = static_cast<const bf16*>(a.q);
+  p.k = static_cast<const bf16*>(a.k);
+  p.v = static_cast<const bf16*>(a.v);
+  p.o = static_cast<bf16*>(a.o);
+  p.qs = a.qs, p.ks = a.ks, p.vs = a.vs, p.os = a.os;
+  p.n_heads = a.n_heads, p.group = a.group, p.sq = a.sq, p.sk = a.sk, p.d = a.d, p.dv = a.dv;
+  p.causal = a.causal;
+  p.use_tma = tma;
+  p.o_pairs = a.dv % 2 == 0 && a.os.s % 2 == 0 && a.os.h % 2 == 0 && a.os.b % 2 == 0 &&
+              reinterpret_cast<uintptr_t>(a.o) % 4 == 0;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.batch * a.n_heads);
+  flash_attention_kernel<DP><<<grid, kThreads, L::kSmemBytes, a.stream>>>(tq, tk, tv, p);
+  *path = tma ? kPathTma : kPathLoads;
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const Problem& a, int* path) {
+  const int dp = std::max(a.d, a.dv);
+  return dp <= 64    ? launch<64>(a, path)
+         : dp <= 128 ? launch<128>(a, path)
+                     : launch<256>(a, path);
+}
+
+}  // namespace sm90
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, (batch, head,
 // sequence) for each of q, k, v, o; the last axis of each is contiguous.
+// *path tells which kernel and load path a successful launch took:
+// kPathSimt, kPathTma or kPathLoads.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int batch, int n_heads, int n_kv_heads, int sq, int sk,
-    int d, int dv, int causal, float scale, int dtype, int device, void* stream) {
+    int d, int dv, int causal, float scale, int dtype, int device, void* stream, int* path) {
   if (batch < 1 || sq < 1 || sk < 1 || d < 1 || dv < 1 || d > kMaxDim || dv > kMaxDim ||
       n_kv_heads < 1 || n_heads % n_kv_heads != 0 || batch * n_heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
-      os{o_sb, o_sh, o_ss};
-  const int group = n_heads / n_kv_heads, dvl = (dv + 31) / 32;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? dispatch<float>(dvl, q, k, v, o, qs, ks, vs, os, batch, n_heads, group,
-                                   sq, sk, d, dv, causal, scale, device, s)
-      : dtype == 1
-          ? dispatch<__nv_bfloat16>(dvl, q, k, v, o, qs, ks, vs, os, batch, n_heads, group,
-                                    sq, sk, d, dv, causal, scale, device, s)
-          : cudaErrorInvalidValue;
+  const Problem a{q, k, v, o,
+                  {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
+                  batch, n_heads, n_heads / n_kv_heads, sq, sk, d, dv, causal, scale, device,
+                  static_cast<cudaStream_t>(stream)};
+  *path = kPathSimt;
+  const cudaError_t err = dtype == 0   ? simt::dispatch(a)
+                          : dtype == 1 ? sm90::dispatch(a, path)
+                                       : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

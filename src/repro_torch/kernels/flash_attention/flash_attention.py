@@ -5,7 +5,13 @@ for any ``Sq``, ``Sk`` (no tile-multiple asserts) and ``D``, ``Dv`` up to
 256.  Takes the reference's ``(B, H, S, D)`` layout as tensors or strided
 views whose last axis is contiguous, and KV heads that divide the query
 heads (query head h reads KV head ``h // (H // Hkv)``, as a repeat of the
-KV heads would give).  The plain version is ``ref.flash_attention_ref``.
+KV heads would give).  bf16 inputs (the model's) go to the tensor-core
+kernel (``wgmma`` products, K/V tiles fed by TMA into a 2-3 stage ring),
+float32 inputs to the scalar float32 kernel; either is one launch of
+``flash_attention``, and the path it took is counted in ``build.PATHS``:
+``flash_attention.tma``, ``flash_attention.loads`` (a bf16 view whose base
+or strides TMA cannot read, loaded by the producer warps instead) or
+``flash_attention.simt``.  The plain version is ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -21,15 +27,23 @@ __all__ = ["MAX_HEAD_DIM", "flash_attention"]
 NAME = "flash_attention"
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the entry point's `path` codes (kPathSimt, kPathTma, kPathLoads)
+_PATHS = ("simt", "tma", "loads")
+
+
+def bind(lib: ctypes.CDLL):
+    """The typed entry point ``flash_attention_launch`` of a loaded library."""
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
 def _fn():
-    fn = build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(build.library(NAME))
 
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
@@ -50,6 +64,13 @@ def flash_attention(
     causal: bool = True,
 ) -> torch.Tensor:
     """(B, H, Sq, Dv) attention in q's type, laid out in memory as q is."""
+    return launch_with(_fn, q, k, v, causal=causal)
+
+
+def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool) -> torch.Tensor:
+    """:func:`flash_attention` through the entry point that ``entry()`` gives
+    (see :func:`bind`), asked for once the inputs have passed their checks."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
@@ -74,9 +95,11 @@ def flash_attention(
         return out.zero_()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     device, stream = build.stream_of(q)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-                b, h, hkv, sq, sk, d, dv, int(causal), d ** -0.5, _DTYPES[q.dtype],
-                device, stream)
+    path = ctypes.c_int(-1)
+    err = entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+                  b, h, hkv, sq, sk, d, dv, int(causal), d ** -0.5, _DTYPES[q.dtype],
+                  device, stream, ctypes.byref(path))
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
+    build.PATHS[f"{NAME}.{_PATHS[path.value]}"] += 1
     return out

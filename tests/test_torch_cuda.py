@@ -17,6 +17,7 @@ from repro_torch.data.synthetic import make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.emulation import bf16_path, key_tile
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.sampled_agg import ops
@@ -33,6 +34,9 @@ TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
 # only; bf16 outputs are the float32 results rounded once, so within one
 # bf16 ulp (at most 2^-7 relative)
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# the bf16 kernel against its roundings emulated in PyTorch: both outputs
+# are bf16, so one ulp (2^-7 relative) of the rounding apart at most
+EMULATION_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
 
 
 @pytest.fixture
@@ -182,24 +186,64 @@ def test_sensor_health_kernel_plans_equal_plain_plans(dev, afc_backend):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv", [
-    (1, 4, 4, 48, 48, 64, 64),       # the LM-head prompt, ragged against the tiles
-    (2, 4, 2, 100, 100, 32, 32),     # ragged, GQA
-    (1, 2, 2, 100, 37, 128, 128),    # Sq > Sk
-    (1, 2, 1, 48, 130, 256, 256),    # Sq < Sk, D = 256
-    (1, 2, 2, 64, 64, 192, 128),     # D != Dv (MLA's 192/128)
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv,model_layout", [
+    (1, 4, 4, 48, 48, 64, 64, False),       # the LM-head prompt, ragged against the tiles
+    (2, 4, 2, 100, 100, 32, 32, False),     # ragged, GQA
+    (1, 2, 2, 100, 37, 128, 128, False),    # Sq > Sk
+    (1, 2, 1, 48, 130, 256, 256, False),    # Sq < Sk, D = 256
+    (1, 2, 2, 64, 64, 192, 128, False),     # D != Dv (MLA's 192/128)
+    # the bf16 kernel's edges: 128-row q tiles, 128-key tiles (64 at D = 256)
+    (1, 2, 2, 127, 127, 64, 64, False),
+    (1, 2, 2, 128, 128, 64, 64, False),
+    (1, 2, 2, 129, 129, 64, 64, False),
+    (1, 2, 2, 127, 129, 64, 64, False),
+    (1, 2, 2, 129, 127, 64, 64, False),
+    (1, 2, 1, 129, 127, 256, 256, False),
+    (1, 2, 2, 512, 512, 256, 256, False),   # D = Dv = 256 over 8 key tiles of 64
+    (1, 16, 16, 4096, 4096, 64, 64, False),  # the 4096-token prefill
+    (1, 8, 1, 1024, 1024, 128, 128, False),  # 8-on-1 GQA
+    (1, 16, 4, 300, 300, 64, 64, True),     # (B, S, H, D) tensors read as strided views
+    (1, 2, 2, 100, 100, 36, 36, False),     # 72-byte rows: no TMA, the producer loads
 ])
-def test_flash_attention_matches_plain(dev, dtype, causal, b, h, hkv, sq, sk, d, dv):
+def test_flash_attention_matches_plain(dev, dtype, causal, b, h, hkv, sq, sk, d, dv,
+                                       model_layout):
     rng = np.random.default_rng(sq * 1000 + sk + d)
-    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
-               for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
+    shapes = ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv))
+    if model_layout:
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, (s[0], s[2], s[1], s[3])).astype(np.float32))
+                   .to(dev, dtype).transpose(1, 2) for s in shapes)
+    else:
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
+                   for s in shapes)
+    build.reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
+    # bf16 views whose rows are not a multiple of 16 bytes are the only ones
+    # TMA cannot read
+    path = "simt" if dtype == torch.float32 else "loads" if d % 8 or dv % 8 else "tma"
+    assert build.PATHS == {f"flash_attention.{path}": 1}
     rep = h // hkv
-    want = flash_attention_ref(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
-                               causal=causal)
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    want = flash_attention_ref(q, kr, vr, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, h, sq, dv)
+    assert got.stride(1) < got.stride(2) if model_layout else got.is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        # the same roundings in PyTorch: what is left is the order of the
+        # tensor cores' float32 sums and ex2.approx, then one bf16 rounding
+        emulated = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv))
+        torch.testing.assert_close(got.float(), emulated.float(), **EMULATION_TOL)
+
+
+def test_flash_attention_is_deterministic(dev):
+    """Two launches on one input give bitwise-equal outputs (no atomics, a
+    fixed order of tiles), at the 4096 prefill and under GQA."""
+    rng = np.random.default_rng(15)
+    for shape in ((1, 16, 16, 4096, 64), (1, 8, 1, 1024, 128)):
+        b, h, hkv, s, d = shape
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).to(dev, torch.bfloat16)
+                   for sh in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
 
 
 def test_attention_routes_to_the_kernel_on_the_card(dev):

@@ -3,7 +3,9 @@
 The JAX side runs the Pallas kernel in interpret mode, as
 ``tests/test_kernels.py`` runs it on the CPU; the port's side is its plain
 version (``kernels/flash_attention/ref.py``), which a CPU tensor always
-reaches.  Inputs are made from a seed with numpy.  Tolerances: float32
+reaches.  The roundings of the card's bf16 tensor-core kernel are emulated
+by ``kernels/flash_attention/emulation.py`` and held to the card's
+tolerance.  Inputs are made from a seed with numpy.  Tolerances: float32
 within 1e-5 (both compute in float32 and differ only in summation order);
 bf16 at the reference's own 3e-2 (one bf16 rounding of the output).
 """
@@ -17,10 +19,13 @@ from repro.kernels.flash_attention.flash_attention import flash_attention as ref
 from repro.models.lm.layers import attention_full as ref_attention_full
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.emulation import bf16_path
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+# the card tests' bf16 tolerance (ATTN_TOL in tests/test_torch_cuda.py, chip_smoke.py)
+CARD_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
 
 def _qkv(seed, q_shape, k_shape, v_shape):
@@ -77,3 +82,26 @@ def test_ops_attention_matches_reference_with_gqa(causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
     assert torch.equal(got, ops.attention(tq, tk, tv, causal=causal, use_kernel=False))
     assert not build.LAUNCHES
+
+
+@pytest.mark.parametrize("b,h,s,d,block_k,pallas_block", [
+    (1, 4, 1024, 64, 128, 256),   # the model's head dim: 128-key tiles
+    (1, 2, 300, 128, 128, 100),   # ragged against the 128-key tiles
+])
+def test_bf16_kernel_roundings_stay_within_the_card_tolerance(b, h, s, d, block_k, pallas_block):
+    """The bf16 tensor-core kernel's roundings (scale on the float32 scores,
+    exp2, online rescale, P rounded to bf16 per key tile), emulated by
+    ``kernels/flash_attention/emulation.py``, stay within the card tests' bf16
+    tolerance (rtol = atol = 1e-2) of the float32 plain version and of the
+    Pallas kernel in interpret mode, at causal bf16 shapes."""
+    q, k, v = _qkv(s + d, *(3 * [(b, h, s, d)]))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = bf16_path(tq, tk, tv, causal=True, block_k=block_k)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, s, d)
+    plain = flash_attention_ref(tq.float(), tk.float(), tv.float(), causal=True)
+    torch.testing.assert_close(got.float(), plain, **CARD_BF16_TOL)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = ref_flash(jq, jk, jv, causal=True, block_q=pallas_block, block_k=pallas_block,
+                     interpret=True)
+    torch.testing.assert_close(got.float(), torch.from_numpy(np.asarray(want, np.float32)),
+                               **CARD_BF16_TOL)
