@@ -12,6 +12,14 @@ Phases (any failure exits non-zero before the result line is printed):
    in parallel), with their build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and time both with CUDA events;
+   ``prefix_power_sums`` at (9, 32768) and the LM head's (3, 65536) also
+   launched twice (bitwise equal), against its emulation in PyTorch
+   (bitwise) and through its rows path (the earlier design, timed as
+   ``earlier_ms``); ``ensemble_sum`` on the turbofan forest (40 × 511) and a
+   60 × 63 boosted model, bitwise equal to the plain version on both of its
+   paths, its global path (the earlier design) timed as ``earlier_ms``; both
+   must take their redesigned path (``build.PATHS``) there and on every
+   served run below;
 3. build the full-width ``turbofan`` bundle (20000 rows per group, 400
    train groups, 24 serve groups; random forest of 40 trees, depth 8) and
    serve 8 requests with ``BiathlonConfig()`` under ``afc_backend="auto"``
@@ -31,11 +39,12 @@ Phases (any failure exits non-zero before the result line is printed):
 6. ``flash_attention`` against its plain version: the LM-head prompt
    (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
    in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
-   scalar kernel); Sq ≠ Sk; GQA through ``ops.attention``; the three bf16
+   scalar kernel); Sq ≠ Sk; 4096 × 16 = 65536 batch·heads on three
+   inputs; GQA through ``ops.attention``; every bf16 output also within one
+   bf16 ulp of its emulated roundings plus its tie slack; the three bf16
    shapes timed beside ``F.scaled_dot_product_attention`` (a yardstick the
-   port never calls), with the ratio to it, the share of the bound, the
-   time before the redesign and each bf16 instance's registers and spills
-   from the build log;
+   port never calls), with the ratio to it, the share of the bound and
+   each bf16 instance's registers and spills from the build log;
 7. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
    full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
    from a seed): 6 requests through the kernels, exactly 24
@@ -79,7 +88,8 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol
 STATE_REL_TOL = 3e-2
 # the bf16 flash_attention kernel against its roundings emulated in PyTorch
 # (kernels/flash_attention/emulation.py): both outputs are bf16, so one ulp
-# (2^-7 relative) of the rounding apart at most
+# (2^-7 relative) of the rounding apart at most, plus each output's slack
+# from p's that the kernel may round to the other side of a bf16 tie
 EMULATION_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
 
 
@@ -184,12 +194,92 @@ def moments_record(bundle, dev, alpha: float) -> dict:
     )
 
 
+def prefix_work(k: int, cap: int) -> tuple[float, str]:
+    """Bound of one (k, cap) table: values read once, the shift read, (k, cap,
+    4) written; 8 operations a value (four powers, four compensated sums)."""
+    return bound(k * cap * 4 + k * 4 + k * cap * 16, k * cap * 8)
+
+
+def prefix_record(vals, shift, *, full: bool = True) -> dict:
+    """``prefix_power_sums`` on one (k, cap) input, held to its plain version,
+    timed beside the rows path (the earlier design, ``earlier_ms``).  ``full``
+    also holds two launches bitwise equal, the chunked kernel bitwise equal
+    to its emulation, and the rows path to the plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.emulation import chunked_prefix_power_sums
+    from repro_torch.kernels.sampled_agg.prefix_stats import chunk_threads, prefix_power_sums
+
+    k, cap = vals.shape
+    threads = chunk_threads(k, cap)
+    build.reset_launch_counts()
+    got = ops.prefix_power_sums(vals, shift)
+    require(build.PATHS == {"prefix_power_sums.chunks": 1},
+            f"prefix_power_sums ({k}, {cap}) took {dict(build.PATHS)}, expected chunks")
+    want = ops.prefix_power_sums(vals, shift, use_kernel=False)
+    torch.testing.assert_close(got, want, **TABLE_TOL)
+    if full:
+        require(torch.equal(got, ops.prefix_power_sums(vals, shift)),
+                f"prefix_power_sums ({k}, {cap}): two launches differ")
+        require(torch.equal(got, chunked_prefix_power_sums(vals, shift, threads=threads)),
+                f"prefix_power_sums ({k}, {cap}) differs from its emulation")
+        torch.testing.assert_close(prefix_power_sums(vals, shift, threads=0), want, **TABLE_TOL)
+    b = prefix_work(k, cap)
+    return dict(
+        shape=[k, cap], chunk=4 * threads, blocks=k * -(-cap // (4 * threads)),
+        max_abs_err=float((got - want).abs().max()),
+        **timings(lambda: ops.prefix_power_sums(vals, shift),
+                  lambda: ops.prefix_power_sums(vals, shift, use_kernel=False)),
+        earlier_ms=time_ms(lambda: prefix_power_sums(vals, shift, threads=0))[0],
+        bound_ms=b[0], bound_by=b[1],
+    )
+
+
+def request_tables_record(bundle, dev) -> dict:
+    """``prefix_power_sums`` on request 0's buffers at its cap bucket, with
+    the shift the executor takes: the shape the incremental path gives it."""
+    from repro_torch.data.store import bucket_size
+
+    p, req = bundle.pipeline, bundle.requests[0]
+    cap = bucket_size(int(max(p.group_sizes(bundle.store, req).max(), 1)))
+    vals, _ = bundle.store.request_buffers(p.agg_specs(req), cap, dev)
+    return prefix_record(vals, vals[:, 0].contiguous(), full=False)
+
+
+def tree_tables(ens) -> tuple:
+    return ens.feature, ens.threshold, ens.left, ens.right, ens.value
+
+
+def tree_record(ens, m: int, dev, rng) -> dict:
+    """``ensemble_sum`` on m rows: the smem path timed beside the global path
+    (the earlier design, ``earlier_ms``) and the plain version; bounded by the
+    bytes it must move (x and the five tables read, the sums written) and by
+    m·T·(2·depth + 1) operations, beside its m·T·depth node visits."""
+    from repro_torch.kernels.tree_qmc.ops import predict_sum
+    from repro_torch.kernels.tree_qmc.tree_qmc import Plan, ensemble_sum, plan
+
+    (T, M), F = ens.feature.shape, 9
+    x = torch.from_numpy(rng.normal(0, 1, (m, F)).astype(np.float32)).to(dev)
+    p = plan(T, M, F, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    require(p.path == "smem", f"ensemble_sum {T}x{M} at m={m} is not planned on the smem path")
+    b = bound(m * F * 4 + 5 * T * M * 4 + m * 4, m * T * (2 * ens.depth + 1))
+    return dict(
+        shape=[m, F, T, M], depth=ens.depth, node_visits=m * T * ens.depth,
+        plan=dict(p._asdict(), blocks=p.cluster * p.clusters),
+        **timings(lambda: predict_sum(ens, x), lambda: predict_sum(ens, x, use_kernel=False)),
+        earlier_ms=time_ms(lambda: ensemble_sum(*tree_tables(ens), x, depth=ens.depth,
+                                                launch=Plan(0, 0, 0, 0)))[0],
+        bound_ms=b[0], bound_by=b[1],
+    )
+
+
 def check_kernels(dev, bundle, alpha: float) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
     from repro_torch.kernels import build
     from repro_torch.kernels.sampled_agg import ops
     from repro_torch.kernels.sobol.ops import points
     from repro_torch.kernels.tree_qmc.ops import predict_sum
+    from repro_torch.kernels.tree_qmc.tree_qmc import Plan, ensemble_sum
     from repro_torch.models.tabular.trees import GradientBoosting
 
     rf_ensemble = bundle.pipeline.model.ensemble
@@ -219,7 +309,10 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     v = heavy_tailed()
     t = torch.from_numpy(v[None]).to(dev)
     want64 = np.stack([(v.astype(np.float64) ** p).cumsum() for p in range(1, 5)], axis=-1)
+    build.reset_launch_counts()
     tab = ops.prefix_power_sums(t)[0].cpu().numpy()
+    require(build.PATHS == {"prefix_power_sums.chunks": 1},
+            f"prefix_power_sums at 60k rows took {dict(build.PATHS)}, expected chunks")
     require((np.abs(tab - want64) / np.abs(want64)).max() < 1e-6,
             "prefix_power_sums: 60k heavy-tailed row not within 1e-6 of float64")
     mom = ops.moments(t, torch.tensor([v.size], device=dev))[0].cpu().numpy()
@@ -231,17 +324,12 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     k, cap = 9, 32768
     vals = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
     shift = vals[:, 0].contiguous()
-    got = ops.prefix_power_sums(vals, shift)
-    want = ops.prefix_power_sums(vals, shift, use_kernel=False)
-    torch.testing.assert_close(got, want, **TABLE_TOL)
-    b = bound(k * cap * 4 + k * 4 + k * cap * 16, k * cap * 8)
-    rec["prefix_power_sums"] = dict(
-        shape=[k, cap], max_abs_err=float((got - want).abs().max()),
-        phases=["f64_60k", "plain_9x32768"],
-        **timings(lambda: ops.prefix_power_sums(vals, shift),
-                  lambda: ops.prefix_power_sums(vals, shift, use_kernel=False)),
-        bound_ms=b[0], bound_by=b[1],
-    )
+    rec["prefix_power_sums"] = dict(prefix_record(vals, shift), phases=[
+        "f64_60k", "plain_9x32768", "bitwise_stable", "emulation_bitwise", "rows_path_plain",
+        "plain_3x65536_lm_head", "plain_sensor_health_request_0"])
+    # the LM head's (3, 65536) tables
+    lm = torch.from_numpy(rng.normal(1.0, 3.0, (3, 65536)).astype(np.float32)).to(dev)
+    rec["prefix_power_sums"]["lm_head"] = prefix_record(lm, lm[:, 0].contiguous())
     z = torch.from_numpy(rng.integers(0, cap + 1, k).astype(np.int32)).to(dev)
     z[0] = 0
     got = ops.moments(vals, z, shift)
@@ -262,25 +350,28 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     require(tuple(gbm.ensemble.feature.shape) == (60, 63), "GBM shape is not 60 x 63")
     require(tuple(rf_ensemble.feature.shape) == (40, 511) and rf_ensemble.depth == 8,
             "turbofan forest is not 40 x 511, depth 8")
+    # every served megabatch (z⁰, the Saltelli block, an iteration:
+    # turbofan 1001 / 2816 / 3817, sensor_health 1001 / 1792 / 2793) and more
     err = 0.0
     for ens in (rf_ensemble, gbm.ensemble):
-        for m in (3817, 1001, 2816):
+        for m in (3817, 2816, 2793, 1792, 1001, 881, 1):
             x = torch.from_numpy(rng.normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
+            build.reset_launch_counts()
             a, a2 = predict_sum(ens, x), predict_sum(ens, x)
+            g = ensemble_sum(*tree_tables(ens), x, depth=ens.depth, launch=Plan(0, 0, 0, 0))
             want = predict_sum(ens, x, use_kernel=False)
+            require(build.PATHS == {"ensemble_sum.smem": 2, "ensemble_sum.global": 1},
+                    f"ensemble_sum at m={m}: took {dict(build.PATHS)}, expected the smem path")
             require(torch.equal(a, a2), f"ensemble_sum not bitwise stable at m={m}")
-            require(bool(((a - want).abs() <= 1e-5 * (1 + want.abs())).all()),
-                    f"ensemble_sum differs from plain at m={m}")
-            err = max(err, float((a - want).abs().max()))
-    m, (T, M), F = 3817, rf_ensemble.feature.shape, 9
-    x = torch.from_numpy(rng.normal(0, 1, (m, F)).astype(np.float32)).to(dev)
-    b = bound(m * F * 4 + 5 * T * M * 4 + m * 4, m * T * (2 * rf_ensemble.depth + 1))
+            require(torch.equal(a, want), f"ensemble_sum differs from plain at m={m}")
+            require(torch.equal(g, want), f"ensemble_sum global path differs from plain at m={m}")
+            err = max(err, float((a - want).abs().max()), float((g - want).abs().max()))
     rec["ensemble_sum"] = dict(
-        shape=[m, F, T, M], max_abs_err=err,
-        phases=["rf_40x511", "gbm_60x63", "m_3817_1001_2816", "bitwise_stable"],
-        **timings(lambda: predict_sum(rf_ensemble, x),
-                  lambda: predict_sum(rf_ensemble, x, use_kernel=False)),
-        bound_ms=b[0], bound_by=b[1],
+        tree_record(rf_ensemble, 3817, dev, rng),
+        gbm=tree_record(gbm.ensemble, 2793, dev, rng),
+        max_abs_err=err,
+        phases=["rf_40x511", "gbm_60x63", "m_3817_2816_2793_1792_1001_881_1", "bitwise_stable",
+                "bitwise_plain", "global_path_bitwise_plain"],
     )
     build.reset_launch_counts()
     return rec
@@ -355,7 +446,8 @@ def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
     Returns (outputs, p50 latency seconds, launch counts of the whole run,
     launch counts of the server's construction alone).  The counts are
     reset once, before the server is built; the construction's are read
-    when it returns, the whole run's after the last request.
+    when it returns, the whole run's after the last request.  The run's
+    counts hold each kernel path's launches too (``build.PATHS``).
     """
     from repro_torch.kernels import build
     from repro_torch.serving import BiathlonServer
@@ -369,7 +461,7 @@ def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
     srv.serve(reqs[0])  # warm-up
     outs = [srv.serve(r) for r in reqs]
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
+    launches = dict(build.LAUNCHES) | dict(build.PATHS)
     return outs, statistics.median(o["latency"] for o in outs), launches, at_build
 
 
@@ -438,11 +530,18 @@ def compare_runs(name, base, other, cfg):
         require(done, f"{name}: request {i} stopped with prob {o['prob']} < tau, plan left")
 
 
+# the path every launch of a redesigned kernel must take on the served shapes
+SERVED_PATHS = {"ensemble_sum": "smem", "prefix_power_sums": "chunks"}
+
+
 def expect_launched(name, launches, kernels, absent=()):
     for kname in kernels:
         require(launches.get(kname, 0) > 0, f"{name}: kernel {kname} never launched")
     for kname in absent:
         require(launches.get(kname, 0) == 0, f"{name}: kernel {kname} launched off its path")
+    for kname, path in SERVED_PATHS.items():
+        require(launches.get(f"{kname}.{path}", 0) == launches.get(kname, 0),
+                f"{name}: {kname} took {launches}, expected the {path} path on every launch")
 
 
 # ---------------------------------------------------------------- phase 6-8
@@ -463,9 +562,10 @@ def attention_check(dev, name, shape, dtype, causal, seed):
     """The kernel against its plain version on seeded inputs; returns
     (inputs, max |err|), failing beyond ``ATTN_TOL``.  A bf16 call must have
     taken the TMA path and be within ``EMULATION_TOL`` of its emulated
-    roundings too."""
+    roundings plus, for each output, the slack of the p's that the kernel
+    may round to the other side of a bf16 tie (``emulation.bf16_path``)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention.emulation import bf16_path, key_tile
+    from repro_torch.kernels.flash_attention.emulation import beyond, bf16_path, key_tile
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -486,13 +586,17 @@ def attention_check(dev, name, shape, dtype, causal, seed):
             f"flash_attention {name}: max |err| {err} beyond {ATTN_TOL[dtype]}")
     line = f"flash_attention {name} ({path}): max |err| {err:.3g} (tolerance {ATTN_TOL[dtype]})"
     if dtype == torch.bfloat16:
-        emulated = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv)).float()
-        em_err = float((got.float() - emulated).abs().max())
-        require(torch.allclose(got.float(), emulated, **EMULATION_TOL),
-                f"flash_attention {name}: max |err| {em_err} from the emulated roundings, "
-                f"beyond {EMULATION_TOL}")
-        line += f"; from the emulated roundings {em_err:.3g} (tolerance {EMULATION_TOL})"
-        del emulated
+        emulated, slack = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv), slack=True)
+        em_err = float((got.float() - emulated.float()).abs().max())
+        n_beyond = int(beyond(got, emulated, slack, **EMULATION_TOL).sum())
+        past_ulp = int(beyond(got, emulated, torch.zeros_like(slack), **EMULATION_TOL).sum())
+        require(n_beyond == 0,
+                f"flash_attention {name}: {n_beyond} outputs beyond {EMULATION_TOL} plus their "
+                f"tie slack from the emulated roundings (max |err| {em_err})")
+        line += (f"; from the emulated roundings {em_err:.3g} ({past_ulp} of {got.numel()} "
+                 f"past {EMULATION_TOL}, none past it plus their tie slack, at most "
+                 f"{float(slack.max()):.3g}; {int((slack > 0).sum())} outputs with slack)")
+        del emulated, slack
     print(line, flush=True)
     return (q, k, v), err
 
@@ -560,6 +664,10 @@ def flash_record(dev) -> dict:
         ("f32_1x16x512x64_noncausal", (1, 16, 16, 512, 512, 64, 64), f32, False),
         ("sq100_sk260_bf16_causal", (1, 16, 16, 100, 260, 64, 64), bf16, True),
         ("prefill_1x16x4096x128_bf16_causal", (1, 16, 16, 4096, 4096, 128, 128), bf16, True),
+    ] + [
+        # 65536 batch·heads (past a grid's y axis) on three inputs
+        (f"batch_heads_65536_4096x16x16x64_bf16_causal_seed{seed}",
+         (4096, 16, 16, 16, 16, 64, 64), bf16, True) for seed in (5, 6, 7)
     ]):
         inputs[name], errors[name] = attention_check(dev, name, shape, dtype, causal, seed=i)
     # GQA through the model-layout entry point: 16 query heads on 4 KV heads
@@ -613,14 +721,17 @@ def lm_head_phase(dev, card: str) -> dict:
         outs = ex.serve(sc, executor, requests, use_kernel=use_kernel)
         torch.cuda.synchronize()
         paths = {n: c - paths_at_build.get(n, 0) for n, c in build.PATHS.items()}
-        runs[use_kernel] = (outs, dict(build.LAUNCHES), at_build, executor, paths)
+        runs[use_kernel] = (outs, dict(build.LAUNCHES) | dict(build.PATHS), at_build, executor,
+                            paths)
     outs, launches, at_build, _, paths = runs[True]
     served = {n: launches.get(n, 0) - at_build.get(n, 0) for n in launches}
     require(served.get("flash_attention", 0) == cfg.n_layers * N_LM_REQ,
             f"lm_head: {served.get('flash_attention', 0)} flash_attention launches for "
             f"{N_LM_REQ} requests, expected {cfg.n_layers} per request")
-    require(paths == {"flash_attention.tma": cfg.n_layers * N_LM_REQ},
-            f"lm_head: flash_attention took {paths}, expected the TMA path on every launch")
+    require(paths == {"flash_attention.tma": cfg.n_layers * N_LM_REQ,
+                      "prefix_power_sums.chunks": N_LM_REQ},
+            f"lm_head: took {paths}, expected the TMA path on every flash_attention launch "
+            "and the chunked prefix_power_sums")
     require(served.get("prefix_power_sums", 0) == N_LM_REQ,
             f"lm_head: prefix_power_sums launched {served.get('prefix_power_sums', 0)} times "
             f"for {N_LM_REQ} requests, expected once per request")
@@ -661,7 +772,9 @@ def lm_head_phase(dev, card: str) -> dict:
                             frac=[o["frac"] for o in group],
                             y_hat=[o["y_hat"] for o in group], prob=[o["prob"] for o in group])
     result.update(params=n_params, param_bytes=n_bytes, launches=launches,
-                  launches_at_build=at_build, flash_attention_paths=paths,
+                  launches_at_build=at_build,
+                  flash_attention_paths={n: c for n, c in paths.items()
+                                         if n.startswith("flash_attention.")},
                   state_max_rel_err=state_err)
     prof = profile_served(lambda: ex.serve(sc, runs[True][3], requests[:1])[0],
                           ROOT / "build" / "chip_smoke_profile_lm_head.txt")
@@ -808,6 +921,7 @@ def main() -> int:
     print(f"sensor_health bundle: {health.table_rows} rows, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rec["masked_select_ranks"] = select_record(health, dev, cfg)
+    rec["prefix_power_sums"]["sensor_health"] = request_tables_record(health, dev)
     rec["masked_select_ranks"]["full_prefix"] = select_full_prefix(dev, 32768)
     hs = {name: serve_run(health, cfg, dev, n_req=N_SERVE, **kw) for name, kw in runs.items()}
     h_tight = BiathlonConfig(delta=health.pipeline.delta_default * 0.3)
@@ -903,9 +1017,16 @@ def main() -> int:
             plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             shape=r["shape"], phases=r["phases"],
-            **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "full_prefix")
+            **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "full_prefix",
+                                       "earlier_ms", "depth", "node_visits", "plan", "chunk",
+                                       "blocks", "gbm", "lm_head", "sensor_health")
                if key in r},
         ))
+        if kname in SERVED_PATHS:
+            kernels[-1]["paths"] = {
+                n: runs_k["auto"][2].get(n, 0) + runs_k["ref"][2].get(n, 0)
+                for n in set(runs_k["auto"][2]) | set(runs_k["ref"][2])
+                if n.startswith(kname + ".")}
     fa = rec["flash_attention"]
     kernels.append(dict(
         name="flash_attention", route="cuda",

@@ -12,7 +12,7 @@
 // Any Sq and Sk; D, Dv <= 256.  One entry point, two kernels picked by type:
 //
 // bf16 (the model's type): `sm90::flash_attention_kernel`, on the tensor
-// cores.  One block of three warpgroups per (q tile of 128 rows, b·h), the
+// cores.  One block of three warpgroups per (b·h, q tile of 128 rows), the
 // longest causal tiles launched first.  Warpgroup 0 is the producer: it
 // gives its registers away (setmaxnreg 40) and one thread loads the q tile
 // once and then the K/V tiles of Bc keys into a ring of shared-memory
@@ -57,7 +57,7 @@
 // order differs.
 //
 // float32: `simt::flash_attention_kernel`, scalar FMAs.  One block of 8
-// warps per (q tile of 32 rows, b·h); 64-key tiles staged in float32 in
+// warps per (b·h, q tile of 32 rows); 64-key tiles staged in float32 in
 // shared memory; each warp owns 4 query rows, a lane 2 keys' scores and
 // Dv/32 output columns; scores from q·D^-½ as the reference takes them.
 // The port turns TF32 off, and this kernel keeps float32 within summation
@@ -79,6 +79,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "device_guard.cuh"
 
 namespace {
@@ -86,6 +87,10 @@ namespace {
 constexpr int kMaxDim = 256;
 constexpr int kMaxDevices = 64;
 constexpr int kMaxSmemBytes = 232448;  // what one block of an H100 may use
+// The grid is (b·h, query tiles): b·h on x, which takes up to 2^31 − 1
+// blocks as the reference's first grid axis does; the tiles on y, capped at
+// 65535 (8388480 query rows for the bf16 kernel's 128-row tiles).
+constexpr unsigned kMaxGridY = 65535;
 // The path a launch took, returned through the entry point's `path`.
 constexpr int kPathSimt = 0;   // float32: the scalar kernel
 constexpr int kPathTma = 1;    // bf16: K/V and Q loaded by TMA
@@ -167,8 +172,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* v_s = k_s + kBlockK * ldk;           // (kBlockK, kDvPad)
   float* p_s = v_s + kBlockK * kDvPad;        // (kWarps, kRowsPerWarp, kBlockK)
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
-  const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads, hk = h / group;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads, hk = h / group;
   const int q0 = qt * kBlockQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = warp * kRowsPerWarp;
@@ -285,7 +290,8 @@ cudaError_t launch(const Problem& a) {
   if (bytes > static_cast<size_t>(kMaxSmemBytes)) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(flash_attention_kernel<float, DVL>, configured, a.device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.batch * a.n_heads);
+  const dim3 grid(a.batch * a.n_heads, (a.sq + kBlockQ - 1) / kBlockQ);
+  if (grid.y > kMaxGridY) return cudaErrorInvalidValue;
   flash_attention_kernel<float, DVL><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks, a.vs, a.os,
@@ -346,38 +352,6 @@ struct Params {
   int o_pairs;   // the output takes aligned bf16x2 stores
   float scale_log2;  // D^-½ · log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
 
 // One box of a (columns, rows, heads, batch) tensor map into shared memory,
 // completing on `bar`; rows and columns outside the tensor arrive as zeros.
@@ -603,8 +577,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* full = q_full + 1;        // [kStages]: the stage has arrived
   uint64_t* empty = full + kStages;   // [kStages]: every consumer warp is done with it
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest causal tiles first
-  const int b = blockIdx.y / p.n_heads, h = blockIdx.y % p.n_heads, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal tiles first
+  const int b = blockIdx.x / p.n_heads, h = blockIdx.x % p.n_heads, hk = h / p.group;
   const int qk_panels = (p.d + kPanel - 1) / kPanel, v_panels = (p.dv + kPanel - 1) / kPanel;
   int n_kt = (p.sk + kBc - 1) / kBc;
   if (p.causal) n_kt = min(n_kt, (min(q0 + kBlockQ, p.sq) - 1) / kBc + 1);
@@ -930,7 +904,8 @@ cudaError_t launch(const Problem& a, int* path) {
   p.o_pairs = a.dv % 2 == 0 && a.os.s % 2 == 0 && a.os.h % 2 == 0 && a.os.b % 2 == 0 &&
               reinterpret_cast<uintptr_t>(a.o) % 4 == 0;
   p.scale_log2 = a.scale * 1.4426950408889634f;
-  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.batch * a.n_heads);
+  const dim3 grid(a.batch * a.n_heads, (a.sq + kBlockQ - 1) / kBlockQ);
+  if (grid.y > kMaxGridY) return cudaErrorInvalidValue;
   flash_attention_kernel<DP><<<grid, kThreads, L::kSmemBytes, a.stream>>>(tq, tk, tv, p);
   *path = tma ? kPathTma : kPathLoads;
   return cudaGetLastError();
@@ -958,7 +933,8 @@ extern "C" int flash_attention_launch(
     long long o_sh, long long o_ss, int batch, int n_heads, int n_kv_heads, int sq, int sk,
     int d, int dv, int causal, float scale, int dtype, int device, void* stream, int* path) {
   if (batch < 1 || sq < 1 || sk < 1 || d < 1 || dv < 1 || d > kMaxDim || dv > kMaxDim ||
-      n_kv_heads < 1 || n_heads % n_kv_heads != 0 || batch * n_heads > 65535) {
+      n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
+      static_cast<long long>(batch) * n_heads > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);

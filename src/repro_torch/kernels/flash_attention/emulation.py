@@ -12,10 +12,20 @@ applied to q) in three places, which this helper reproduces:
   the float32 ``p``).
 
 What it does not reproduce is the order of the float32 sums inside the
-tensor cores and the 2-ulp error of ``ex2.approx``.  KV heads must be
-expanded (``repeat_interleave``) by the caller.  The card tests and
-``chip_smoke.py`` hold the kernel to it within one bf16 ulp; the CPU tests
-hold it to the plain version and the Pallas kernel.
+tensor cores and the error of ``ex2.approx``.  Both move a float32 ``p`` by
+a few parts in 2^23 at most, which changes nothing once ``p`` is rounded to
+bf16, unless ``p`` lies that close to a bf16 rounding tie: then the kernel
+and the emulation may round it to neighbouring bf16 values, and the output
+moves by up to that bf16 ulp of ``p`` times ``|v| / l``.  With
+``slack=True`` :func:`bf16_path` also returns, for each output, the sum of
+those moves over the keys whose ``p`` lies within the kernel's rounding
+window of a tie (zero where none does); :func:`beyond` marks the outputs
+that are further from the emulation than one bf16 ulp plus that slack.
+The rest of the difference moves the float32 output by far less than a
+bf16 ulp of it, which the one ulp of the final rounding covers.
+KV heads must be expanded (``repeat_interleave``) by the caller.  The card
+tests and ``chip_smoke.py`` hold the kernel to it so; the CPU tests hold it
+to the plain version and the Pallas kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ import math
 
 import torch
 
-__all__ = ["bf16_path", "key_tile"]
+__all__ = ["beyond", "bf16_path", "key_tile"]
 
 f32 = torch.float32
 
@@ -33,10 +43,27 @@ def key_tile(d: int, dv: int) -> int:
     return 128 if max(d, dv) <= 128 else 64
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(f32)
+
+
 def bf16_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-              block_k: int) -> torch.Tensor:
+              block_k: int, slack: bool = False):
     """(B, H, Sq, Dv) in q's type, from (B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, Dv),
-    the softmax online over tiles of ``block_k`` keys (the kernel's: :func:`key_tile`)."""
+    the softmax online over tiles of ``block_k`` keys (the kernel's: :func:`key_tile`).
+
+    With ``slack``, returns ``(out, slack)``: slack (B, H, Sq, Dv) float32 is
+    how far the kernel's float32 output may lie from the emulation's before
+    either is rounded to bf16, through p's rounded to the other side of a
+    bf16 tie.  A score's float32 sum of D products is
+    within ``D·2^-23·Σ|q_d·k_d|`` of exact in either
+    order (the tensor cores may truncate), counted twice (kernel and
+    emulation); the exponent ``s·c − m`` adds the largest such bound of the
+    row (the max's) and two roundings of its size, and each
+    ``exp2`` (``ex2.approx`` and the emulation's) at most 2 ulps.  A ``p``
+    whose window ``p·(1 ± w)`` holds a bf16 rounding tie contributes the
+    width of its bf16 rounding range times ``|v|``.
+    """
     sq, d = q.shape[-2], q.shape[-1]
     sk = k.shape[-2]
     c = torch.tensor(d ** -0.5, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
@@ -49,6 +76,15 @@ def bf16_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     m = torch.full(shape, -torch.inf, dtype=f32, device=q.device)
     l = torch.zeros(shape, dtype=f32, device=q.device)
     o = torch.zeros((*shape, v.shape[-1]), dtype=f32, device=q.device)
+    if slack:
+        # bound of |kernel's − emulation's| scaled score: D·2^-23·Σ|q·k|
+        # each (the kernel's sums may truncate), and the row max's
+        gamma = 2.0 * d * 2.0 ** -23 * float(c)
+        qa, ka = q.to(f32).abs(), k.to(f32).abs()
+        s_err_max = torch.stack([
+            (qa @ ka[..., k0:k0 + block_k, :].transpose(-1, -2)).amax(dim=-1)
+            for k0 in range(0, sk, block_k)]).amax(dim=0) * gamma
+        flips = torch.zeros_like(o)                       # Σ width of p's bf16 range · |v|
     for k0 in range(0, sk, block_k):
         st = s[..., k0:k0 + block_k]
         m_new = torch.maximum(m, st.amax(dim=-1) * c)
@@ -56,7 +92,25 @@ def bf16_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         corr = torch.exp2(m + neg_m)
         p = torch.exp2(torch.addcmul(neg_m[..., None], st, c))
         l = l * corr + p.sum(dim=-1)
-        pv = p.to(torch.bfloat16).to(f32) @ v[..., k0:k0 + block_k, :].to(f32)
+        vt = v[..., k0:k0 + block_k, :].to(f32)
+        pv = _bf16(p) @ vt
         o = o * corr[..., None] + pv
+        if slack:
+            s_err = gamma * (qa @ ka[..., k0:k0 + block_k, :].transpose(-1, -2))
+            dx = (s_err + s_err_max[..., None]
+                  + 2.0 ** -22 * ((st * c).abs() + m_new.abs()[..., None]))
+            w = torch.where(p > 0, math.log(2.0) * 1.01 * dx + 2.0 ** -21, 0.0)
+            width = _bf16(p * (1 + w)) - _bf16(torch.clamp(p * (1 - w), min=0.0))
+            flips = flips * corr[..., None] + width @ vt.abs()
         m = m_new
-    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)[..., None]
+    out = (o / l).to(q.dtype)
+    return (out, flips / l) if slack else out
+
+
+def beyond(got: torch.Tensor, emulated: torch.Tensor, slack: torch.Tensor, *, rtol: float,
+           atol: float) -> torch.Tensor:
+    """The outputs further from the emulation than ``atol + rtol·|emulated|``
+    (one bf16 ulp of the final rounding) plus their ``slack``."""
+    g, e = got.to(f32), emulated.to(f32)
+    return (g - e).abs() > atol + rtol * e.abs() + slack

@@ -84,8 +84,6 @@ def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: {hkv} KV heads do not divide {h} query heads")
     if max(d, dv) > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: batch·heads = {b * h} exceeds 65535")
     # the output takes q's memory order: (B, S, H, Dv) for a transposed model-layout q
     if q.stride(1) < q.stride(2):
         out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device).transpose(1, 2)

@@ -3,7 +3,10 @@
 Port of the parametric half of ``repro/kernels/sampled_agg/prefix_stats.py``.
 :func:`prefix_power_sums` wraps the CUDA kernel (``csrc/prefix_stats.cu``)
 that builds the inclusive running power sums
-``P_p[j, c] = Σ_{i ≤ c} (v_{j,i} − shift_j)^p`` for p = 1..4;
+``P_p[j, c] = Σ_{i ≤ c} (v_{j,i} − shift_j)^p`` for p = 1..4: each row cut
+into chunks of 1024 or 2048 columns, a block each, whose totals are folded
+in index order (:func:`chunk_threads` picks the launch; the emulation of
+that decomposition is ``emulation.chunked_prefix_power_sums``);
 :func:`prefix_power_sums_ref` is its plain version (a compensated scan).
 The AFC (value, σ) at any plan z is then one gather of the table row at
 ``z − 1`` (:func:`prefix_moments_at`) fed through
@@ -35,6 +38,7 @@ __all__ = [
     "HolisticRankIndex",
     "N_POWERS",
     "build_rank_index",
+    "chunk_threads",
     "prefix_moments_at",
     "prefix_power_sums",
     "prefix_power_sums_ref",
@@ -63,18 +67,90 @@ def prefix_power_sums_ref(
     return comp_cumsum(_powers(v), dim=1)
 
 
-@functools.cache
-def _fn():
-    fn = build.library("prefix_stats").prefix_power_sums_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+CHUNK_COLS = 4       # columns a thread of the chunked kernel
+_HEADER_WORDS = 8    # a launch state's ticket/epoch word, padded; then a flag
+                     # and 8 totals for each chunk slot
+_states: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
+def bind(lib: ctypes.CDLL):
+    """The typed entry point ``prefix_power_sums_launch`` of a loaded library."""
+    fn = lib.prefix_power_sums_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _fn():
+    return bind(build.library("prefix_stats"))
+
+
+@functools.cache
+def _capture_id_fn():
+    fn = build.library("prefix_stats").prefix_power_sums_capture_id
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _capture_id(stream: int) -> int:
+    """The id (plus one) of the graph capture under way on ``stream``, else 0."""
+    out = ctypes.c_ulonglong(0)
+    build.check(_capture_id_fn()(stream, ctypes.byref(out)), NAME)
+    return out.value
+
+
+def chunk_threads(k: int, cap: int) -> int:
+    """The chunked kernel's threads a block for (k, cap): 256 (chunks of
+    1024 columns) while a row has at most 32 of them, so that a chunk folds
+    its predecessors' totals in one warp scan, else 512 (chunks of 2048;
+    timed at the served shapes, PERF.md §6)."""
+    return 256 if -(-cap // (256 * CHUNK_COLS)) <= 32 else 512
+
+
+def _state(vals: torch.Tensor, device: int, stream: int, slots: int) -> torch.Tensor:
+    """A launch state of the chunked kernel with at least ``slots`` chunk slots.
+
+    Each launch leaves its state ready for the next (see
+    ``csrc/prefix_stats.cu``), so a state is zeroed only when it is made;
+    two launches that share one must never overlap.  Eager launches take
+    the state of their (card, stream), as a stream runs them in turn.  A
+    launch being captured into a CUDA graph takes the state of that capture
+    (and stream), made at the capture's first launch there, its zeroing
+    captured with it: the graph keeps it for its replays, which CUDA runs in
+    turn on whatever stream they are replayed, and no eager launch or other
+    graph ever uses it.  A state too small for the launch is replaced by a
+    larger one.
+    """
+    key = (device, stream, _capture_id(stream) if torch.cuda.is_current_stream_capturing() else 0)
+    st = _states.get(key)
+    if st is None or st.numel() < _HEADER_WORDS + 9 * slots:
+        st = torch.zeros((_HEADER_WORDS + 9 * slots,), dtype=torch.int32, device=vals.device)
+        _states[key] = st
+    return st
+
+
 def prefix_power_sums(
-    vals: torch.Tensor, shift: torch.Tensor | None = None
+    vals: torch.Tensor, shift: torch.Tensor | None = None, *, threads: int | None = None
 ) -> torch.Tensor:
-    """The CUDA kernel: (k, cap) f32 on the card -> (k, cap, 4) f32 tables."""
+    """The CUDA kernel: (k, cap) f32 on the card -> (k, cap, 4) f32 tables.
+
+    ``threads`` overrides :func:`chunk_threads`; 0 takes the rows kernel
+    (the earlier design), which the card tests and ``chip_smoke.py`` hold and
+    time beside the chunked one.
+    Each launch's path is counted in ``build.PATHS`` as
+    ``prefix_power_sums.chunks`` or ``prefix_power_sums.rows``.
+    """
+    return launch_with(_fn, vals, shift, threads=threads)
+
+
+def launch_with(entry, vals: torch.Tensor, shift: torch.Tensor | None = None, *,
+                threads: int | None = None) -> torch.Tensor:
+    """:func:`prefix_power_sums` through the entry point that ``entry()``
+    gives (see :func:`bind`), asked for once the inputs have passed their
+    checks."""
     build.check_tensor(vals, "prefix_power_sums vals", torch.float32, 2)
     k, cap = vals.shape
     if shift is None:
@@ -87,9 +163,16 @@ def prefix_power_sums(
     if k == 0 or cap == 0:
         return out
     device, stream = build.stream_of(vals)
-    err = _fn()(vals.data_ptr(), shift.data_ptr(), out.data_ptr(), k, cap, device, stream)
+    if threads is None:
+        threads = chunk_threads(k, cap)
+    slots = k * -(-cap // (threads * CHUNK_COLS)) if threads else 0
+    state = _state(vals, device, stream, slots) if threads else None
+    err = entry()(vals.data_ptr(), shift.data_ptr(), out.data_ptr(), k, cap, threads,
+                  None if state is None else state.data_ptr(),
+                  0 if state is None else (state.numel() - _HEADER_WORDS) // 9, device, stream)
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
+    build.PATHS[f"{NAME}.{'chunks' if threads else 'rows'}"] += 1
     return out
 
 

@@ -17,15 +17,22 @@ from repro_torch.data.synthetic import make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.kernels.flash_attention.emulation import bf16_path, key_tile
+from repro_torch.kernels.flash_attention.emulation import beyond, bf16_path, key_tile
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.sampled_agg import ops
+from repro_torch.kernels.sampled_agg.emulation import chunked_prefix_power_sums
+from repro_torch.kernels.sampled_agg.prefix_stats import (
+    chunk_threads,
+    prefix_power_sums,
+    prefix_power_sums_ref,
+)
 from repro_torch.kernels.sobol.ops import points
 from repro_torch.kernels.tree_qmc.ops import predict_sum
+from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum, plan
 from repro_torch.models.lm import LM
 from repro_torch.models.lm.layers import attention_block
-from repro_torch.models.tabular.trees import GradientBoosting, RandomForest
+from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
 from repro_torch.serving import BiathlonServer
 
 pytestmark = pytest.mark.cuda
@@ -80,27 +87,170 @@ def test_afc_kernels_at_60k_within_1e6_of_float64(dev):
     v = _heavy_tailed()
     t = torch.from_numpy(v[None]).to(dev)
     want = np.stack([(v.astype(np.float64) ** p).cumsum() for p in range(1, 5)], axis=-1)
+    build.reset_launch_counts()
     tab = ops.prefix_power_sums(t)[0].cpu().numpy()
+    assert build.PATHS == {"prefix_power_sums.chunks": 1}
     assert (np.abs(tab - want) / np.abs(want)).max() < 1e-6
     mom = ops.moments(t, torch.tensor([v.size], device=dev))[0].cpu().numpy()
     assert mom[0] == v.size
     assert (np.abs(mom[1:] - want[-1]) / np.abs(want[-1])).max() < 1e-6
 
 
-@pytest.mark.parametrize("kind", ["rf", "gbm"])
-@pytest.mark.parametrize("m", [3817, 1001, 2816, 5])
-def test_ensemble_sum_matches_plain_and_is_bitwise_stable(dev, kind, m):
-    rng = np.random.default_rng(m)
+_FORESTS = {
+    "rf": lambda: RandomForest(n_trees=13, max_depth=6),
+    "gbm": lambda: GradientBoosting(n_trees=10, max_depth=5),
+    "rf40": lambda: RandomForest(n_trees=40, max_depth=8),          # turbofan's shape
+    "gbm60": lambda: GradientBoosting(n_trees=60, max_depth=5),     # sensor_health's
+}
+
+
+def _forest(kind, dev, seed=0):
+    rng = np.random.default_rng(seed)
     X = rng.normal(0, 1, (800, 9)).astype(np.float32)
     y = X[:, 0] * 2 + np.sin(3 * X[:, 1])
-    model = (RandomForest(n_trees=13, max_depth=6) if kind == "rf"
-             else GradientBoosting(n_trees=10, max_depth=5)).fit(X, y).to(dev)
-    x = torch.from_numpy(rng.normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
-    a, b = predict_sum(model.ensemble, x), predict_sum(model.ensemble, x)
-    want = predict_sum(model.ensemble, x, use_kernel=False)
+    return _FORESTS[kind]().fit(X, y).to(dev).ensemble
+
+
+def _tables(ens):
+    return ens.feature, ens.threshold, ens.left, ens.right, ens.value
+
+
+@pytest.mark.parametrize("k", [1, 3, 9])
+@pytest.mark.parametrize("cap", [1, 129, 2049, 4095, 32768, 65536])
+def test_prefix_power_sums_is_bitwise_stable_and_its_emulation(dev, k, cap):
+    """The chunked kernel: two launches give the same bits, equal to its
+    emulation in PyTorch (chunks of 1024 or 2048 columns that need not
+    divide cap), within the table tolerance of the plain version; the rows
+    kernel too."""
+    rng = np.random.default_rng(k * cap)
+    v = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
+    shift = v[:, 0].contiguous()
+    threads = chunk_threads(k, cap)
+    assert threads in (256, 512)
+    build.reset_launch_counts()
+    a, b = prefix_power_sums(v, shift), prefix_power_sums(v, shift)
+    rows = prefix_power_sums(v, shift, threads=0)
+    assert build.PATHS == {"prefix_power_sums.chunks": 2, "prefix_power_sums.rows": 1}
+    want = prefix_power_sums_ref(v, shift)
+    emulated = chunked_prefix_power_sums(v, shift, threads=threads)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    torch.testing.assert_close(a, want, rtol=0, atol=1e-5)
+    assert torch.equal(a, emulated)
+    torch.testing.assert_close(a, want, **TABLE_TOL)
+    torch.testing.assert_close(rows, want, **TABLE_TOL)
+
+
+def test_prefix_power_sums_replays_in_a_cuda_graph(dev):
+    """The chunked kernel's launch state (tickets, flags, epoch) is left
+    ready by each launch: launches replayed from a CUDA graph give the
+    eager launch's bits, on both chunk sizes."""
+    rng = np.random.default_rng(1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for k, cap in ((9, 32768), (3, 65536)):
+        v = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
+        with torch.cuda.stream(side):
+            want = prefix_power_sums(v)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                outs = [prefix_power_sums(v) for _ in range(3)]
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            for out in outs:
+                assert torch.equal(out, want)
+
+
+def test_prefix_power_sums_graph_replays_beside_eager_launches(dev):
+    """A graph captured on a stream that has launched eagerly keeps a launch
+    state of its own: replayed on another stream while eager launches run
+    on the capture stream, every table is still the eager launch's bits."""
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy(rng.normal(1.0, 3.0, (9, 32768)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(1.0, 3.0, (3, 65536)).astype(np.float32)).to(dev)
+    want_v, want_w = prefix_power_sums(v), prefix_power_sums(w)
+    capture, other = torch.cuda.Stream(), torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture):
+        prefix_power_sums(v)                      # the capture stream's eager state
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            replayed = [prefix_power_sums(v) for _ in range(4)]
+    torch.cuda.synchronize()
+    eager = []
+    for _ in range(25):
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(capture):
+            eager += [prefix_power_sums(w), prefix_power_sums(v)]
+    torch.cuda.synchronize()
+    for out in replayed:
+        assert torch.equal(out, want_v)
+    for out_w, out_v in zip(eager[::2], eager[1::2]):
+        assert torch.equal(out_w, want_w)
+        assert torch.equal(out_v, want_v)
+
+
+@pytest.mark.parametrize("kind", ["rf", "gbm", "rf40", "gbm60"])
+@pytest.mark.parametrize("m", [3817, 1001, 2816, 5, 1, 65536])
+def test_ensemble_sum_matches_plain_and_is_bitwise_stable(dev, kind, m):
+    """Bitwise equal to the plain version (the same tree order), and to
+    itself, on the path the planner picks (shared memory up to the served
+    megabatches); the global path gives the same bits."""
+    ens = _forest(kind, dev, seed=m)
+    x = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
+    path = plan(*ens.feature.shape, 9, m).path
+    assert path == "smem" or m > 3817
+    build.reset_launch_counts()
+    a, b = predict_sum(ens, x), predict_sum(ens, x)
+    assert build.PATHS == {f"ensemble_sum.{path}": 2}
+    want = predict_sum(ens, x, use_kernel=False)
+    g = ensemble_sum(*_tables(ens), x, depth=ens.depth, launch=Plan(0, 0, 0, 0))
+    assert build.PATHS["ensemble_sum.global"] == 1 + 2 * (path == "global")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, want)
+    assert torch.equal(g, want)
+
+
+def test_ensemble_sum_every_plan_gives_the_same_bits(dev):
+    """turbofan's forest on its megabatch under every row tile and cluster
+    size that fits, groups that divide the 40 trees and groups that do not."""
+    ens = _forest("rf40", dev)
+    m = 3817
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
+    want = predict_sum(ens, x, use_kernel=False)
+    n_tried = 0
+    for p in candidates(40, 511, 9, m):
+        for clusters in {1, 7, p.clusters}:
+            got = ensemble_sum(*_tables(ens), x, depth=ens.depth, launch=p._replace(
+                clusters=min(clusters, -(-m // p.rows))))
+            assert torch.equal(got, want), (p, clusters)
+            n_tried += 1
+    assert n_tried >= 40
+
+
+def test_ensemble_sum_deep_forest_takes_the_global_path(dev):
+    """One complete tree of depth 14 (32767 nodes, 512 KB of tables) cannot
+    be staged in shared memory: the global path, bitwise equal to plain."""
+    depth, rng = 14, np.random.default_rng(14)
+    n_nodes = 2 ** (depth + 1) - 1
+    node = np.arange(n_nodes)
+    inner = node < 2 ** depth - 1
+    feature = np.where(inner, rng.integers(0, 9, n_nodes), 0).astype(np.int32)
+    threshold = rng.normal(0, 0.5, n_nodes).astype(np.float32)
+    left = np.where(inner, 2 * node + 1, node).astype(np.int32)
+    right = np.where(inner, 2 * node + 2, node).astype(np.int32)
+    value = rng.normal(0, 1, n_nodes).astype(np.float32)
+    ens = TreeEnsemble(feature[None], threshold[None], left[None], right[None], value[None],
+                       depth).to(dev)
+    x = torch.from_numpy(rng.normal(0, 1, (3817, 9)).astype(np.float32)).to(dev)
+    build.reset_launch_counts()
+    got = predict_sum(ens, x)
+    assert build.PATHS == {"ensemble_sum.global": 1}
+    want = predict_sum(ens, x, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("cap", [512, 32768])
@@ -233,6 +383,27 @@ def test_flash_attention_matches_plain(dev, dtype, causal, b, h, hkv, sq, sk, d,
         # tensor cores' float32 sums and ex2.approx, then one bf16 rounding
         emulated = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv))
         torch.testing.assert_close(got.float(), emulated.float(), **EMULATION_TOL)
+
+
+@pytest.mark.parametrize("seed", [65536, 5, 6])
+def test_flash_attention_at_65536_batch_heads(dev, seed):
+    """B·H = 65536 (batch 4096 × 16 heads, 16 tokens, bf16 causal), past the
+    65535 that a grid's y axis takes: every head launches, within the card
+    tolerance of the plain version, and within one bf16 ulp of the emulation
+    plus each output's slack from p's the kernel may round to the other
+    side of a bf16 tie (rows of 1 to 16 keys, where one such p can move an
+    output by several ulps)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (4096, 16, 16, 64)).astype(np.float32))
+               .to(dev, torch.bfloat16) for _ in range(3))
+    build.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    assert build.PATHS == {"flash_attention.tma": 1}
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[torch.bfloat16])
+    emulated, slack = bf16_path(q, k, v, causal=True, block_k=key_tile(64, 64), slack=True)
+    assert int(beyond(got, emulated, slack, **EMULATION_TOL).sum()) == 0
 
 
 def test_flash_attention_is_deterministic(dev):
