@@ -17,9 +17,13 @@ Phases (any failure exits non-zero before the result line is printed):
    (bitwise) and through its rows path (the earlier design, timed as
    ``earlier_ms``); ``ensemble_sum`` on the turbofan forest (40 × 511) and a
    60 × 63 boosted model, bitwise equal to the plain version on both of its
-   paths, its global path (the earlier design) timed as ``earlier_ms``; both
-   must take their redesigned path (``build.PATHS``) there and on every
-   served run below;
+   paths, its global path (the earlier design) timed as ``earlier_ms``;
+   ``sampled_moments`` on (9, 32768) at random z, on request 0's z⁰ and
+   over z = 1051 and full prefixes at (9, 32768) and (3, 65536): launched
+   twice (bitwise equal), bitwise equal to its emulation in PyTorch, its
+   rows path (the earlier design, ``earlier_ms``) and it within the tables'
+   tolerance of the plain version; all four must take their redesigned
+   path (``build.PATHS``) there and on every served run below;
 3. build the full-width ``turbofan`` bundle (20000 rows per group, 400
    train groups, 24 serve groups; random forest of 40 trees, depth 8) and
    serve 8 requests with ``BiathlonConfig()`` under ``afc_backend="auto"``
@@ -31,11 +35,17 @@ Phases (any failure exits non-zero before the result line is printed):
    MEDIAN/QUANTILE; gradient boosting, 60 trees of depth 5) at full width:
    ``masked_select_ranks`` against its plain version on request 0's own
    holistic buffers, its plan z⁰ and the 1 + 256 rank targets of its z⁰
-   evaluation (bitwise), then 8 requests under "auto" (incremental: the
+   evaluation, and over z = 4096, 16384, 32768 and 65536 (int32 bits, two
+   launches, the radix path; the rank path, the earlier design, too),
+   timed beside the rank path (``earlier_ms``) and ``torch.sort`` plus a
+   gather; then 8 requests under "auto" (incremental: the
    rank index, no ``masked_select_ranks``), "ref" (the rescan through
    ``masked_select_ranks``) and the plain versions, and under "auto" and
    plain at 0.3 × δ so that the loop is entered; then the same kernel
    check and 4 requests at ``rows_per_group=500``, where "auto" rescans;
+   then the rescan against the incremental AFC per cap bucket, 512 to
+   65536, on synthetic buffers of both pipelines' shapes (host wall time
+   of the incremental set-up and of an evaluation on each path);
 6. ``flash_attention`` against its plain version: the LM-head prompt
    (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
    in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
@@ -163,35 +173,84 @@ def timings(kernel, plain) -> dict:
 
 
 # ------------------------------------------------------------------ phase 2
+def moments_work(z: torch.Tensor) -> tuple[float, str]:
+    """Bound of one ``sampled_moments`` call: the live values read once, z
+    and the shift read, (k, 5) written; 8 operations a live value."""
+    k, live = z.shape[0], int(z.sum())
+    return bound(live * 4 + k * 8 + k * 20, live * 8)
+
+
+def moments_check(vals, z, shift, name: str) -> tuple[torch.Tensor, float]:
+    """``sampled_moments`` through the executor's entry point: on the cluster
+    path, bitwise equal to the launch before and to its emulation in PyTorch,
+    its rows path (the earlier design) and it within the tables' tolerance of
+    the plain version.  Returns the output and max |kernel - plain|."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.emulation import clustered_sampled_moments
+    from repro_torch.kernels.sampled_agg.sampled_agg import moment_blocks, sampled_moments
+
+    build.reset_launch_counts()
+    got, again = ops.moments(vals, z, shift), ops.moments(vals, z, shift)
+    require(build.PATHS == {"sampled_moments.cluster": 2},
+            f"sampled_moments {name} took {dict(build.PATHS)}, expected the cluster path")
+    require(torch.equal(got, again), f"sampled_moments {name}: two launches differ")
+    emulated = clustered_sampled_moments(vals, z, shift, blocks=moment_blocks(vals.shape[1]))
+    require(torch.equal(got, emulated), f"sampled_moments {name} differs from its emulation")
+    want = ops.moments(vals, z, shift, use_kernel=False)
+    torch.testing.assert_close(got, want, **TABLE_TOL)
+    torch.testing.assert_close(sampled_moments(vals, z, shift, blocks=0), want, **TABLE_TOL)
+    return got, float((got - want).abs().max())
+
+
+def moments_timed(vals, z, shift) -> dict:
+    """The cluster path, its rows path (``earlier_ms``) and the plain
+    version timed on one input, with the bound."""
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.sampled_agg import moment_blocks, sampled_moments
+
+    b = moments_work(z)
+    return dict(
+        **timings(lambda: ops.moments(vals, z, shift),
+                  lambda: ops.moments(vals, z, shift, use_kernel=False)),
+        earlier_ms=time_ms(lambda: sampled_moments(vals, z, shift, blocks=0))[0],
+        blocks=vals.shape[0] * moment_blocks(vals.shape[1]), bound_ms=b[0], bound_by=b[1],
+    )
+
+
 def moments_record(bundle, dev, alpha: float) -> dict:
     """``sampled_moments`` on the inputs of the rescan's first evaluation.
 
     Request 0 of ``bundle`` is gathered as the server gathers it (its
     power-of-two cap bucket) with the plan z⁰ = ceil(α·n): the shape and data
-    each rescan evaluation of that path gives the kernel.  Held against the
-    plain version, timed, and bounded by the live columns it must read.
+    each rescan evaluation of that path gives the kernel.  Checked
+    (:func:`moments_check`), timed beside the rows path and bounded by the
+    live columns it must read.
     """
     from repro_torch.core.planner import initial_plan
     from repro_torch.data.store import bucket_size
-    from repro_torch.kernels.sampled_agg import ops
 
     p, req = bundle.pipeline, bundle.requests[0]
     cap = bucket_size(int(max(p.group_sizes(bundle.store, req).max(), 1)))
     vals, sizes = bundle.store.request_buffers(p.agg_specs(req), cap, dev)
     z = initial_plan(sizes, alpha)
     shift = vals[:, 0].contiguous()
-    got = ops.moments(vals, z, shift)
-    want = ops.moments(vals, z, shift, use_kernel=False)
-    torch.testing.assert_close(got, want, **TABLE_TOL)
-    k, live = vals.shape[0], int(z.sum())
-    # live values read once, z and shift read, (k, 5) written
-    b = bound(live * 4 + k * 8 + k * 20, live * 8)
-    return dict(
-        shape=[k, cap], z=z.cpu().tolist(), max_abs_err=float((got - want).abs().max()),
-        **timings(lambda: ops.moments(vals, z, shift),
-                  lambda: ops.moments(vals, z, shift, use_kernel=False)),
-        bound_ms=b[0], bound_by=b[1],
-    )
+    _, err = moments_check(vals, z, shift, f"request 0 ({vals.shape[0]}, {cap})")
+    return dict(shape=[vals.shape[0], cap], z=z.cpu().tolist(), max_abs_err=err,
+                **moments_timed(vals, z, shift))
+
+
+def moments_sweep(dev, rng) -> list:
+    """The cluster kernel over the prefixes the paths give it: turbofan's
+    z⁰ = 1051 and full prefix at (9, 32768), the LM head's full (3, 65536)."""
+    out = []
+    for k, cap, zr in ((9, 32768, 1051), (9, 32768, 32768), (3, 65536, 65536)):
+        vals = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
+        z = torch.full((k,), zr, dtype=torch.int32, device=dev)
+        shift = vals[:, 0].contiguous()
+        _, err = moments_check(vals, z, shift, f"({k}, {cap}) at z = {zr}")
+        out.append(dict(shape=[k, cap], z=zr, max_abs_err=err, **moments_timed(vals, z, shift)))
+    return out
 
 
 def prefix_work(k: int, cap: int) -> tuple[float, str]:
@@ -315,7 +374,10 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
             f"prefix_power_sums at 60k rows took {dict(build.PATHS)}, expected chunks")
     require((np.abs(tab - want64) / np.abs(want64)).max() < 1e-6,
             "prefix_power_sums: 60k heavy-tailed row not within 1e-6 of float64")
+    build.reset_launch_counts()
     mom = ops.moments(t, torch.tensor([v.size], device=dev))[0].cpu().numpy()
+    require(build.PATHS == {"sampled_moments.cluster": 1},
+            f"sampled_moments at 60k rows took {dict(build.PATHS)}, expected the cluster path")
     require((np.abs(mom[1:] - want64[-1]) / np.abs(want64[-1])).max() < 1e-6
             and mom[0] == v.size,
             "sampled_moments: 60k heavy-tailed row not within 1e-6 of float64")
@@ -332,16 +394,17 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     rec["prefix_power_sums"]["lm_head"] = prefix_record(lm, lm[:, 0].contiguous())
     z = torch.from_numpy(rng.integers(0, cap + 1, k).astype(np.int32)).to(dev)
     z[0] = 0
-    got = ops.moments(vals, z, shift)
-    want = ops.moments(vals, z, shift, use_kernel=False)
-    torch.testing.assert_close(got, want, **TABLE_TOL)
+    got, err = moments_check(vals, z, shift, "(9, 32768) at random z")
     require(bool((got[0] == 0).all()), "sampled_moments: a z = 0 row is not all-zero")
     rec["sampled_moments"] = dict(
-        moments_record(bundle, dev, alpha),
-        phases=["f64_60k", "plain_9x32768_random_z", "zero_rows", "request_0_z0"],
+        moments_record(bundle, dev, alpha), sweep=moments_sweep(dev, rng),
+        phases=["f64_60k", "plain_9x32768_random_z", "zero_rows", "request_0_z0",
+                "bitwise_stable", "emulation_bitwise", "rows_path_plain",
+                "sweep_z1051_full_9x32768_full_3x65536"],
     )
     rec["sampled_moments"]["max_abs_err"] = max(
-        rec["sampled_moments"]["max_abs_err"], float((got - want).abs().max()))
+        [err, rec["sampled_moments"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in rec["sampled_moments"]["sweep"]])
 
     # ensemble_sum: the turbofan forest and a 60 x 63 (depth 5) boosted model
     X = rng.normal(0, 1, (2000, 9)).astype(np.float32)
@@ -377,14 +440,70 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     return rec
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits, so that −0.0 and +0.0 (or two NaNs) differ."""
+    return t.view(torch.int32)
+
+
+def select_check(vh, z, targets, name: str) -> tuple[torch.Tensor, float]:
+    """``masked_select_ranks`` through the executor's entry point: on the
+    radix path, its int32 bits equal to the launch before's and to the plain
+    version's, and the rank path's (the earlier design) too.  Returns the
+    output and max |kernel - plain| over the outputs whose bits differ."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.quantile_select import Plan, masked_select_ranks
+
+    build.reset_launch_counts()
+    got, again = ops.select_ranks(vh, z, targets), ops.select_ranks(vh, z, targets)
+    require(build.PATHS == {"masked_select_ranks.radix": 2},
+            f"masked_select_ranks {name} took {dict(build.PATHS)}, expected the radix path")
+    plain = ops.select_ranks(vh, z, targets, use_kernel=False)
+    same = bits(got) == bits(plain)
+    err = float(torch.where(same, 0.0, (got - plain).abs()).max())
+    require(bool(same.all()), f"masked_select_ranks {name} differs from plain (max |err| {err})")
+    require(torch.equal(bits(again), bits(got)), f"masked_select_ranks {name}: two launches differ")
+    earlier = masked_select_ranks(vh, z, targets, launch=Plan(0, 0))
+    require(torch.equal(bits(earlier), bits(plain)),
+            f"masked_select_ranks {name}: rank path differs")
+    return got, err
+
+
+def select_timed(vh, z, targets, reps: int = 20) -> dict:
+    """The radix path, the rank path (``earlier_ms``), the plain version and
+    ``torch.sort`` + ``take_along_dim`` (a yardstick of two calls that the
+    port never makes, checked bitwise) timed on one input, with the bound."""
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.quantile_select import Plan, masked_select_ranks, plan
+
+    h, cap = vh.shape
+    r = targets.shape[1]
+    cols = torch.arange(cap, device=vh.device)
+    padded = torch.where(cols[None, :] < z[:, None], vh, torch.inf)
+    clipped = torch.clamp(targets.to(torch.int64), 0, cap - 1)
+    sort_gather = lambda: torch.take_along_dim(  # noqa: E731
+        torch.sort(padded, dim=1, stable=True).values, clipped, dim=1)
+    require(torch.equal(bits(sort_gather()), bits(ops.select_ranks(vh, z, targets))),
+            "sort + gather disagrees with the kernel")
+    # live prefix, z and targets read once, (h, R) written; a selection does no arithmetic
+    b = bound(int(z.sum()) * 4 + h * 4 + h * r * 4 + h * r * 4, 0)
+    return dict(
+        **timings(lambda: ops.select_ranks(vh, z, targets),
+                  lambda: ops.select_ranks(vh, z, targets, use_kernel=False)),
+        earlier_ms=time_ms(lambda: masked_select_ranks(vh, z, targets, launch=Plan(0, 0)),
+                           reps)[0],
+        sort_gather_ms=time_ms(sort_gather, reps)[0], plan=list(plan(cap)),
+        bound_ms=b[0], bound_by=b[1],
+    )
+
+
 def select_record(bundle, dev, cfg) -> dict:
     """``masked_select_ranks`` on the inputs of the rescan's z⁰ evaluation.
 
     Request 0's holistic buffers at its cap bucket, the plan z⁰ and the
     (h, 1 + B) rank targets that evaluation draws (key ``fold_in(PRNGKey(0),
-    0)``).  The kernel must equal its plain version bitwise.  Also times
-    ``torch.sort`` plus ``take_along_dim`` on the same masked buffer, a
-    yardstick of two PyTorch calls that the port never makes.
+    0)``).  Checked bitwise (:func:`select_check`) and timed
+    (:func:`select_timed`).
     """
     from repro_torch.core import threefry
     from repro_torch.core.executor_fused import pipeline_executor_kwargs
@@ -402,41 +521,111 @@ def select_record(bundle, dev, cfg) -> dict:
     z = initial_plan(sizes, cfg.alpha)[hol]
     key = threefry.fold_in(threefry.PRNGKey(0), 0)
     targets = ops.bootstrap_rank_targets(z, qs, key, cfg.n_bootstrap)
-    got = ops.select_ranks(vh, z, targets)
-    want = ops.select_ranks(vh, z, targets, use_kernel=False)
-    require(torch.equal(got, want), f"masked_select_ranks differs from plain at cap {cap}")
+    got, err = select_check(vh, z, targets, f"request 0 at cap {cap}")
     require(bool(torch.isfinite(got).all()), "masked_select_ranks: a z⁰ target selected +inf")
-    err = float(torch.where(got == want, 0.0, (got - want).abs()).max())
-    cols = torch.arange(cap, device=dev)
-    padded = torch.where(cols[None, :] < z[:, None], vh, torch.inf)
-    clipped = torch.clamp(targets.to(torch.int64), 0, cap - 1)
-    sort_gather = lambda: torch.take_along_dim(  # noqa: E731
-        torch.sort(padded, dim=1).values, clipped, dim=1)
-    require(torch.equal(sort_gather(), got), "sort + gather disagrees with the kernel")
     h, r = targets.shape
-    live = int(z.sum())
-    # live prefix, z and targets read once, (h, R) written; a selection does no arithmetic
-    b = bound(live * 4 + h * 4 + h * r * 4 + h * r * 4, 0)
-    rec = dict(shape=[h, cap, r], z=z.cpu().tolist(), max_abs_err=err,
-               **timings(lambda: ops.select_ranks(vh, z, targets),
-                         lambda: ops.select_ranks(vh, z, targets, use_kernel=False)),
-               bound_ms=b[0], bound_by=b[1])
-    rec["sort_gather_ms"] = time_ms(sort_gather)[0]
-    return rec
+    return dict(shape=[h, cap, r], z=z.cpu().tolist(), max_abs_err=err,
+                **select_timed(vh, z, targets))
 
 
-def select_full_prefix(dev, cap: int, h: int = 3, r: int = 257) -> dict:
-    """The kernel at a full prefix, z = cap (its compare count is h·cap²)."""
+def select_sweep(dev, h: int = 3, r: int = 257) -> list:
+    """The kernel over longer prefixes than z⁰: 4096 and 16384 at
+    sensor_health's cap 16384, full 32768 and full 65536 (the LM head's
+    bucket), values with ties and targets inside the prefix."""
+    out = []
+    for cap, zr in ((16384, 4096), (16384, 16384), (32768, 32768), (65536, 65536)):
+        rng = np.random.default_rng(cap + zr)
+        v = torch.from_numpy(np.round(rng.normal(0, 2, (h, cap)), 2).astype(np.float32)).to(dev)
+        z = torch.full((h,), zr, dtype=torch.int32, device=dev)
+        t = torch.from_numpy(rng.integers(0, zr, (h, r)).astype(np.int32)).to(dev)
+        _, err = select_check(v, z, t, f"at cap {cap}, z {zr}")
+        out.append(dict(shape=[h, cap, r], z=zr, max_abs_err=err,
+                        **select_timed(v, z, t, 5 if zr > 16384 else 20)))
+    return out
+
+
+def wall_ms(fns: dict, reps: int = 10) -> dict:
+    """Median host wall time (ms) of one call of each of ``fns`` followed by
+    a synchronize, as a planner evaluation pays it before its predicate is
+    read back (the operators' dispatch and their device time); the calls
+    run in turns (each name, then the names in reverse), ``reps`` a turn,
+    after one warm-up call each."""
+    times = {name: [] for name in fns}
+    for name, fn in fns.items():
+        fn()
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def afc_crossover(dev, cfg) -> list:
+    """The rescan against the incremental AFC, per cap bucket, on synthetic
+    buffers of the two pipelines' shapes (k = 9 parametric features;
+    k = 5 of which 3 holistic, a median, a median and a p90), group sizes
+    drawn in (cap/2, cap], at the plan z⁰: the incremental path's set-up
+    once a request (``prefix_power_sums`` and, for holistic features, the
+    rank index over the plan ladder) and its cost an evaluation, against the
+    rescan's cost an evaluation (``sampled_moments``, ``masked_select_ranks``
+    and the bootstrap), host wall times (:func:`wall_ms`).
+    ``crossover_evals``: the evaluations a request above which the
+    incremental path costs less (None: never)."""
+    from repro_torch.core import threefry
+    from repro_torch.core.planner import gamma_abs, initial_plan
+    from repro_torch.data.aggregates import estimates_from_power_sums
     from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.prefix_stats import (
+        build_rank_index,
+        prefix_moments_at,
+        select_ranks_indexed,
+    )
 
-    rng = np.random.default_rng(cap)
-    v = torch.from_numpy(np.round(rng.normal(0, 2, (h, cap)), 2).astype(np.float32)).to(dev)
-    z = torch.full((h,), cap, dtype=torch.int32, device=dev)
-    t = torch.from_numpy(rng.integers(0, cap, (h, r)).astype(np.int32)).to(dev)
-    got, want = ops.select_ranks(v, z, t), ops.select_ranks(v, z, t, use_kernel=False)
-    require(torch.equal(got, want), f"masked_select_ranks differs from plain at z = cap = {cap}")
-    return dict(shape=[h, cap, r], compares=h * cap * cap,
-                ms=time_ms(lambda: ops.select_ranks(v, z, t), reps=5)[0])
+    rng = np.random.default_rng(17)
+    key = threefry.fold_in(threefry.PRNGKey(0), 1)
+    out = []
+    for name, k, h in (("parametric", 9, 0), ("holistic", 5, 3)):
+        for cap in (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536):
+            vals = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to(dev)
+            n = torch.from_numpy(rng.integers(cap // 2 + 1, cap + 1, k).astype(np.int32)).to(dev)
+            agg = torch.zeros((k,), dtype=torch.int32, device=dev)    # AVG; the sums are the same
+            z = initial_plan(n, cfg.alpha)
+            shift = vals[:, 0].contiguous()
+            vh, nh, zh = vals[:h].contiguous(), n[:h], z[:h]
+            qs = torch.tensor([0.5, 0.5, 0.9][:h], dtype=torch.float32, device=dev)
+            ladder = torch.arange(cfg.max_iters + 1, dtype=torch.int32, device=dev)
+            zcand = torch.minimum(z[:h, None] + ladder[None, :] * gamma_abs(n, cfg.gamma),
+                                  nh[:, None])
+
+            def setup():
+                ptab = ops.prefix_power_sums(vals, shift)
+                return ptab, build_rank_index(vh, nh, zcand) if h else None
+
+            ptab, rindex = setup()
+
+            def incremental():
+                estimates_from_power_sums(prefix_moments_at(ptab, z), z, n, agg, shift)
+                if h:
+                    t = ops.bootstrap_rank_targets(zh, qs, key, cfg.n_bootstrap)
+                    ops.finish_quantile_estimates(select_ranks_indexed(rindex, zh, t), zh, nh)
+
+            def rescan():
+                ops.masked_estimates(vals, z, n, agg)
+                if h:
+                    ops.masked_quantile_estimates(vh, zh, nh, qs, key, cfg.n_bootstrap)
+
+            t = wall_ms({"setup": setup, "incremental": incremental, "rescan": rescan})
+            r = dict(pipeline=name, k=k, holistic=h, cap=cap, z0_max=int(z.max()),
+                     setup_ms=t["setup"], incremental_eval_ms=t["incremental"],
+                     rescan_eval_ms=t["rescan"])
+            gain = r["rescan_eval_ms"] - r["incremental_eval_ms"]
+            r["crossover_evals"] = r["setup_ms"] / gain if gain > 0 else None
+            out.append(r)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3/4
@@ -531,7 +720,8 @@ def compare_runs(name, base, other, cfg):
 
 
 # the path every launch of a redesigned kernel must take on the served shapes
-SERVED_PATHS = {"ensemble_sum": "smem", "prefix_power_sums": "chunks"}
+SERVED_PATHS = {"ensemble_sum": "smem", "prefix_power_sums": "chunks",
+                "sampled_moments": "cluster", "masked_select_ranks": "radix"}
 
 
 def expect_launched(name, launches, kernels, absent=()):
@@ -922,7 +1112,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rec["masked_select_ranks"] = select_record(health, dev, cfg)
     rec["prefix_power_sums"]["sensor_health"] = request_tables_record(health, dev)
-    rec["masked_select_ranks"]["full_prefix"] = select_full_prefix(dev, 32768)
+    rec["masked_select_ranks"]["sweep"] = select_sweep(dev)
+    rec["masked_select_ranks"]["max_abs_err"] = max(
+        [rec["masked_select_ranks"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in rec["masked_select_ranks"]["sweep"]])
     hs = {name: serve_run(health, cfg, dev, n_req=N_SERVE, **kw) for name, kw in runs.items()}
     h_tight = BiathlonConfig(delta=health.pipeline.delta_default * 0.3)
     for name in ("auto", "plain"):
@@ -969,6 +1162,13 @@ def main() -> int:
               f"requests, iters {[o['iters'] for o in outs]}, launches {launches} [{card}]",
               flush=True)
 
+    crossover = afc_crossover(dev, cfg)
+    for r in crossover:
+        print(f"afc crossover {r['pipeline']} cap {r['cap']}: set-up {r['setup_ms']:.4f} ms, "
+              f"an evaluation incremental {r['incremental_eval_ms']:.4f} ms, rescan "
+              f"{r['rescan_eval_ms']:.4f} ms, crossover {r['crossover_evals']} evaluations "
+              f"[{card}]", flush=True)
+
     lm_head, lm_scenario = lm_head_phase(dev, card)
     backbone = backbone_profile(lm_scenario, dev,
                                 ROOT / "build" / "chip_smoke_profile_backbone4096.txt")
@@ -991,8 +1191,8 @@ def main() -> int:
         launches=hsm["auto"][2].get("masked_select_ranks", 0),
         launches_per_request=per_request(hsm["auto"], "masked_select_ranks", 4))
     rec["masked_select_ranks"]["phases"] = [
-        "request_0_z0_bitwise", "sort_gather_equal", "full_prefix_32768_bitwise",
-        "reduced_depth_request_0_z0_bitwise"]
+        "request_0_z0_bitwise", "bitwise_stable", "rank_path_bitwise", "sort_gather_bitwise",
+        "sweep_4096_16384_32768_65536_bitwise", "reduced_depth_request_0_z0_bitwise"]
     sources = {
         "prefix_power_sums": ("prefix_stats.cu", "src/repro/kernels/sampled_agg/prefix_stats.py:124"),
         "sampled_moments": ("sampled_agg.cu", "src/repro/kernels/sampled_agg/sampled_agg.py:74"),
@@ -1017,7 +1217,7 @@ def main() -> int:
             plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             shape=r["shape"], phases=r["phases"],
-            **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "full_prefix",
+            **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "sweep",
                                        "earlier_ms", "depth", "node_visits", "plan", "chunk",
                                        "blocks", "gbm", "lm_head", "sensor_health")
                if key in r},
@@ -1056,6 +1256,7 @@ def main() -> int:
     serve["lm_head"] = {key: val for key, val in lm_head.items()
                         if key not in ("launches", "launches_at_build")}
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
+                      "afc_crossover": crossover,
                       "profile_sensor_health": h_prof, "backbone_4096": backbone,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

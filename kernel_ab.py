@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
 """Time one of this checkout's CUDA kernels against another build of its source.
 
-    PYTHONPATH=src python3 kernel_ab.py KERNEL OTHER.cu
+    PYTHONPATH=src python3 kernel_ab.py KERNEL [OTHER.cu]
 
-KERNEL is ``flash_attention``, ``ensemble_sum`` or ``prefix_power_sums``;
-``OTHER.cu`` another version of its source under ``src/repro_torch/kernels/
-csrc/`` (``flash_attention.cu``, ``tree_qmc.cu``, ``prefix_stats.cu``), for
-example the file at a parent commit (``git show HEAD~:src/...``).  It is
-built with the port's nvcc command into ``build/repro_torch/ab-other.so``;
-its C entry point must take this tree's arguments, as both libraries are
-called through the wrapper's own launch code (``launch_with``), so only
-the loaded library differs.  On one card both run in turns (other, this,
-this, other) at the
-shapes the served paths give the kernel, each output held to the plain
-version (bitwise for ``ensemble_sum``; the tables' tolerance for
-``prefix_power_sums``; the card tests' bf16 tolerance for
-``flash_attention``).  Device times per call come from CUDA-graph replay,
-beside the eager time of back-to-back launches (``chip_smoke.time_ms``);
-whether the two give the same bits is reported; ``ensemble_sum`` and
-``prefix_power_sums`` also time each other launch plan of this tree once,
-the earlier designs among them (the global and rows paths).  Prints the card,
-one line a shape, and a JSON object of every time as the last line.
+KERNEL is ``flash_attention``, ``ensemble_sum``, ``prefix_power_sums``,
+``sampled_moments`` or ``masked_select_ranks``; ``OTHER.cu`` another version
+of its source under ``src/repro_torch/kernels/csrc/`` (``flash_attention.cu``,
+``tree_qmc.cu``, ``prefix_stats.cu``, ``sampled_agg.cu``,
+``quantile_select.cu``), for example the file at a parent commit (``git show
+HEAD~:src/...``).  It is built with the port's nvcc command into
+``build/repro_torch/ab-other.so``; its C entry point must take this tree's
+arguments, as both libraries are called through the wrapper's own launch
+code (``launch_with``), so only the loaded library differs.  For
+``sampled_moments`` and ``masked_select_ranks`` OTHER.cu may be left out:
+the other side is then this build's earlier design (the rows and rank
+paths); a copy of ``quantile_select.cu`` with another ``kCountMax`` (0: no
+counting) times the radix kernel's counting threshold.  On one card both
+run in turns (other, this, this, other) at the shapes the served paths
+give the kernel, each output held to the plain
+version (bitwise for ``ensemble_sum`` and ``masked_select_ranks``; the
+tables' tolerance for ``prefix_power_sums`` and ``sampled_moments``; the
+card tests' bf16 tolerance for ``flash_attention``).  Device times per call
+come from CUDA-graph replay, beside the eager time of back-to-back launches
+(``chip_smoke.time_ms``); whether the two give the same bits is reported;
+every kernel but ``flash_attention`` also times each other launch plan of
+this tree once, the earlier designs among them (the global, rows and rank
+paths), and ``masked_select_ranks`` a sort + gather, the two-call yardstick
+the port never calls.  Prints the card, one line a shape, and a JSON object
+of every time as the last line.
 """
 from __future__ import annotations
 
@@ -50,8 +57,14 @@ def turns(runs: dict, check, reps: int) -> dict:
         times[f"{name}_{turn}_eager"] = eager_ms
         outs[name] = runs[name]()
         check(name, outs[name])
-    times["bitwise_equal"] = torch.equal(outs["other"], outs["this"])
+    times["bitwise_equal"] = torch.equal(_bits(outs["other"]), _bits(outs["this"]))
     return times
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers of its element size (so that -0.0 and
+    +0.0, or two NaNs, are told apart)."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
 
 
 def ab_flash(other_lib):
@@ -153,11 +166,100 @@ def ab_prefix(other_lib):
     return results
 
 
+def ab_moments(other_lib):
+    from repro_torch.kernels.sampled_agg import sampled_agg
+    from repro_torch.kernels.sampled_agg.ref import sampled_moments_ref
+
+    if other_lib is None:
+        other = lambda v, z, s: sampled_agg.sampled_moments(v, z, s, blocks=0)  # noqa: E731
+    else:
+        fn = sampled_agg.bind(other_lib)
+        other = lambda v, z, s: sampled_agg.launch_with(lambda: fn, v, z, s)  # noqa: E731
+    rng = np.random.default_rng(0)
+    results = {}
+    # turbofan's z⁰ at full width, its full prefix, the LM head's full prefix
+    for k, cap, zr in ((9, 32768, 1051), (9, 32768, 32768), (3, 65536, 65536)):
+        v = torch.from_numpy(rng.normal(1.0, 3.0, (k, cap)).astype(np.float32)).to("cuda")
+        s = v[:, 0].contiguous()
+        z = torch.full((k,), zr, dtype=torch.int32, device="cuda")
+        want = sampled_moments_ref(v, z, s)
+
+        def check(who, got, k=k, cap=cap, want=want):
+            chip_smoke.require(torch.allclose(got, want, **chip_smoke.TABLE_TOL),
+                               f"{who} sampled_moments differs at ({k}, {cap})")
+
+        runs = {"other": lambda: other(v, z, s),
+                "this": lambda: sampled_agg.sampled_moments(v, z, s)}
+        times = turns(runs, check, 20)
+        times["blocks"] = sampled_agg.moment_blocks(cap)
+        times["bound"] = chip_smoke.bound(k * zr * 4 + k * 8 + k * 20, k * zr * 8)[0]
+        plans = {}
+        for blocks in range(sampled_agg.MAX_BLOCKS + 1):
+            run = lambda b=blocks: sampled_agg.sampled_moments(v, z, s, blocks=b)  # noqa: E731
+            check(f"blocks {blocks}", run())
+            plans[str(blocks)] = chip_smoke.time_ms(run, 20)[0]
+        times["plans"] = plans
+        results[f"{k}x{cap}_z{zr}"] = times
+    return results
+
+
+def ab_select(other_lib):
+    from repro_torch.kernels.sampled_agg import quantile_select as qs
+    from repro_torch.kernels.sampled_agg.ref import masked_select_ranks_ref
+
+    if other_lib is None:
+        other = lambda v, z, t: qs.masked_select_ranks(v, z, t, launch=qs.Plan(0, 0))  # noqa: E731
+    else:
+        fn = qs.bind(other_lib)
+        other = lambda v, z, t: qs.launch_with(lambda: fn, v, z, t)  # noqa: E731
+    results = {}
+    h, r = 3, 257
+    # the reduced-depth rescan's short prefixes at cap 512, prefixes around
+    # the kernel's counting threshold, sensor_health's z⁰ at cap 16384, then
+    # longer prefixes up to the LM head's bucket, full at 32768 and 65536
+    for cap, zr in ((512, 23), (512, 256), (16384, 128), (16384, 384), (16384, 512),
+                    (16384, 760), (16384, 4096), (16384, 16384), (32768, 32768),
+                    (65536, 65536)):
+        rng = np.random.default_rng(cap + zr)
+        v = torch.from_numpy(np.round(rng.normal(0, 2, (h, cap)), 2).astype(np.float32)).to("cuda")
+        z = torch.full((h,), zr, dtype=torch.int32, device="cuda")
+        t = torch.from_numpy(rng.integers(0, zr, (h, r)).astype(np.int32)).to("cuda")
+        want = _bits(masked_select_ranks_ref(v, z, t))
+
+        def check(who, got, cap=cap, zr=zr, want=want):
+            chip_smoke.require(torch.equal(_bits(got), want),
+                               f"{who} masked_select_ranks differs at cap {cap}, z {zr}")
+
+        runs = {"other": lambda: other(v, z, t), "this": lambda: qs.masked_select_ranks(v, z, t)}
+        reps = 5 if zr > 16384 else 20
+        times = turns(runs, check, reps)
+        times["plan"] = list(qs.plan(cap))
+        cols = torch.arange(cap, device="cuda")
+        padded = torch.where(cols[None, :] < z[:, None], v, torch.inf)
+        sort_gather = lambda: torch.take_along_dim(  # noqa: E731
+            torch.sort(padded, dim=1, stable=True).values, t.to(torch.int64), dim=1)
+        check("sort + gather", sort_gather())
+        times["sort_gather"] = chip_smoke.time_ms(sort_gather, reps)[0]
+        times["bound"] = chip_smoke.bound(h * zr * 4 + h * 4 + 2 * h * r * 4, 0)[0]
+        plans = {}
+        for p in qs.candidates(cap) + [qs.Plan(0, 0)]:
+            run = lambda p=p: qs.masked_select_ranks(v, z, t, launch=p)  # noqa: E731
+            check(f"plan {tuple(p)}", run())
+            plans[",".join(map(str, p))] = chip_smoke.time_ms(run, reps)[0]
+        times["plans"] = plans
+        results[f"cap{cap}_z{zr}"] = times
+    return results
+
+
 AB = {"flash_attention": ("flash_attention", ab_flash), "ensemble_sum": ("tree_qmc", ab_ensemble),
-      "prefix_power_sums": ("prefix_stats", ab_prefix)}
+      "prefix_power_sums": ("prefix_stats", ab_prefix),
+      "sampled_moments": ("sampled_agg", ab_moments),
+      "masked_select_ranks": ("quantile_select", ab_select)}
+#: kernels whose other side may be this build's earlier design
+EARLIER = ("sampled_moments", "masked_select_ranks")
 
 
-def main(kernel: str, other: Path) -> int:
+def main(kernel: str, other: Path | None) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
@@ -167,13 +269,17 @@ def main(kernel: str, other: Path) -> int:
     print(chip_smoke.card_line(), flush=True)
     source, run = AB[kernel]
     build.build_all()
-    so = build.BUILD_DIR / "ab-other.so"
-    subprocess.run(build.compile_command(other, so), check=True, capture_output=True)
-    results = run(ctypes.CDLL(str(so)))
+    other_lib = None
+    if other is not None:
+        so = build.BUILD_DIR / "ab-other.so"
+        subprocess.run(build.compile_command(other, so), check=True, capture_output=True)
+        other_lib = ctypes.CDLL(str(so))
+    results = run(other_lib)
     for shape, times in results.items():
         print(f"{kernel} {shape}: " + " ".join(
             f"{n}={t:.5f}" for n, t in times.items() if isinstance(t, float)), flush=True)
     print(json.dumps({"kernel": kernel, "source": source,
+                      "other": "earlier path" if other is None else str(other),
                       "card": chip_smoke.card_line(),
                       "results": results}), flush=True)
     return 0
@@ -182,6 +288,8 @@ def main(kernel: str, other: Path) -> int:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(AB))
-    ap.add_argument("other", type=Path)
+    ap.add_argument("other", type=Path, nargs="?")
     a = ap.parse_args()
-    sys.exit(main(a.kernel, a.other.resolve()))
+    if a.other is None and a.kernel not in EARLIER:
+        ap.error(f"{a.kernel} needs OTHER.cu")
+    sys.exit(main(a.kernel, None if a.other is None else a.other.resolve()))

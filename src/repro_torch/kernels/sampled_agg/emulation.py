@@ -1,6 +1,11 @@
-"""The chunked ``prefix_power_sums`` kernel's arithmetic, in PyTorch.
+"""The decompositions of the AFC kernels, in PyTorch.
 
-The kernel's chunked path (``csrc/prefix_stats.cu``, ``chunked_kernel``)
+:func:`chunked_prefix_power_sums` is the chunked ``prefix_power_sums``
+kernel's arithmetic, :func:`clustered_sampled_moments` the cluster
+``sampled_moments`` kernel's and :func:`radix_select_ranks` the radix
+``masked_select_ranks`` kernel's sort, each described where it is defined.
+
+``prefix_power_sums``' chunked path (``csrc/prefix_stats.cu``, ``chunked_kernel``)
 cuts each row into chunks of ``4·threads`` columns and scans them as
 unevaluated (hi, lo) pairs combined by two-sum, in this order, which
 :func:`chunked_prefix_power_sums` repeats operation for operation:
@@ -18,16 +23,20 @@ unevaluated (hi, lo) pairs combined by two-sum, in this order, which
 
 Pairs with a zero are combined exactly, so the zeros in the padding change
 no bit.  Each operation below is its own PyTorch kernel, so nothing is
-contracted or reassociated: the result is the kernel's, bit for bit (the
-card tests hold them equal); the CPU tests hold it to the plain version.
+contracted or reassociated: the results are the kernels', bit for bit (the
+card tests hold them equal); the CPU tests hold them to the plain versions.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels.sampled_agg.compensated import two_sum
+from repro_torch.kernels.sampled_agg.sampled_agg import chunk_cols
 
-__all__ = ["chunked_prefix_power_sums"]
+__all__ = ["COUNT_MAX", "chunked_prefix_power_sums", "clustered_sampled_moments",
+           "radix_select_ranks", "sort_keys"]
 
 COLS = 4   # columns a thread
 
@@ -109,3 +118,166 @@ def chunked_prefix_power_sums(vals: torch.Tensor, shift: torch.Tensor | None = N
     out_hi, out_lo = _combine((front[0][..., None, :], front[1][..., None, :]), local)
     out = (out_hi + out_lo).reshape(k, n_ch * chunk, 4)
     return out[:, :cap]
+
+
+def _fold_lanes(hi: torch.Tensor, lo: torch.Tensor):
+    """The halving tree of a warp's shuffles (``__shfl_down_sync`` at 16, 8,
+    .., 1) over the last-but-one axis, 32 long: lane 0's pair."""
+    s = hi.shape[-2] // 2
+    while s:
+        hi, lo = _combine((hi[..., :s, :], lo[..., :s, :]),
+                          (hi[..., s:2 * s, :], lo[..., s:2 * s, :]))
+        s //= 2
+    return hi[..., 0, :], lo[..., 0, :]
+
+
+def clustered_sampled_moments(vals: torch.Tensor, z: torch.Tensor,
+                              shift: torch.Tensor | None = None, *, blocks: int,
+                              threads: int = 256) -> torch.Tensor:
+    """(k, cap), (k,) -> (k, 5) ``[count, Σu, Σu², Σu³, Σu⁴]`` as the cluster
+    kernel of ``sampled_moments`` (``csrc/sampled_agg.cu``) sums them with
+    ``blocks`` blocks a row of ``threads`` threads:
+
+    - block b takes the row's b-th chunk of :func:`chunk_cols` columns,
+      thread t its columns t, t + threads, ... below z, in order, one
+      Kahan step a power each;
+    - each warp folds its 32 threads' pairs by the halving tree of its
+      shuffles, then warp 0 its warps' pairs the same way (zeros past the
+      last warp);
+    - block 0's pair is combined with blocks 1, 2, .. in rank order, and
+      collapsed to hi + lo.
+
+    A block with no column below z adds an exact zero pair, so the kernel's
+    shortcut for prefixes inside block 0's chunk gives the same bits.
+    """
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"threads must be a multiple of 32 up to 1024, got {threads}")
+    v = vals.to(torch.float32)
+    k, cap = v.shape
+    if shift is None:
+        shift = torch.zeros((k,), dtype=torch.float32, device=v.device)
+    zc = torch.clamp(z.to(torch.int64), 0, cap)
+    chunk = chunk_cols(cap, blocks)
+    steps = -(-chunk // threads)
+    # the column of (block B, step S, thread T), live where it is in the
+    # chunk and below z
+    ar = functools.partial(torch.arange, device=v.device)
+    within = ar(steps)[:, None] * threads + ar(threads)[None, :]                 # (S, T)
+    col = ar(blocks)[:, None, None] * chunk + within[None]                       # (B, S, T)
+    live = (within < chunk)[None, None] & (col[None] < zc[:, None, None, None])  # (k, B, S, T)
+    u = v[:, torch.clamp(col, max=cap - 1)] - shift.to(torch.float32)[:, None, None, None]
+    u2 = u * u
+    p = torch.stack([u, u2, u2 * u, u2 * u2], dim=-1)                            # (k, B, S, T, 4)
+    hi = torch.zeros((k, blocks, threads, 4), dtype=torch.float32, device=v.device)
+    lo = torch.zeros_like(hi)
+    for s in range(steps):
+        h, e = two_sum(hi, p[:, :, s])
+        m = live[:, :, s, :, None]
+        hi, lo = torch.where(m, h, hi), torch.where(m, lo + e, lo)
+    warps = threads // 32
+    hi, lo = _fold_lanes(hi.reshape(k, blocks, warps, 32, 4), lo.reshape(k, blocks, warps, 32, 4))
+    pad = torch.zeros((k, blocks, 32 - warps, 4), dtype=torch.float32, device=v.device)
+    hi, lo = _fold_lanes(torch.cat([hi, pad], dim=2), torch.cat([lo, pad], dim=2))  # (k, B, 4)
+    acc = (hi[:, 0], lo[:, 0])
+    for b in range(1, blocks):
+        acc = _combine(acc, (hi[:, b], lo[:, b]))
+    return torch.cat([zc.to(torch.float32)[:, None], acc[0] + acc[1]], dim=1)
+
+
+NAN_KEY = 0xFFFFFFFF
+
+
+def sort_keys(bits: torch.Tensor) -> torch.Tensor:
+    """int32 float bits -> int64 holding the radix kernel's unsigned keys:
+    the float order, −0.0 as +0.0, every NaN one key above +inf."""
+    u = bits.to(torch.int64) & 0xFFFFFFFF
+    mag = u & 0x7FFFFFFF
+    u = torch.where(mag == 0, torch.zeros_like(u), u)
+    key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return torch.where(mag > 0x7F800000, torch.full_like(key, NAN_KEY), key)
+
+
+def _radix_pass(key: torch.Tensor, bits: torch.Tensor, shift: int, *, chunk: int, span: int,
+                warps: int):
+    """One 8-bit pass of the radix kernel over a row's live prefix (in its
+    current order), position = digit base + earlier blocks + earlier warps
+    of the block + earlier slots and lanes of the warp, as the kernel adds
+    them; returns the pairs in their new order."""
+    n = key.shape[0]
+    d = (key >> shift) & 0xFF
+    onehot = torch.nn.functional.one_hot(d, 256).to(torch.int64)           # (n, 256)
+    n_blocks = -(-n // chunk)
+    per_warp = torch.zeros((n_blocks * warps * span, 256), dtype=torch.int64)
+    per_warp[:n] = onehot
+    per_warp = per_warp.reshape(n_blocks, warps, span, 256)
+    in_warp = (per_warp.cumsum(2) - per_warp).reshape(-1, 256)[:n]         # earlier in the warp
+    whist = per_warp.sum(2)                                                # (blocks, warps, 256)
+    in_block = (whist.cumsum(1) - whist).reshape(-1, 256)                  # earlier warps
+    bhist = whist.sum(1)                                                   # (blocks, 256)
+    earlier = bhist.cumsum(0) - bhist                                      # earlier blocks
+    total = bhist.sum(0)
+    base = (total.cumsum(0) - total)[None, :] + earlier                    # (blocks, 256)
+    i = torch.arange(n)
+    p = (base[i // chunk, d] + in_block[i // span, d]
+         + in_warp.gather(1, d[:, None])[:, 0])
+    out_key, out_bits = torch.empty_like(key), torch.empty_like(bits)
+    out_key[p], out_bits[p] = key, bits
+    return out_key, out_bits
+
+
+COUNT_MAX = 352   # prefixes the radix kernel ranks by counting (``kCountMax``)
+
+
+def _count_ranks(key: torch.Tensor, bits: torch.Tensor):
+    """A short prefix's pairs in the order of their stable ranks, as the
+    kernel counts them: rank(i) = #{j : k_j < k_i or (k_j == k_i, j < i)}."""
+    i = torch.arange(key.shape[0])
+    kj, ki = key[None, :], key[:, None]
+    rank = ((kj < ki) | ((kj == ki) & (i[None, :] < i[:, None]))).sum(dim=1)
+    out_key, out_bits = torch.empty_like(key), torch.empty_like(bits)
+    out_key[rank], out_bits[rank] = key, bits
+    return out_key, out_bits
+
+
+def radix_select_ranks(vals: torch.Tensor, z: torch.Tensor, targets: torch.Tensor, *,
+                       items: int, blocks: int, threads: int = 1024,
+                       count_max: int = COUNT_MAX) -> torch.Tensor:
+    """(h, cap), (h,), (h, R) -> (h, R) as the radix path of
+    ``masked_select_ranks`` (``csrc/quantile_select.cu``) selects them, with
+    clusters of ``blocks`` blocks of ``threads`` threads holding ``items``
+    elements each (chunks of ``threads·items`` columns; slot j of lane l of
+    warp w is chunk position w·32·items + j·32 + l):
+
+    - the live prefix as (key, bits) pairs, keys from :func:`sort_keys`;
+    - a prefix of at most ``count_max`` pairs ranked by counting
+      (:func:`_count_ranks`), a longer one by four stable 8-bit passes, low
+      digit first (:func:`_radix_pass`);
+    - the gather: with ``nan`` NaN keys at the end of the sorted prefix, a
+      target t clipped to ``[0, cap − 1]`` selects the prefix's t-th below
+      z − nan, +inf below cap − nan, else the NaN at t − (cap − z), which
+      is where the plain version's stable sort of the row, +inf past z,
+      puts them.
+    """
+    h, cap = vals.shape
+    chunk, span = threads * items, 32 * items
+    if threads % 32 or blocks * chunk < cap:
+        raise ValueError(f"{blocks} blocks of {chunk} columns do not cover rows of {cap}")
+    bits_all = vals.to(torch.float32).contiguous().view(torch.int32)
+    out = torch.empty(targets.shape, dtype=torch.int32)
+    for f in range(h):
+        zf = int(torch.clamp(z[f].to(torch.int64), 0, cap))
+        bits = bits_all[f, :zf].clone()
+        key = sort_keys(bits)
+        if zf <= count_max:
+            key, bits = _count_ranks(key, bits)
+        else:
+            for shift in (0, 8, 16, 24):
+                key, bits = _radix_pass(key, bits, shift, chunk=chunk, span=span,
+                                        warps=threads // 32)
+        nan = int((key == NAN_KEY).sum())
+        t = torch.clamp(targets[f].to(torch.int64), 0, cap - 1)
+        inf = torch.tensor(float("inf"), dtype=torch.float32).view(torch.int32)
+        pick = torch.where(t < zf - nan, t, t - (cap - zf)).clamp(0, max(zf - 1, 0))
+        sel = bits[pick] if zf else torch.zeros_like(t, dtype=torch.int32)
+        out[f] = torch.where((t < zf - nan) | (t >= cap - nan), sel, inf)
+    return out.view(torch.float32)

@@ -21,12 +21,22 @@ from repro_torch.kernels.flash_attention.emulation import beyond, bf16_path, key
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.sampled_agg import ops
-from repro_torch.kernels.sampled_agg.emulation import chunked_prefix_power_sums
+from repro_torch.kernels.sampled_agg.emulation import (
+    chunked_prefix_power_sums,
+    clustered_sampled_moments,
+)
 from repro_torch.kernels.sampled_agg.prefix_stats import (
     chunk_threads,
     prefix_power_sums,
     prefix_power_sums_ref,
 )
+from repro_torch.kernels.sampled_agg.quantile_select import RADIX_THREADS
+from repro_torch.kernels.sampled_agg.quantile_select import Plan as SelectPlan
+from repro_torch.kernels.sampled_agg.quantile_select import candidates as select_candidates
+from repro_torch.kernels.sampled_agg.quantile_select import masked_select_ranks
+from repro_torch.kernels.sampled_agg.quantile_select import plan as select_plan
+from repro_torch.kernels.sampled_agg.ref import sampled_moments_ref
+from repro_torch.kernels.sampled_agg.sampled_agg import chunk_cols, moment_blocks, sampled_moments
 from repro_torch.kernels.sobol.ops import points
 from repro_torch.kernels.tree_qmc.ops import predict_sum
 from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum, plan
@@ -253,27 +263,156 @@ def test_ensemble_sum_deep_forest_takes_the_global_path(dev):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("cap", [512, 32768])
+def _selection_rows(dev, cap, zs, rng, *, inf_row=None):
+    """Rows with ties and both signed zeros (values rounded to 0.1), +inf at
+    every 97th column of ``inf_row``, and 257 targets in and out of the
+    prefix and of the buffer."""
+    h = len(zs)
+    vals = np.round(rng.normal(0, 2, (h, cap)), 1).astype(np.float32)
+    assert (np.signbit(vals) & (vals == 0)).any() and (~np.signbit(vals) & (vals == 0)).any()
+    if inf_row is not None:
+        vals[inf_row, 7::97] = np.inf
+    targets = rng.integers(-3, cap + 3, (h, 257)).astype(np.int32)
+    return (torch.from_numpy(vals).to(dev), torch.tensor(zs, dtype=torch.int32, device=dev),
+            torch.from_numpy(targets).to(dev))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("cap", [512, 16384, 32768, 65536])
 def test_masked_select_ranks_bitwise_equal_to_plain(dev, cap):
-    """z = 0, 1, ~5% and 100% of the buffer, values with ties, targets in
-    and out of the prefix and the buffer."""
+    """z = 0, 1, ~5% of the buffer, one chunk of the radix plan (block 0
+    alone), one column past it (the cluster) and 100%; ties, ±0 and +inf in
+    the prefix; targets in and out of the prefix and the buffer.  The int32
+    bits equal the plain version's (which keeps ±0 in column order), and
+    the launch before's, on the radix path."""
     rng = np.random.default_rng(cap)
-    h = 4
-    vals = torch.from_numpy(np.round(rng.normal(0, 2, (h, cap)), 1).astype(np.float32)).to(dev)
-    z = torch.tensor([0, 1, cap // 20, cap], dtype=torch.int32, device=dev)
-    targets = torch.from_numpy(rng.integers(-3, cap + 3, (h, 257)).astype(np.int32)).to(dev)
+    chunk = RADIX_THREADS * select_plan(cap).items
+    zs = [0, 1, cap // 20, min(chunk, cap), min(chunk + 1, cap), cap]
+    vals, z, targets = _selection_rows(dev, cap, zs, rng, inf_row=2)
     targets[2, :5] = torch.arange(5, dtype=torch.int32)
-    got = ops.select_ranks(vals, z, targets)
+    build.reset_launch_counts()
+    got, again = ops.select_ranks(vals, z, targets), ops.select_ranks(vals, z, targets)
+    assert build.PATHS == {"masked_select_ranks.radix": 2}
     want = ops.select_ranks(vals, z, targets, use_kernel=False)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert torch.isinf(got[0]).all() and torch.isfinite(got[3]).all()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(again), _bits(got))
+    assert torch.isinf(got[0]).all() and torch.isfinite(got[-1]).all()
+
+
+@pytest.mark.parametrize("cap", [1000, 4096, 32768])
+def test_masked_select_ranks_every_plan_gives_the_plain_bits(dev, cap):
+    """Every radix plan that covers the row (1, 2, 4 or 8 elements a thread,
+    clusters of 1..8), and the rank path (PR 13's design), at prefixes
+    inside block 0's chunk and across the cluster."""
+    rng = np.random.default_rng(cap + 1)
+    zs = [0, 3, cap // 7, cap // 2, cap - 1, cap]
+    vals, z, targets = _selection_rows(dev, cap, zs, rng, inf_row=3)
+    want = _bits(ops.select_ranks(vals, z, targets, use_kernel=False))
+    plans = select_candidates(cap) + [SelectPlan(0, 0)]
+    assert len(plans) >= 3
+    build.reset_launch_counts()
+    for p in plans:
+        got = masked_select_ranks(vals, z, targets, launch=p)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), want), p
+    assert build.PATHS == {"masked_select_ranks.radix": len(plans) - 1,
+                           "masked_select_ranks.rank": 1}
+
+
+def test_masked_select_ranks_nan_where_the_plain_sort_puts_it(dev):
+    """NaN sorts above +inf and after the +inf past z, as the plain version
+    on the CPU (and the JAX reference) puts it: targets near the end of the
+    buffer select the prefix's NaNs in column order, with their own bits,
+    the sign-bit one too.  (The card's ``torch.sort`` orders NaNs by their
+    bits and puts a sign-bit NaN before −inf, so the plain version runs on
+    the CPU here.)  Long prefixes take the radix passes, z = 300 the count."""
+    cap = 20000
+    rng = np.random.default_rng(9)
+    vals, z, targets = _selection_rows(dev, cap, [cap, cap // 2, 5000, 300], rng)
+    nan_bits = np.array([0x7FC00000, 0xFFC00001, 0x7F800001], dtype=np.uint32).view(np.float32)
+    for f, cols in enumerate([[0, 9, 19999], [3, 4, 9999], [4999], [1, 2, 299]]):
+        vals[f, cols] = torch.from_numpy(np.resize(nan_bits, len(cols))).to(dev)
+    targets[:, :8] = torch.arange(cap - 8, cap, dtype=torch.int32)
+    for p in (select_plan(cap), SelectPlan(8, 3)):
+        got = masked_select_ranks(vals, z, targets, launch=p).cpu()
+        want = ops.select_ranks(vals.cpu(), z.cpu(), targets.cpu())
+        assert torch.equal(_bits(got), _bits(want)), p
+    assert torch.isnan(got[:, 7]).all()
+
+
+def test_afc_rescan_kernels_replay_in_a_cuda_graph_beside_eager_launches(dev):
+    """Both rescan kernels captured in one CUDA graph and replayed on another
+    stream while eager launches run: every output has the eager launch's
+    bits, on each path of each kernel."""
+    rng = np.random.default_rng(4)
+    vals, z, targets = _selection_rows(dev, 32768, [760, 16384, 32768], rng)
+    v4, z4 = vals[:, :4096].contiguous(), z.clamp(max=4096)
+    v = torch.from_numpy(rng.normal(1.0, 3.0, (9, 32768)).astype(np.float32)).to(dev)
+    zm = torch.tensor([0, 1, 1051, 4096, 4097, 20000, 32767, 32768, 9000],
+                      dtype=torch.int32, device=dev)
+    shift = v[:, 0].contiguous()
+    calls = [lambda: ops.select_ranks(vals, z, targets),
+             lambda: masked_select_ranks(v4, z4, targets, launch=SelectPlan(1, 4)),
+             lambda: ops.moments(v, zm, shift),
+             lambda: sampled_moments(v, zm, shift, blocks=3)]
+    want = [c() for c in calls]
+    capture, other = torch.cuda.Stream(), torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            replayed = [c() for c in calls for _ in range(2)]
+    torch.cuda.synchronize()
+    eager = []
+    for _ in range(10):
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(capture):
+            eager += [c() for c in calls]
+    torch.cuda.synchronize()
+    for i, out in enumerate(replayed):
+        assert torch.equal(_bits(out), _bits(want[i // 2]))
+    for i, out in enumerate(eager):
+        assert torch.equal(_bits(out), _bits(want[i % len(calls)]))
+
+
+@pytest.mark.parametrize("k,cap", [(9, 32768), (3, 65536), (9, 1024), (5, 129), (2, 4095),
+                                   (1, 60000), (9, 512)])
+def test_sampled_moments_is_bitwise_its_emulation(dev, k, cap):
+    """The cluster kernel at the plan and at other cluster sizes equals its
+    emulation bit for bit, and the launch before, at z = 0, 1, z⁰-like,
+    a chunk and one past it, and cap, from a row base on a 16-byte boundary
+    and 4 bytes past one; it and the rows kernel within the table tolerance
+    of the plain version."""
+    rng = np.random.default_rng(k * cap + 5)
+    blocks = moment_blocks(cap)
+    chunk = chunk_cols(cap, blocks)
+    zs = [0, 1, min(cap, 1051), min(cap, chunk), min(cap, chunk + 1), cap]
+    flat = torch.from_numpy(rng.normal(1.0, 3.0, k * cap + 1).astype(np.float32)).to(dev)
+    for turn in range(max(2, -(-len(zs) // k))):
+        zv = torch.tensor([zs[(turn * k + i) % len(zs)] for i in range(k)], dtype=torch.int32,
+                          device=dev)
+        v = flat[turn % 2:][:k * cap].view(k, cap)   # odd turns: 4 bytes past the base
+        shift = v[:, 0].contiguous()
+        for b in sorted({blocks, 1, 3, 8}):
+            build.reset_launch_counts()
+            a = sampled_moments(v, zv, shift, blocks=b)
+            again = sampled_moments(v, zv, shift, blocks=b)
+            assert build.PATHS == {"sampled_moments.cluster": 2}
+            emulated = clustered_sampled_moments(v, zv, shift, blocks=b)
+            torch.cuda.synchronize()
+            assert torch.equal(a, again), b
+            assert torch.equal(a, emulated), b
+        rows = sampled_moments(v, zv, shift, blocks=0)
+        torch.testing.assert_close(rows, sampled_moments_ref(v, zv, shift), **TABLE_TOL)
+        torch.testing.assert_close(a, sampled_moments_ref(v, zv, shift), **TABLE_TOL)
 
 
 def test_wrappers_reject_cpu_tensors(dev):
-    from repro_torch.kernels.sampled_agg.prefix_stats import prefix_power_sums
-    from repro_torch.kernels.sampled_agg.quantile_select import masked_select_ranks
-
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         prefix_power_sums(torch.zeros((2, 8)))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -283,6 +422,13 @@ def test_wrappers_reject_cpu_tensors(dev):
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         masked_select_ranks(torch.zeros((2, 8)), torch.zeros(2, dtype=torch.int32),
                             torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sampled_moments(torch.zeros((2, 8)), torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="does not cover"):
+        masked_select_ranks(torch.zeros((2, 4096), device=dev),
+                            torch.zeros(2, dtype=torch.int32, device=dev),
+                            torch.zeros((2, 3), dtype=torch.int32, device=dev),
+                            launch=SelectPlan(1, 2))
 
 
 def test_guarantee_prob_degenerate_sigma_on_card(dev):
