@@ -12,17 +12,24 @@ Phases (any failure exits non-zero before the result line is printed):
    in parallel), with their build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and time both with CUDA events;
+   ``sobol_points`` at the executors' one-launch grids of all eight
+   pipelines and the LM head, and at (65536, 64), each at skip 0, 12345 and
+   2^32 - 50 (the index wraps): points, uniforms and its direct path (the
+   earlier design, ``earlier_ms``) bitwise the plain version's, and
+   ``SobolEngine``'s points (timed with the copy to the card as
+   ``library_ms``), every run length on one grid;
    ``prefix_power_sums`` at (9, 32768) and the LM head's (3, 65536) also
    launched twice (bitwise equal), against its emulation in PyTorch
    (bitwise) and through its rows path (the earlier design, timed as
    ``earlier_ms``); ``ensemble_sum`` on the turbofan forest (40 × 511) and a
-   60 × 63 boosted model, bitwise equal to the plain version on both of its
-   paths, its global path (the earlier design) timed as ``earlier_ms``;
+   60 × 63 boosted model at every served megabatch, bitwise equal to the
+   plain version on both of its paths, its global path (the earlier
+   design) timed as ``earlier_ms``;
    ``sampled_moments`` on (9, 32768) at random z, on request 0's z⁰ and
    over z = 1051 and full prefixes at (9, 32768) and (3, 65536): launched
    twice (bitwise equal), bitwise equal to its emulation in PyTorch, its
    rows path (the earlier design, ``earlier_ms``) and it within the tables'
-   tolerance of the plain version; all four must take their redesigned
+   tolerance of the plain version; all five must take their redesigned
    path (``build.PATHS``) there and on every served run below;
 3. build the full-width ``turbofan`` bundle (20000 rows per group, 400
    train groups, 24 serve groups; random forest of 40 trees, depth 8) and
@@ -46,7 +53,18 @@ Phases (any failure exits non-zero before the result line is printed):
    then the rescan against the incremental AFC per cap bucket, 512 to
    65536, on synthetic buffers of both pipelines' shapes (host wall time
    of the incremental set-up and of an evaluation on each path);
-6. ``flash_attention`` against its plain version: the LM-head prompt
+6. the six other paper pipelines at full width (``make_pipeline``
+   defaults): ``trip_fare``, ``tick_price`` (linear), ``battery``,
+   ``bearing_imbalance`` (MLP classifier), ``fraud_detection`` and
+   ``student_qa`` (classifiers), 4 requests each under "auto" and through
+   the plain versions, at δ and at 0.3·δ (regression) or τ = 0.99
+   (classification): equal plans, iterations and classes, every kernel of
+   the path launched (``ensemble_sum`` on the four tree pipelines), one
+   ``sobol_points`` launch an executor build; ``student_qa``'s forest held
+   bitwise and timed at its 6889-row megabatch, ``fraud_detection``'s at
+   2281; the busiest tight classification request profiled; then
+   ``make_pipeline_median("trip_fare")`` under "ref" (``masked_select_ranks``);
+7. ``flash_attention`` against its plain version: the LM-head prompt
    (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
    in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
    scalar kernel); Sq ≠ Sk; 4096 × 16 = 65536 batch·heads on three
@@ -55,17 +73,17 @@ Phases (any failure exits non-zero before the result line is printed):
    shapes timed beside ``F.scaled_dot_product_attention`` (a yardstick the
    port never calls), with the ratio to it, the share of the bound and
    each bf16 instance's registers and spills from the build log;
-7. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
+8. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
    full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
    from a seed): 6 requests through the kernels, exactly 24
    ``flash_attention`` launches and one ``prefix_power_sums`` per request;
    the same requests under ``use_kernel=False`` (no launch), pooled states
    within bf16 tolerance of the kernel path's, and equal plans when both
    executors are fed the same pooled state; a profile of one request;
-8. one 1 × 4096-token backbone forward, profiled: its latency,
+9. one 1 × 4096-token backbone forward, profiled: its latency,
    ``flash_attention``'s share of device time and the device's idle share;
-9. print one ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+10. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+    result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
 the JAX package.
@@ -309,7 +327,32 @@ def tree_tables(ens) -> tuple:
     return ens.feature, ens.threshold, ens.left, ens.right, ens.value
 
 
-def tree_record(ens, m: int, dev, rng) -> dict:
+def tree_check(ens, ms, dev, rng, n_feat: int = 9) -> float:
+    """``ensemble_sum`` on random (m, n_feat) rows for each m of ``ms``: the
+    smem path twice (bitwise equal), the global path (the earlier design),
+    both bitwise the plain version's.  Returns max |kernel - plain|."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tree_qmc.ops import predict_sum
+    from repro_torch.kernels.tree_qmc.tree_qmc import Plan, ensemble_sum
+
+    err = 0.0
+    for m in ms:
+        x = torch.from_numpy(rng.normal(0, 1, (m, n_feat)).astype(np.float32)).to(dev)
+        build.reset_launch_counts()
+        a, a2 = predict_sum(ens, x), predict_sum(ens, x)
+        g = ensemble_sum(*tree_tables(ens), x, depth=ens.depth, launch=Plan(0, 0, 0, 0))
+        want = predict_sum(ens, x, use_kernel=False)
+        require(build.PATHS == {"ensemble_sum.smem": 2, "ensemble_sum.global": 1},
+                f"ensemble_sum at m={m}: took {dict(build.PATHS)}, expected the smem path")
+        require(torch.equal(a, a2), f"ensemble_sum not bitwise stable at m={m}")
+        require(torch.equal(a, want), f"ensemble_sum differs from plain at m={m}")
+        require(torch.equal(g, want), f"ensemble_sum global path differs from plain at m={m}")
+        err = max(err, float((a - want).abs().max()), float((g - want).abs().max()))
+    build.reset_launch_counts()
+    return err
+
+
+def tree_record(ens, m: int, dev, rng, n_feat: int = 9) -> dict:
     """``ensemble_sum`` on m rows: the smem path timed beside the global path
     (the earlier design, ``earlier_ms``) and the plain version; bounded by the
     bytes it must move (x and the five tables read, the sums written) and by
@@ -317,7 +360,7 @@ def tree_record(ens, m: int, dev, rng) -> dict:
     from repro_torch.kernels.tree_qmc.ops import predict_sum
     from repro_torch.kernels.tree_qmc.tree_qmc import Plan, ensemble_sum, plan
 
-    (T, M), F = ens.feature.shape, 9
+    (T, M), F = ens.feature.shape, n_feat
     x = torch.from_numpy(rng.normal(0, 1, (m, F)).astype(np.float32)).to(dev)
     p = plan(T, M, F, m, torch.cuda.get_device_properties(dev).multi_processor_count)
     require(p.path == "smem", f"ensemble_sum {T}x{M} at m={m} is not planned on the smem path")
@@ -332,37 +375,90 @@ def tree_record(ens, m: int, dev, rng) -> dict:
     )
 
 
+# the executors' one-launch QMC grids (max(m, m_sobol), 2k) at BiathlonConfig()'s
+# m = 1000, m_sobol = 256 (k = 3 trip_fare, fraud_detection; 1 tick_price; 10
+# battery; 9 turbofan; 8 bearing_imbalance; 21 student_qa; 5 sensor_health)
+# and the LM head's (m = 400, m_sobol = 96, k = 3); then a grid where the
+# arithmetic shows
+SOBOL_GRIDS = [(1000, 18), (1000, 6), (1000, 2), (1000, 20), (1000, 16), (1000, 42),
+               (1000, 10), (400, 6), (65536, 64)]
+SOBOL_SKIPS = (0, 12345, 2**32 - 50)   # the last wraps the index past 2^32
+
+
+def sobol_engine_points(m: int, d: int) -> torch.Tensor:
+    """(m, d) uint32 points (int64) from ``torch.quasirandom.SobolEngine``, a
+    yardstick the port never calls: ``draw`` gives x·2^-32 exactly in float64."""
+    draw = torch.quasirandom.SobolEngine(d, scramble=False).draw(m, dtype=torch.float64)
+    return (draw * 2.0**32).to(torch.int64)
+
+
+def sobol_record(dev) -> dict:
+    """``sobol_points`` at every served grid and at (65536, 64).
+
+    Each grid at each of :data:`SOBOL_SKIPS`: the points (the runs path at
+    its planned run length), the uniforms written in the same pass and the
+    direct path (the earlier design) bitwise the plain version's; at 0 also
+    ``SobolEngine``'s points; on (1000, 42) near 2^32 every run length.
+    Timed at skip 0 as the executor calls it (uniforms): graph replay,
+    eager, the direct path (``earlier_ms``), the plain version, and
+    ``SobolEngine(d).draw(m)`` plus the copy to the card (``library_ms``,
+    host wall time of the two, as a caller pays them); bounded by 4 bytes a
+    value written and the direction numbers read once, two operations (an
+    XOR, a ctz) a value.
+    """
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sobol.ops import points, to_uniforms, uniforms
+    from repro_torch.kernels.sobol.sobol import MAX_RUN, plan, sobol_points
+
+    grids, err = [], 0
+    for m, d in SOBOL_GRIDS:
+        for skip in SOBOL_SKIPS:
+            build.reset_launch_counts()
+            got, u = points(m, d, skip, device=dev), uniforms(m, d, skip, device=dev)
+            direct = sobol_points(m, d, skip, device=dev, run=0)
+            require(build.PATHS == {"sobol_points.runs": 2, "sobol_points.direct": 1},
+                    f"sobol_points {(m, d, skip)} took {dict(build.PATHS)}")
+            want = points(m, d, skip, device=dev, use_kernel=False)
+            err = max(err, int((got - want).abs().max()))
+            require(torch.equal(got, want), f"sobol_points differs from plain at {(m, d, skip)}")
+            require(torch.equal(direct, want), f"sobol_points direct path differs at {(m, d, skip)}")
+            require(torch.equal(bits(u), bits(to_uniforms(want))),
+                    f"sobol_points uniforms differ from plain at {(m, d, skip)}")
+        require(torch.equal(sobol_engine_points(m, d),
+                            points(m, d, 0, device=dev, use_kernel=False).cpu()),
+                f"SobolEngine's points differ from the plain version's at {(m, d)}")
+        b = bound(m * d * 4 + d * 32 * 4, m * d * 2)
+        library = lambda: sobol_engine_points(m, d).to(dev)  # noqa: E731
+        library()
+        grids.append(dict(
+            shape=[m, d], run=plan(m, d),
+            **timings(lambda: uniforms(m, d, device=dev),
+                      lambda: uniforms(m, d, device=dev, use_kernel=False)),
+            earlier_ms=time_ms(lambda: sobol_points(m, d, device=dev, run=0))[0],
+            library_ms=wall_ms({"library": library})["library"],
+            bound_ms=b[0], bound_by=b[1]))
+    m, d, skip = 1000, 42, 2**32 - 50
+    want = points(m, d, skip, device=dev, use_kernel=False)
+    for run in range(1, MAX_RUN + 1):
+        got = sobol_points(m, d, skip, device=dev, run=run).to(torch.int64) & 0xFFFFFFFF
+        require(torch.equal(got, want), f"sobol_points run {run} differs at {(m, d, skip)}")
+    build.reset_launch_counts()
+    return dict(grids[0], grids=grids[1:], max_abs_err=float(err),
+                phases=["bitwise_points_uniforms_direct_9_grids_3_skips", "skip_wraps_2^32",
+                        "sobol_engine_bitwise", "every_run_length_1000x42"])
+
+
 def check_kernels(dev, bundle, alpha: float) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
     from repro_torch.kernels import build
     from repro_torch.kernels.sampled_agg import ops
-    from repro_torch.kernels.sobol.ops import points
-    from repro_torch.kernels.tree_qmc.ops import predict_sum
-    from repro_torch.kernels.tree_qmc.tree_qmc import Plan, ensemble_sum
     from repro_torch.models.tabular.trees import GradientBoosting
 
     rf_ensemble = bundle.pipeline.model.ensemble
     rec = {}
     rng = np.random.default_rng(0)
 
-    # sobol_points: bit-exact at the executor's two grids and with skip > 0
-    err = 0
-    for m, d, skip in [(1000, 9, 0), (256, 18, 0), (1000, 9, 12345)]:
-        got = points(m, d, skip, device=dev)
-        want = points(m, d, skip, device=dev, use_kernel=False)
-        err = max(err, int((got - want).abs().max()))
-        require(torch.equal(got, want), f"sobol_points differs from plain at {(m, d, skip)}")
-    m, d = 1000, 9
-    # the function maps (d, 32) uint32 to (m, d) uint32: 4 bytes a value (the
-    # port holds them in int64, which doubles what the kernel itself moves)
-    b = bound(m * d * 4 + d * 32 * 4, m * d * 32 * 2)
-    rec["sobol_points"] = dict(
-        shape=[m, d], max_abs_err=float(err),
-        phases=["bit_exact_1000x9", "bit_exact_256x18", "skip"],
-        **timings(lambda: points(m, d, device=dev),
-                  lambda: points(m, d, device=dev, use_kernel=False)),
-        bound_ms=b[0], bound_by=b[1],
-    )
+    rec["sobol_points"] = sobol_record(dev)
 
     # prefix_power_sums / sampled_moments at 60k heavy-tailed rows vs float64
     v = heavy_tailed()
@@ -413,30 +509,21 @@ def check_kernels(dev, bundle, alpha: float) -> dict:
     require(tuple(gbm.ensemble.feature.shape) == (60, 63), "GBM shape is not 60 x 63")
     require(tuple(rf_ensemble.feature.shape) == (40, 511) and rf_ensemble.depth == 8,
             "turbofan forest is not 40 x 511, depth 8")
-    # every served megabatch (z⁰, the Saltelli block, an iteration:
-    # turbofan 1001 / 2816 / 3817, sensor_health 1001 / 1792 / 2793) and more
-    err = 0.0
-    for ens in (rf_ensemble, gbm.ensemble):
-        for m in (3817, 2816, 2793, 1792, 1001, 881, 1):
-            x = torch.from_numpy(rng.normal(0, 1, (m, 9)).astype(np.float32)).to(dev)
-            build.reset_launch_counts()
-            a, a2 = predict_sum(ens, x), predict_sum(ens, x)
-            g = ensemble_sum(*tree_tables(ens), x, depth=ens.depth, launch=Plan(0, 0, 0, 0))
-            want = predict_sum(ens, x, use_kernel=False)
-            require(build.PATHS == {"ensemble_sum.smem": 2, "ensemble_sum.global": 1},
-                    f"ensemble_sum at m={m}: took {dict(build.PATHS)}, expected the smem path")
-            require(torch.equal(a, a2), f"ensemble_sum not bitwise stable at m={m}")
-            require(torch.equal(a, want), f"ensemble_sum differs from plain at m={m}")
-            require(torch.equal(g, want), f"ensemble_sum global path differs from plain at m={m}")
-            err = max(err, float((a - want).abs().max()), float((g - want).abs().max()))
+    # every served megabatch (z⁰, the Saltelli block, an iteration: turbofan
+    # 1001 / 2816 / 3817, sensor_health 1001 / 1792 / 2793, trip_fare and
+    # fraud_detection 1280 / 2281, battery 3072 / 4073) and more; student_qa's
+    # own forest (21 features, up to 6889 rows) is checked in its phase
+    err = max(tree_check(ens, (4073, 3817, 3072, 2816, 2793, 2281, 1792, 1280, 1001, 881, 1),
+                         dev, rng)
+              for ens in (rf_ensemble, gbm.ensemble))
     rec["ensemble_sum"] = dict(
         tree_record(rf_ensemble, 3817, dev, rng),
         gbm=tree_record(gbm.ensemble, 2793, dev, rng),
         max_abs_err=err,
-        phases=["rf_40x511", "gbm_60x63", "m_3817_2816_2793_1792_1001_881_1", "bitwise_stable",
+        phases=["rf_40x511", "gbm_60x63",
+                "m_4073_3817_3072_2816_2793_2281_1792_1280_1001_881_1", "bitwise_stable",
                 "bitwise_plain", "global_path_bitwise_plain"],
     )
-    build.reset_launch_counts()
     return rec
 
 
@@ -721,7 +808,8 @@ def compare_runs(name, base, other, cfg):
 
 # the path every launch of a redesigned kernel must take on the served shapes
 SERVED_PATHS = {"ensemble_sum": "smem", "prefix_power_sums": "chunks",
-                "sampled_moments": "cluster", "masked_select_ranks": "radix"}
+                "sampled_moments": "cluster", "masked_select_ranks": "radix",
+                "sobol_points": "runs"}
 
 
 def expect_launched(name, launches, kernels, absent=()):
@@ -734,7 +822,128 @@ def expect_launched(name, launches, kernels, absent=()):
                 f"{name}: {kname} took {launches}, expected the {path} path on every launch")
 
 
-# ---------------------------------------------------------------- phase 6-8
+# ------------------------------------------------------------------ phase 6
+# the six other paper pipelines: model kind, task, and whether a tree
+# ensemble (ensemble_sum) serves it
+PAPER_PIPELINES = {
+    "trip_fare": ("gradient boosting", "regression", True),
+    "tick_price": ("linear", "regression", False),
+    "battery": ("gradient boosting", "regression", True),
+    "bearing_imbalance": ("MLP", "classification", False),
+    "fraud_detection": ("gradient boosting", "classification", True),
+    "student_qa": ("random forest", "classification", True),
+}
+N_PAPER = 4
+
+
+def tight_config(pipeline):
+    """The setting at which requests enter the planner loop: 0.3·δ for
+    regression, τ = 0.99 for classification."""
+    from repro_torch.core.executor import BiathlonConfig
+
+    if pipeline.task == "classification":
+        return BiathlonConfig(tau=0.99)
+    return BiathlonConfig(delta=pipeline.delta_default * 0.3)
+
+
+def paper_pipelines_phase(dev, cfg, card: str, rng) -> dict:
+    """Each of the six other paper pipelines at full width (``make_pipeline``
+    defaults), 4 requests through the kernels ("auto": incremental at these
+    caps) and through the plain versions, at δ and at the tight setting:
+    equal plans, iteration counts and classes; every kernel of the path
+    launched on its redesigned path, none on the plain runs.  Then
+    ``make_pipeline_median("trip_fare")`` under "ref" (the holistic rescan
+    through ``masked_select_ranks``) against the plain versions.
+    ``student_qa``'s forest (21 features) is held bitwise at its served
+    megabatches and timed at 6889 rows, ``fraud_detection``'s boosted model
+    at 2281; the tight classification request that iterated most is
+    profiled."""
+    from repro_torch.data.synthetic import make_pipeline, make_pipeline_median
+
+    runs = {"auto": dict(afc_backend="auto", use_kernel=True),
+            "plain": dict(afc_backend="auto", use_kernel=False)}
+    out = {"serve": {}, "trees": {}}
+    bundles = {}
+    for name, (kind, task, trees) in PAPER_PIPELINES.items():
+        t0 = time.perf_counter()
+        bundle = bundles[name] = make_pipeline(name, device=dev)
+        p = bundle.pipeline
+        require(p.task == task, f"{name}: task {p.task}, expected {task}")
+        build_s = time.perf_counter() - t0
+        tight = tight_config(p)
+        res = {key: serve_run(bundle, cfg, dev, n_req=N_PAPER, **kw) for key, kw in runs.items()}
+        res.update({f"{key}_tight": serve_run(bundle, tight, dev, n_req=N_PAPER, **kw)
+                    for key, kw in runs.items()})
+        caps = sorted({o["cap"] for o in res["auto"][0]})
+        require(min(caps) > 1024, f"{name}: caps {caps} do not take the incremental path")
+        kernels = ["prefix_power_sums", "sobol_points"] + (["ensemble_sum"] if trees else [])
+        absent = ["sampled_moments", "masked_select_ranks"] + ([] if trees else ["ensemble_sum"])
+        for key in ("auto", "auto_tight"):
+            expect_launched(f"{name} {key}", res[key][2], kernels, absent)
+            require(res[key][3].get("sobol_points", 0) == 1,
+                    f"{name} {key}: {res[key][3]} at the executor build, expected one "
+                    "sobol_points launch")
+        for key in ("plain", "plain_tight"):
+            require(not res[key][2], f"{name} {key} launched kernels {res[key][2]}")
+        compare_runs(f"{name} auto vs plain", res["plain"][0], res["auto"][0], cfg)
+        compare_runs(f"{name} tight auto vs plain", res["plain_tight"][0],
+                     res["auto_tight"][0], tight)
+        if task == "classification":
+            for o in res["auto"][0] + res["auto_tight"][0]:
+                require(o["y_hat"] in (0.0, 1.0), f"{name}: y_hat {o['y_hat']} is not a class")
+        for key, (outs, p50, launches, _) in res.items():
+            print(f"serve {name} {key}: p50 {p50 * 1e3:.3f} ms over {len(outs)} requests, "
+                  f"iters {[o['iters'] for o in outs]}, caps {sorted({o['cap'] for o in outs})}, "
+                  f"launches {launches} [{card}]", flush=True)
+        out["serve"][name] = dict(
+            model=kind, task=task, k=p.k, rows=bundle.table_rows, build_s=build_s,
+            megabatch=cfg.m + 1 + (p.k + 2) * cfg.m_sobol,
+            **{key: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs], launches=launches)
+               for key, (outs, p50, launches, _) in res.items()})
+
+    student = bundles["student_qa"].pipeline.model.ensemble
+    require(tuple(student.feature.shape) == (40, 511), "student_qa forest is not 40 x 511")
+    out["trees"]["student_qa"] = dict(
+        tree_record(student, 6889, dev, rng, n_feat=21),
+        max_abs_err=tree_check(student, (6889, 5888, 1001, 1), dev, rng, n_feat=21))
+    fraud = bundles["fraud_detection"].pipeline.model.ensemble
+    out["trees"]["fraud_detection"] = dict(
+        tree_record(fraud, 2281, dev, rng, n_feat=9),
+        max_abs_err=tree_check(fraud, (2281, 1280, 1001), dev, rng, n_feat=9))
+
+    # the tight classification request that iterated most
+    name, busiest = max(
+        ((n, i) for n, (_, task, _) in PAPER_PIPELINES.items() if task == "classification"
+         for i in range(N_PAPER)),
+        key=lambda ni: out["serve"][ni[0]]["auto_tight"]["iters"][ni[1]])
+    tight = tight_config(bundles[name].pipeline)
+    out["profile_classification"] = dict(
+        profile_request(bundles[name], tight, dev, bundles[name].requests[busiest],
+                        ROOT / "build" / "chip_smoke_profile_classification.txt"),
+        pipeline=name, request=busiest, tau=tight.tau)
+    print(f"profile of {name} tight request {busiest}: "
+          f"{json.dumps(out['profile_classification'])} [{card}]", flush=True)
+
+    median = make_pipeline_median("trip_fare", device=dev)
+    res = {"ref": serve_run(median, cfg, dev, afc_backend="ref", use_kernel=True, n_req=N_PAPER),
+           "plain": serve_run(median, cfg, dev, afc_backend="ref", use_kernel=False,
+                              n_req=N_PAPER)}
+    expect_launched("trip_fare_median ref", res["ref"][2],
+                    ["masked_select_ranks", "sampled_moments", "ensemble_sum", "sobol_points"],
+                    ["prefix_power_sums"])
+    require(not res["plain"][2], f"trip_fare_median plain launched kernels {res['plain'][2]}")
+    compare_runs("trip_fare_median ref vs plain", res["plain"][0], res["ref"][0], cfg)
+    for key, (outs, p50, launches, _) in res.items():
+        print(f"serve trip_fare_median {key}: p50 {p50 * 1e3:.3f} ms over {len(outs)} requests, "
+              f"iters {[o['iters'] for o in outs]}, caps {sorted({o['cap'] for o in outs})}, "
+              f"launches {launches} [{card}]", flush=True)
+    out["serve"]["trip_fare_median"] = {
+        key: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs], launches=launches)
+        for key, (outs, p50, launches, _) in res.items()}
+    return out
+
+
+# ---------------------------------------------------------------- phase 7-9
 def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
     once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask)."""
@@ -910,7 +1119,8 @@ def lm_head_phase(dev, card: str) -> dict:
         paths_at_build = dict(build.PATHS)
         outs = ex.serve(sc, executor, requests, use_kernel=use_kernel)
         torch.cuda.synchronize()
-        paths = {n: c - paths_at_build.get(n, 0) for n, c in build.PATHS.items()}
+        paths = {n: c - paths_at_build.get(n, 0) for n, c in build.PATHS.items()
+                 if c > paths_at_build.get(n, 0)}
         runs[use_kernel] = (outs, dict(build.LAUNCHES) | dict(build.PATHS), at_build, executor,
                             paths)
     outs, launches, at_build, _, paths = runs[True]
@@ -1162,6 +1372,11 @@ def main() -> int:
               f"requests, iters {[o['iters'] for o in outs]}, launches {launches} [{card}]",
               flush=True)
 
+    paper = paper_pipelines_phase(dev, cfg, card, np.random.default_rng(1))
+    rec["ensemble_sum"].update(paper["trees"])
+    rec["ensemble_sum"]["max_abs_err"] = max(
+        [rec["ensemble_sum"]["max_abs_err"]] + [r["max_abs_err"] for r in paper["trees"].values()])
+
     crossover = afc_crossover(dev, cfg)
     for r in crossover:
         print(f"afc crossover {r['pipeline']} cap {r['cap']}: set-up {r['setup_ms']:.4f} ms, "
@@ -1215,12 +1430,16 @@ def main() -> int:
             launches_per_executor_build=path[3].get(kname, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], eager_ms=r["eager_ms"],
             plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"),
             shape=r["shape"], phases=r["phases"],
             **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "sweep",
                                        "earlier_ms", "depth", "node_visits", "plan", "chunk",
-                                       "blocks", "gbm", "lm_head", "sensor_health")
+                                       "blocks", "gbm", "lm_head", "sensor_health", "run",
+                                       "grids", "student_qa", "fraud_detection")
                if key in r},
+            launches_paper_pipelines=sum(
+                v.get("launches", {}).get(kname, 0) for pipe in paper["serve"].values()
+                for v in pipe.values() if isinstance(v, dict)),
         ))
         if kname in SERVED_PATHS:
             kernels[-1]["paths"] = {
@@ -1255,10 +1474,14 @@ def main() -> int:
                       for name, (outs, p50, launches, _) in group.items()})
     serve["lm_head"] = {key: val for key, val in lm_head.items()
                         if key not in ("launches", "launches_at_build")}
+    serve["paper_pipelines"] = paper["serve"]
+    seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,
-                      "profile_sensor_health": h_prof, "backbone_4096": backbone,
-                      "seconds": time.perf_counter() - t_start}), flush=True)
+                      "profile_sensor_health": h_prof,
+                      "profile_classification": paper["profile_classification"],
+                      "backbone_4096": backbone, "seconds": seconds}), flush=True)
+    print(f"chip_smoke: {seconds:.1f} s in all, build included [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

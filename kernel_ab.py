@@ -4,29 +4,32 @@
     PYTHONPATH=src python3 kernel_ab.py KERNEL [OTHER.cu]
 
 KERNEL is ``flash_attention``, ``ensemble_sum``, ``prefix_power_sums``,
-``sampled_moments`` or ``masked_select_ranks``; ``OTHER.cu`` another version
-of its source under ``src/repro_torch/kernels/csrc/`` (``flash_attention.cu``,
-``tree_qmc.cu``, ``prefix_stats.cu``, ``sampled_agg.cu``,
-``quantile_select.cu``), for example the file at a parent commit (``git show
+``sampled_moments``, ``masked_select_ranks`` or ``sobol_points``;
+``OTHER.cu`` another version of its source under
+``src/repro_torch/kernels/csrc/`` (``flash_attention.cu``, ``tree_qmc.cu``,
+``prefix_stats.cu``, ``sampled_agg.cu``, ``quantile_select.cu``,
+``sobol.cu``), for example the file at a parent commit (``git show
 HEAD~:src/...``).  It is built with the port's nvcc command into
 ``build/repro_torch/ab-other.so``; its C entry point must take this tree's
 arguments, as both libraries are called through the wrapper's own launch
 code (``launch_with``), so only the loaded library differs.  For
-``sampled_moments`` and ``masked_select_ranks`` OTHER.cu may be left out:
-the other side is then this build's earlier design (the rows and rank
-paths); a copy of ``quantile_select.cu`` with another ``kCountMax`` (0: no
-counting) times the radix kernel's counting threshold.  On one card both
-run in turns (other, this, this, other) at the shapes the served paths
-give the kernel, each output held to the plain
-version (bitwise for ``ensemble_sum`` and ``masked_select_ranks``; the
-tables' tolerance for ``prefix_power_sums`` and ``sampled_moments``; the
-card tests' bf16 tolerance for ``flash_attention``).  Device times per call
-come from CUDA-graph replay, beside the eager time of back-to-back launches
-(``chip_smoke.time_ms``); whether the two give the same bits is reported;
-every kernel but ``flash_attention`` also times each other launch plan of
-this tree once, the earlier designs among them (the global, rows and rank
-paths), and ``masked_select_ranks`` a sort + gather, the two-call yardstick
-the port never calls.  Prints the card, one line a shape, and a JSON object
+``sampled_moments``, ``masked_select_ranks`` and ``sobol_points`` OTHER.cu
+may be left out: the other side is then this build's earlier design (the
+rows, rank and direct paths); a copy of ``quantile_select.cu`` with another
+``kCountMax`` (0: no counting) times the radix kernel's counting threshold.
+On one card both run in turns (other, this, this, other) at the shapes the
+served paths give the kernel, each output held to the plain version
+(bitwise for ``ensemble_sum``, ``masked_select_ranks`` and
+``sobol_points``; the tables' tolerance for ``prefix_power_sums`` and
+``sampled_moments``; the card tests' bf16 tolerance for
+``flash_attention``).  Device times per call come from CUDA-graph replay,
+beside the eager time of back-to-back launches (``chip_smoke.time_ms``);
+whether the two give the same bits is reported; every kernel but
+``flash_attention`` also times each other launch plan of this tree once,
+the earlier designs among them (the global, rows and rank paths),
+``masked_select_ranks`` a sort + gather, the two-call yardstick the port
+never calls, and ``sobol_points`` its uniforms and run lengths of 1 to 32
+at the served grids.  Prints the card, one line a shape, and a JSON object
 of every time as the last line.
 """
 from __future__ import annotations
@@ -47,9 +50,11 @@ ROOT = Path(__file__).resolve().parent
 TURNS = ("other", "this", "this", "other")
 
 
-def turns(runs: dict, check, reps: int) -> dict:
+def turns(runs: dict, check, reps: int, canon=None) -> dict:
     """Device and eager ms of each run in turns, every output checked, and
-    whether the two builds give the same bits."""
+    whether the two builds give the same bits (of ``canon(output)`` where
+    the two sides hold their results in different types)."""
+    canon = canon or _bits
     times, outs = {}, {}
     for turn, name in enumerate(TURNS):
         dev_ms, eager_ms = chip_smoke.time_ms(runs[name], reps)
@@ -57,7 +62,7 @@ def turns(runs: dict, check, reps: int) -> dict:
         times[f"{name}_{turn}_eager"] = eager_ms
         outs[name] = runs[name]()
         check(name, outs[name])
-    times["bitwise_equal"] = torch.equal(_bits(outs["other"]), _bits(outs["this"]))
+    times["bitwise_equal"] = torch.equal(canon(outs["other"]), canon(outs["this"]))
     return times
 
 
@@ -251,12 +256,49 @@ def ab_select(other_lib):
     return results
 
 
+def ab_sobol(other_lib):
+    from repro_torch.kernels.sobol import sobol
+    from repro_torch.kernels.sobol.ops import points, to_uniforms, uniforms
+
+    if other_lib is None:
+        other = lambda m, d: sobol.sobol_points(m, d, device="cuda", run=0)  # noqa: E731
+    else:
+        fns = sobol.bind(other_lib)
+        other = lambda m, d: sobol.launch_with(lambda: fns, m, d, device="cuda")  # noqa: E731
+    widen = lambda t: t.to(torch.int64) & 0xFFFFFFFF  # noqa: E731
+    results = {}
+    for m, d in chip_smoke.SOBOL_GRIDS:
+        want = points(m, d, device="cuda", use_kernel=False)
+
+        def check(who, got, m=m, d=d, want=want):
+            chip_smoke.require(torch.equal(widen(got), want),
+                               f"{who} sobol_points differs at ({m}, {d})")
+
+        runs = {"other": lambda: other(m, d), "this": lambda: sobol.sobol_points(m, d, device="cuda")}
+        times = turns(runs, check, 20, canon=widen)
+        u = lambda: uniforms(m, d, device="cuda")  # noqa: E731
+        chip_smoke.require(torch.equal(_bits(u()), _bits(to_uniforms(want))),
+                           f"sobol_points uniforms differ at ({m}, {d})")
+        times["uniforms"] = chip_smoke.time_ms(u, 20)[0]
+        times["run"] = sobol.plan(m, d)
+        times["bound"] = chip_smoke.bound(m * d * 4 + d * 32 * 4, m * d * 2)[0]
+        plans = {}
+        for run in (1, 2, 4, 8, 16, 32):
+            fn = lambda r=run: sobol.sobol_points(m, d, device="cuda", run=r)  # noqa: E731
+            check(f"run {run}", fn())
+            plans[str(run)] = chip_smoke.time_ms(fn, 20)[0]
+        times["plans"] = plans
+        results[f"{m}x{d}"] = times
+    return results
+
+
 AB = {"flash_attention": ("flash_attention", ab_flash), "ensemble_sum": ("tree_qmc", ab_ensemble),
       "prefix_power_sums": ("prefix_stats", ab_prefix),
       "sampled_moments": ("sampled_agg", ab_moments),
-      "masked_select_ranks": ("quantile_select", ab_select)}
+      "masked_select_ranks": ("quantile_select", ab_select),
+      "sobol_points": ("sobol", ab_sobol)}
 #: kernels whose other side may be this build's earlier design
-EARLIER = ("sampled_moments", "masked_select_ranks")
+EARLIER = ("sampled_moments", "masked_select_ranks", "sobol_points")
 
 
 def main(kernel: str, other: Path | None) -> int:

@@ -9,9 +9,11 @@ numpy arrays, Python scalars, strings, lists and dicts:
   ``perm`` and ``group_ids`` (external key -> dense group index);
 * a pipeline: its ``name``, ``task``, ``n_classes``, ``agg_features`` and
   ``exact_features`` (lists of field dicts), ``scaler_mean``,
-  ``scaler_scale``, ``delta_default`` and a ``model`` dict with the tree
+  ``scaler_scale``, ``delta_default`` and a ``model`` dict (below);
+* a model: its ``kind`` and ``task``, and for ``"rf"`` / ``"gbm"`` the tree
   arrays (``feature``, ``threshold``, ``left``, ``right``, ``value``), its
-  ``depth``, ``base``, ``task`` and ``kind`` (``"rf"`` or ``"gbm"``);
+  ``depth`` and ``base``; for ``"linear"`` / ``"logistic"`` its ``coef``
+  and ``intercept``; for ``"mlp"`` its ``params`` (as below);
 * a bundle: ``pipeline``, ``store``, ``requests``, ``labels``, ``name``;
 * an LM's parameter tree: nested dicts of arrays (``embed``, ``unembed``,
   ``final_norm`` and the stacked ``blocks.{ln1, ln2, attn.{wq, wk, wv, wo,
@@ -29,6 +31,8 @@ import torch
 from repro_torch.core.pipeline import AggFeature, ExactFeature, Pipeline
 from repro_torch.data.store import ColumnStore, Table
 from repro_torch.data.synthetic import PipelineBundle
+from repro_torch.models.tabular.linear import LinearRegression, LogisticRegression
+from repro_torch.models.tabular.mlp import MLP
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
 
 __all__ = [
@@ -40,7 +44,9 @@ __all__ = [
     "store_from_numpy",
 ]
 
-_MODEL_KINDS = {"rf": RandomForest, "gbm": GradientBoosting}
+_TREE_KINDS = {"rf": RandomForest, "gbm": GradientBoosting}
+_LINEAR_KINDS = {"linear": LinearRegression, "logistic": LogisticRegression}
+_MODEL_KINDS = (*_TREE_KINDS, *_LINEAR_KINDS, "mlp")
 
 
 def store_from_numpy(tables: Mapping[str, Mapping]) -> ColumnStore:
@@ -58,15 +64,25 @@ def store_from_numpy(tables: Mapping[str, Mapping]) -> ColumnStore:
 
 
 def model_from_numpy(spec: Mapping):
-    """A tree model (on the CPU) from its arrays, ``depth``, ``base``, ``task``, ``kind``."""
-    if spec["kind"] not in _MODEL_KINDS:
-        raise ValueError(f"unknown model kind {spec['kind']!r}; choose from {tuple(_MODEL_KINDS)}")
+    """A model (on the CPU) from its ``kind``, ``task`` and arrays (see the
+    module docstring)."""
+    kind = spec["kind"]
+    if kind in _LINEAR_KINDS:
+        model = _LINEAR_KINDS[kind](task=spec["task"],
+                                    coef=np.asarray(spec["coef"], np.float32),
+                                    intercept=float(spec["intercept"]))
+        return model.to("cpu")
+    if kind == "mlp":
+        params = mlp_params_from_numpy(spec["params"])
+        return MLP(hidden=tuple(p["w"].shape[1] for p in params[:-1]), task=spec["task"],
+                   params=params, device=torch.device("cpu"))
+    if kind not in _TREE_KINDS:
+        raise ValueError(f"unknown model kind {kind!r}; choose from {_MODEL_KINDS}")
     ens = TreeEnsemble(
         spec["feature"], spec["threshold"], spec["left"], spec["right"], spec["value"],
         depth=int(spec["depth"]),
     )
-    model = _MODEL_KINDS[spec["kind"]](n_trees=ens.n_trees, max_depth=ens.depth,
-                                       task=spec["task"])
+    model = _TREE_KINDS[kind](n_trees=ens.n_trees, max_depth=ens.depth, task=spec["task"])
     model.ensemble = ens
     model.base = float(spec["base"])
     return model

@@ -27,9 +27,13 @@ iteration.  The order of operations is the reference's:
   Saltelli A/B/AB rows.
 
 The QMC grid is fixed per executor, so its normal quantiles and the
-holistic replicate-table indices are computed once at build time
-(``sobol_points`` on the card).  Classification pipelines, the chunked
-executor and CUDA-graph capture are later slices of the port.
+holistic replicate-table indices are computed once at build time: the AMI
+(m, k) and Saltelli (m_sobol, 2k) grids are views of one grid, one
+``sobol_points`` launch on the card.  Classification pipelines read the
+AMI rows' class frequencies (a bincount over ``n_classes``) at ŷ's class as
+the guarantee probability, and take the main-effect indices of the
+indicator ``f == ŷ``, as the reference does.  The chunked executor and
+CUDA-graph capture are later slices of the port.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.core.planner import direction, gamma_abs, initial_plan, next_plan
-from repro_torch.core.propagation import qmc_uniforms
+from repro_torch.core.propagation import qmc_grid
 from repro_torch.core.qmc import uniform_to_normal
 from repro_torch.core.uncertainty import replicate_indices, sample_features_fused
 from repro_torch.data.aggregates import AGG_IDS_FULL, HOLISTIC_AGGS, estimates_from_power_sums
@@ -135,6 +139,7 @@ def build_fused_executor(
     *,
     k: int,
     task: str,
+    n_classes: int = 2,
     m: int = 512,
     m_sobol: int = 128,
     alpha: float = 0.05,
@@ -152,8 +157,10 @@ def build_fused_executor(
 ):
     """Returns ``run(vals (k, cap), n (k,), agg_ids (k,), delta (), exact (e,)) -> FusedResult``.
 
-    ``model_fn``: ``(rows (r, k), exact (e,)) -> (r,)`` predictions,
-    called exactly once per planner iteration on the megabatch.
+    ``model_fn``: ``(rows (r, k), exact (e,)) -> (r,)`` predictions
+    (regression values, or class ids ``0 .. n_classes − 1`` for
+    ``task="classification"``), called exactly once per planner iteration
+    on the megabatch.
     ``afc_backend`` picks the AFC strategy per cap bucket
     (``ops.resolve_afc_plan``); the implementation follows the device.
     ``holistic`` lists the MEDIAN/QUANTILE feature indices, ``quantiles``
@@ -163,10 +170,9 @@ def build_fused_executor(
     comparison only).  All tensors passed to ``run`` live on ``device``.
     """
     resolve_afc_plan(afc_backend)  # validate the string at build time
-    if task != "regression":
-        raise NotImplementedError(
-            f"task={task!r}: classification pipelines are a later slice of the PyTorch port"
-        )
+    if task not in ("regression", "classification"):
+        raise ValueError(f"task must be 'regression' or 'classification', got {task!r}")
+    classify = task == "classification"
     dev = resolve_device(device)
     approx = torch.tensor(
         [True] * k if approximate is None else list(approximate), dtype=torch.bool, device=dev
@@ -180,8 +186,7 @@ def build_fused_executor(
     qs = torch.tensor(qs_list, dtype=f32, device=dev)
     base_key = threefry.PRNGKey(boot_seed)
     # the fixed QMC grid, its normal quantiles and replicate indices, once per executor
-    u_ami = qmc_uniforms(m, k, device=dev, use_kernel=use_kernel)
-    u_sob = qmc_uniforms(m_sobol, 2 * k, device=dev, use_kernel=use_kernel)
+    u_ami, u_sob = qmc_grid(m, m_sobol, k, device=dev, use_kernel=use_kernel)
     g_ami, g_sob = uniform_to_normal(u_ami), uniform_to_normal(u_sob)
     grids = {
         "ami": (g_ami, replicate_indices(u_ami, hol_idx, n_boot)),
@@ -189,18 +194,27 @@ def build_fused_executor(
         "b": (g_sob[:, k:], replicate_indices(u_sob[:, k:], hol_idx, n_boot)),
     }
     eye = torch.eye(k, dtype=torch.bool, device=dev)
+    classes = torch.arange(n_classes, device=dev)
 
     def sample(grid, value, sigma, reps):
         normals, rep_idx = grids[grid]
         return sample_features_fused(value, sigma, normals, reps, rep_idx, hol_idx)
 
     def ami_prob(y, y_hat, delta):
-        """Eq. 1 guarantee probability from the AMI output slice."""
+        """Eq. 1 guarantee probability from the AMI output slice; for
+        classification the AMI rows' frequency of ŷ's class."""
+        if classify:
+            # bincount by comparison: torch.bincount reads its max back to the host
+            counts = (y.to(torch.int64)[:, None] == classes[None, :]).sum(0)
+            return (counts.to(f32) / m).gather(0, y_hat.to(torch.int64).reshape(1))[0]
         y_bar = y.mean()
         return guarantee_prob(y_hat, y_bar, torch.sqrt(((y - y_bar) ** 2).mean()), delta)
 
-    def sobol_from_outputs(f_all):
-        """Main-effect indices from the pre-evaluated Saltelli block."""
+    def sobol_from_outputs(f_all, y_hat):
+        """Main-effect indices from the pre-evaluated Saltelli block (of the
+        indicator ``f == ŷ`` for classification)."""
+        if classify:
+            f_all = (f_all.to(torch.int32) == y_hat.to(torch.int32)).to(f32)
         f_all = f_all - f_all.mean()
         fa, fb = f_all[:m_sobol], f_all[m_sobol : 2 * m_sobol]
         fab = f_all[2 * m_sobol :].reshape(k, m_sobol)
@@ -267,7 +281,8 @@ def build_fused_executor(
             )
             y_all = model_fn(batch, exact).to(f32)
             y_hat = y_all[m]
-            return y_hat, ami_prob(y_all[:m], y_hat, delta), sobol_from_outputs(y_all[m + 1 :])
+            return (y_hat, ami_prob(y_all[:m], y_hat, delta),
+                    sobol_from_outputs(y_all[m + 1 :], y_hat))
 
         # z⁰: AMI-only dispatch; the Saltelli block only if the loop is entered
         value0, sigma0, reps0 = afc(z0, 0)
@@ -284,7 +299,7 @@ def build_fused_executor(
         it = 0
         if max_iters > 0 and want_more():
             idx = sobol_from_outputs(
-                model_fn(sobol_rows(value0, sigma0, reps0), exact).to(f32)
+                model_fn(sobol_rows(value0, sigma0, reps0), exact).to(f32), y_hat
             )
             while True:
                 z = next_plan(z, direction(idx, z, n), step, n)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.store import ColumnStore
+from repro_torch.models.tabular.trees import TreeModel
 
 __all__ = ["AggFeature", "ExactFeature", "Pipeline", "make_fused_model_fn"]
 
@@ -51,7 +52,7 @@ class Pipeline:
     name: str
     agg_features: Sequence[AggFeature]
     exact_features: Sequence[ExactFeature]
-    model: Any                      # predict(x, use_kernel=...) -> (n,)
+    model: Any                      # predict(x) -> (n,); trees take use_kernel=
     task: str                       # "regression" | "classification"
     n_classes: int = 0
     scaler_mean: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
@@ -93,17 +94,20 @@ def make_fused_model_fn(pipeline: Pipeline, device, *, use_kernel: bool = True):
     """Request-agnostic model closure: ``(agg_rows (m, k), exact (e,)) -> (m,)``.
 
     The exact features are data, so one closure serves every request.  The
-    model must already live on ``device``.
+    model must already live on ``device``.  ``use_kernel`` reaches the tree
+    models, the only ones with a kernel (``ensemble_sum``); the linear
+    models and the MLP are plain PyTorch products.
     """
     mean = torch.as_tensor(pipeline.scaler_mean, dtype=torch.float32).to(device)
     scale = torch.as_tensor(pipeline.scaler_scale, dtype=torch.float32).to(device)
     model = pipeline.model
+    kw = dict(use_kernel=use_kernel) if isinstance(model, TreeModel) else {}
 
     def model_fn(agg_rows: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
         m = agg_rows.shape[0]
         full = torch.cat([agg_rows, exact[None, :].expand(m, exact.shape[0])], dim=1)
         if mean.shape[0] == full.shape[1]:
             full = (full - mean[None, :]) / scale[None, :]
-        return model.predict(full, use_kernel=use_kernel)
+        return model.predict(full, **kw)
 
     return model_fn

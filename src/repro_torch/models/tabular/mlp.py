@@ -92,6 +92,11 @@ class MLP:
         self.params = params
         return self
 
+    def to(self, device) -> "MLP":
+        self.device = torch.device(device)
+        self.params = tree_map(lambda t: t.to(self.device), self.params)
+        return self
+
     def predict_logit(self, x: torch.Tensor) -> torch.Tensor:
         return _forward(self.params, x)
 

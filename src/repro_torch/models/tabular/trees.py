@@ -25,6 +25,7 @@ __all__ = [
     "GradientBoosting",
     "RandomForest",
     "TreeEnsemble",
+    "TreeModel",
     "ensemble_predict_sum",
     "fit_tree_arrays",
 ]
@@ -173,8 +174,12 @@ def _numpy_tree_predict(tree: dict, Xb: np.ndarray, depth: int) -> np.ndarray:
     return tree["value"][idx].astype(np.float64)
 
 
-class _TreeModel(nn.Module):
-    """Shared inference of the two ensembles: ``base + scale · Σ leaves``."""
+class TreeModel(nn.Module):
+    """Shared inference of the two ensembles: ``base + scale · Σ leaves``.
+
+    Their ``predict`` takes ``use_kernel`` (the ``ensemble_sum`` kernel or
+    its plain version on the card); the port's other models run no kernel.
+    """
 
     task: str
     ensemble: TreeEnsemble | None
@@ -184,7 +189,7 @@ class _TreeModel(nn.Module):
         return predict_sum(self.ensemble, x, use_kernel=use_kernel)
 
 
-class RandomForest(_TreeModel):
+class RandomForest(TreeModel):
     """Bagged CART forest; regression or binary classification."""
 
     def __init__(self, n_trees: int = 50, max_depth: int = 8, n_bins: int = 64,
@@ -227,7 +232,7 @@ class RandomForest(_TreeModel):
         return raw
 
 
-class GradientBoosting(_TreeModel):
+class GradientBoosting(TreeModel):
     """Second-order gradient boosting; squared loss or logistic loss."""
 
     def __init__(self, n_trees: int = 100, max_depth: int = 6, n_bins: int = 64,

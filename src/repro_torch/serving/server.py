@@ -59,6 +59,7 @@ class BiathlonServer:
             make_fused_model_fn(p, self.device, use_kernel=use_kernel),
             k=p.k,
             task=p.task,
+            n_classes=max(p.n_classes, 2),
             m=cfg.m,
             m_sobol=cfg.m_sobol,
             alpha=cfg.alpha,

@@ -23,11 +23,27 @@ ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(rows_per_group=300, n_train_groups=60, n_serve_groups=3, n_requests=2)
 
 
+def model_to_numpy(model) -> dict:
+    """A reference tabular model (trees, linear, logistic or MLP) as numpy
+    arrays and Python metadata: its trained weights, handed over as they are."""
+    kind = {"RandomForest": "rf", "GradientBoosting": "gbm", "LinearRegression": "linear",
+            "LogisticRegression": "logistic", "MLP": "mlp"}[type(model).__name__]
+    if kind in ("linear", "logistic"):
+        return {"kind": kind, "task": model.task, "coef": np.asarray(model.coef),
+                "intercept": model.intercept}
+    if kind == "mlp":
+        return {"kind": kind, "task": model.task,
+                "params": [{"w": np.asarray(layer["w"]), "b": np.asarray(layer["b"])}
+                           for layer in model.params]}
+    ens = model.ensemble
+    return {"kind": kind, "task": model.task, "base": model.base, "depth": ens.depth,
+            **{a: np.asarray(getattr(ens, a))
+               for a in ("feature", "threshold", "left", "right", "value")}}
+
+
 def bundle_to_numpy(bundle) -> dict:
     """A reference ``PipelineBundle`` as numpy arrays and Python metadata."""
     p = bundle.pipeline
-    ens = p.model.ensemble
-    kind = {"RandomForest": "rf", "GradientBoosting": "gbm"}[type(p.model).__name__]
     field_names = ("name", "table", "column", "agg", "group_field", "quantile", "approximate")
     exact_names = ("name", "kind", "table", "column", "group_field", "request_field",
                    "transform")
@@ -52,14 +68,7 @@ def bundle_to_numpy(bundle) -> dict:
             "scaler_mean": np.asarray(p.scaler_mean),
             "scaler_scale": np.asarray(p.scaler_scale),
             "delta_default": p.delta_default,
-            "model": {
-                "kind": kind,
-                "task": p.model.task,
-                "base": p.model.base,
-                "depth": ens.depth,
-                **{a: np.asarray(getattr(ens, a))
-                   for a in ("feature", "threshold", "left", "right", "value")},
-            },
+            "model": model_to_numpy(p.model),
         },
         "requests": list(bundle.requests),
         "labels": np.asarray(bundle.labels),
@@ -111,32 +120,44 @@ _HYGIENE_SCRIPT = r"""
 import json, sys
 sys.path.insert(0, {src!r})
 from repro_torch.core.executor import BiathlonConfig
-from repro_torch.data.synthetic import make_pipeline
+from repro_torch.data.synthetic import PIPELINE_NAMES, make_pipeline, make_pipeline_median
 from repro_torch.serving import BiathlonServer
 from repro_torch.configs import get_config
 from repro_torch.examples import serve_lm_head as ex
-b = make_pipeline("turbofan", rows_per_group=300, n_train_groups=60,
-                  n_serve_groups=3, n_requests=1, device="cpu")
-out = BiathlonServer(b, BiathlonConfig(m=64, m_sobol=16), device="cpu").serve(b.requests[0])
+from repro_torch.models.tabular import LogisticRegression
+small = dict(rows_per_group=300, n_train_groups=60, n_serve_groups=3, n_requests=1,
+             device="cpu")
+served = {{}}
+for name in PIPELINE_NAMES:
+    b = make_pipeline(name, **small)
+    served[name] = BiathlonServer(b, BiathlonConfig(m=64, m_sobol=16),
+                                  device="cpu").serve(b.requests[0])["y_hat"]
+b = make_pipeline_median("trip_fare", **small)
+served["trip_fare_median"] = BiathlonServer(b, BiathlonConfig(m=64, m_sobol=16),
+                                            device="cpu").serve(b.requests[0])["y_hat"]
+LogisticRegression(n_steps=2, device="cpu").fit([[0.0], [1.0]], [0.0, 1.0])
 sc = ex.build(get_config("qwen1.5-0.5b").reduced(), "cpu", n_users=2, n_events=500)
 lm = ex.serve(sc, ex.make_executor(sc, m=32, m_sobol=8), ex.draw_requests(sc, 1))[0]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({{"bad": bad, "y_hat": out["y_hat"], "lm_y_hat": lm["y_hat"]}}))
+print(json.dumps({{"bad": bad, "served": served, "lm_y_hat": lm["y_hat"]}}))
 """
 
 
 def test_port_imports_and_serves_without_jax():
-    """A fresh interpreter imports the port and serves on the CPU (a turbofan
-    request and an LM-head request) with no ``jax`` and no ``repro.*``
-    module ever loaded."""
+    """A fresh interpreter imports the port and serves on the CPU (a request
+    of each of the eight pipelines and of ``trip_fare_median``, the linear,
+    logistic and MLP models among them, and an LM-head request) with no
+    ``jax`` and no ``repro.*`` module ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert np.isfinite(out["y_hat"]) and np.isfinite(out["lm_y_hat"])
+    assert len(out["served"]) == 9
+    assert all(np.isfinite(y) for y in out["served"].values())
+    assert np.isfinite(out["lm_y_hat"])
 
 
 def _imported_modules(path: Path):
@@ -154,7 +175,7 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert len(files) > 20
     walked = {f.parent.relative_to(port).as_posix() for f in files[:-1]}
     for sub in ("configs", "models/lm", "models/tabular", "optim", "examples",
-                "kernels/flash_attention"):
+                "kernels/flash_attention", "kernels/sobol"):
         assert sub in walked, sub
     for f in files:
         for mod in _imported_modules(f):

@@ -12,8 +12,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.executor import BiathlonConfig
-from repro_torch.core.executor_fused import guarantee_prob
-from repro_torch.data.synthetic import make_pipeline
+from repro_torch.core.executor_fused import build_fused_executor, guarantee_prob
+from repro_torch.data.synthetic import make_pipeline, make_pipeline_median
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as attn_ops
@@ -37,7 +37,8 @@ from repro_torch.kernels.sampled_agg.quantile_select import masked_select_ranks
 from repro_torch.kernels.sampled_agg.quantile_select import plan as select_plan
 from repro_torch.kernels.sampled_agg.ref import sampled_moments_ref
 from repro_torch.kernels.sampled_agg.sampled_agg import chunk_cols, moment_blocks, sampled_moments
-from repro_torch.kernels.sobol.ops import points
+from repro_torch.kernels.sobol.ops import points, to_uniforms, uniforms
+from repro_torch.kernels.sobol.sobol import MAX_RUN, sobol_points
 from repro_torch.kernels.tree_qmc.ops import predict_sum
 from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum, plan
 from repro_torch.models.lm import LM
@@ -70,12 +71,51 @@ def _heavy_tailed(n=60000, seed=7):
     return v
 
 
-@pytest.mark.parametrize("m,d,skip", [(1000, 9, 0), (256, 18, 0), (1000, 9, 4096), (1, 1, 0)])
+# the executors' one-launch grids (max(m, m_sobol), 2k) at BiathlonConfig()'s
+# m = 1000, m_sobol = 256: k = 1, 3, 5, 8, 9, 10, 21 over the eight
+# pipelines; the LM head's m = 400, m_sobol = 96, k = 3
+SERVED_GRIDS = [(1000, 2), (1000, 6), (1000, 10), (1000, 16), (1000, 18), (1000, 20),
+                (1000, 42), (400, 6)]
+
+
+@pytest.mark.parametrize("m,d,skip", [(1000, 9, 0), (256, 18, 0), (1000, 9, 4096), (1, 1, 0)]
+                         + [(m, d, 0) for m, d in SERVED_GRIDS]
+                         + [(1000, 18, 2**32 - 70), (65536, 64, 99), (777, 64, 2**31 - 300)])
 def test_sobol_points_bit_exact_with_plain(dev, m, d, skip):
+    """The runs path (its planned run length), points and uniforms bitwise
+    the plain version's, and the direct path (the earlier design) too."""
+    build.reset_launch_counts()
     got = points(m, d, skip, device=dev)
+    u = uniforms(m, d, skip, device=dev)
+    direct = sobol_points(m, d, skip, device=dev, run=0)
+    assert build.PATHS == {"sobol_points.runs": 2, "sobol_points.direct": 1}
     want = points(m, d, skip, device=dev, use_kernel=False)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(direct, want)
+    assert torch.equal(u.view(torch.int32), to_uniforms(want).view(torch.int32))
+
+
+@pytest.mark.parametrize("m,d,skip", [(1000, 18, 0), (1000, 42, 2**32 - 40), (65, 7, 5)])
+def test_sobol_points_every_run_length_gives_the_plain_bits(dev, m, d, skip):
+    want = points(m, d, skip, device=dev, use_kernel=False)
+    for run in range(1, MAX_RUN + 1):
+        bits = sobol_points(m, d, skip, device=dev, run=run)
+        assert torch.equal(bits.to(torch.int64) & 0xFFFFFFFF, want), run
+
+
+def test_executor_build_launches_sobol_points_once(dev):
+    """One launch covers the AMI and the Saltelli grids, and no request
+    launches it again."""
+    build.reset_launch_counts()
+    run = build_fused_executor(lambda rows, exact: rows[:, 0], k=9, task="regression",
+                               m=1000, m_sobol=256, device=dev)
+    assert build.LAUNCHES["sobol_points"] == 1
+    k, cap = 9, 256
+    vals = torch.randn((k, cap), device=dev)
+    run(vals, torch.full((k,), cap, dtype=torch.int32, device=dev),
+        torch.zeros((k,), dtype=torch.int32, device=dev), 0.1, torch.zeros(0, device=dev))
+    assert build.LAUNCHES["sobol_points"] == 1
 
 
 @pytest.mark.parametrize("k,cap", [(9, 32768), (9, 16384), (9, 1024), (5, 129), (1, 1)])
@@ -424,6 +464,12 @@ def test_wrappers_reject_cpu_tensors(dev):
                             torch.zeros((2, 3), dtype=torch.int32))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         sampled_moments(torch.zeros((2, 8)), torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        sobol_points(8, 2, device="cpu")
+    with pytest.raises(ValueError, match="1 to 64 dimensions"):
+        sobol_points(8, 65, device=dev)
+    with pytest.raises(ValueError, match="points only"):
+        sobol_points(8, 2, device=dev, uniforms=True, run=0)
     with pytest.raises(ValueError, match="does not cover"):
         masked_select_ranks(torch.zeros((2, 4096), device=dev),
                             torch.zeros(2, dtype=torch.int32, device=dev),
@@ -478,6 +524,39 @@ def test_sensor_health_kernel_plans_equal_plain_plans(dev, afc_backend):
     rescan = afc_backend != "incremental"
     assert (launched.get("masked_select_ranks", 0) > 0) == rescan
     assert launched.get("ensemble_sum", 0) > 0
+
+
+@pytest.mark.parametrize("name", ["trip_fare", "tick_price", "battery", "bearing_imbalance",
+                                  "fraud_detection", "student_qa", "trip_fare_median"])
+def test_paper_pipelines_kernel_plans_equal_plain_plans(dev, name):
+    """Each of the six other pipelines (and an appendix-D variant) on the
+    card at the tight setting: kernel and plain paths give one plan and one
+    class; the tree pipelines launch ``ensemble_sum``, the median variant
+    ``masked_select_ranks`` (caps of 2048 or less: "auto" rescans at 1024)."""
+    make = make_pipeline_median if name.endswith("_median") else make_pipeline
+    bundle = make(name.removesuffix("_median"), rows_per_group=600, n_train_groups=100,
+                  n_serve_groups=5, n_requests=4, device=dev)
+    p = bundle.pipeline
+    classify = p.task == "classification"
+    cfg = BiathlonConfig(m=192, m_sobol=48, tau=0.995 if classify else 0.95,
+                         delta=p.delta_default * (1.0 if classify else 0.3))
+    build.reset_launch_counts()
+    ks = BiathlonServer(bundle, cfg, afc_backend="ref", device=dev)
+    kernel_out = [ks.serve(r) for r in bundle.requests]
+    launched = dict(build.LAUNCHES)
+    ps = BiathlonServer(bundle, cfg, afc_backend="ref", device=dev, use_kernel=False)
+    for a, b in zip([ps.serve(r) for r in bundle.requests], kernel_out):
+        assert a["iters"] == b["iters"] and (a["z"] == b["z"]).all()
+        if classify:
+            assert a["y_hat"] == b["y_hat"]
+        else:
+            assert abs(a["y_hat"] - b["y_hat"]) <= 1e-4 * max(1.0, abs(a["y_hat"]))
+        assert abs(a["prob"] - b["prob"]) <= 1e-4
+    trees = name not in ("tick_price", "bearing_imbalance")
+    assert (launched.get("ensemble_sum", 0) > 0) == trees
+    assert launched.get("sobol_points", 0) == 1
+    assert launched.get("sampled_moments", 0) > 0
+    assert (launched.get("masked_select_ranks", 0) > 0) == name.endswith("_median")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -102,9 +102,3 @@ def test_executor_calls_the_model_once_per_iteration(bundles):
     assert calls == [64 + 1, (k + 2) * 16] + [per_iter] * 3
     assert int(res.z[0]) == 256 and (res.z[1:] < 256).all()
     assert int(res.samples_used) == int(res.z.sum())
-
-
-def test_classification_raises_naming_the_later_slice():
-    with pytest.raises(NotImplementedError, match="classification pipelines"):
-        build_fused_executor(lambda r, e: r[:, 0], k=2, task="classification",
-                             holistic=(1,), device="cpu")

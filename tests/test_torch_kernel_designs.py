@@ -14,7 +14,13 @@ digit ranks by warp, block and cluster, the gather past z and of NaNs) must
 select the plain version's bits, and the JAX reference's, on rows with ties,
 both signed zeros, +inf and NaN in the prefix.  ``kernels/tree_qmc/emulation.py`` walks the trees in
 the kernel's groups and folds their leaves in tree order; it must equal
-``ensemble_predict_sum`` bit for bit on the two pipelines' models.  The
+``ensemble_predict_sum`` bit for bit on the two pipelines' models.
+``kernels/sobol/emulation.py`` makes Sobol points run by run as the
+``sobol_points`` kernel's runs path does (the gray-code recurrence after a
+direct start); it must equal ``sobol_uint32`` (and so the reference) bit for
+bit for every run length, dimension count and skip, the index wrapping
+past 2³² included, and the executor's one-launch grid must hold the
+reference's two grids.  The
 launch plans are checked at the served shapes.  The kernels themselves are
 held to these emulations on the card (``test_torch_cuda.py``).  The slack
 that ``kernels/flash_attention/emulation.py`` allows the bf16 attention
@@ -31,10 +37,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.propagation import qmc_uniforms as ref_qmc_uniforms
 from repro.kernels.sampled_agg.prefix_stats import prefix_power_sums_ref as ref_prefix_ref
 from repro.kernels.sampled_agg.quantile_select import masked_select_ranks as pallas_select
 from repro.kernels.sampled_agg.ref import masked_select_ranks_ref as ref_select_ref
 from repro.kernels.sampled_agg.ref import sampled_moments_ref as ref_moments_ref
+from repro_torch.core.propagation import qmc_grid, qmc_uniforms
+from repro_torch.core.qmc import sobol_uint32
 from repro_torch.data.synthetic import make_pipeline
 from repro_torch.kernels.flash_attention.emulation import beyond, bf16_path
 from repro_torch.kernels.sampled_agg.emulation import (
@@ -62,6 +71,9 @@ from repro_torch.kernels.tree_qmc.tree_qmc import (
     smem_bytes,
 )
 from repro_torch.models.tabular.trees import ensemble_predict_sum
+from repro_torch.kernels.sobol.emulation import run_walk_points
+from repro_torch.kernels.sobol.sobol import MAX_RUN, THREADS
+from repro_torch.kernels.sobol.sobol import plan as sobol_plan
 
 TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
 
@@ -393,3 +405,42 @@ def test_attention_tie_slack_covers_the_kernels_rounding_freedom(seed, shape):
         assert not beyond(got, emulated, slack, **tol).any()
     faulty = _attention_variant(q, k, v, block_k=128, gen=gen, drop_last_key=True)
     assert beyond(faulty, emulated, slack, **tol).any()
+
+
+# ------------------------------------------------------------ sobol_points
+@pytest.mark.parametrize("run", [1, 2, 3, 7, 31, 32, 33, 64])
+@pytest.mark.parametrize("dim,skip", [(1, 0), (9, 0), (18, 12345), (42, 2**32 - 70),
+                                      (64, 2**32 - 1), (6, 2**31 - 5)])
+def test_run_walk_emulation_is_bitwise_the_direct_construction(run, dim, skip):
+    """Runs of 1 to 64 points, 1 to 64 dimensions, skips whose runs cross
+    2³¹ and wrap past 2³² (``ctz(0)`` read as 31), a ragged last run."""
+    m = 200
+    got = run_walk_points(m, dim, skip, run=run)
+    assert torch.equal(got, sobol_uint32(m, dim, skip))
+
+
+@pytest.mark.parametrize("m,m_sobol,k", [(1000, 256, 9), (1000, 256, 21), (400, 96, 3),
+                                         (192, 48, 5), (48, 192, 2)])
+def test_one_grid_holds_the_executors_two(m, m_sobol, k):
+    """The (m, k) AMI grid and the (m_sobol, 2k) Saltelli grid are views of
+    one (max(m, m_sobol), 2k) grid, bit for bit the reference's two grids."""
+    u_ami, u_sob = qmc_grid(m, m_sobol, k, device="cpu")
+    assert torch.equal(u_ami, qmc_uniforms(m, k, device="cpu"))
+    assert torch.equal(u_sob, qmc_uniforms(m_sobol, 2 * k, device="cpu"))
+    assert (u_ami.numpy() == np.asarray(ref_qmc_uniforms(m, k))).all()
+    assert (u_sob.numpy() == np.asarray(ref_qmc_uniforms(m_sobol, 2 * k))).all()
+    assert u_ami.untyped_storage().data_ptr() == u_sob.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("m,dim", [(1000, 18), (1000, 42), (400, 6), (1000, 2),
+                                   (65536, 64), (1, 1)])
+def test_sobol_plan_covers_the_grid_in_a_wave(m, dim):
+    """The run length the wrapper picks: within 1..32, the block's tile in
+    32 KB of shared memory, and at most about one block an SM unless the
+    runs are at their longest."""
+    run = sobol_plan(m, dim)
+    runs = THREADS // dim
+    blocks = -(-m // (runs * run))
+    assert 1 <= run <= MAX_RUN
+    assert runs * run * dim * 4 <= 32 * 1024
+    assert blocks <= 132 or run == MAX_RUN
