@@ -64,7 +64,23 @@ Phases (any failure exits non-zero before the result line is printed):
    bitwise and timed at its 6889-row megabatch, ``fraud_detection``'s at
    2281; the busiest tight classification request profiled; then
    ``make_pipeline_median("trip_fare")`` under "ref" (``masked_select_ranks``);
-7. ``flash_attention`` against its plain version: the LM-head prompt
+7. the host-loop server (``BiathlonServer(mode="host")``, the reference's
+   paper-faithful executor) on the eight pipelines above at full width,
+   through the kernels and through the plain versions, and the fused server
+   on the same requests: ``serve_all(compare_exact=True)`` over 4 requests
+   after a warm-up (keys ``PRNGKey(i)``), equal plans, iterations, classes
+   and exact answers, ``ServerStats.summary`` printed per pipeline and mode
+   (mean and p95 latency, exact latency, speedup, sample fraction,
+   guarantee rate); ``sobol_points`` (every QMC grid), ``ensemble_sum`` (the
+   tree models) and ``masked_select_ranks`` (sensor_health's holistic
+   estimates) launched on the host path, the fused-path kernels not; tight
+   host requests on turbofan and sensor_health, the busiest profiled; then
+   ``masked_select_ranks`` at the bootstrap's (256, cap) rows with one target
+   each (sensor_health request 0's z⁰, a full 32768 prefix, z = 1, 352 and
+   353) and ``ensemble_sum`` at the host loop's m + 1 and (k+2)·m_sobol rows,
+   bitwise the plain versions', timed under graph replay and eagerly beside
+   sort plus gather;
+8. ``flash_attention`` against its plain version: the LM-head prompt
    (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
    in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
    scalar kernel); Sq ≠ Sk; 4096 × 16 = 65536 batch·heads on three
@@ -73,16 +89,16 @@ Phases (any failure exits non-zero before the result line is printed):
    shapes timed beside ``F.scaled_dot_product_attention`` (a yardstick the
    port never calls), with the ratio to it, the share of the bound and
    each bf16 instance's registers and spills from the build log;
-8. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
+9. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
    full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
    from a seed): 6 requests through the kernels, exactly 24
    ``flash_attention`` launches and one ``prefix_power_sums`` per request;
    the same requests under ``use_kernel=False`` (no launch), pooled states
    within bf16 tolerance of the kernel path's, and equal plans when both
    executors are fed the same pooled state; a profile of one request;
-9. one 1 × 4096-token backbone forward, profiled: its latency,
+10. one 1 × 4096-token backbone forward, profiled: its latency,
    ``flash_attention``'s share of device time and the device's idle share;
-10. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+11. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -940,10 +956,261 @@ def paper_pipelines_phase(dev, cfg, card: str, rng) -> dict:
     out["serve"]["trip_fare_median"] = {
         key: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs], launches=launches)
         for key, (outs, p50, launches, _) in res.items()}
+    out["bundles"] = bundles
     return out
 
 
-# ---------------------------------------------------------------- phase 7-9
+# ------------------------------------------------------------------ phase 7
+N_HOST = 4
+HOST_PIPELINES = ("turbofan", "sensor_health") + tuple(PAPER_PIPELINES)
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_serve_run(bundle, cfg, dev, *, mode="host", use_kernel=True, n_req=N_HOST,
+                   compare_exact=True):
+    """One warm-up request (and its exact baseline), then
+    ``serve_all(requests[:n_req], compare_exact)`` through the server's own
+    entry point.  Returns ``(ServerStats, outputs of serve, launch counts)``:
+    the counts are reset just before the server is built and read after the
+    last request; the outputs are recorded by wrapping ``serve``."""
+    from repro_torch.core import threefry
+    from repro_torch.core.executor import run_exact
+    from repro_torch.kernels import build
+    from repro_torch.serving import BiathlonServer
+
+    sync(dev)
+    build.reset_launch_counts()
+    srv = BiathlonServer(bundle, cfg, mode=mode, device=dev, use_kernel=use_kernel)
+    reqs = bundle.requests[:n_req]
+    srv.serve(reqs[0], threefry.PRNGKey(99))
+    if compare_exact:
+        run_exact(bundle.store, bundle.pipeline, reqs[0], device=dev, use_kernel=use_kernel)
+    outs, serve = [], srv.serve
+    srv.serve = lambda req, key=None: outs.append(serve(req, key)) or outs[-1]
+    stats = srv.serve_all(reqs, compare_exact=compare_exact)
+    sync(dev)
+    return stats, outs, dict(build.LAUNCHES) | dict(build.PATHS)
+
+
+def compare_host_runs(name, plain, kernel, cfg, task):
+    """Equal plans, iterations and classes (y_hat within 1e-4·max(1, |y|)),
+    and equal exact answers, between the plain and the kernel path."""
+    (ps, po, _), (ks, ko, _) = plain, kernel
+    for i, (a, b) in enumerate(zip(po, ko)):
+        require(a["iters"] == b["iters"] and (a["z"] == b["z"]).all(),
+                f"{name}: request {i} plan differs: {a['z']} x{a['iters']} vs "
+                f"{b['z']} x{b['iters']}")
+        same = (a["y_hat"] == b["y_hat"] if task == "classification"
+                else abs(a["y_hat"] - b["y_hat"]) <= 1e-4 * max(1.0, abs(a["y_hat"])))
+        require(same, f"{name}: request {i} y_hat {a['y_hat']} vs {b['y_hat']}")
+        require(np.isfinite(b["y_hat"]) and 0.0 <= b["prob"] <= 1.0,
+                f"{name}: request {i} y_hat {b['y_hat']} prob {b['prob']}")
+        done = b["prob"] >= cfg.tau or (b["z"] == b["n"]).all() or b["iters"] == cfg.max_iters
+        require(done, f"{name}: request {i} stopped at prob {b['prob']} with plan left")
+    for i, (a, b) in enumerate(zip(ps.y_exacts, ks.y_exacts)):
+        require(abs(a - b) <= 1e-4 * max(1.0, abs(a)),
+                f"{name}: request {i} exact answer {a} vs {b}")
+
+
+def host_select_record(vals: torch.Tensor, z: int, q: float, key, reps: int = 20) -> dict:
+    """``masked_select_ranks`` at the host loop's bootstrap shape: the 256
+    resampled rows of one holistic feature's buffer (drawn as
+    ``aggregates._bootstrap_replicates`` draws them), one target a row.
+    Bitwise (int32 views) the plain version's and the launch before's, on the
+    radix path; timed under graph replay and eagerly beside the plain version
+    and ``torch.sort`` + ``take_along_dim`` (two calls the port never makes),
+    with the bound: the live prefixes read once, z, targets and outputs."""
+    from repro_torch.core import threefry
+    from repro_torch.data.aggregates import _quantile_rank
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sampled_agg import ops
+    from repro_torch.kernels.sampled_agg.quantile_select import plan
+
+    cap = vals.shape[0]
+    zt = torch.full((), z, dtype=torch.int32, device=vals.device)
+    u = threefry.uniform(key, (256, cap), device=vals.device)
+    rows = vals[torch.floor(u * float(z)).to(torch.int64)]
+    zr = zt.expand(256).contiguous()
+    t = _quantile_rank(zt, q).expand(256, 1).contiguous()
+    build.reset_launch_counts()
+    got, again = ops.select_ranks(rows, zr, t), ops.select_ranks(rows, zr, t)
+    require(build.PATHS == {"masked_select_ranks.radix": 2},
+            f"masked_select_ranks (256, {cap}) z {z} took {dict(build.PATHS)}")
+    plain = ops.select_ranks(rows, zr, t, use_kernel=False)
+    same = bits(got) == bits(plain)
+    err = float(torch.where(same, 0.0, (got - plain).abs()).max())
+    require(bool(same.all()), f"masked_select_ranks (256, {cap}) z {z} differs from plain")
+    require(torch.equal(bits(again), bits(got)), f"masked_select_ranks (256, {cap}): unstable")
+    cols = torch.arange(cap, device=vals.device)
+    padded = torch.where(cols[None, :] < zr[:, None], rows, torch.inf)
+    clipped = torch.clamp(t.to(torch.int64), 0, cap - 1)
+    sort_gather = lambda: torch.take_along_dim(  # noqa: E731
+        torch.sort(padded, dim=1, stable=True).values, clipped, dim=1)
+    require(torch.equal(bits(sort_gather()), bits(got)), "sort + gather disagrees with the kernel")
+    b = bound(256 * z * 4 + 256 * 4 * 3, 0)
+    build.reset_launch_counts()
+    return dict(shape=[256, cap, 1], z=z, max_abs_err=err, plan=list(plan(cap)),
+                **timings(lambda: ops.select_ranks(rows, zr, t),
+                          lambda: ops.select_ranks(rows, zr, t, use_kernel=False)),
+                sort_gather_ms=time_ms(sort_gather, reps)[0], bound_ms=b[0], bound_by=b[1])
+
+
+def host_sobol_record(dev, m: int, d: int, key, reps: int = 20) -> dict:
+    """``sobol_points`` at one of the host loop's grids, as it calls it:
+    ``points(m, d, 0)`` (the runs path, rebuilt at every call), bitwise the
+    plain version's as int64 and the launch before's; the keyed uniforms
+    ``to_uniforms(digital_shift(key, points))`` bitwise (int32 views) the
+    plain version's, and so is ``qmc_uniforms(m, d, key)``, the executor's
+    call.  Timed under graph replay and eagerly beside the plain version
+    (``points``), and the keyed chain eagerly beside its plain version;
+    bounded as :func:`sobol_record` bounds a grid."""
+    from repro_torch.core.propagation import qmc_uniforms
+    from repro_torch.core.qmc import digital_shift
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sobol.ops import points, to_uniforms
+    from repro_torch.kernels.sobol.sobol import plan
+
+    build.reset_launch_counts()
+    got, again = points(m, d, 0, device=dev), points(m, d, 0, device=dev)
+    u = qmc_uniforms(m, d, key, device=dev)
+    require(build.PATHS == {"sobol_points.runs": 3},
+            f"sobol_points {(m, d)} took {dict(build.PATHS)}, expected the runs path")
+    want = points(m, d, 0, device=dev, use_kernel=False)
+    require(torch.equal(got, want), f"sobol_points differs from plain at host grid {(m, d)}")
+    require(torch.equal(again, got), f"sobol_points not bitwise stable at host grid {(m, d)}")
+    shifted = bits(to_uniforms(digital_shift(key, want)))
+    require(torch.equal(bits(to_uniforms(digital_shift(key, got))), shifted),
+            f"shifted uniforms of the kernel's points differ from plain at {(m, d)}")
+    keyed_plain = lambda: qmc_uniforms(m, d, key, device=dev, use_kernel=False)  # noqa: E731
+    require(torch.equal(bits(keyed_plain()), shifted), f"plain qmc_uniforms differs at {(m, d)}")
+    require(torch.equal(bits(u), shifted), f"qmc_uniforms with a key differs at {(m, d)}")
+    b = bound(m * d * 4 + d * 32 * 4, m * d * 2)
+    rec = dict(shape=[m, d], run=plan(m, d), max_abs_err=float((got - want).abs().max()),
+               **timings(lambda: points(m, d, 0, device=dev),
+                         lambda: points(m, d, 0, device=dev, use_kernel=False)),
+               keyed_eager_ms=_events_ms(lambda: qmc_uniforms(m, d, key, device=dev), reps),
+               keyed_plain_eager_ms=_events_ms(keyed_plain, reps),
+               bound_ms=b[0], bound_by=b[1])
+    build.reset_launch_counts()
+    return rec
+
+
+def host_phase(dev, bundles: dict, cfg, card: str, rng) -> dict:
+    """The host-loop server (``mode="host"``) on the eight pipelines at full
+    width, through the kernels and the plain versions, and the fused server
+    on the same requests, each ``serve_all(compare_exact=True)`` over 4
+    requests after a warm-up: equal plans, iterations, classes and exact
+    answers; ``ServerStats.summary`` printed per pipeline and mode.  Then
+    tight host requests on turbofan and sensor_health, the busiest profiled,
+    and the kernels at the host loop's shapes: ``masked_select_ranks`` on
+    the (256, cap) bootstrap rows, ``sobol_points`` at every pipeline's
+    (m, k) and (m_sobol, 2k), ``ensemble_sum`` on every tree pipeline's
+    forest at m + 1, (k + 2)·m_sobol and 1 row (``run_exact``)."""
+    from repro_torch.core import threefry
+    from repro_torch.core.planner import initial_plan
+    from repro_torch.data.store import bucket_size
+    from repro_torch.models.tabular.trees import TreeModel
+    from repro_torch.serving import BiathlonServer
+
+    out = {"serve": {}, "launches": {}}
+    total = {}
+    for name in HOST_PIPELINES:
+        bundle, p = bundles[name], bundles[name].pipeline
+        delta = cfg.delta if cfg.delta is not None else p.delta_default
+        trees = name in ("turbofan", "sensor_health") or PAPER_PIPELINES[name][2]
+        runs = {"host": host_serve_run(bundle, cfg, dev),
+                "host_plain": host_serve_run(bundle, cfg, dev, use_kernel=False),
+                "fused": host_serve_run(bundle, cfg, dev, mode="fused")}
+        compare_host_runs(f"{name} host", runs["host_plain"], runs["host"], cfg, p.task)
+        kernels = ["sobol_points"] + (["ensemble_sum"] if trees else [])
+        kernels += ["masked_select_ranks"] if name == "sensor_health" else []
+        absent = ["prefix_power_sums", "sampled_moments"] + (
+            [] if name == "sensor_health" else ["masked_select_ranks"])
+        expect_launched(f"{name} host", runs["host"][2], kernels, absent)
+        require(not runs["host_plain"][2], f"{name} host plain launched {runs['host_plain'][2]}")
+        for kname, count in runs["host"][2].items():
+            total[kname] = total.get(kname, 0) + count
+        out["serve"][name] = {}
+        for mode in ("host", "fused"):
+            stats, outs, launches = runs[mode]
+            s = stats.summary(delta, p.task)
+            out["serve"][name][mode] = dict(s, iters=[o["iters"] for o in outs],
+                                            launches=launches)
+            print(f"host phase {name} {mode}: mean {s['mean_latency_s'] * 1e3:.3f} ms, p95 "
+                  f"{s['p95_latency_s'] * 1e3:.3f} ms, exact {s['mean_exact_latency_s'] * 1e3:.3f}"
+                  f" ms, speedup {s['speedup']:.3f}, sample fraction {s['mean_sample_frac']:.4f}"
+                  f", guarantee rate {s['guarantee_rate']:.2f}, iters "
+                  f"{[o['iters'] for o in outs]} [{card}]", flush=True)
+    out["launches"] = total
+    print(f"host phase launches through the kernels: {total} [{card}]", flush=True)
+
+    # tight requests: turbofan and sensor_health iterate there
+    out["tight"] = {}
+    for name in ("turbofan", "sensor_health"):
+        bundle = bundles[name]
+        tight = tight_config(bundle.pipeline)
+        runs = {key: host_serve_run(bundle, tight, dev, use_kernel=key == "host",
+                                    compare_exact=False) for key in ("host", "host_plain")}
+        compare_host_runs(f"{name} host tight", runs["host_plain"], runs["host"], tight,
+                          bundle.pipeline.task)
+        outs = runs["host"][1]
+        busiest = max(range(N_HOST), key=lambda i: outs[i]["iters"])
+        srv_prof = BiathlonServer(bundle, tight, mode="host", device=dev)
+        prof = profile_served(
+            lambda: srv_prof.serve(bundle.requests[busiest], threefry.PRNGKey(busiest)),
+            ROOT / "build" / f"chip_smoke_profile_host_{name}.txt")
+        lat = outs[busiest]["latency"] * 1e3
+        prof.update(latency_ms=lat, request=busiest,
+                    device_idle_share=max(0.0, 1.0 - prof["device_busy_ms"] / lat))
+        out["tight"][name] = dict(iters=[o["iters"] for o in outs],
+                                  latency_ms=[o["latency"] * 1e3 for o in outs],
+                                  launches=runs["host"][2], profile=prof)
+        print(f"host phase {name} tight: iters {[o['iters'] for o in outs]}, latency ms "
+              f"{[round(o['latency'] * 1e3, 3) for o in outs]}; profile of request {busiest}: "
+              f"{json.dumps(prof)} [{card}]", flush=True)
+
+    # the kernels at the host loop's shapes
+    health = bundles["sensor_health"]
+    p, req = health.pipeline, health.requests[0]
+    n = p.group_sizes(health.store, req)
+    z0 = initial_plan(torch.from_numpy(n.astype(np.int32)), cfg.alpha).numpy()
+    cap0 = bucket_size(int(z0.max()))
+    hol = [j for j, f in enumerate(p.agg_features) if f.agg in ("median", "quantile")]
+    f = p.agg_features[hol[-1]]
+    q = 0.5 if f.agg == "median" else f.quantile
+    key = threefry.PRNGKey(0)
+    vals0 = torch.from_numpy(health.store[f.table].sample_prefix(
+        f.column, int(req[f.group_field]), cap0)).to(dev)
+    full = torch.from_numpy(health.store[f.table].sample_prefix(
+        f.column, int(req[f.group_field]), 32768)).to(dev)
+    full_z = min(int(n[hol[-1]]), 32768)
+    select = dict(host_select_record(vals0, int(z0[hol[-1]]), q, key),
+                  full=host_select_record(full, full_z, q, key, reps=5),
+                  counting_edge=[host_select_record(full, zz, q, key, reps=5)
+                                 for zz in (1, 352, 353)])
+    shapes = sorted({(m, d) for name in HOST_PIPELINES for k in [bundles[name].pipeline.k]
+                     for m, d in ((cfg.m, k), (cfg.m_sobol, 2 * k))})
+    sobol = {f"{m}x{d}": host_sobol_record(dev, m, d, threefry.PRNGKey(7)) for m, d in shapes}
+    trees = {}
+    for name in HOST_PIPELINES:
+        p = bundles[name].pipeline
+        if not isinstance(p.model, TreeModel):
+            continue
+        ens, n_feat = p.model.ensemble, p.k + len(p.exact_features)
+        trees[name] = {str(m): dict(tree_record(ens, m, dev, rng, n_feat=n_feat),
+                                    max_abs_err=tree_check(ens, (m,), dev, rng, n_feat=n_feat))
+                       for m in (cfg.m + 1, (p.k + 2) * cfg.m_sobol)}
+        trees[name]["1"] = dict(max_abs_err=tree_check(ens, (1,), dev, rng, n_feat=n_feat))
+    out["kernels"] = dict(masked_select_ranks=select, sobol_points=sobol, ensemble_sum=trees)
+    print(f"host phase kernels: {json.dumps(out['kernels'])} [{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 8-10
 def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
     once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask)."""
@@ -1242,7 +1509,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.executor import BiathlonConfig
-    from repro_torch.core.executor_fused import guarantee_prob
+    from repro_torch.core.guarantee import guarantee_prob
     from repro_torch.data.synthetic import make_pipeline
     from repro_torch.kernels import build
 
@@ -1377,6 +1644,20 @@ def main() -> int:
     rec["ensemble_sum"]["max_abs_err"] = max(
         [rec["ensemble_sum"]["max_abs_err"]] + [r["max_abs_err"] for r in paper["trees"].values()])
 
+    host = host_phase(dev, dict(paper["bundles"], turbofan=full, sensor_health=health), cfg,
+                      card, np.random.default_rng(2))
+    rec["masked_select_ranks"]["max_abs_err"] = max(
+        [rec["masked_select_ranks"]["max_abs_err"], host["kernels"]["masked_select_ranks"][
+            "max_abs_err"], host["kernels"]["masked_select_ranks"]["full"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in host["kernels"]["masked_select_ranks"]["counting_edge"]])
+    rec["ensemble_sum"]["max_abs_err"] = max(
+        [rec["ensemble_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for pipe in host["kernels"]["ensemble_sum"].values()
+           for r in pipe.values()])
+    rec["sobol_points"]["max_abs_err"] = max(
+        [rec["sobol_points"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in host["kernels"]["sobol_points"].values()])
+
     crossover = afc_crossover(dev, cfg)
     for r in crossover:
         print(f"afc crossover {r['pipeline']} cap {r['cap']}: set-up {r['setup_ms']:.4f} ms, "
@@ -1440,6 +1721,8 @@ def main() -> int:
             launches_paper_pipelines=sum(
                 v.get("launches", {}).get(kname, 0) for pipe in paper["serve"].values()
                 for v in pipe.values() if isinstance(v, dict)),
+            launches_host_path=host["launches"].get(kname, 0),
+            **({"host_shapes": host["kernels"][kname]} if kname in host["kernels"] else {}),
         ))
         if kname in SERVED_PATHS:
             kernels[-1]["paths"] = {
@@ -1475,6 +1758,7 @@ def main() -> int:
     serve["lm_head"] = {key: val for key, val in lm_head.items()
                         if key not in ("launches", "launches_at_build")}
     serve["paper_pipelines"] = paper["serve"]
+    serve["host"] = {key: val for key, val in host.items() if key != "kernels"}
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

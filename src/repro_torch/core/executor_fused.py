@@ -42,9 +42,11 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core import threefry
+from repro_torch.core.guarantee import guarantee_prob
 from repro_torch.core.planner import direction, gamma_abs, initial_plan, next_plan
-from repro_torch.core.propagation import qmc_grid
+from repro_torch.core.propagation import output_moments, qmc_grid
 from repro_torch.core.qmc import uniform_to_normal
+from repro_torch.core.sobol_indices import indices_from_outputs
 from repro_torch.core.uncertainty import replicate_indices, sample_features_fused
 from repro_torch.data.aggregates import AGG_IDS_FULL, HOLISTIC_AGGS, estimates_from_power_sums
 from repro_torch.device import resolve_device
@@ -66,7 +68,6 @@ __all__ = [
     "FusedResult",
     "build_fused_executor",
     "fused_rows_per_iteration",
-    "guarantee_prob",
     "pipeline_executor_kwargs",
 ]
 
@@ -108,30 +109,6 @@ def pipeline_executor_kwargs(agg_features, device) -> dict:
             [AGG_IDS_FULL[f.agg] for f in agg_features], dtype=torch.int32, device=device
         ),
     )
-
-
-def guarantee_prob(y_hat, mean, sd, delta):
-    """Eq. 1 probability ``Pr(|Y − ŷ| ≤ δ)`` for ``Y ~ N(mean, sd²)``.
-
-    A degenerate ``sd <= 1e-12`` means Y is deterministic at ``mean``, and
-    the probability is the indicator ``|mean − ŷ| ≤ δ``.
-
-    Subnormal convention: the indicator is decided in float64 from the
-    float32 operands, so it is the answer of exact arithmetic and does not
-    depend on whether a float32 path flushes subnormals to zero.  A bias of
-    ``1e-38`` (a float32 subnormal) is therefore NOT within ``δ = 0``: at
-    ``ŷ = 0, mean = 1e-38, sd = 0, δ = 0`` the probability is 0.  (The
-    reference computes the bias in float32 on XLA, which may flush it to
-    zero and answer 1.)
-    """
-    bias = mean - y_hat
-    safe = torch.clamp(sd, min=1e-12)
-    prob = torch.special.ndtr((delta - bias) / safe) - torch.special.ndtr(
-        (-delta - bias) / safe
-    )
-    exact_bias = mean.to(torch.float64) - y_hat.to(torch.float64)
-    within = (exact_bias.abs() <= delta.to(torch.float64)).to(f32)
-    return torch.where(sd <= 1e-12, within, prob)
 
 
 def build_fused_executor(
@@ -207,21 +184,7 @@ def build_fused_executor(
             # bincount by comparison: torch.bincount reads its max back to the host
             counts = (y.to(torch.int64)[:, None] == classes[None, :]).sum(0)
             return (counts.to(f32) / m).gather(0, y_hat.to(torch.int64).reshape(1))[0]
-        y_bar = y.mean()
-        return guarantee_prob(y_hat, y_bar, torch.sqrt(((y - y_bar) ** 2).mean()), delta)
-
-    def sobol_from_outputs(f_all, y_hat):
-        """Main-effect indices from the pre-evaluated Saltelli block (of the
-        indicator ``f == ŷ`` for classification)."""
-        if classify:
-            f_all = (f_all.to(torch.int32) == y_hat.to(torch.int32)).to(f32)
-        f_all = f_all - f_all.mean()
-        fa, fb = f_all[:m_sobol], f_all[m_sobol : 2 * m_sobol]
-        fab = f_all[2 * m_sobol :].reshape(k, m_sobol)
-        var_y = f_all.var(correction=0)
-        v_j = (fb[None] * (fab - fa[None])).mean(dim=1)
-        ratio = torch.clamp(v_j / torch.clamp(var_y, min=1e-12), 0.0, 1.0)
-        return torch.where(var_y > 1e-12, ratio, torch.zeros_like(ratio))
+        return guarantee_prob(y_hat, *output_moments(y), delta)
 
     def sobol_rows(value, sigma, reps):
         """Saltelli A/B/AB block: ((k+2)·m_sobol, k)."""
@@ -282,7 +245,7 @@ def build_fused_executor(
             y_all = model_fn(batch, exact).to(f32)
             y_hat = y_all[m]
             return (y_hat, ami_prob(y_all[:m], y_hat, delta),
-                    sobol_from_outputs(y_all[m + 1 :], y_hat))
+                    indices_from_outputs(y_all[m + 1 :], m_sobol, k, task=task, y_hat=y_hat)[0])
 
         # z⁰: AMI-only dispatch; the Saltelli block only if the loop is entered
         value0, sigma0, reps0 = afc(z0, 0)
@@ -298,9 +261,10 @@ def build_fused_executor(
 
         it = 0
         if max_iters > 0 and want_more():
-            idx = sobol_from_outputs(
-                model_fn(sobol_rows(value0, sigma0, reps0), exact).to(f32), y_hat
-            )
+            idx = indices_from_outputs(
+                model_fn(sobol_rows(value0, sigma0, reps0), exact).to(f32), m_sobol, k,
+                task=task, y_hat=y_hat,
+            )[0]
             while True:
                 z = next_plan(z, direction(idx, z, n), step, n)
                 y_hat, prob, idx = evaluate(z, it + 1)

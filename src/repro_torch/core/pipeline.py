@@ -1,9 +1,11 @@
 """Inference-pipeline definition (paper §2): feature prep operators + model.
 
 Port of ``repro/core/pipeline.py``.  Feature layout is ``[agg features...,
-exact features...]``; the fused model closure tiles the exact part and
-varies only the aggregate part, then applies the pipeline's standard
-scaling and the model.
+exact features...]``; the model closures tile the exact part and vary only
+the aggregate part, then apply the pipeline's standard scaling and the
+model: :func:`make_model_fn` closes over one request's exact features (the
+host-loop executor), :func:`make_fused_model_fn` takes them as data (the
+fused executor).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from repro_torch.data.store import ColumnStore
 from repro_torch.models.tabular.trees import TreeModel
 
-__all__ = ["AggFeature", "ExactFeature", "Pipeline", "make_fused_model_fn"]
+__all__ = ["AggFeature", "ExactFeature", "Pipeline", "make_fused_model_fn", "make_model_fn"]
 
 
 @dataclass(frozen=True)
@@ -88,6 +90,19 @@ class Pipeline:
              for f in self.agg_features],
             np.int64,
         )
+
+
+def make_model_fn(pipeline: Pipeline, exact_vals: np.ndarray, device, *,
+                  use_kernel: bool = True):
+    """Close over a request's exact features: ``(m, k) aggs -> (m,) preds``.
+
+    The black box ``M`` that AMI and the Sobol indices batch-evaluate, the
+    standard scaling folded in.  The model must already live on ``device``;
+    ``use_kernel`` reaches the tree models (``ensemble_sum``).
+    """
+    fused = make_fused_model_fn(pipeline, device, use_kernel=use_kernel)
+    exact = torch.as_tensor(exact_vals, dtype=torch.float32).to(device)
+    return lambda agg_x: fused(agg_x, exact)
 
 
 def make_fused_model_fn(pipeline: Pipeline, device, *, use_kernel: bool = True):

@@ -7,7 +7,9 @@ intermediate masked to 32 bits); they are bit-exact with the reference's
 On a CUDA device the grid comes from the ``sobol_points`` kernel
 (``kernels/sobol``); :func:`sobol_uint32` here is its plain version.
 
-:func:`uniform_to_normal` is the reference's float32 ``ndtri`` (the Cephes
+:func:`digital_shift` XORs a threefry draw into the points (the
+randomized QMC of the host-loop executor).  :func:`uniform_to_normal` is
+the reference's float32 ``ndtri`` (the Cephes
 piece-wise rational approximation JAX implements), written out so that the
 port and the reference agree bit for bit on the QMC grid wherever both
 backends round the same way: XLA's float32 ``log`` is not correctly
@@ -21,10 +23,11 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.sobol_tables import BITS, DIRECTION_NUMBERS, MAX_DIM
 from repro_torch.numerics import fma
 
-__all__ = ["direction_numbers", "sobol_uint32", "ndtri", "uniform_to_normal"]
+__all__ = ["digital_shift", "direction_numbers", "sobol_uint32", "ndtri", "uniform_to_normal"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -62,6 +65,16 @@ def sobol_uint32(
         bit = ((gray >> b) & 1).bool()
         out = torch.where(bit[:, None], out ^ sv[None, :, b], out)
     return out
+
+
+def digital_shift(key, points: torch.Tensor) -> torch.Tensor:
+    """Random digital (XOR) shift of raw Sobol points (int64 holding uint32).
+
+    The shift is ``jax.random.bits(key, (dim,), uint32)``, drawn on the
+    points' device; XOR keeps every value within 32 bits.
+    """
+    shift = threefry.random_bits(key, (points.shape[-1],), device=points.device)
+    return points ^ shift[None, :]
 
 
 def _polyval(coeffs, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,11 @@
-"""Feature uncertainty sampling for the fused executor (paper §3.2, ``U_x``).
+"""Feature uncertainty (paper §3.2, ``U_x``) and sampling from it.
 
-Port of ``repro/core/uncertainty.py::sample_features_fused``.  Parametric
+Port of ``repro/core/uncertainty.py``.  :class:`FeatureUncertainty` holds k
+features' error distributions in fixed shapes: a Normal σ for parametric
+aggregates, a sorted bootstrap-replicate row for holistic ones; the
+host-loop executor samples it with :func:`sample_features`.  The fused
+executor carries (value, σ) and a compact holistic replicate table
+instead (:func:`sample_features_fused`).  Parametric
 features draw ``x̂ + σ·Φ⁻¹(u)`` at their QMC uniform.  Holistic
 (MEDIAN/QUANTILE) features draw the empirical inverse CDF of their sorted
 bootstrap-replicate row at the same uniform: ``reps[f, clip(int(u·B), 0,
@@ -9,11 +14,78 @@ replicate indices are computed once, at build time.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.core.qmc import uniform_to_normal
 from repro_torch.numerics import fma
 
-__all__ = ["replicate_indices", "sample_features_fused"]
+__all__ = [
+    "FeatureUncertainty",
+    "exact_uncertainty",
+    "replicate_indices",
+    "sample_features",
+    "sample_features_fused",
+]
+
+
+class FeatureUncertainty(NamedTuple):
+    """Uncertainty of ``k`` features, fixed shapes (k,) and (k, B).
+
+    value:        point estimate x̂ per feature.
+    sigma:        Normal error stddev (0 when exact or empirical).
+    replicates:   sorted bootstrap replicates per feature (value-filled when
+                  parametric, so gathering from them is always safe).
+    is_empirical: which features use the replicate table.
+    """
+
+    value: torch.Tensor         # (k,) float32
+    sigma: torch.Tensor         # (k,) float32
+    replicates: torch.Tensor    # (k, B) float32, sorted along B
+    is_empirical: torch.Tensor  # (k,) bool
+
+    @property
+    def k(self) -> int:
+        return self.value.shape[-1]
+
+    @property
+    def n_replicates(self) -> int:
+        return self.replicates.shape[-1]
+
+    def effective_std(self) -> torch.Tensor:
+        """Stddev of the error distribution regardless of representation
+        (population std of the replicates, ddof 0, as ``jnp.std``)."""
+        emp_std = torch.std(self.replicates, dim=-1, correction=0)
+        return torch.where(self.is_empirical, emp_std, self.sigma)
+
+
+def exact_uncertainty(values: torch.Tensor, n_replicates: int = 1) -> FeatureUncertainty:
+    """Zero-uncertainty wrapper for exactly computed features."""
+    values = torch.as_tensor(values, dtype=torch.float32)
+    k = values.shape[-1]
+    return FeatureUncertainty(
+        value=values,
+        sigma=torch.zeros((k,), dtype=torch.float32, device=values.device),
+        replicates=values[:, None].expand(k, n_replicates).clone(),
+        is_empirical=torch.zeros((k,), dtype=torch.bool, device=values.device),
+    )
+
+
+def sample_features(unc: FeatureUncertainty, u: torch.Tensor) -> torch.Tensor:
+    """(m, k) feature samples from ``x̂ + U_x`` by inverse CDF of ``u`` (m, k).
+
+    Parametric features draw ``x̂ + σ·Φ⁻¹(u)``, a multiply then an add (the
+    reference runs this stage op by op, so nothing is contracted); holistic
+    ones the empirical inverse CDF of their sorted replicate row,
+    ``reps[j, clip(int(u·B), 0, B − 1)]``.  Exact features (σ = 0,
+    parametric) come out constant.
+    """
+    parametric = unc.value[None, :] + unc.sigma[None, :] * uniform_to_normal(u)
+    b = unc.n_replicates
+    idx = torch.clamp((u * b).to(torch.int32), 0, b - 1).to(torch.int64)   # (m, k)
+    empirical = torch.gather(unc.replicates, 1, idx.T).T                     # (m, k)
+    return torch.where(unc.is_empirical[None, :], empirical, parametric)
 
 
 def replicate_indices(u: torch.Tensor, hol_idx: torch.Tensor, n_boot: int) -> torch.Tensor:

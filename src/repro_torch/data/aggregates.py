@@ -1,23 +1,171 @@
 """Online-aggregation estimators with uncertainty (paper §3.2, AFC).
 
-Port of the batched parametric tail of ``repro/data/aggregates.py``: the
-power sums ``[count, Σu, Σu², Σu³, Σu⁴]`` of a z-prefix (``u = v − shift``)
-become a point estimate and a Normal error σ per feature, with the
-finite-population correction for sampling without replacement.  Holistic
-operators (MEDIAN/QUANTILE) keep their ids here; their estimates come from
-the bootstrap path (``kernels/sampled_agg/ops.py::masked_quantile_estimates``
-and the rank index in ``prefix_stats.py``), which overrides their slots.
+Port of ``repro/data/aggregates.py``.  Every estimator reads a
+fixed-capacity prefix buffer: the first ``z`` entries of ``vals (cap,)`` are
+a simple random sample without replacement of a group of ``n`` rows.
+
+* Parametric aggregates (SUM / COUNT / AVG / VAR / STD) get a Normal error σ
+  from the CLT with the finite-population correction: :func:`estimate` per
+  feature, :func:`masked_estimates_batch` for k features in one pass (the
+  host-loop executor's AFC), :func:`estimates_from_power_sums` from the
+  ``(k, 5)`` power sums of the fused executor's kernels.
+* Holistic aggregates (MEDIAN / QUANTILE) get a sorted bootstrap-replicate
+  table (paper appendix D): :func:`estimate` resamples the prefix with
+  threefry uniforms (``core/threefry.py``, bit-exact with ``jax.random``)
+  and selects each replicate's order statistic through
+  ``ops.select_ranks``, the ``masked_select_ranks`` kernel on the card.  In
+  the fused executor their slots are overwritten by the bootstrap path of
+  ``kernels/sampled_agg/ops.py``.
+
+``z`` and ``n`` of :func:`estimate` are host integers; buffers and results
+are tensors on the buffer's device.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.numerics import fma
 
-__all__ = ["AGG_IDS_FULL", "HOLISTIC_AGGS", "estimates_from_power_sums"]
+__all__ = [
+    "AGG_IDS",
+    "AGG_IDS_FULL",
+    "AggResult",
+    "HOLISTIC_AGGS",
+    "PARAMETRIC_AGGS",
+    "estimate",
+    "estimates_from_power_sums",
+    "exact_value",
+    "masked_estimates_batch",
+]
 
+f32 = torch.float32
+
+PARAMETRIC_AGGS = ("sum", "count", "avg", "var", "std")
 HOLISTIC_AGGS = ("median", "quantile")
-AGG_IDS_FULL = {"avg": 0, "sum": 1, "count": 2, "var": 3, "std": 4, "median": 5, "quantile": 6}
+AGG_IDS = {"avg": 0, "sum": 1, "count": 2, "var": 3, "std": 4}
+AGG_IDS_FULL = {**AGG_IDS, "median": 5, "quantile": 6}
+
+
+class AggResult(NamedTuple):
+    value: torch.Tensor         # () point estimate
+    sigma: torch.Tensor         # () Normal error stddev (0 for holistic or exact)
+    replicates: torch.Tensor    # (B,) sorted bootstrap replicates (value-filled if parametric)
+    is_empirical: bool
+
+
+def _quantile_rank(z: torch.Tensor, q: float) -> torch.Tensor:
+    """Nearest rank ``floor(q·(z − 1) + 0.5)`` clipped to ``[0, max(z − 1, 0)]``,
+    the multiply-add rounded once (the reference's program contracts it)."""
+    zf = z.to(f32)
+    rank = torch.floor(fma(torch.full_like(zf, q), zf - 1.0, 0.5)).to(torch.int32)
+    return torch.minimum(torch.clamp(rank, min=0), torch.clamp(z - 1, min=0))
+
+
+def _masked_quantile(vals: torch.Tensor, z: torch.Tensor, q: float, *,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """(R,) nearest-rank q-quantile of the z-prefix of each row of ``vals (R,
+    cap)``; ``z`` is a 0-d int tensor.  An empty prefix gives 0.0.
+
+    One ``ops.select_ranks`` call with a single target a row: on the card
+    the ``masked_select_ranks`` kernel, elsewhere its plain version (the
+    reference's sort with +inf padding and gather).
+    """
+    from repro_torch.kernels.sampled_agg.ops import select_ranks  # ops imports this module
+
+    r = vals.shape[0]
+    z = z.to(torch.int32)
+    targets = _quantile_rank(z, q).expand(r, 1)
+    sel = select_ranks(vals, z.expand(r), targets, use_kernel=use_kernel)[:, 0]
+    return torch.where(z > 0, sel, torch.zeros_like(sel))
+
+
+def _bootstrap_replicates(vals: torch.Tensor, z: torch.Tensor, q: float, key, n_boot: int,
+                          *, use_kernel: bool = True) -> torch.Tensor:
+    """(B,) sorted bootstrap replicate quantiles: B resamples with replacement
+    of the z-prefix of ``vals (cap,)``, each drawn as ``floor(u·z)`` from
+    ``threefry.uniform(key, (B, cap))``.
+
+    No index leaves the buffer: the largest uniform is ``1 − 2⁻²³``, and for
+    ``1 ≤ z ≤ cap`` the float32 product ``u·z`` then rounds to at most the
+    float below z, so ``floor`` gives at most ``z − 1``; ``z = 0`` gives 0.
+    """
+    cap = vals.shape[0]
+    u = threefry.uniform(key, (n_boot, cap), device=vals.device)
+    idx = torch.floor(u * z.to(f32)).to(torch.int64)
+    reps = _masked_quantile(vals[idx], z, q, use_kernel=use_kernel)
+    return torch.sort(reps).values
+
+
+def estimate(
+    agg: str,
+    vals: torch.Tensor,
+    z: int,
+    n: int,
+    key,
+    *,
+    n_boot: int = 256,
+    quantile: float = 0.5,
+    use_kernel: bool = True,
+) -> AggResult:
+    """Estimate aggregate ``agg`` of a group of ``n`` rows from its z-prefix.
+
+    ``vals`` is the ``(cap,)`` float32 buffer on the device, ``z ≤ cap``;
+    ``key`` a threefry key (holistic aggregates only).  At ``z ≥ n`` the
+    result is exact: σ = 0, replicates all equal to the value.  There the
+    reference draws a bootstrap and replaces every replicate with the
+    value; the port skips the draw, which gives the same replicates.
+    """
+    z, n = min(int(z), int(n)), int(n)
+    if z > vals.shape[0]:
+        raise ValueError(f"z = {z} exceeds the buffer's {vals.shape[0]} values")
+    dev = vals.device
+    zt = torch.full((), z, dtype=torch.int32, device=dev)
+    nt = torch.full((), n, dtype=torch.int32, device=dev)
+    if agg in HOLISTIC_AGGS:
+        q = 0.5 if agg == "median" else quantile
+        value = _masked_quantile(vals[None], zt, q, use_kernel=use_kernel)[0]
+        if z >= n:
+            reps = value.expand(n_boot)
+        else:
+            reps = _bootstrap_replicates(vals, zt, q, key, n_boot, use_kernel=use_kernel)
+        return AggResult(value=value, sigma=torch.zeros((), dtype=f32, device=dev),
+                         replicates=reps, is_empirical=True)
+    if agg not in PARAMETRIC_AGGS:
+        raise ValueError(f"unsupported aggregate {agg!r}")
+    # the reference's per-aggregate formulas are masked_estimates_batch's on one
+    # row (its FPC takes max(z, 1) where the reference takes z: at z = 0 the σ
+    # it scales is 0 either way)
+    value, sigma = masked_estimates_batch(
+        vals[None], zt[None], nt[None],
+        torch.full((1,), AGG_IDS[agg], dtype=torch.int32, device=dev))
+    return AggResult(value=value[0], sigma=sigma[0], replicates=value.expand(n_boot),
+                     is_empirical=False)
+
+
+def exact_value(agg: str, vals: torch.Tensor, n: int, *, quantile: float = 0.5,
+                use_kernel: bool = True) -> torch.Tensor:
+    """Exact aggregate over the full group (the baseline path)."""
+    return estimate(agg, vals, n, n, threefry.PRNGKey(0), n_boot=8, quantile=quantile,
+                    use_kernel=use_kernel).value
+
+
+def masked_estimates_batch(vals, z, n, agg_ids):
+    """(value, sigma) of k parametric features from their ``(k, cap)`` buffers;
+    ``z``, ``n``, ``agg_ids`` (k,) int tensors (``agg_ids`` per :data:`AGG_IDS`).
+
+    Two passes over each z-prefix: the mean, then the centred powers
+    (``d⁴`` as ``(d²)²``, as XLA's ``integer_pow``).
+    """
+    mask = (torch.arange(vals.shape[-1], device=vals.device) < z[:, None]).to(f32)
+    zf = torch.clamp(z.to(f32), min=1.0)
+    mean = (vals * mask).sum(-1) / zf
+    d = (vals - mean[:, None]) * mask
+    d2 = d * d
+    return _select_value_sigma(mean, d2.sum(-1) / zf, (d2 * d2).sum(-1) / zf, zf, z, n,
+                               agg_ids)
 
 
 def _select(agg_ids: torch.Tensor, options) -> torch.Tensor:

@@ -1,4 +1,4 @@
 """Serving front end of the port."""
-from repro_torch.serving.server import BiathlonServer
+from repro_torch.serving.server import BiathlonServer, ServerStats
 
-__all__ = ["BiathlonServer"]
+__all__ = ["BiathlonServer", "ServerStats"]

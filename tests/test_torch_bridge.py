@@ -17,6 +17,7 @@ import torch
 
 from repro.data.synthetic import make_pipeline as ref_make_pipeline
 from repro_torch.bridge import bundle_from_numpy, store_from_numpy
+from repro_torch.core.executor import run_exact
 from repro_torch.serving import BiathlonServer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -119,44 +120,59 @@ def test_store_from_numpy_reads_prefixes():
 _HYGIENE_SCRIPT = r"""
 import json, sys
 sys.path.insert(0, {src!r})
+import torch
+torch.set_num_threads(1)  # beside other test workers, as torch_pipeline_parity does
 from repro_torch.core.executor import BiathlonConfig
 from repro_torch.data.synthetic import PIPELINE_NAMES, make_pipeline, make_pipeline_median
+from repro_torch.core.executor import run_exact
 from repro_torch.serving import BiathlonServer
 from repro_torch.configs import get_config
+from repro_torch.core import guarantee, sobol_indices
+from repro_torch.examples import quickstart, serve_pipelines
 from repro_torch.examples import serve_lm_head as ex
 from repro_torch.models.tabular import LogisticRegression
 small = dict(rows_per_group=300, n_train_groups=60, n_serve_groups=3, n_requests=1,
              device="cpu")
-served = {{}}
-for name in PIPELINE_NAMES:
-    b = make_pipeline(name, **small)
-    served[name] = BiathlonServer(b, BiathlonConfig(m=64, m_sobol=16),
-                                  device="cpu").serve(b.requests[0])["y_hat"]
-b = make_pipeline_median("trip_fare", **small)
-served["trip_fare_median"] = BiathlonServer(b, BiathlonConfig(m=64, m_sobol=16),
-                                            device="cpu").serve(b.requests[0])["y_hat"]
+cfg = BiathlonConfig(m=64, m_sobol=16)
+served, summaries = {{}}, {{}}
+bundles = [make_pipeline(name, **small) for name in PIPELINE_NAMES]
+bundles.append(make_pipeline_median("trip_fare", **small))
+for b in bundles:
+    served[b.pipeline.name] = BiathlonServer(b, cfg, device="cpu").serve(b.requests[0])["y_hat"]
+    host = BiathlonServer(b, cfg, mode="host", device="cpu")
+    summaries[b.pipeline.name] = host.serve_all(compare_exact=True).summary(
+        b.pipeline.delta_default, b.pipeline.task)
+tiny = dict(rows_per_group=300, n_train_groups=60, n_serve_groups=2, n_requests=2)
+quickstart.run("cpu", tiny, cfg)
+serve_pipelines.run("cpu", tiny, cfg, names=("turbofan", "sensor_health"))
 LogisticRegression(n_steps=2, device="cpu").fit([[0.0], [1.0]], [0.0, 1.0])
 sc = ex.build(get_config("qwen1.5-0.5b").reduced(), "cpu", n_users=2, n_events=500)
 lm = ex.serve(sc, ex.make_executor(sc, m=32, m_sobol=8), ex.draw_requests(sc, 1))[0]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({{"bad": bad, "served": served, "lm_y_hat": lm["y_hat"]}}))
+print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
+                  "lm_y_hat": lm["y_hat"]}}))
 """
 
 
 def test_port_imports_and_serves_without_jax():
     """A fresh interpreter imports the port and serves on the CPU (a request
     of each of the eight pipelines and of ``trip_fare_median``, the linear,
-    logistic and MLP models among them, and an LM-head request) with no
-    ``jax`` and no ``repro.*`` module ever loaded."""
+    logistic and MLP models among them, through the fused executor, and the
+    request log of each through the host loop with the exact baseline; the
+    two ported examples at a tiny scale; an LM-head request) with no ``jax``
+    and no ``repro.*`` module ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert len(out["served"]) == 9
+    assert len(out["served"]) == len(out["summaries"]) == 9
     assert all(np.isfinite(y) for y in out["served"].values())
+    for summary in out["summaries"].values():
+        assert summary["n"] == 1 and summary["speedup"] > 0
+        assert 0.0 <= summary["guarantee_rate"] <= 1.0
     assert np.isfinite(out["lm_y_hat"])
 
 
@@ -185,10 +201,14 @@ def test_no_jax_or_reference_imports_in_port_sources():
 
 def test_server_defaults_to_cuda_and_raises_without_it(ref_bundle, monkeypatch):
     """No ``device=`` means CUDA; without a card that raises rather than
-    running on the CPU."""
+    running on the CPU, in either mode.  An unknown mode raises too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port = bundle_from_numpy(bundle_to_numpy(ref_bundle))
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         BiathlonServer(port)
-    with pytest.raises(NotImplementedError, match="mode='fused' only"):
-        BiathlonServer(port, mode="host", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        BiathlonServer(port, mode="host")
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        run_exact(port.store, port.pipeline, port.requests[0])
+    with pytest.raises(ValueError, match="mode must be"):
+        BiathlonServer(port, mode="batched", device="cpu")

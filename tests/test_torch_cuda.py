@@ -11,8 +11,12 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import threefry
 from repro_torch.core.executor import BiathlonConfig
-from repro_torch.core.executor_fused import build_fused_executor, guarantee_prob
+from repro_torch.core.executor_fused import build_fused_executor
+from repro_torch.core.guarantee import guarantee_prob
+from repro_torch.core.propagation import qmc_uniforms
+from repro_torch.data import aggregates
 from repro_torch.data.synthetic import make_pipeline, make_pipeline_median
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
@@ -343,6 +347,27 @@ def test_masked_select_ranks_bitwise_equal_to_plain(dev, cap):
     assert torch.isinf(got[0]).all() and torch.isfinite(got[-1]).all()
 
 
+@pytest.mark.parametrize("cap", [2048, 32768, 65536])
+def test_masked_select_ranks_bootstrap_rows_bitwise_equal_to_plain(dev, cap):
+    """The host loop's bootstrap shape: 256 resampled rows of one prefix,
+    one target a row (the replicate quantile's rank), at z = 1, the last
+    prefix ranked by counting (352), the first sorted (353) and z = cap;
+    int32 bits equal to the plain version's on the radix path."""
+    rng = np.random.default_rng(cap + 1)
+    base = torch.from_numpy(np.round(rng.normal(0, 2, cap), 1).astype(np.float32)).to(dev)
+    for zr in (1, 352, 353, cap):
+        idx = torch.from_numpy(rng.integers(0, zr, (256, cap))).to(dev)
+        rows = base[idx]
+        z = torch.full((256,), zr, dtype=torch.int32, device=dev)
+        t = torch.full((256, 1), int(0.9 * (zr - 1) + 0.5), dtype=torch.int32, device=dev)
+        build.reset_launch_counts()
+        got = ops.select_ranks(rows, z, t)
+        assert build.PATHS == {"masked_select_ranks.radix": 1}
+        want = ops.select_ranks(rows, z, t, use_kernel=False)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), zr
+
+
 @pytest.mark.parametrize("cap", [1000, 4096, 32768])
 def test_masked_select_ranks_every_plan_gives_the_plain_bits(dev, cap):
     """Every radix plan that covers the row (1, 2, 4 or 8 elements a thread,
@@ -557,6 +582,83 @@ def test_paper_pipelines_kernel_plans_equal_plain_plans(dev, name):
     assert launched.get("sobol_points", 0) == 1
     assert launched.get("sampled_moments", 0) > 0
     assert (launched.get("masked_select_ranks", 0) > 0) == name.endswith("_median")
+
+
+@pytest.mark.parametrize("z", [0, 1, 353, 1499, 1500, 2048])
+def test_host_loop_draws_on_card_equal_cpu(dev, z):
+    """The host loop's random draws on the card are the CPU's (and so the
+    reference's, ``tests/test_torch_host_loop.py``): the keyed QMC uniforms
+    and the holistic estimates, value and bootstrap replicates, bit for
+    bit; parametric estimates within float32 summation order."""
+    key = threefry.PRNGKey(z)
+    u = qmc_uniforms(1000, 9, key, device=dev)
+    assert torch.equal(u.cpu().view(torch.int32),
+                       qmc_uniforms(1000, 9, key, device="cpu").view(torch.int32))
+    rng = np.random.default_rng(3)
+    n = 1500 if z <= 1500 else 5000
+    vals = np.zeros(2048, np.float32)
+    vals[: min(n, 2048)] = np.round(rng.gamma(2.0, 3.0, min(n, 2048)), 2)
+    for agg in ("median", "quantile", "avg", "std"):
+        a = aggregates.estimate(agg, torch.from_numpy(vals).to(dev), z, n, key, quantile=0.9)
+        b = aggregates.estimate(agg, torch.from_numpy(vals), z, n, key, quantile=0.9)
+        if agg in aggregates.HOLISTIC_AGGS:
+            assert torch.equal(a.replicates.cpu().view(torch.int32), b.replicates.view(torch.int32))
+            assert torch.equal(a.value.cpu().view(torch.int32), b.value.view(torch.int32))
+        else:
+            torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(a.sigma.cpu(), b.sigma, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 8, 9, 10, 21])
+def test_host_loop_sobol_grids_equal_plain(dev, k):
+    """Every QMC grid the host loop draws at ``BiathlonConfig()``'s m = 1000
+    and m_sobol = 256, for each pipeline's k: (m, k) for AMI and (m_sobol,
+    2k) for the indices, odd dimensions (a partial tile of runs) included.
+    The kernel's points equal the plain version's, and the keyed uniforms
+    are the CPU's bit for bit."""
+    key = threefry.PRNGKey(k)
+    for m, d in ((1000, k), (256, 2 * k)):
+        assert torch.equal(points(m, d, 0, device=dev),
+                           points(m, d, 0, device=dev, use_kernel=False))
+        u = qmc_uniforms(m, d, key, device=dev)
+        assert torch.equal(u.cpu().view(torch.int32),
+                           qmc_uniforms(m, d, key, device="cpu").view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["turbofan", "fraud_detection", "sensor_health"])
+def test_host_mode_kernel_plans_equal_plain_plans(dev, name):
+    """The host-loop server on the card, through the kernels and through the
+    plain versions, at the tight setting: one plan, one iteration count, one
+    class; the exact baseline gives one answer on both paths.  Every QMC
+    grid is a ``sobol_points`` launch, the tree models launch
+    ``ensemble_sum`` and the holistic estimates ``masked_select_ranks``."""
+    bundle = make_pipeline(name, rows_per_group=1200, n_train_groups=100, n_serve_groups=5,
+                           n_requests=4, device=dev)
+    p = bundle.pipeline
+    classify = p.task == "classification"
+    cfg = BiathlonConfig(m=192, m_sobol=48, tau=0.995 if classify else 0.95,
+                         delta=p.delta_default * (1.0 if classify else 0.3))
+    build.reset_launch_counts()
+    ks = BiathlonServer(bundle, cfg, mode="host", device=dev)
+    kernel = ks.serve_all(seed=1)
+    launched = dict(build.LAUNCHES)
+    ps = BiathlonServer(bundle, cfg, mode="host", device=dev, use_kernel=False)
+    build.reset_launch_counts()
+    plain = ps.serve_all(seed=1)
+    assert not build.LAUNCHES
+    assert kernel.iters == plain.iters and kernel.sample_fracs == plain.sample_fracs
+    assert kernel.y_exacts == plain.y_exacts
+    for a, b in zip(plain.y_hats, kernel.y_hats):
+        assert (a == b) if classify else abs(a - b) <= 1e-4 * max(1.0, abs(a))
+    for i, req in enumerate(bundle.requests):
+        a = ps.serve(req, threefry.PRNGKey(i))
+        b = ks.serve(req, threefry.PRNGKey(i))
+        assert (a["z"] == b["z"]).all() and a["iters"] == b["iters"]
+    assert max(kernel.iters) > 1
+    assert launched.get("sobol_points", 0) >= sum(kernel.iters)
+    assert launched.get("ensemble_sum", 0) > 0
+    assert (launched.get("masked_select_ranks", 0) > 0) == (name == "sensor_health")
+    assert not launched.get("prefix_power_sums") and not launched.get("sampled_moments")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

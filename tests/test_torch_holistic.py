@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_bridge import bundle_to_numpy
+from torch_pipeline_parity import one_torch_thread  # noqa: F401  (autouse)
 
 from repro.core.executor import BiathlonConfig as RefConfig
 from repro.core.uncertainty import sample_features_fused as ref_sample_features_fused

@@ -14,7 +14,7 @@ from repro.core.qmc import uniform_to_normal as ref_uniform_to_normal
 from repro.core.propagation import qmc_uniforms as ref_qmc_uniforms
 from repro.kernels.sampled_agg.compensated import comp_cumsum as ref_comp_cumsum
 from repro.kernels.sobol.sobol import sobol_points as ref_sobol_points
-from repro_torch.core.executor_fused import guarantee_prob
+from repro_torch.core.guarantee import guarantee_prob
 from repro_torch.core.propagation import qmc_uniforms
 from repro_torch.core.qmc import sobol_uint32, uniform_to_normal
 from repro_torch.kernels.sampled_agg.compensated import comp_cumsum, comp_sum, kahan_step, two_sum

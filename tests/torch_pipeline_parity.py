@@ -8,10 +8,12 @@ over through the numpy bridge, trained weights included, so the two run
 the same store and the same model.  Tolerances: y_hat within
 1e-4·max(1, |y|) (float32 reductions are ordered differently by XLA and
 PyTorch), an equal class for classification, the Eq. 1 probability within
-1e-4; plans and iteration counts equal.
+1e-4; plans and iteration counts equal.  Both executors are held so: the
+fused one and the host loop (``mode="host"``).
 """
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from repro.data.synthetic import make_pipeline as ref_make_pipeline
 from repro.data.synthetic import make_pipeline_median as ref_make_pipeline_median
 from repro.serving import BiathlonServer as RefServer
 from repro_torch.bridge import bundle_from_numpy
+from repro_torch.core import threefry
 from repro_torch.core.executor import BiathlonConfig
 from repro_torch.data.synthetic import make_pipeline, make_pipeline_median
 from repro_torch.serving import BiathlonServer
@@ -100,28 +103,34 @@ def assert_same_trees(ref_model, port_model):
     assert port_model.base == ref_model.base
 
 
-def configs(pipeline, tight: bool):
+def configs(pipeline, tight: bool, **knobs):
     """``(reference config, port config)`` at δ or at the tight setting."""
     delta, tau = pipeline.delta_default, 0.95
     if tight and pipeline.task == "classification":
         tau = TIGHT_TAU
     elif tight:
         delta *= TIGHT_DELTA
-    return (RefConfig(delta=delta, tau=tau, **QMC),
-            BiathlonConfig(delta=delta, tau=tau, **QMC))
+    return (RefConfig(delta=delta, tau=tau, **QMC, **knobs),
+            BiathlonConfig(delta=delta, tau=tau, **QMC, **knobs))
 
 
-def serve_both(name: str, afc_backend: str, tight: bool) -> list[int]:
-    """Serve every request of ``name`` on both sides; assert equal plans and
-    outputs; returns the iteration counts."""
+def serve_both(name: str, afc_backend: str, tight: bool, mode: str = "fused",
+               requests=None, **knobs) -> list[int]:
+    """Serve the requests of ``name`` (all, or those at the indices
+    ``requests``) on both sides; assert equal plans and outputs; returns the
+    iteration counts.  ``mode="host"`` serves through the host-loop
+    executors, request i under the key ``PRNGKey(i)`` on both sides;
+    ``knobs`` (``batch_afc``, ``adaptive_ami``) go to both configs."""
     ref, port = bundles(name)
-    rc, pc = configs(ref.pipeline, tight)
-    rs = RefServer(ref, rc, mode="fused", afc_backend=afc_backend)
-    ps = BiathlonServer(port, pc, afc_backend=afc_backend, device="cpu")
+    rc, pc = configs(ref.pipeline, tight, **knobs)
+    rs = RefServer(ref, rc, mode=mode, afc_backend=afc_backend)
+    ps = BiathlonServer(port, pc, mode=mode, afc_backend=afc_backend, device="cpu")
     classify = ref.pipeline.task == "classification"
     iters = []
-    for req in ref.requests:
-        a, b = rs.serve(req), ps.serve(req)
+    for i in range(len(ref.requests)) if requests is None else requests:
+        req = ref.requests[i]
+        a = rs.serve(req, jax.random.PRNGKey(i))
+        b = ps.serve(req, threefry.PRNGKey(i))
         assert a["iters"] == b["iters"]
         np.testing.assert_array_equal(np.asarray(a["z"]), np.asarray(b["z"]))
         if classify:
