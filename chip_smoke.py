@@ -80,7 +80,26 @@ Phases (any failure exits non-zero before the result line is printed):
    353) and ``ensemble_sum`` at the host loop's m + 1 and (k+2)·m_sobol rows,
    bitwise the plain versions', timed under graph replay and eagerly beside
    sort plus gather;
-8. ``flash_attention`` against its plain version: the LM-head prompt
+8. the batched server (``BatchedFusedServer``, 8 lanes) at full width:
+   each kernel of its path held to its plain version at the shapes 8 lanes
+   give it and timed (``prefix_power_sums`` on each batched pipeline's
+   (8·k, cap) rows at every incremental cap its fills serve,
+   ``sampled_moments`` and ``masked_select_ranks`` on sensor_health's (40,
+   cap) and (24, cap) rows at z⁰, ``ensemble_sum`` on each batched
+   pipeline's forest at its z⁰, Saltelli and step megabatches, e.g. 8 ×
+   1001, 8 × 2816 and 8 × 3817 rows for turbofan); then turbofan,
+   sensor_health, fraud_detection and ``student_qa`` at δ and at the tight
+   setting, at fill 8, 3 and 1, and sensor_health under "ref" (the rescan)
+   at fill 8: the captured graphs (the main path: launch counts reset just
+   before the captured server's build and each captured batch, read just
+   after, the comparison servers' builds not counted) bitwise equal to the eager programs, the plain versions' plans equal,
+   one capture a cap bucket; captured and eager timed in turns (p50 a
+   batch, requests/s), the tight fill-8 batches profiled both ways (device
+   busy and idle share, host operators, launches); every kernel of the
+   path launched.  The single-request server (the one-lane case, captured
+   since this phase was added) is profiled eagerly too on the tight
+   turbofan and sensor_health requests of phases 3 and 5;
+9. ``flash_attention`` against its plain version: the LM-head prompt
    (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
    in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
    scalar kernel); Sq ≠ Sk; 4096 × 16 = 65536 batch·heads on three
@@ -89,16 +108,17 @@ Phases (any failure exits non-zero before the result line is printed):
    shapes timed beside ``F.scaled_dot_product_attention`` (a yardstick the
    port never calls), with the ratio to it, the share of the bound and
    each bf16 instance's registers and spills from the build log;
-9. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
+10. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
    full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
    from a seed): 6 requests through the kernels, exactly 24
-   ``flash_attention`` launches and one ``prefix_power_sums`` per request;
+   ``flash_attention`` launches and one ``prefix_power_sums`` per request
+   (and one in the eager pass before its bucket's capture);
    the same requests under ``use_kernel=False`` (no launch), pooled states
    within bf16 tolerance of the kernel path's, and equal plans when both
    executors are fed the same pooled state; a profile of one request;
-10. one 1 × 4096-token backbone forward, profiled: its latency,
+11. one 1 × 4096-token backbone forward, profiled: its latency,
    ``flash_attention``'s share of device time and the device's idle share;
-11. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+12. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -106,6 +126,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -113,6 +134,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -675,9 +697,11 @@ def afc_crossover(dev, cfg) -> list:
     once a request (``prefix_power_sums`` and, for holistic features, the
     rank index over the plan ladder) and its cost an evaluation, against the
     rescan's cost an evaluation (``sampled_moments``, ``masked_select_ranks``
-    and the bootstrap), host wall times (:func:`wall_ms`).
-    ``crossover_evals``: the evaluations a request above which the
-    incremental path costs less (None: never)."""
+    and the bootstrap), host wall times (:func:`wall_ms`), and device times
+    under graph replay (:func:`time_ms`; what a captured program pays, the
+    bootstrap keyed by a device tensor as the executor keys it).
+    ``crossover_evals`` (``crossover_evals_device``): the evaluations a
+    request above which the incremental path costs less (None: never)."""
     from repro_torch.core import threefry
     from repro_torch.core.planner import gamma_abs, initial_plan
     from repro_torch.data.aggregates import estimates_from_power_sums
@@ -689,7 +713,8 @@ def afc_crossover(dev, cfg) -> list:
     )
 
     rng = np.random.default_rng(17)
-    key = threefry.fold_in(threefry.PRNGKey(0), 1)
+    key = torch.from_numpy(ops.mt_keys(threefry.fold_in(threefry.PRNGKey(0), 1))
+                           .astype(np.int64)).to(dev)
     out = []
     for name, k, h in (("parametric", 9, 0), ("holistic", 5, 3)):
         for cap in (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536):
@@ -721,19 +746,27 @@ def afc_crossover(dev, cfg) -> list:
                 if h:
                     ops.masked_quantile_estimates(vh, zh, nh, qs, key, cfg.n_bootstrap)
 
-            t = wall_ms({"setup": setup, "incremental": incremental, "rescan": rescan})
+            fns = {"setup": setup, "incremental": incremental, "rescan": rescan}
+            t = wall_ms(fns)
             r = dict(pipeline=name, k=k, holistic=h, cap=cap, z0_max=int(z.max()),
                      setup_ms=t["setup"], incremental_eval_ms=t["incremental"],
                      rescan_eval_ms=t["rescan"])
             gain = r["rescan_eval_ms"] - r["incremental_eval_ms"]
             r["crossover_evals"] = r["setup_ms"] / gain if gain > 0 else None
+            dt = {n: time_ms(fn, 5)[0] for n, fn in fns.items()}
+            r.update(setup_device_ms=dt["setup"], incremental_eval_device_ms=dt["incremental"],
+                     rescan_eval_device_ms=dt["rescan"])
+            gain = dt["rescan"] - dt["incremental"]
+            r["crossover_evals_device"] = dt["setup"] / gain if gain > 0 else None
             out.append(r)
     return out
 
 
 # ---------------------------------------------------------------- phase 3/4
 def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
-    """Build a server and serve ``n_req`` requests after one warm-up request.
+    """Build a server and serve ``n_req`` requests after a warm-up pass over
+    the same requests (each cap bucket's graphs are captured at its first
+    request, a set-up cost kept out of the timed pass).
 
     Returns (outputs, p50 latency seconds, launch counts of the whole run,
     launch counts of the server's construction alone).  The counts are
@@ -750,7 +783,8 @@ def serve_run(bundle, cfg, dev, *, afc_backend, use_kernel, n_req):
                          use_kernel=use_kernel)
     at_build = dict(build.LAUNCHES)
     reqs = bundle.requests[:n_req]
-    srv.serve(reqs[0])  # warm-up
+    for r in reqs:  # warm-up
+        srv.serve(r)
     outs = [srv.serve(r) for r in reqs]
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES) | dict(build.PATHS)
@@ -775,6 +809,14 @@ def profile_rows(prof, path: Path) -> tuple[list, list]:
     return rows, [r for r in rows if r[3] == 0.0 and r[0] > 0.0]
 
 
+# the port's kernels by their symbols in a profile (the earlier designs' rows
+# kernels left out)
+KERNEL_SYMBOLS = {"::chunked_kernel<": "prefix_power_sums", "::cluster_kernel": "sampled_moments",
+                  "::radix_kernel": "masked_select_ranks", "::smem_kernel(": "ensemble_sum",
+                  "::global_kernel(": "ensemble_sum", "sobol_runs_kernel": "sobol_points",
+                  "flash_attention_kernel": "flash_attention"}
+
+
 def profile_served(serve_once, path: Path) -> dict:
     """Device time of one served request by kernel, from ``torch.profiler``.
 
@@ -792,7 +834,15 @@ def profile_served(serve_once, path: Path) -> dict:
         out = serve_once()
         torch.cuda.synchronize()
     rows, device = profile_rows(prof, path)
+    ours = {}
+    for d_us, key, count, _ in device:
+        kname = next((n for sym, n in KERNEL_SYMBOLS.items() if sym in key), None)
+        if kname:
+            ms, c = ours.get(kname, (0.0, 0))
+            ours[kname] = (ms + d_us / 1e3, c + count)
     return dict(device_busy_ms=sum(r[0] for r in device) / 1e3,
+                kernels_device=({n: dict(ms=ms, launches=c, ms_per_launch=ms / c)
+                                 for n, (ms, c) in ours.items()}),
                 device_launches=sum(r[2] for r in device),
                 host_ops=sum(r[2] for r in rows if r[3] > 0.0), iters=out["iters"],
                 flash_attention_device_ms=sum(r[0] for r in device
@@ -801,11 +851,12 @@ def profile_served(serve_once, path: Path) -> dict:
                 top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:6]])
 
 
-def profile_request(bundle, cfg, dev, request, path: Path) -> dict:
-    """:func:`profile_served` of one request of a fresh server."""
+def profile_request(bundle, cfg, dev, request, path: Path, **kw) -> dict:
+    """:func:`profile_served` of one request of a fresh server (``kw``:
+    ``capture=False`` profiles the eager programs)."""
     from repro_torch.serving import BiathlonServer
 
-    srv = BiathlonServer(bundle, cfg, device=dev)
+    srv = BiathlonServer(bundle, cfg, device=dev, **kw)
     return profile_served(lambda: srv.serve(request), path)
 
 
@@ -960,6 +1011,294 @@ def paper_pipelines_phase(dev, cfg, card: str, rng) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+BATCH_LANES = 8
+BATCH_PIPELINES = ("turbofan", "sensor_health", "fraud_detection", "student_qa")
+BATCH_FILLS = (8, 3, 1)
+BATCH_REPS = 3
+
+
+def batch_knobs(pipeline, tight: bool, fill: int):
+    """Per-lane knobs of a batch: none (the config's δ and τ) at δ; at the
+    tight setting (:func:`tight_config`) every lane's."""
+    if not tight:
+        return None
+    t = tight_config(pipeline)
+    delta = pipeline.delta_default if t.delta is None else t.delta
+    return [SimpleNamespace(delta=delta, tau=t.tau, iter_cap=t.max_iters)] * fill
+
+
+def timed_batch(srv, reqs, knobs):
+    """``(BatchResult, host seconds)`` of one ``serve_batch``, which returns
+    once its results are on the host."""
+    t0 = time.perf_counter()
+    res = srv.serve_batch(reqs, knobs=knobs)
+    return res, time.perf_counter() - t0
+
+
+def compare_batches(name, base, other, *, bitwise: bool) -> None:
+    """Equal plans and iterations; ŷ and prob bitwise, or ŷ within
+    1e-4·max(1, |y|) and prob within 1e-4."""
+    require((base.z == other.z).all() and (base.iters == other.iters).all(),
+            f"{name}: plans differ: {base.z.tolist()} x{base.iters.tolist()} vs "
+            f"{other.z.tolist()} x{other.iters.tolist()}")
+    for field in ("y_hat", "prob"):
+        a, b = getattr(base, field), getattr(other, field)
+        if bitwise:
+            same = np.array_equal(np.asarray(a, np.float32).view(np.int32),
+                                  np.asarray(b, np.float32).view(np.int32))
+        else:
+            tol = 1e-4 * np.maximum(1.0, np.abs(a)) if field == "y_hat" else 1e-4
+            same = bool((np.abs(a - b) <= tol).all())
+        require(same, f"{name}: {field} {a.tolist()} vs {b.tolist()}")
+    require(np.isfinite(other.y_hat).all(), f"{name}: y_hat not finite")
+
+
+def profile_batch(srv, reqs, knobs, path: Path) -> dict:
+    """:func:`profile_served` of one batch (warm)."""
+    def once():
+        res, dt = timed_batch(srv, reqs, knobs)
+        return dict(iters=res.batch_iters, latency=dt)
+
+    return profile_served(once, path)
+
+
+def batched_servers(bundle, cfg, dev, afc_backend="auto") -> tuple[dict, dict]:
+    """The batched server captured through the kernels (the main path), the
+    same eagerly (``capture=False``) and captured through the plain versions;
+    with the launches of the main path's build alone (counts reset just
+    before it and read just after, before the comparison servers' builds)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import BatchedFusedServer
+
+    kw = dict(batch_size=BATCH_LANES, afc_backend=afc_backend, device=dev)
+    build.reset_launch_counts()
+    srv = {"captured": BatchedFusedServer(bundle, cfg, **kw)}
+    sync(dev)
+    at_build = dict(build.LAUNCHES)
+    srv["eager"] = BatchedFusedServer(bundle, cfg, capture=False, **kw)
+    srv["plain"] = BatchedFusedServer(bundle, cfg, use_kernel=False, **kw)
+    return srv, at_build
+
+
+def batch_cell(name, srv, reqs, knobs, dev, card) -> dict:
+    """One batch through the three servers of :func:`batched_servers`: each
+    warmed at its bucket first; launch counts reset just before the captured
+    kernel run and read just after; captured and eager bitwise equal, the
+    plain versions' plans equal; then captured and eager timed in turns
+    (captured, eager, eager, captured; :data:`BATCH_REPS` batches a turn)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import straggler_report
+
+    _, first = timed_batch(srv["captured"], reqs, knobs)   # captures a new bucket
+    for s in ("eager", "plain"):
+        srv[s].serve_batch(reqs, knobs=knobs)
+    sync(dev)
+    build.reset_launch_counts()
+    a, _ = timed_batch(srv["captured"], reqs, knobs)
+    sync(dev)
+    launches = dict(build.LAUNCHES) | dict(build.PATHS)
+    b, _ = timed_batch(srv["eager"], reqs, knobs)
+    c, _ = timed_batch(srv["plain"], reqs, knobs)
+    compare_batches(f"{name} captured vs eager", b, a, bitwise=True)
+    compare_batches(f"{name} kernels vs plain", c, a, bitwise=False)
+    times = {"captured": [], "eager": []}
+    for turn in ("captured", "eager", "eager", "captured"):
+        for _ in range(BATCH_REPS):
+            times[turn].append(timed_batch(srv[turn], reqs, knobs)[1])
+    again, _ = timed_batch(srv["captured"], reqs, knobs)
+    compare_batches(f"{name} captured after {4 * BATCH_REPS} more batches", a, again,
+                    bitwise=True)
+    fill = len(reqs)
+    rec = dict(fill=fill, cap=a.cap, iters=a.iters.tolist(), batch_iters=a.batch_iters,
+               first_captured_ms=first * 1e3,
+               wasted_frac=straggler_report(a)["wasted_frac"], launches=launches)
+    for turn, ts in times.items():
+        p50 = statistics.median(ts)
+        rec[f"{turn}_p50_ms"] = p50 * 1e3
+        rec[f"{turn}_requests_per_s"] = fill / p50
+    print(f"batched {name}: cap {a.cap}, iters {a.iters.tolist()}, p50 captured "
+          f"{rec['captured_p50_ms']:.3f} ms ({rec['captured_requests_per_s']:.1f} req/s), eager "
+          f"{rec['eager_p50_ms']:.3f} ms ({rec['eager_requests_per_s']:.1f} req/s), launches "
+          f"{launches} [{card}]", flush=True)
+    return rec
+
+
+def lane_tree_check(ens, ms, dev, rng, n_feat: int) -> tuple[float, dict]:
+    """``ensemble_sum`` on random (m, n_feat) rows for each m of ``ms``, on
+    the path its plan picks for m: twice, bitwise equal, and bitwise the
+    plain version.  Returns max |kernel - plain| and each m's path."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tree_qmc.ops import predict_sum
+    from repro_torch.kernels.tree_qmc.tree_qmc import plan
+
+    (T, M), sms = ens.feature.shape, torch.cuda.get_device_properties(dev).multi_processor_count
+    err, paths = 0.0, {}
+    for m in ms:
+        x = torch.from_numpy(rng.normal(0, 1, (m, n_feat)).astype(np.float32)).to(dev)
+        p = plan(T, M, n_feat, m, sms)
+        build.reset_launch_counts()
+        a, a2 = predict_sum(ens, x), predict_sum(ens, x)
+        require(build.PATHS == {f"ensemble_sum.{p.path}": 2},
+                f"ensemble_sum {T}x{M} at m={m} took {dict(build.PATHS)}, expected {p.path}")
+        want = predict_sum(ens, x, use_kernel=False)
+        require(torch.equal(a, a2) and torch.equal(a, want),
+                f"ensemble_sum {T}x{M} at the lanes' m={m} differs from plain or between launches")
+        err, paths[str(m)] = max(err, float((a - want).abs().max())), p.path
+    build.reset_launch_counts()
+    return err, paths
+
+
+def lane_tree_record(ens, m: int, dev, rng, n_feat: int) -> dict:
+    """``ensemble_sum`` at a batch's megabatch of m rows, timed on its
+    planned path and bounded as :func:`tree_record`."""
+    from repro_torch.kernels.tree_qmc.ops import predict_sum
+    from repro_torch.kernels.tree_qmc.tree_qmc import plan
+
+    (T, M), F = ens.feature.shape, n_feat
+    x = torch.from_numpy(rng.normal(0, 1, (m, F)).astype(np.float32)).to(dev)
+    p = plan(T, M, F, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    b = bound(m * F * 4 + 5 * T * M * 4 + m * 4, m * T * (2 * ens.depth + 1))
+    return dict(shape=[m, F, T, M], path=p.path, plan=p._asdict(),
+                **timings(lambda: predict_sum(ens, x),
+                          lambda: predict_sum(ens, x, use_kernel=False)),
+                bound_ms=b[0], bound_by=b[1])
+
+
+def lane_inputs(bundle, dev, fill: int = BATCH_LANES):
+    """The (8, k, cap) buffers and (8, k) sizes that ``serve_batch`` gathers
+    for the bundle's first ``fill`` requests at their batch's cap: zeros in
+    the pad lanes."""
+    from repro_torch.data.store import bucket_size
+    from repro_torch.serving import lane_request_inputs
+
+    p, reqs = bundle.pipeline, bundle.requests[:fill]
+    cap = bucket_size(max(int(p.group_sizes(bundle.store, r).max()) for r in reqs))
+    lanes = [lane_request_inputs(p, bundle.store, r, cap) for r in reqs]
+    vals = np.zeros((BATCH_LANES, p.k, cap), np.float32)
+    sizes = np.zeros((BATCH_LANES, p.k), np.int32)
+    vals[:fill] = np.stack([v for v, *_ in lanes])
+    sizes[:fill] = np.stack([n for _, n, *_ in lanes])
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(sizes).to(dev)
+
+
+#: lane_kernels' records keyed by case (pipeline, or pipeline_cap)
+LANE_SHAPES_BY_CASE = ("prefix_power_sums", "ensemble_sum")
+
+
+def lane_kernels(dev, bundles: dict, cfg, rng) -> dict:
+    """Each kernel of the batched path at the shapes 8 lanes give it, held to
+    its plain version and timed: ``prefix_power_sums`` on each batched
+    pipeline's (8·k, cap) rows at the cap of each served fill where "auto"
+    takes the incremental path (keyed by pipeline and cap); ``sampled_moments``
+    on sensor_health's (40, cap) rows at z⁰; ``masked_select_ranks`` on its
+    (24, cap) holistic rows at z⁰ with the (24, 257) targets of the lanes' z⁰
+    keys; ``ensemble_sum`` on each batched pipeline's own forest at its z⁰
+    evaluation 8·(m+1), its Saltelli block 8·(k+2)·m_sobol and its step
+    megabatch 8·(m+1+(k+2)·m_sobol) rows (turbofan 8 × 3817 = 30536,
+    student_qa 8 × 6889 = 55112), timed at the step megabatch."""
+    from repro_torch.core import threefry
+    from repro_torch.core.executor_fused import pipeline_executor_kwargs
+    from repro_torch.core.planner import initial_plan
+    from repro_torch.kernels.sampled_agg import ops
+
+    out = {"prefix_power_sums": {}, "ensemble_sum": {}}
+    for name in BATCH_PIPELINES:
+        seen = set()
+        for fill in BATCH_FILLS:
+            vals, _ = lane_inputs(bundles[name], dev, fill)
+            cap = vals.shape[-1]
+            if cap in seen or not ops.resolve_afc_plan("auto", cap):
+                continue
+            seen.add(cap)
+            rows = vals.reshape(-1, cap).contiguous()
+            out["prefix_power_sums"][f"{name}_{cap}"] = prefix_record(rows, rows[:, 0].contiguous())
+    prefix = out["prefix_power_sums"]
+    require(prefix, "batched path: no pipeline takes the incremental path at a served cap")
+
+    health = bundles["sensor_health"]
+    vals, sizes = lane_inputs(health, dev)
+    lanes, k, cap = vals.shape
+    z = initial_plan(sizes, cfg.alpha)
+    rows, zr = vals.reshape(lanes * k, cap).contiguous(), z.reshape(-1)
+    shift = rows[:, 0].contiguous()
+    _, err = moments_check(rows, zr, shift, f"lanes ({lanes * k}, {cap})")
+    out["sampled_moments"] = dict(shape=[lanes * k, cap], max_abs_err=err,
+                                  **moments_timed(rows, zr, shift))
+    kw = pipeline_executor_kwargs(health.pipeline.agg_features, dev)
+    hol = torch.tensor(kw["holistic"], device=dev)
+    qs = torch.tensor(kw["quantiles"], dtype=torch.float32, device=dev)
+    keys = torch.from_numpy(ops.mt_keys(threefry.fold_in(threefry.PRNGKey(0), 0))
+                            .astype(np.int64)).to(dev).expand(lanes, 2, 4, 2, 2)
+    targets = ops.bootstrap_rank_targets(z[:, hol], qs, keys, cfg.n_bootstrap)
+    vh = vals[:, hol].reshape(-1, cap).contiguous()
+    zh, th = z[:, hol].reshape(-1), targets.reshape(vh.shape[0], -1)
+    _, err = select_check(vh, zh, th, f"lanes ({vh.shape[0]}, {cap})")
+    out["masked_select_ranks"] = dict(shape=[vh.shape[0], cap, th.shape[1]], max_abs_err=err,
+                                      **select_timed(vh, zh, th))
+    for name in BATCH_PIPELINES:
+        p = bundles[name].pipeline
+        ens, n_feat = p.model.ensemble, p.k + len(p.exact_features)
+        z0, sobol = BATCH_LANES * (cfg.m + 1), BATCH_LANES * (p.k + 2) * cfg.m_sobol
+        err, paths = lane_tree_check(ens, (z0, sobol, z0 + sobol), dev, rng, n_feat)
+        out["ensemble_sum"][name] = dict(lane_tree_record(ens, z0 + sobol, dev, rng, n_feat),
+                                         max_abs_err=err, checked=paths)
+    for kname, recs in out.items():
+        for name, r in (recs.items() if kname in LANE_SHAPES_BY_CASE else [("", recs)]):
+            print(f"lane shapes {kname} {name} {r['shape']}: {r['ms']:.5f} ms (eager "
+                  f"{r['eager_ms']:.4f}, plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f}) "
+                  f"[{dev}]", flush=True)
+    return out
+
+
+def batched_phase(dev, bundles: dict, cfg, card: str) -> dict:
+    """``BatchedFusedServer`` (8 lanes) at full width on turbofan,
+    sensor_health, fraud_detection and student_qa, at δ and at the tight
+    setting, at fill 8, 3 and 1 (:func:`batch_cell`): captured and eager
+    bitwise equal, the plain versions' plans equal, one capture a cap
+    bucket; the tight fill-8 batch profiled captured and eager.  Then
+    sensor_health under "ref" (the rescan: ``sampled_moments`` and
+    ``masked_select_ranks``) at fill 8, tight.  Every kernel of the path
+    must launch in the main path: the captured kernel server's build (the
+    comparison servers' builds not counted) or its captured batches."""
+    out, launched = {}, collections.Counter()
+    cases = [(name, "auto") for name in BATCH_PIPELINES] + [("sensor_health", "ref")]
+    for name, afc in cases:
+        bundle = bundles[name]
+        p = bundle.pipeline
+        srv, at_build = batched_servers(bundle, cfg, dev, afc)
+        rec = {"launches_at_build": at_build}
+        launched.update(at_build)
+        settings = ((True, 8),) if afc == "ref" else [(t, f) for t in (False, True)
+                                                       for f in BATCH_FILLS]
+        for tight, fill in settings:
+            key = f"{'tight' if tight else 'delta'}_fill{fill}"
+            cell = batch_cell(f"{name} {afc} {key}", srv, bundle.requests[:fill],
+                              batch_knobs(p, tight, fill), dev, card)
+            launched.update({kk: v for kk, v in cell["launches"].items() if "." not in kk})
+            rec[key] = cell
+        for s in srv.values():
+            require(s.compile_count == len(s.compiled_buckets),
+                    f"{name} {afc}: {s.compile_count} slots for buckets {s.compiled_buckets}")
+        rec["buckets"] = srv["captured"].compiled_buckets
+        if afc == "auto":
+            for turn in ("captured", "eager"):
+                prof = profile_batch(
+                    srv[turn], bundle.requests[:BATCH_LANES],
+                    batch_knobs(p, True, BATCH_LANES),
+                    ROOT / "build" / f"chip_smoke_profile_batched_{name}_{turn}.txt")
+                prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["profiled_latency_ms"]
+                rec[f"profile_{turn}"] = prof
+                print(f"profile of batched {name} tight fill 8 {turn}: {json.dumps(prof)} "
+                      f"[{card}]", flush=True)
+        out[name if afc == "auto" else f"{name}_{afc}"] = rec
+    for kname in ("prefix_power_sums", "sampled_moments", "masked_select_ranks",
+                  "ensemble_sum", "sobol_points"):
+        require(launched.get(kname, 0) > 0, f"batched path: {kname} never launched")
+    out["launches"] = dict(launched)
+    return out
+
+
 # ------------------------------------------------------------------ phase 7
 N_HOST = 4
 HOST_PIPELINES = ("turbofan", "sensor_health") + tuple(PAPER_PIPELINES)
@@ -972,9 +1311,11 @@ def sync(dev) -> None:
 
 def host_serve_run(bundle, cfg, dev, *, mode="host", use_kernel=True, n_req=N_HOST,
                    compare_exact=True):
-    """One warm-up request (and its exact baseline), then
-    ``serve_all(requests[:n_req], compare_exact)`` through the server's own
-    entry point.  Returns ``(ServerStats, outputs of serve, launch counts)``:
+    """One warm-up request (and its exact baseline) in host mode, or in
+    fused mode each request once (its cap bucket's graphs are captured at
+    the bucket's first request, a set-up cost kept out of the measured
+    pass), then ``serve_all(requests[:n_req], compare_exact)`` through the
+    server's own entry point.  Returns ``(ServerStats, outputs of serve, launch counts)``:
     the counts are reset just before the server is built and read after the
     last request; the outputs are recorded by wrapping ``serve``."""
     from repro_torch.core import threefry
@@ -986,7 +1327,8 @@ def host_serve_run(bundle, cfg, dev, *, mode="host", use_kernel=True, n_req=N_HO
     build.reset_launch_counts()
     srv = BiathlonServer(bundle, cfg, mode=mode, device=dev, use_kernel=use_kernel)
     reqs = bundle.requests[:n_req]
-    srv.serve(reqs[0], threefry.PRNGKey(99))
+    for r in reqs if mode == "fused" else reqs[:1]:
+        srv.serve(r, threefry.PRNGKey(99))
     if compare_exact:
         run_exact(bundle.store, bundle.pipeline, reqs[0], device=dev, use_kernel=use_kernel)
     outs, serve = [], srv.serve
@@ -1210,7 +1552,7 @@ def host_phase(dev, bundles: dict, cfg, card: str, rng) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 8-10
+# ---------------------------------------------------------------- phase 9-11
 def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
     once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask)."""
@@ -1395,13 +1737,15 @@ def lm_head_phase(dev, card: str) -> dict:
     require(served.get("flash_attention", 0) == cfg.n_layers * N_LM_REQ,
             f"lm_head: {served.get('flash_attention', 0)} flash_attention launches for "
             f"{N_LM_REQ} requests, expected {cfg.n_layers} per request")
+    # the executor's one cap bucket (65536) is captured at the first request,
+    # after one eager pass of its programs: one more prefix_power_sums launch
     require(paths == {"flash_attention.tma": cfg.n_layers * N_LM_REQ,
-                      "prefix_power_sums.chunks": N_LM_REQ},
+                      "prefix_power_sums.chunks": N_LM_REQ + 1},
             f"lm_head: took {paths}, expected the TMA path on every flash_attention launch "
             "and the chunked prefix_power_sums")
-    require(served.get("prefix_power_sums", 0) == N_LM_REQ,
+    require(served.get("prefix_power_sums", 0) == N_LM_REQ + 1,
             f"lm_head: prefix_power_sums launched {served.get('prefix_power_sums', 0)} times "
-            f"for {N_LM_REQ} requests, expected once per request")
+            f"for {N_LM_REQ} requests, expected once per request and once at the capture")
     expect_launched("lm_head", launches, ["sobol_points"], ["sampled_moments"])
     plain_outs, plain_launches = runs[False][0], runs[False][1]
     require(not plain_launches, f"lm_head plain run launched kernels {plain_launches}")
@@ -1570,6 +1914,11 @@ def main() -> int:
                            ROOT / "build" / "chip_smoke_profile.txt")
     prof["latency_ms"] = outs[busiest]["latency"] * 1e3
     print(f"profile of tight request {busiest}: {json.dumps(prof)} [{card}]", flush=True)
+    prof["eager"] = profile_request(full, tight, dev, full.requests[busiest],
+                                    ROOT / "build" / "chip_smoke_profile_eager.txt",
+                                    capture=False)
+    print(f"profile of tight request {busiest}, eager: {json.dumps(prof['eager'])} [{card}]",
+          flush=True)
 
     small = make_pipeline("turbofan", rows_per_group=500, device=dev)
     sm = {name: serve_run(small, cfg, dev, n_req=4, **kw)
@@ -1623,6 +1972,11 @@ def main() -> int:
     h_prof["latency_ms"] = outs[busiest]["latency"] * 1e3
     print(f"profile of sensor_health tight request {busiest}: {json.dumps(h_prof)} [{card}]",
           flush=True)
+    h_prof["eager"] = profile_request(
+        health, h_tight, dev, health.requests[busiest],
+        ROOT / "build" / "chip_smoke_profile_sensor_health_eager.txt", capture=False)
+    print(f"profile of sensor_health tight request {busiest}, eager: "
+          f"{json.dumps(h_prof['eager'])} [{card}]", flush=True)
 
     h_small = make_pipeline("sensor_health", rows_per_group=500, device=dev)
     hsm = {name: serve_run(h_small, cfg, dev, n_req=4, **kw)
@@ -1644,8 +1998,8 @@ def main() -> int:
     rec["ensemble_sum"]["max_abs_err"] = max(
         [rec["ensemble_sum"]["max_abs_err"]] + [r["max_abs_err"] for r in paper["trees"].values()])
 
-    host = host_phase(dev, dict(paper["bundles"], turbofan=full, sensor_health=health), cfg,
-                      card, np.random.default_rng(2))
+    all_bundles = dict(paper["bundles"], turbofan=full, sensor_health=health)
+    host = host_phase(dev, all_bundles, cfg, card, np.random.default_rng(2))
     rec["masked_select_ranks"]["max_abs_err"] = max(
         [rec["masked_select_ranks"]["max_abs_err"], host["kernels"]["masked_select_ranks"][
             "max_abs_err"], host["kernels"]["masked_select_ranks"]["full"]["max_abs_err"]]
@@ -1658,12 +2012,20 @@ def main() -> int:
         [rec["sobol_points"]["max_abs_err"]]
         + [r["max_abs_err"] for r in host["kernels"]["sobol_points"].values()])
 
+    lanes = lane_kernels(dev, all_bundles, cfg, np.random.default_rng(3))
+    batched = batched_phase(dev, all_bundles, cfg, card)
+    for kname, recs in lanes.items():
+        recs = recs.values() if kname in LANE_SHAPES_BY_CASE else [recs]
+        rec[kname]["max_abs_err"] = max([rec[kname]["max_abs_err"]]
+                                        + [r["max_abs_err"] for r in recs])
     crossover = afc_crossover(dev, cfg)
     for r in crossover:
         print(f"afc crossover {r['pipeline']} cap {r['cap']}: set-up {r['setup_ms']:.4f} ms, "
               f"an evaluation incremental {r['incremental_eval_ms']:.4f} ms, rescan "
-              f"{r['rescan_eval_ms']:.4f} ms, crossover {r['crossover_evals']} evaluations "
-              f"[{card}]", flush=True)
+              f"{r['rescan_eval_ms']:.4f} ms, crossover {r['crossover_evals']} evaluations; "
+              f"device: set-up {r['setup_device_ms']:.4f} ms, incremental "
+              f"{r['incremental_eval_device_ms']:.4f}, rescan {r['rescan_eval_device_ms']:.4f}, "
+              f"crossover {r['crossover_evals_device']} [{card}]", flush=True)
 
     lm_head, lm_scenario = lm_head_phase(dev, card)
     backbone = backbone_profile(lm_scenario, dev,
@@ -1671,9 +2033,10 @@ def main() -> int:
     print(f"backbone 1x4096 forward: {json.dumps(backbone)} [{card}]", flush=True)
 
     def per_request(run, kname, n_req):
-        """Launches of a run's requests (warm-up included), apart from its build."""
+        """Launches of a run's requests (its warm-up pass and the eager pass
+        before each capture included), apart from its build."""
         _, _, launches, at_build = run
-        return (launches.get(kname, 0) - at_build.get(kname, 0)) / (n_req + 1)
+        return (launches.get(kname, 0) - at_build.get(kname, 0)) / (2 * n_req)
 
     path_run = {"prefix_power_sums": "auto", "sampled_moments": "ref",
                 "ensemble_sum": "auto", "sobol_points": "auto", "masked_select_ranks": "ref"}
@@ -1722,6 +2085,8 @@ def main() -> int:
                 v.get("launches", {}).get(kname, 0) for pipe in paper["serve"].values()
                 for v in pipe.values() if isinstance(v, dict)),
             launches_host_path=host["launches"].get(kname, 0),
+            launches_batched=batched["launches"].get(kname, 0),
+            **({"lane_shapes": lanes[kname]} if kname in lanes else {}),
             **({"host_shapes": host["kernels"][kname]} if kname in host["kernels"] else {}),
         ))
         if kname in SERVED_PATHS:
@@ -1759,6 +2124,7 @@ def main() -> int:
                         if key not in ("launches", "launches_at_build")}
     serve["paper_pipelines"] = paper["serve"]
     serve["host"] = {key: val for key, val in host.items() if key != "kernels"}
+    serve["batched"] = batched
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

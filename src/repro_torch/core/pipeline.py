@@ -106,12 +106,16 @@ def make_model_fn(pipeline: Pipeline, exact_vals: np.ndarray, device, *,
 
 
 def make_fused_model_fn(pipeline: Pipeline, device, *, use_kernel: bool = True):
-    """Request-agnostic model closure: ``(agg_rows (m, k), exact (e,)) -> (m,)``.
+    """Request-agnostic model closure: ``(agg_rows (..., r, k), exact) -> (..., r)``.
 
-    The exact features are data, so one closure serves every request.  The
-    model must already live on ``device``.  ``use_kernel`` reaches the tree
-    models, the only ones with a kernel (``ensemble_sum``); the linear
-    models and the MLP are plain PyTorch products.
+    The exact features are data, so one closure serves every request, and
+    a batch of requests too: ``exact`` is one request's ``(e,)``, one a lane
+    ``(L, e)`` beside rows ``(L, r, k)``, or one a row, of the rows' leading
+    shape.  Whatever the lanes, the model runs ONE call on all the rows,
+    ``(L·r, k + e)``.  The model must already live on ``device``.
+    ``use_kernel`` reaches the tree models, the only ones with a kernel
+    (``ensemble_sum``); the linear models and the MLP are plain PyTorch
+    products.
     """
     mean = torch.as_tensor(pipeline.scaler_mean, dtype=torch.float32).to(device)
     scale = torch.as_tensor(pipeline.scaler_scale, dtype=torch.float32).to(device)
@@ -119,10 +123,13 @@ def make_fused_model_fn(pipeline: Pipeline, device, *, use_kernel: bool = True):
     kw = dict(use_kernel=use_kernel) if isinstance(model, TreeModel) else {}
 
     def model_fn(agg_rows: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
-        m = agg_rows.shape[0]
-        full = torch.cat([agg_rows, exact[None, :].expand(m, exact.shape[0])], dim=1)
+        lead, e = agg_rows.shape[:-1], exact.shape[-1]
+        if exact.dim() == agg_rows.dim() - 1:
+            exact = exact[..., None, :]          # one a request or lane: every row of it
+        full = torch.cat([agg_rows, exact.expand(*lead, e)], dim=-1)
+        full = full.reshape(-1, full.shape[-1])
         if mean.shape[0] == full.shape[1]:
             full = (full - mean[None, :]) / scale[None, :]
-        return model.predict(full, **kw)
+        return model.predict(full, **kw).reshape(lead)
 
     return model_fn

@@ -2,7 +2,9 @@
 
 Port of ``repro/core/planner.py``.  A plan ``z`` is a (k,) int32 vector of
 per-feature sample sizes; each iteration moves ``z`` by ``γ`` along the
-feature with the largest Sobol main effect per remaining record.
+feature with the largest Sobol main effect per remaining record.  Every
+function also takes a batch of lanes, ``(L, k)`` plans with ``(L,)``
+steps, each lane planned on its own (the batched fused executor).
 """
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ __all__ = ["direction", "gamma_abs", "initial_plan", "next_plan"]
 
 
 def gamma_abs(n: torch.Tensor, gamma_frac: float) -> torch.Tensor:
-    """Paper default step: γ = gamma_frac · Σ_j N_j (at least 1), int32 scalar."""
-    total = n.sum().to(torch.float32)
+    """Paper default step: γ = gamma_frac · Σ_j N_j (at least 1), int32, one a lane."""
+    total = n.sum(-1).to(torch.float32)
     return torch.clamp(torch.ceil(gamma_frac * total).to(torch.int32), min=1)
 
 
@@ -26,9 +28,10 @@ def initial_plan(n: torch.Tensor, alpha: float, min_samples: int = 2) -> torch.T
 
 
 def direction(indices: torch.Tensor, z: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """One-hot (k,) int32 direction: argmax of I_j / (N_j − z_j), first on ties.
+    """One-hot (..., k) int32 direction: argmax of I_j / (N_j − z_j), first on ties.
 
-    Exhausted features score −inf; if all are exhausted the direction is 0.
+    Exhausted features score −inf; a lane whose features are all exhausted
+    gets the direction 0 (and only that lane).
     """
     remaining = (n - z).to(torch.float32)
     score = torch.where(
@@ -36,11 +39,11 @@ def direction(indices: torch.Tensor, z: torch.Tensor, n: torch.Tensor) -> torch.
         indices / torch.clamp(remaining, min=1.0),
         torch.full_like(remaining, -math.inf),
     )
-    d = torch.zeros_like(z)
-    d[torch.argmax(score)] = 1
-    return torch.where((remaining <= 0).all(), torch.zeros_like(d), d)
+    pick = torch.argmax(score, dim=-1, keepdim=True)
+    d = (torch.arange(z.shape[-1], device=z.device) == pick).to(z.dtype)
+    return torch.where((remaining <= 0).all(-1, keepdim=True), torch.zeros_like(d), d)
 
 
 def next_plan(z: torch.Tensor, d: torch.Tensor, step: torch.Tensor, n: torch.Tensor):
-    """z^{i+1} = min(z + step·d, N)."""
-    return torch.minimum(z + d * step.to(z.dtype), n)
+    """z^{i+1} = min(z + step·d, N); ``step`` is one a lane."""
+    return torch.minimum(z + d * step.to(z.dtype)[..., None], n)

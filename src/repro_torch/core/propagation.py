@@ -77,10 +77,10 @@ def _ami_outputs(model_fn, unc: FeatureUncertainty, m: int, key, use_kernel: boo
 
 
 def output_moments(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(ȳ, σ_y)`` of the regression AMI outputs: the mean and the population
-    std around it; both executors reduce through it."""
-    y_bar = y.mean()
-    return y_bar, torch.sqrt(((y - y_bar) ** 2).mean())
+    """``(ȳ, σ_y)`` of the regression AMI outputs ``(..., m)``, one a lane: the
+    mean and the population std around it; both executors reduce through it."""
+    y_bar = y.mean(-1)
+    return y_bar, torch.sqrt(((y - y_bar[..., None]) ** 2).mean(-1))
 
 
 def propagate_regression(

@@ -70,10 +70,12 @@ def sobol_uint32(
 def digital_shift(key, points: torch.Tensor) -> torch.Tensor:
     """Random digital (XOR) shift of raw Sobol points (int64 holding uint32).
 
-    The shift is ``jax.random.bits(key, (dim,), uint32)``, drawn on the
-    points' device; XOR keeps every value within 32 bits.
+    The shift is ``jax.random.bits(key, (dim,), uint32)``, hashed on the
+    host (:func:`threefry.host_bits`, a few hundred numpy operations on d
+    values) and copied to the points' device as one (d,) tensor; XOR keeps
+    every value within 32 bits.
     """
-    shift = threefry.random_bits(key, (points.shape[-1],), device=points.device)
+    shift = torch.from_numpy(threefry.host_bits(key, (points.shape[-1],))).to(points.device)
     return points ^ shift[None, :]
 
 

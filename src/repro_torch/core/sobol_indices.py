@@ -69,8 +69,9 @@ def indices_from_outputs(
     task: str = "regression",
     y_hat: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(indices (k,), var_y ())`` from the model outputs of ``[A; B; AB_1;
-    ...; AB_k]`` (``(k+2)·m`` values); both executors reduce through it.
+    """``(indices (..., k), var_y (...))`` from the model outputs of ``[A; B;
+    AB_1; ...; AB_k]`` (``(..., (k+2)·m)`` values, one row a lane, ``y_hat``
+    one a lane); both executors reduce through it.
 
     The two references differ only when ``var_y`` is NaN (the host loop's
     ``where(var_y <= 1e-12, 0, I)`` keeps the NaN, the fused one's
@@ -79,13 +80,15 @@ def indices_from_outputs(
     if task == "classification":
         if y_hat is None:
             raise ValueError("classification indices need y_hat")
-        f_all = f_all.to(torch.int32) == y_hat.to(torch.int32)
-    f_all = f_all.to(f32).reshape((k + 2) * m)
+        f_all = f_all.to(torch.int32) == y_hat.to(torch.int32)[..., None]
+    if f_all.shape[-1] != (k + 2) * m:
+        raise ValueError(f"expected (k+2)·m = {(k + 2) * m} outputs a lane, got {f_all.shape}")
+    f_all = f_all.to(f32)
     # centred before the pick-freeze product, as in the reference
-    f_all = f_all - f_all.mean()
-    fa, fb = f_all[:m], f_all[m : 2 * m]
-    fab = f_all[2 * m :].reshape(k, m)
-    var_y = f_all.var(correction=0)
-    v_j = (fb[None, :] * (fab - fa[None, :])).mean(dim=1)
-    idx = torch.clamp(v_j / torch.clamp(var_y, min=1e-12), 0.0, 1.0)
-    return torch.where(var_y > 1e-12, idx, torch.zeros_like(idx)), var_y
+    f_all = f_all - f_all.mean(-1, keepdim=True)
+    fa, fb = f_all[..., :m], f_all[..., m : 2 * m]
+    fab = f_all[..., 2 * m :].reshape(f_all.shape[:-1] + (k, m))
+    var_y = f_all.var(-1, correction=0)
+    v_j = (fb[..., None, :] * (fab - fa[..., None, :])).mean(dim=-1)
+    idx = torch.clamp(v_j / torch.clamp(var_y, min=1e-12)[..., None], 0.0, 1.0)
+    return torch.where(var_y[..., None] > 1e-12, idx, torch.zeros_like(idx)), var_y

@@ -16,7 +16,12 @@ are torch int64 tensors holding uint32 values (every intermediate masked to
 caller names.  ``random_bits``, ``uniform`` and ``normal`` accept one key
 ``(2,)`` or a stack of keys ``(K, 2)``; a stack draws each key's array in
 one batched hash, ``(K, *shape)``, element for element what K separate
-draws give.
+draws give.  :func:`random_bits` also takes its keys as an int64 tensor on
+the draw's device: a step captured in a CUDA graph cannot copy a host key
+in, so the fused executor derives its keys once on the host and gathers
+them on the card (``kernels/sampled_agg/ops.boot_key_table``).
+:func:`host_bits` hashes a small draw in numpy, for a caller that wants one
+copy to the card instead of a few hundred operators there.
 
 Floats follow ``jax._src.random``: ``uniform`` sets the top 23 random bits
 as the mantissa of a float in [1, 2), subtracts 1, scales with one rounding
@@ -41,6 +46,7 @@ __all__ = [
     "bits_to_normal",
     "bits_to_uniform",
     "fold_in",
+    "host_bits",
     "normal",
     "random_bits",
     "split",
@@ -102,20 +108,40 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array(threefry2x32(k1, k2, 0, int(data) & _M32), dtype=np.uint32)
 
 
+def _hash_counts(k1, k2, idx):
+    """Bits of the element indices ``idx`` under ``(k1, k2)``: the XOR of the
+    two words of the hash of ``(idx >> 32, idx & 0xFFFFFFFF)``."""
+    y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
+    return y1 ^ y2
+
+
 def random_bits(key, shape, *, device) -> torch.Tensor:
     """uint32 random bits (in int64) of ``shape``, per key: ``lead + shape``.
 
     Partitionable layout: element ``i`` (row-major) hashes ``(i >> 32, i &
     0xFFFFFFFF)``, and its bits are the XOR of the hash's two words.
+    ``key`` is a numpy key ``(2,)`` or stack ``(K, 2)``, or the same as an
+    int64 tensor (uint32 values), which is used where it lies.
     """
-    k = np.asarray(key, dtype=np.uint32)
-    if k.ndim not in (1, 2) or k.shape[-1] != 2:
-        raise ValueError(f"expected a key (2,) or keys (K, 2), got shape {k.shape}")
+    if torch.is_tensor(key):
+        kt = key.to(device=device, dtype=torch.int64)
+    else:
+        kt = torch.from_numpy(np.asarray(key, dtype=np.uint32).astype(np.int64)).to(device)
+    if kt.dim() not in (1, 2) or kt.shape[-1] != 2:
+        raise ValueError(f"expected a key (2,) or keys (K, 2), got shape {tuple(kt.shape)}")
     shape = tuple(int(s) for s in shape)
-    kt = torch.from_numpy(k.astype(np.int64).reshape(-1, 1, 2)).to(device)
+    lead = tuple(kt.shape[:-1])
+    kt = kt.reshape(-1, 1, 2)
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-    y1, y2 = threefry2x32(kt[..., 0], kt[..., 1], (idx >> 32)[None], (idx & _M32)[None])
-    return (y1 ^ y2).reshape(k.shape[:-1] + shape)
+    return _hash_counts(kt[..., 0], kt[..., 1], idx[None]).reshape(lead + shape)
+
+
+def host_bits(key, shape) -> np.ndarray:
+    """:func:`random_bits` of one key hashed in numpy on the host: an int64
+    array of uint32 values, bit for bit the tensor's."""
+    k1, k2 = _key(key)
+    idx = np.arange(math.prod(int(s) for s in shape), dtype=np.int64)
+    return _hash_counts(k1, k2, idx).reshape(tuple(int(s) for s in shape))
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0, *, device) -> torch.Tensor:

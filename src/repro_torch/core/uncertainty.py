@@ -98,22 +98,23 @@ def replicate_indices(u: torch.Tensor, hol_idx: torch.Tensor, n_boot: int) -> to
 
 
 def sample_features_fused(
-    value: torch.Tensor,     # (k,) point estimates
-    sigma: torch.Tensor,     # (k,) Normal error stddevs (0 for holistic)
+    value: torch.Tensor,     # (..., k) point estimates
+    sigma: torch.Tensor,     # (..., k) Normal error stddevs (0 for holistic)
     normals: torch.Tensor,   # (m, k) Φ⁻¹(u) of the QMC uniforms
-    replicates: torch.Tensor | None = None,  # (h, B) sorted replicate table
+    replicates: torch.Tensor | None = None,  # (..., h, B) sorted replicate table
     rep_idx: torch.Tensor | None = None,     # (m, h) from replicate_indices
     hol_idx: torch.Tensor | None = None,     # (h,) holistic feature indices
 ) -> torch.Tensor:
-    """(m, k) feature rows: ``value + sigma · normals``, holistic columns replaced.
+    """(..., m, k) feature rows: ``value + sigma · normals``, holistic columns replaced.
 
-    The multiply-add rounds once, as the reference's fused program rounds
-    it.  A holistic column ``j = hol_idx[f]`` takes ``replicates[f,
-    rep_idx[:, f]]``.
+    The leading dimensions are lanes (one request each) sharing the QMC
+    grid.  The multiply-add rounds once, as the reference's fused program
+    rounds it.  A holistic column ``j = hol_idx[f]`` takes ``replicates[...,
+    f, rep_idx[:, f]]``.
     """
-    rows = fma(sigma[None, :], normals, value[None, :])
+    rows = fma(sigma[..., None, :], normals, value[..., None, :])
     if hol_idx is None or hol_idx.numel() == 0:
         return rows
     h = hol_idx.shape[0]
-    emp = replicates[torch.arange(h, device=rows.device)[None, :], rep_idx]   # (m, h)
-    return rows.index_copy(1, hol_idx, emp)
+    emp = replicates[..., torch.arange(h, device=rows.device)[None, :], rep_idx]  # (..., m, h)
+    return rows.index_copy(-1, hol_idx, emp)

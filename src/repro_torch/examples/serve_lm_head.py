@@ -125,7 +125,7 @@ def make_executor(sc: LMHeadScenario, *, m: int = 400, m_sobol: int = 96,
 
     def model_fn(agg_rows, backbone_vec):
         scaled = (agg_rows - sc.agg_mean[None, :]) / sc.agg_std[None, :]
-        full = torch.cat([backbone_vec[None, :].expand(agg_rows.shape[0], d), scaled], dim=1)
+        full = torch.cat([backbone_vec.expand(agg_rows.shape[0], d), scaled], dim=1)
         return sc.head.predict(full)
 
     return build_fused_executor(model_fn, k=len(AGG_IDS), task="regression", m=m,

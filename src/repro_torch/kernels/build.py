@@ -15,10 +15,17 @@ name where it launches the kernel, and nowhere else, so a run can show
 which kernels its path went through.  A kernel with more than one path
 inside (``flash_attention``: its float32 kernel, its bf16 kernel fed by TMA,
 or by plain loads) also adds one to :data:`PATHS` under the path taken.
+
+A wrapper called while a CUDA graph is being captured records its launch
+in the graph instead of launching it; the graph launches it at each
+replay.  So a capture made inside :func:`captured_launches` takes its
+records off the counts, and the code that replays the graph adds them back
+once a replay (:func:`count_replay`): the counts say what ran on the card.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,9 +43,11 @@ __all__ = [
     "PATHS",
     "SOURCES",
     "build_all",
+    "captured_launches",
     "check",
     "check_tensor",
     "compile_command",
+    "count_replay",
     "library",
     "log_path",
     "reset_launch_counts",
@@ -66,6 +75,28 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
     PATHS.clear()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a graph capture: yields a counter that holds, on exit, the
+    launches the capture recorded (kernels and ``<kernel>.<path>`` keys), and
+    takes them off :data:`LAUNCHES` and :data:`PATHS`."""
+    before = LAUNCHES.copy(), PATHS.copy()
+    recorded: collections.Counter = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        for counts, was in zip((LAUNCHES, PATHS), before):
+            recorded.update(counts - was)
+            counts.clear()
+            counts.update(was)
+
+
+def count_replay(recorded: collections.Counter) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    for key, n in recorded.items():
+        (PATHS if "." in key else LAUNCHES)[key] += n
 
 
 def _nvcc() -> str:

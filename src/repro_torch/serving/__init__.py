@@ -1,4 +1,21 @@
-"""Serving front end of the port."""
+"""Serving front ends of the port: one request at a time, or a batch of lanes."""
+from repro_torch.serving.batched import (
+    BatchedFusedServer,
+    BatchResult,
+    device_fill,
+    lane_request_inputs,
+    sanitize_lane_inputs,
+    straggler_report,
+)
 from repro_torch.serving.server import BiathlonServer, ServerStats
 
-__all__ = ["BiathlonServer", "ServerStats"]
+__all__ = [
+    "BatchResult",
+    "BatchedFusedServer",
+    "BiathlonServer",
+    "ServerStats",
+    "device_fill",
+    "lane_request_inputs",
+    "sanitize_lane_inputs",
+    "straggler_report",
+]

@@ -1,0 +1,303 @@
+"""Batched Biathlon serving: many concurrent requests in one fused executor run.
+
+Port of ``repro/serving/batched.py`` (unsharded, uncached).  A batch's
+requests are the lanes of the fused executor (``core/executor_fused.py``):
+each lane carries its own sample buffers, group sizes, exact features and
+knobs, and stops on its own inside the shared loop, which runs until every
+lane satisfies Eq. 1, exhausts its groups or reaches its iteration cap (the
+continuous-batching trade: stragglers in a batch pay for each other).
+
+Two mechanisms bound the programs built:
+
+* **Fixed lanes** — every batch is padded to exactly ``batch_size`` lanes;
+  pad lanes carry zero buffers and ``active=False``, so they never iterate.
+  The shapes are ``(batch_size, k, cap)`` for any fill 1..batch_size.
+* **Per-batch cap bucketing** — the (lanes, k, cap) gather pads to the
+  power of two above the BATCH's largest group, not the store-wide worst
+  case.
+
+So the executor builds one slot per cap bucket: on the card, one capture of
+its three CUDA graphs (``compile_count``), whatever the fill or the knobs.
+``straggler_report`` makes the batching trade measurable.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.executor_fused import build_fused_executor, pipeline_executor_kwargs
+from repro_torch.core.pipeline import make_fused_model_fn
+from repro_torch.data.store import bucket_size
+from repro_torch.device import resolve_device
+
+__all__ = [
+    "BatchResult",
+    "BatchedFusedServer",
+    "device_fill",
+    "lane_request_inputs",
+    "sanitize_lane_inputs",
+    "straggler_report",
+]
+
+
+def sanitize_lane_inputs(vals, exact, *, policy: str, where: str):
+    """Police NaN/Inf in a lane's host-side inputs at the serving edge.
+
+    A non-finite feature value entering the executor propagates through
+    every power sum and megabatch evaluation of its lane.
+    ``policy='reject'`` raises naming the offending buffer, feature row and
+    position; ``policy='clamp'`` zeroes non-finite entries (0.0 is the
+    store's neutral pad value, masked out by the estimators at the true
+    prefix lengths).  ``vals`` may be ``None``.  Returns the (possibly
+    rewritten) ``(vals, exact)``.
+    """
+    if policy not in ("reject", "clamp"):
+        raise ValueError(
+            f"{where}: unknown sanitize policy {policy!r} (expected 'reject' or 'clamp')"
+        )
+    out = []
+    for name, buf in (("vals", vals), ("exact", exact)):
+        if buf is None:
+            out.append(None)
+            continue
+        buf = np.asarray(buf)
+        bad = ~np.isfinite(buf)
+        if not bad.any():
+            out.append(buf)
+            continue
+        if policy == "reject":
+            pos = tuple(int(x) for x in np.argwhere(bad)[0])
+            raise ValueError(
+                f"{where}: non-finite value {float(buf[pos])!r} in request {name} buffer at "
+                f"{pos} (sanitize='reject'; use sanitize='clamp' to coerce, or fix the store "
+                f"column)"
+            )
+        buf = buf.copy()
+        buf[bad] = 0.0
+        out.append(buf)
+    return tuple(out)
+
+
+def lane_request_inputs(pipeline, store, req: dict, cap: int):
+    """One request's lane inputs at a cap bucket, on the host.
+
+    Returns ``(vals (k, cap) f32, n (k,) i32 clamped, true_n (k,) i64,
+    exact (e,) f32)``.
+    """
+    vals, _ = store.request_buffers(pipeline.agg_specs(req), cap, "cpu")
+    true_n = np.asarray(pipeline.group_sizes(store, req), np.int64)
+    return (
+        vals.numpy(),
+        np.minimum(true_n, cap).astype(np.int32),
+        true_n,
+        np.asarray(pipeline.exact_feature_values(store, req), np.float32),
+    )
+
+
+class BatchResult(NamedTuple):
+    y_hat: np.ndarray
+    prob: np.ndarray
+    iters: np.ndarray        # (R,) per-request planner iterations (active lanes)
+    sample_frac: np.ndarray  # samples touched / TRUE group rows (paper §4)
+    batch_iters: int         # the batch's loop trips = max(iters)
+    cap: int                 # bucketed buffer cap used for this batch
+    lanes: int               # padded lane count
+    z: np.ndarray | None = None  # (R, k) final per-request plans (active lanes)
+    n_devices: int = 1       # devices the lanes ran on
+
+
+def device_fill(fill: int, lanes: int, n_devices: int) -> np.ndarray:
+    """Active lanes per device for a front-packed fill of a batch whose lanes
+    partition contiguously over ``n_devices``: ``clip(fill − d·L/D, 0, L/D)``
+    on device ``d``.  Returns the (n_devices,) int array."""
+    if lanes % max(n_devices, 1) != 0:
+        raise ValueError(f"lanes {lanes} not divisible by n_devices {n_devices}")
+    per_dev = lanes // max(n_devices, 1)
+    d = np.arange(max(n_devices, 1))
+    return np.clip(fill - d * per_dev, 0, per_dev).astype(np.int64)
+
+
+def straggler_report(res: BatchResult) -> dict:
+    """How much the batch paid for its slowest request.
+
+    ``wasted_iters[i]`` counts the loop trips request i sat through after
+    its own loop ended (predicated no-ops that still cost an evaluation of
+    the shared step); ``wasted_frac`` is their share of the active lanes'
+    total.  Pad lanes never iterate and are left out; ``fill`` is the share
+    of lanes that were active.  With ``n_devices > 1`` a lane waits only for
+    the lanes of its own device.  An empty batch gives zeros and
+    ``straggler == -1``.
+    """
+    iters = np.asarray(res.iters)
+    n_dev = max(int(getattr(res, "n_devices", 1)), 1)
+    lanes = max(int(res.lanes), 1)
+    per_dev_fill = device_fill(iters.size, lanes, n_dev) / (lanes // n_dev)
+    if iters.size == 0:
+        return {
+            "batch_iters": 0, "per_request_iters": iters, "wasted_iters": iters,
+            "wasted_frac": 0.0, "straggler": -1, "cap": int(res.cap), "lanes": int(res.lanes),
+            "fill": 0.0, "n_devices": n_dev, "per_device_fill": per_dev_fill,
+            "lane_imbalance": 0.0,
+        }
+    dev_of = np.arange(iters.size) // (lanes // n_dev)
+    dev_max = np.zeros(n_dev, iters.dtype)
+    np.maximum.at(dev_max, dev_of, iters)
+    wasted = dev_max[dev_of] - iters
+    total = max(int(dev_max[dev_of].sum()), 1)
+    return {
+        "batch_iters": int(res.batch_iters),
+        "per_request_iters": iters,
+        "wasted_iters": wasted,
+        "wasted_frac": float(wasted.sum()) / total,
+        "straggler": int(np.argmax(iters)),
+        "cap": int(res.cap),
+        "lanes": int(res.lanes),
+        "fill": float(len(iters)) / lanes,
+        "n_devices": n_dev,
+        "per_device_fill": per_dev_fill,
+        "lane_imbalance": float(per_dev_fill.max() - per_dev_fill.min()),
+    }
+
+
+class BatchedFusedServer:
+    """The fused executor over fixed-lane batches of requests, on ``device``.
+
+    One slot per power-of-two cap bucket: batches are padded to exactly
+    ``batch_size`` lanes (pad lanes never iterate), so the executor builds
+    one set of programs per ``(batch_size, cap)``, captured as CUDA graphs
+    on the card; ``compile_count`` and ``compiled_buckets`` make that
+    observable.  ``max_cap`` lowers the store-wide buffer ceiling; groups
+    larger than the cap are served from their first ``cap`` rows and
+    ``sample_frac`` keeps the TRUE group size as its denominator.
+    ``afc_backend`` goes to the executor; ``use_kernel=False`` runs the
+    plain versions on the card and ``capture=False`` the eager programs
+    (both for comparison only).
+
+    ``mesh`` (lanes sharded over several cards) and ``cache_size`` (the
+    hot-group feature cache) are the reference's options that the port has
+    not taken yet: they raise.
+    """
+
+    def __init__(self, bundle, config, batch_size: int = 8, max_cap: int | None = None,
+                 mesh=None, afc_backend: str = "auto", cache_size: int | None = None,
+                 sanitize: str = "reject", *, device=None, use_kernel: bool = True,
+                 capture: bool | None = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "BatchedFusedServer(mesh=...): lanes sharded over several cards are not "
+                "ported yet (ROADMAP Queue 1 item 7)")
+        if cache_size is not None:
+            raise NotImplementedError(
+                "BatchedFusedServer(cache_size=...): the hot-group feature cache is not "
+                "ported yet (ROADMAP Queue 1 item 5)")
+        if sanitize not in ("reject", "clamp"):
+            raise ValueError(f"sanitize must be 'reject' or 'clamp', got {sanitize!r}")
+        self.device = resolve_device(device)
+        self.bundle = bundle
+        self.config = config
+        self.batch_size = int(batch_size)
+        self.sanitize = sanitize
+        self.n_devices = 1
+        p = bundle.pipeline
+        p.model.to(self.device)
+        feat_kwargs = pipeline_executor_kwargs(p.agg_features, self.device)
+        self._agg_ids = feat_kwargs.pop("agg_ids")
+        self._run = build_fused_executor(
+            make_fused_model_fn(p, self.device, use_kernel=use_kernel), k=p.k, task=p.task,
+            n_classes=max(p.n_classes, 2), m=config.m, m_sobol=config.m_sobol,
+            alpha=config.alpha, gamma=config.gamma, tau=config.tau,
+            max_iters=config.max_iters, n_boot=config.n_bootstrap, afc_backend=afc_backend,
+            device=self.device, use_kernel=use_kernel, capture=capture, **feat_kwargs,
+        )
+        self._caps_seen: set[int] = set()
+        max_n = max(
+            bundle.store[f.table].group_size(g)
+            for f in p.agg_features
+            for g in bundle.store[f.table].group_ids
+        )
+        self._max_cap = bucket_size(max_n)  # store-wide ceiling
+        if max_cap is not None:
+            self._max_cap = min(self._max_cap, bucket_size(max_cap))
+
+    @property
+    def compiled_buckets(self) -> list[int]:
+        """Cap buckets served so far."""
+        return sorted(self._caps_seen)
+
+    @property
+    def compile_count(self) -> int:
+        """Slots the executor built (on the card: captures of its three
+        graphs) — must equal ``len(compiled_buckets)``."""
+        return self._run.slots_built
+
+    def batch_cap(self, requests: list[dict]) -> int:
+        """Power-of-two bucket over THIS batch's largest group."""
+        p = self.bundle.pipeline
+        max_n = max(int(p.group_sizes(self.bundle.store, req).max()) for req in requests)
+        return min(bucket_size(max_n), self._max_cap)
+
+    def serve_batch(self, requests: list[dict], knobs=None) -> BatchResult:
+        """Serve a batch of 0..batch_size requests.
+
+        The batch is padded to exactly ``batch_size`` lanes; results are
+        sliced back to the real requests.  Oversize lists are rejected
+        (callers chunk before dispatch).  ``knobs`` (optional, aligned with
+        ``requests``) gives per-lane ``delta``, ``tau`` and ``iter_cap``
+        (objects with those fields, such as the reference's ``LaneKnobs``),
+        or ``None`` for the config's; ``iter_cap`` is clamped to
+        ``max_iters``.  The knobs are data: they never build a slot.
+        """
+        p = self.bundle.pipeline
+        store = self.bundle.store
+        delta = self.config.delta if self.config.delta is not None else p.delta_default
+        r = len(requests)
+        if r > self.batch_size:
+            raise ValueError(
+                f"admission batch of {r} exceeds the fixed lane count {self.batch_size}; "
+                "chunk before dispatch")
+        if knobs is not None and len(knobs) != r:
+            raise ValueError(f"knobs ({len(knobs)}) must align with requests ({r})")
+        if r == 0:
+            empty = np.zeros((0,), np.float32)
+            return BatchResult(
+                y_hat=empty, prob=empty, iters=np.zeros((0,), np.int32), sample_frac=empty,
+                batch_iters=0, cap=0, lanes=self.batch_size, z=np.zeros((0, p.k), np.int32),
+                n_devices=self.n_devices)
+        lanes = self.batch_size
+        cap = self.batch_cap(requests)
+        vals = np.zeros((lanes, p.k, cap), np.float32)
+        ns = np.zeros((lanes, p.k), np.int32)
+        true_ns = np.zeros((r, p.k), np.int64)
+        exacts = np.zeros((lanes, len(p.exact_features)), np.float32)
+        for i, req in enumerate(requests):
+            vals[i], ns[i], true_ns[i], exacts[i] = lane_request_inputs(p, store, req, cap)
+            vals[i], exacts[i] = sanitize_lane_inputs(
+                vals[i], exacts[i], policy=self.sanitize, where=f"serve_batch lane {i}")
+        deltas = np.full((lanes,), delta, np.float32)
+        taus = np.full((lanes,), self.config.tau, np.float32)
+        caps = np.full((lanes,), self.config.max_iters, np.int32)
+        for i, kn in enumerate(knobs or ()):
+            if kn is not None:
+                deltas[i], taus[i] = kn.delta, kn.tau
+                caps[i] = min(int(kn.iter_cap), self.config.max_iters)
+        self._caps_seen.add(cap)
+        res = self._run(
+            torch.from_numpy(vals), torch.from_numpy(ns), self._agg_ids,
+            torch.from_numpy(deltas), torch.from_numpy(exacts),
+            torch.from_numpy(np.arange(lanes) < r), torch.from_numpy(taus),
+            torch.from_numpy(caps))
+        iters = res.iters.cpu().numpy()[:r]
+        return BatchResult(
+            y_hat=res.y_hat.cpu().numpy()[:r],
+            prob=res.prob.cpu().numpy()[:r],
+            iters=iters,
+            # paper §4 sample fraction: touched rows over TRUE group rows
+            sample_frac=res.samples_used.cpu().numpy()[:r] / np.maximum(true_ns.sum(1), 1),
+            batch_iters=int(iters.max(initial=0)),
+            cap=cap,
+            lanes=lanes,
+            z=res.z.cpu().numpy()[:r],
+            n_devices=self.n_devices,
+        )

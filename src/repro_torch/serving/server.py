@@ -6,11 +6,14 @@ Port of ``repro/serving/server.py``.  Two execution modes per pipeline:
   bucketed buffers);
 * ``fused`` — a request's ``(k, cap)`` sample buffers are gathered once
   (its power-of-two cap bucket, at most ``max_cap``'s), moved to the
-  device, and the whole iterate-until-guaranteed loop runs there.
+  device, and the whole iterate-until-guaranteed loop runs there: the
+  one-lane case of the fused executor, on the card as CUDA graphs captured
+  once per cap bucket.
 
 :class:`ServerStats` holds the paper's §4 metrics: latency, speedup over the
 exact baseline (``run_exact``), sample fraction and the guarantee rate.
-The hot-group feature cache and the batched servers are later slices.
+Batches of requests are served by ``serving/batched.BatchedFusedServer``;
+the hot-group feature cache is a later slice.
 """
 from __future__ import annotations
 
@@ -85,7 +88,8 @@ class BiathlonServer:
     "ref"``); ``max_cap`` caps the fused per-request bucket (the
     reference's option, kept for parity: only a parity test sets it);
     ``use_kernel=False`` runs the plain PyTorch versions of the kernels on
-    the card, for comparison only.
+    the card, and ``capture=False`` the fused executor's programs eagerly
+    instead of as CUDA graphs, both for comparison only.
     """
 
     def __init__(
@@ -98,6 +102,7 @@ class BiathlonServer:
         max_cap: int | None = None,
         device=None,
         use_kernel: bool = True,
+        capture: bool | None = None,
     ):
         if mode not in ("host", "fused"):
             raise ValueError(f"mode must be 'host' or 'fused', got {mode!r}")
@@ -131,6 +136,7 @@ class BiathlonServer:
             afc_backend=afc_backend,
             device=self.device,
             use_kernel=use_kernel,
+            capture=capture,
             **feat_kwargs,
         )
 

@@ -6,6 +6,8 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -48,7 +50,7 @@ from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum
 from repro_torch.models.lm import LM
 from repro_torch.models.lm.layers import attention_block
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
-from repro_torch.serving import BiathlonServer
+from repro_torch.serving import BatchedFusedServer, BiathlonServer
 
 pytestmark = pytest.mark.cuda
 TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
@@ -582,6 +584,129 @@ def test_paper_pipelines_kernel_plans_equal_plain_plans(dev, name):
     assert launched.get("sobol_points", 0) == 1
     assert launched.get("sampled_moments", 0) > 0
     assert (launched.get("masked_select_ranks", 0) > 0) == name.endswith("_median")
+
+
+def _batch_bundle(dev, name):
+    """A small bundle whose groups (1200-2000 rows) all take the 2048 bucket,
+    the QMC sizes of the CPU tests, and per-lane knobs for 8 lanes: defaults,
+    tight lanes (0.3·δ, or τ = 0.995 for a classifier) capped at 6 and 2
+    iterations, a looser lane."""
+    bundle = make_pipeline(name, rows_per_group=1600, n_train_groups=100, n_serve_groups=8,
+                           n_requests=8, device=dev)
+    p = bundle.pipeline
+    d = p.delta_default
+    if p.task == "classification":
+        tight = [SimpleNamespace(delta=d, tau=0.995, iter_cap=c) for c in (6, 2)]
+    else:
+        tight = [SimpleNamespace(delta=0.3 * d, tau=0.95, iter_cap=c) for c in (6, 2)]
+    loose = SimpleNamespace(delta=2.0 * d, tau=0.9, iter_cap=64)
+    return bundle, BiathlonConfig(m=192, m_sobol=48), [None, tight[0], loose, tight[1]] * 2
+
+
+def _host_bits(x):
+    """The bits of host float32 values (a numpy array or a list)."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).view(torch.int32)
+
+
+@pytest.mark.parametrize("afc_backend", ["auto", "ref"])
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health", "fraud_detection"])
+def test_batched_captured_run_is_bitwise_the_eager_run(dev, name, afc_backend):
+    """Batches of 8 lanes at fill 8 and 3 with per-lane knobs: the captured
+    graphs and the eager programs give bitwise-equal plans, iterations, ŷ
+    and prob on every lane; one capture for the bucket."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    captured = BatchedFusedServer(bundle, cfg, afc_backend=afc_backend, device=dev)
+    eager = BatchedFusedServer(bundle, cfg, afc_backend=afc_backend, device=dev, capture=False)
+    iters = []
+    for reqs, kn in ((bundle.requests[:8], knobs), (bundle.requests[2:5], knobs[:3])):
+        a, b = captured.serve_batch(reqs, knobs=kn), eager.serve_batch(reqs, knobs=kn)
+        assert (a.z == b.z).all() and (a.iters == b.iters).all() and a.cap == b.cap == 2048
+        assert torch.equal(_host_bits(a.y_hat), _host_bits(b.y_hat))
+        assert torch.equal(_host_bits(a.prob), _host_bits(b.prob))
+        iters += a.iters.tolist()
+    assert max(iters) > 0
+    assert captured.compile_count == eager.compile_count == 1
+    assert captured._run._slots[(8, 2048, len(bundle.pipeline.exact_features))].graphs
+    assert eager._run._slots[(8, 2048, len(bundle.pipeline.exact_features))].graphs is None
+
+
+@pytest.mark.parametrize("afc_backend", ["auto", "ref"])
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health", "fraud_detection"])
+def test_batched_kernel_plans_equal_plain_plans(dev, name, afc_backend):
+    """The batched path through the kernels and through the plain versions
+    (both captured): equal plans and iterations, ŷ within 1e-4·max(1, |y|)
+    or the same class; the path's kernels launched (by replays)."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    build.reset_launch_counts()
+    ks = BatchedFusedServer(bundle, cfg, afc_backend=afc_backend, device=dev)
+    a = ks.serve_batch(bundle.requests[:8], knobs=knobs)
+    launched = dict(build.LAUNCHES)
+    ps = BatchedFusedServer(bundle, cfg, afc_backend=afc_backend, device=dev, use_kernel=False)
+    b = ps.serve_batch(bundle.requests[:8], knobs=knobs)
+    assert (a.z == b.z).all() and (a.iters == b.iters).all()
+    assert (np.abs(a.y_hat - b.y_hat) <= 1e-4 * np.maximum(1.0, np.abs(b.y_hat))).all()
+    assert (np.abs(a.prob - b.prob) <= 1e-4).all()
+    afc = "sampled_moments" if afc_backend == "ref" else "prefix_power_sums"
+    assert launched.get(afc, 0) > 0 and launched.get("ensemble_sum", 0) > 0
+    assert (launched.get("masked_select_ranks", 0) > 0) == (
+        name == "sensor_health" and afc_backend == "ref")
+
+
+def test_second_batch_at_a_bucket_captures_nothing(dev):
+    """The bucket's graphs are captured once; a later batch of another fill
+    and other knobs replays them (its launches counted a replay each)."""
+    bundle, cfg, knobs = _batch_bundle(dev, "turbofan")
+    srv = BatchedFusedServer(bundle, cfg, device=dev)
+    srv.serve_batch(bundle.requests[:8], knobs=knobs)
+    (slot,) = srv._run._slots.values()
+    graphs = slot.graphs
+    build.reset_launch_counts()
+    res = srv.serve_batch(bundle.requests[3:5], knobs=knobs[1:3])
+    assert srv.compile_count == 1 and srv._run.slots_built == 1 and slot.graphs is graphs
+    assert build.LAUNCHES["prefix_power_sums"] == 1          # the z⁰ graph, replayed once
+    # z⁰, then (if a lane iterates) the Saltelli block and at least one step an iteration
+    assert build.LAUNCHES["ensemble_sum"] >= 1 + (1 + res.batch_iters if res.batch_iters else 0)
+    assert build.PATHS["prefix_power_sums.chunks"] == 1
+
+
+def test_capture_survives_collectable_graphs(dev):
+    """Executors left in reference cycles hold graphs that only the garbage
+    collector frees; with the collector run every few allocations, new
+    captures must still succeed (destroying a graph inside a capture would
+    invalidate it) and give the eager bits."""
+    import gc
+
+    bundle = make_pipeline("turbofan", rows_per_group=600, n_train_groups=100,
+                           n_serve_groups=5, n_requests=4, device=dev)
+    cfg = BiathlonConfig(m=192, m_sobol=48, delta=bundle.pipeline.delta_default * 0.3)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(10)
+    try:
+        for req in bundle.requests:
+            srv = BiathlonServer(bundle, cfg, device=dev)
+            srv.cycle = srv            # freed by the collector only
+            out = srv.serve(req)
+            want = BiathlonServer(bundle, cfg, device=dev, capture=False).serve(req)
+            assert out["iters"] == want["iters"] and (out["z"] == want["z"]).all()
+            assert torch.equal(_host_bits([out["y_hat"]]), _host_bits([want["y_hat"]]))
+            del srv
+    finally:
+        gc.set_threshold(*thresholds)
+
+
+def test_single_request_captured_equals_eager(dev):
+    """``BiathlonServer(mode="fused")`` is the one-lane case: captured and
+    eager give the same bits."""
+    bundle = make_pipeline("sensor_health", rows_per_group=1600, n_train_groups=100,
+                           n_serve_groups=5, n_requests=4, device=dev)
+    cfg = BiathlonConfig(m=192, m_sobol=48, delta=bundle.pipeline.delta_default * 0.3)
+    a_srv = BiathlonServer(bundle, cfg, device=dev)
+    b_srv = BiathlonServer(bundle, cfg, device=dev, capture=False)
+    for req in bundle.requests:
+        a, b = a_srv.serve(req), b_srv.serve(req)
+        assert a["iters"] == b["iters"] and (a["z"] == b["z"]).all()
+        assert torch.equal(_host_bits([a["y_hat"], a["prob"]]),
+                           _host_bits([b["y_hat"], b["prob"]]))
 
 
 @pytest.mark.parametrize("z", [0, 1, 353, 1499, 1500, 2048])
