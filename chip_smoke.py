@@ -99,7 +99,23 @@ Phases (any failure exits non-zero before the result line is printed):
    path launched.  The single-request server (the one-lane case, captured
    since this phase was added) is profiled eagerly too on the tight
    turbofan and sensor_health requests of phases 3 and 5;
-9. ``flash_attention`` against its plain version: the LM-head prompt
+9. the hot-group feature cache (``cache_size=64``) on full-width turbofan
+   and sensor_health over deep copies of their stores: batches of 8 at δ
+   and at the tight setting and 8 single requests, a miss pass and a hit
+   pass, each bitwise the uncached captured server's (the main path of
+   this phase: counts reset just before each pass and read just after);
+   a miss batch makes one ``prefix_power_sums`` launch, a hit none and no
+   slot; 3 appends into each of two served groups on the cached store and
+   an oracle copy (refreshes counted, plans equal, ŷ within
+   1e-3·max(1, |y|)); an append into a new group (j = 0) rebuilt by
+   ``cold``; sensor_health cached under "ref" (the rescan kernels) and
+   turbofan cached at 500 rows a group (``prefix_power_sums`` at cap 512,
+   plans equal to the uncached rescan's); p50 per batch and per request
+   uncached, miss and hit in turns, the gather, the copy to the card from
+   pageable and pinned memory, the slot's device-to-device copy, ``cold``
+   and one ``refresh``, and a profiled hit batch; ``prefix_power_sums``
+   also held to its plain version at (9, 512) and (72, 512);
+10. ``flash_attention`` against its plain version: the LM-head prompt
    (1, 16, 48, 64) and (1, 16, 4096, 64) and (1, 16, 4096, 128) prefills
    in bf16, causal (the tensor-core kernel); a float32 non-causal case (the
    scalar kernel); Sq ≠ Sk; 4096 × 16 = 65536 batch·heads on three
@@ -108,7 +124,7 @@ Phases (any failure exits non-zero before the result line is printed):
    shapes timed beside ``F.scaled_dot_product_attention`` (a yardstick the
    port never calls), with the ratio to it, the share of the bound and
    each bf16 instance's registers and spills from the build log;
-10. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
+11. the LM-head pipeline (``repro_torch.examples.serve_lm_head``) with a
    full-width ``qwen1.5-0.5b`` backbone (24 layers, d 1024, random weights
    from a seed): 6 requests through the kernels, exactly 24
    ``flash_attention`` launches and one ``prefix_power_sums`` per request
@@ -116,9 +132,9 @@ Phases (any failure exits non-zero before the result line is printed):
    the same requests under ``use_kernel=False`` (no launch), pooled states
    within bf16 tolerance of the kernel path's, and equal plans when both
    executors are fed the same pooled state; a profile of one request;
-11. one 1 × 4096-token backbone forward, profiled: its latency,
+12. one 1 × 4096-token backbone forward, profiled: its latency,
    ``flash_attention``'s share of device time and the device's idle share;
-12. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+13. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -127,6 +143,8 @@ the JAX package.
 from __future__ import annotations
 
 import collections
+import copy
+import dataclasses
 import json
 import re
 import statistics
@@ -1169,17 +1187,14 @@ def lane_inputs(bundle, dev, fill: int = BATCH_LANES):
     """The (8, k, cap) buffers and (8, k) sizes that ``serve_batch`` gathers
     for the bundle's first ``fill`` requests at their batch's cap: zeros in
     the pad lanes."""
-    from repro_torch.data.store import bucket_size
-    from repro_torch.serving import lane_request_inputs
+    from repro_torch.data.store import HostStaging, bucket_size
+    from repro_torch.serving import gather_lanes
 
     p, reqs = bundle.pipeline, bundle.requests[:fill]
     cap = bucket_size(max(int(p.group_sizes(bundle.store, r).max()) for r in reqs))
-    lanes = [lane_request_inputs(p, bundle.store, r, cap) for r in reqs]
-    vals = np.zeros((BATCH_LANES, p.k, cap), np.float32)
-    sizes = np.zeros((BATCH_LANES, p.k), np.int32)
-    vals[:fill] = np.stack([v for v, *_ in lanes])
-    sizes[:fill] = np.stack([n for _, n, *_ in lanes])
-    return torch.from_numpy(vals).to(dev), torch.from_numpy(sizes).to(dev)
+    vals, sizes, _ = gather_lanes(p, bundle.store, reqs, cap, BATCH_LANES, HostStaging(dev),
+                                  policy="reject")
+    return vals.to(dev), torch.from_numpy(sizes).to(dev)
 
 
 #: lane_kernels' records keyed by case (pipeline, or pipeline_cap)
@@ -1296,6 +1311,237 @@ def batched_phase(dev, bundles: dict, cfg, card: str) -> dict:
                   "ensemble_sum", "sobol_points"):
         require(launched.get(kname, 0) > 0, f"batched path: {kname} never launched")
     out["launches"] = dict(launched)
+    return out
+
+
+# ------------------------------------------------------------------ phase 9
+CACHE_SIZE = 64
+CACHE_PIPELINES = ("turbofan", "sensor_health")
+CACHE_REPS = 3
+
+
+def with_store_copy(bundle):
+    """The bundle over a deep copy of its store, so appends leave the
+    original as it is."""
+    return dataclasses.replace(bundle, store=copy.deepcopy(bundle.store))
+
+
+def append_rows(table, gid, n: int, scale: float, src=None) -> None:
+    """``n`` rows into group ``gid``: copies of the first rows of group
+    ``src`` (default: ``gid``), float columns scaled."""
+    start = int(table.group_ptr[table.group_ids[gid if src is None else src]])
+    table.append({c: v[table.perm[start:start + n]] * (scale if v.dtype.kind == "f" else 1)
+                  for c, v in table.columns.items()}, group_key=[gid] * n)
+
+
+def served_launches(dev, fn) -> tuple:
+    """``(fn(), launch counts)``: counts reset just before, read just after."""
+    from repro_torch.kernels import build
+
+    sync(dev)
+    build.reset_launch_counts()
+    out = fn()
+    sync(dev)
+    return out, dict(build.LAUNCHES) | dict(build.PATHS)
+
+
+def cache_timings(dev, srv, single, plain_batch, plain_single, reqs, card) -> dict:
+    """Per batch and per request: uncached, miss (the cache emptied first)
+    and hit, in turns; then the pieces of a miss and a hit apart: the host
+    gather into the pinned buffer, the copy to the card from pageable and
+    from pinned memory, the slot's device-to-device copy of 8 entries,
+    ``cold`` on 8 requests, the copy of its rows into 8 entries and one
+    ``refresh`` event."""
+    from repro_torch.data.store import HostStaging
+    from repro_torch.serving.feature_cache import entry_rows
+
+    p, store = srv.bundle.pipeline, srv.bundle.store
+    cap = srv.batch_cap(reqs)
+
+    def miss_batch():
+        srv.cache._entries.clear()
+        srv.serve_batch(reqs)
+
+    def miss_single():
+        single.cache._entries.clear()
+        single.serve(reqs[0])
+
+    out = {"batch_ms": wall_ms({"uncached": lambda: plain_batch.serve_batch(reqs),
+                                "miss": miss_batch, "hit": lambda: srv.serve_batch(reqs)},
+                               reps=CACHE_REPS),
+           "request_ms": wall_ms({"uncached": lambda: plain_single.serve(reqs[0]),
+                                  "miss": miss_single, "hit": lambda: single.serve(reqs[0])},
+                                 reps=CACHE_REPS)}
+    specs = [p.agg_specs(r) for r in reqs]
+    staging = HostStaging(dev)
+    buf = staging.gather(store, specs, cap, rows=BATCH_LANES)
+    pageable = buf.numpy().copy()
+    dst = torch.empty(buf.shape, device=dev)
+    out.update(wall_ms({
+        "gather": lambda: staging.release(staging.gather(store, specs, cap, rows=BATCH_LANES)),
+        "h2d_pageable": lambda: dst.copy_(torch.from_numpy(pageable)),
+        "h2d_pinned": lambda: dst.copy_(buf, non_blocking=True)}, reps=CACHE_REPS))
+    out["h2d_bytes"] = buf.numel() * 4
+    entries = srv.cache.get_many(specs, cap)
+    ex = srv._run
+    (slot,) = [s for key, s in ex._slots.items() if key[:2] == (BATCH_LANES, cap)]
+    vals, ns, tables = ([e.vals for e in entries], [e.n for e in entries],
+                        [e.tables for e in entries])
+    out["slot_copy_ms"] = _events_ms(lambda: ex._load(slot, vals, ns, tables), 10)
+    out["slot_copy_bytes"] = sum(t.numel() * t.element_size() for e in entries
+                                 for t in (e.vals, e.n, e.tables.ptab, e.tables.shift,
+                                           *e.tables.rindex))
+    stacked, sizes = torch.stack(vals), torch.stack(ns)
+    out["cold_ms"] = _events_ms(lambda: srv.cache.cold(stacked, sizes), 5)
+    # a miss batch's entries copy their rows out of its tensors (device to device)
+    built = srv.cache.cold(stacked, sizes)
+    out["entry_copy_ms"] = _events_ms(lambda: entry_rows(stacked, sizes, built), 5)
+    aff = np.ones(p.k, bool)
+    x = np.ones(p.k, np.float32)
+    e0 = entries[0]
+    out["refresh_ms"] = _events_ms(
+        lambda: srv.cache.refresh(e0.vals, e0.n, e0.tables, 7, x, aff), 5)
+    print(f"feature cache {p.name} timings: {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def feature_cache_phase(dev, bundles: dict, small, cfg, card: str) -> dict:
+    """The hot-group feature cache (``cache_size=64``) on full-width turbofan
+    and sensor_health, each over a deep copy of its store: batches of 8 at δ
+    and at the tight setting and 8 single requests, a miss pass then a hit
+    pass, each bitwise the uncached captured server's; a hit launches no
+    ``prefix_power_sums`` and builds no slot, a miss batch launches it once.
+    Then 3 appends into each of two served groups, on the cached store and
+    on an oracle copy: refreshes counted, plans equal to the oracle's and ŷ
+    within 1e-3·max(1, |y|); an append into a new group (j = 0) rebuilt by
+    ``cold``.  Then sensor_health cached under "ref" (the rescan kernels
+    launch) and turbofan cached at 500 rows a group (``prefix_power_sums``
+    at cap 512; plans equal to the uncached rescan's).  Timings in turns."""
+    from repro_torch.serving import BatchedFusedServer, BiathlonServer
+
+    out, launched = {}, collections.Counter()
+    for name in CACHE_PIPELINES:
+        cached_b, oracle_b = with_store_copy(bundles[name]), with_store_copy(bundles[name])
+        p, reqs = cached_b.pipeline, cached_b.requests[:BATCH_LANES]
+        plain = BatchedFusedServer(oracle_b, cfg, batch_size=BATCH_LANES, device=dev)
+        plain_single = BiathlonServer(oracle_b, cfg, device=dev)
+        (srv, single), at_build = served_launches(dev, lambda: (
+            BatchedFusedServer(cached_b, cfg, batch_size=BATCH_LANES, cache_size=CACHE_SIZE,
+                               device=dev),
+            BiathlonServer(cached_b, cfg, cache_size=CACHE_SIZE, device=dev)))
+        launched.update(at_build)
+        rec = {}
+        for tight in (False, True):
+            knobs = batch_knobs(p, tight, BATCH_LANES)
+            want = plain.serve_batch(reqs, knobs=knobs)
+            srv.cache._entries.clear()
+            slots = srv.compile_count
+            miss, l_miss = served_launches(dev, lambda: srv.serve_batch(reqs, knobs=knobs))
+            built = srv.compile_count - slots
+            hit, l_hit = served_launches(dev, lambda: srv.serve_batch(reqs, knobs=knobs))
+            key = "tight" if tight else "delta"
+            for turn, res in (("miss", miss), ("hit", hit)):
+                compare_batches(f"feature cache {name} {key} {turn} vs uncached", want, res,
+                                bitwise=True)
+            require(l_miss.get("prefix_power_sums", 0) == 1,
+                    f"{name} {key}: a miss batch made {l_miss} prefix launches, not 1")
+            require(l_hit.get("prefix_power_sums", 0) == 0
+                    and srv.compile_count == slots + built,
+                    f"{name} {key}: a hit batch launched {l_hit} or built a slot")
+            expect_launched(f"feature cache {name} {key} miss", l_miss,
+                            ["prefix_power_sums", "ensemble_sum"],
+                            ["sampled_moments", "masked_select_ranks"])
+            for lc in (l_miss, l_hit):
+                launched.update({k: v for k, v in lc.items() if "." not in k})
+            rec[key] = dict(iters=hit.iters.tolist(), cap=hit.cap, launches_miss=l_miss,
+                            launches_hit=l_hit)
+        # single requests: a miss pass, then a hit pass, each the uncached server's bits
+        want = [plain_single.serve(r) for r in reqs]
+        for turn in ("miss", "hit"):
+            slots = single.compile_count
+            got, lc = served_launches(dev, lambda: [single.serve(r) for r in reqs])
+            compare_runs(f"feature cache {name} single {turn}", want, got, cfg)
+            require(all(a["y_hat"] == b["y_hat"] and a["prob"] == b["prob"]
+                        for a, b in zip(want, got)),
+                    f"feature cache {name} single {turn}: not bitwise the uncached server")
+            if turn == "hit":
+                require(lc.get("prefix_power_sums", 0) == 0 and single.compile_count == slots,
+                        f"{name} single hit pass launched {lc} or built a slot")
+            launched.update({k: v for k, v in lc.items() if "." not in k})
+        rec["single_stats"] = single.cache.stats
+        rec["timings"] = cache_timings(dev, srv, single, plain, plain_single, reqs, card)
+        prof = profile_batch(srv, reqs, None, ROOT / "build" /
+                             f"chip_smoke_profile_feature_cache_{name}_hit.txt")
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["profiled_latency_ms"]
+        rec["profile_hit"] = prof
+        print(f"profile of feature cache {name} hit batch: {json.dumps(prof)} [{card}]",
+              flush=True)
+        # appends: 3 rows into each of two served groups, on both stores
+        f = p.agg_features[0]
+        groups = list(dict.fromkeys(int(r[f.group_field]) for r in reqs))[:2]
+        for store in (cached_b.store, oracle_b.store):
+            for g in groups:
+                append_rows(store[f.table], g, 3, 1.25)
+        before = dict(srv.cache.stats)
+        want = plain.serve_batch(reqs)
+        got = srv.serve_batch(reqs)
+        compare_batches(f"feature cache {name} after appends", want, got, bitwise=False)
+        refreshed = srv.cache.refreshes - before["refreshes"]
+        require(refreshed >= 1, f"{name}: appends refreshed nothing: {srv.cache.stats}")
+        # an append into a new group draws j = 0: rebuilt by cold, not refreshed
+        table = cached_b.store[f.table]
+        new_gid = max(table.group_ids) + 1
+        specs = [(t, c, new_gid) for t, c, _ in p.agg_specs(reqs[0]) if t == f.table]
+        table.add_group(new_gid)
+        srv.cache.get(specs, 64)                  # the empty group's all-pad entry
+        append_rows(table, new_gid, 1, 1.0, src=groups[0])
+        require(table.events_since(new_gid, 0)[0][0] == 0, f"{name}: the event is not j = 0")
+        misses, refreshes = srv.cache.misses, srv.cache.refreshes
+        entry = srv.cache.get(specs, 64)
+        want_vals, want_n = cached_b.store.request_buffers(specs, 64, dev)
+        require(srv.cache.misses == misses + 1 and srv.cache.refreshes == refreshes
+                and torch.equal(entry.vals, want_vals) and torch.equal(entry.n, want_n),
+                f"{name}: the j = 0 event was not rebuilt by cold: {srv.cache.stats}")
+        rec.update(refreshed=refreshed, stats=srv.cache.stats, appended_groups=groups)
+        shown = {k: v for k, v in rec.items() if k != "timings"}
+        print(f"feature cache {name}: {json.dumps(shown)} [{card}]", flush=True)
+        out[name] = rec
+    # sensor_health cached under "ref": the rescan kernels read the cached buffers
+    health = with_store_copy(bundles["sensor_health"])
+    reqs, knobs = health.requests[:BATCH_LANES], batch_knobs(health.pipeline, True, BATCH_LANES)
+    want = BatchedFusedServer(health, cfg, batch_size=BATCH_LANES, afc_backend="ref",
+                              device=dev).serve_batch(reqs, knobs=knobs)
+    ref_srv = BatchedFusedServer(health, cfg, batch_size=BATCH_LANES, afc_backend="ref",
+                                 cache_size=CACHE_SIZE, device=dev)
+    got, lr = served_launches(dev, lambda: ref_srv.serve_batch(reqs, knobs=knobs))
+    compare_batches("feature cache sensor_health ref vs uncached ref", want, got, bitwise=True)
+    expect_launched("feature cache sensor_health ref", lr,
+                    ["sampled_moments", "masked_select_ranks", "prefix_power_sums"])
+    launched.update({k: v for k, v in lr.items() if "." not in k})
+    out["sensor_health_ref"] = dict(iters=got.iters.tolist(), launches=lr)
+    # turbofan at 500 rows a group: cached, "auto" is incremental at cap 512
+    from repro_torch.data.store import bucket_size
+
+    small_c = with_store_copy(small)
+    sp = small_c.pipeline
+    reqs = [r for r in small_c.requests
+            if bucket_size(int(sp.group_sizes(small_c.store, r).max())) == 512][:BATCH_LANES]
+    require(reqs, "no reduced-depth request in the 512 bucket")
+    want = BatchedFusedServer(small_c, cfg, batch_size=BATCH_LANES,
+                              device=dev).serve_batch(reqs)
+    sm_srv = BatchedFusedServer(small_c, cfg, batch_size=BATCH_LANES, cache_size=CACHE_SIZE,
+                                device=dev)
+    got, ls = served_launches(dev, lambda: sm_srv.serve_batch(reqs))
+    require(got.cap == 512, f"reduced-depth cached cap {got.cap}, expected 512")
+    compare_batches("feature cache reduced turbofan vs uncached rescan", want, got,
+                    bitwise=False)
+    expect_launched("feature cache reduced turbofan", ls, ["prefix_power_sums", "ensemble_sum"],
+                    ["sampled_moments"])
+    launched.update({k: v for k, v in ls.items() if "." not in k})
+    out["turbofan_reduced"] = dict(iters=got.iters.tolist(), cap=got.cap, launches=ls,
+                                   requests=reqs)
+    out["launches"] = dict(launched)
+    print(f"feature cache launches: {out['launches']} [{card}]", flush=True)
     return out
 
 
@@ -1552,7 +1798,7 @@ def host_phase(dev, bundles: dict, cfg, card: str, rng) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 9-11
+# --------------------------------------------------------------- phase 10-12
 def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
     once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask)."""
@@ -2018,6 +2264,19 @@ def main() -> int:
         recs = recs.values() if kname in LANE_SHAPES_BY_CASE else [recs]
         rec[kname]["max_abs_err"] = max([rec[kname]["max_abs_err"]]
                                         + [r["max_abs_err"] for r in recs])
+    cache = feature_cache_phase(dev, all_bundles, small, cfg, card)
+    # the reduced-depth requests the cached phase served at cap 512
+    rows512 = torch.cat([small.store.request_buffers(small.pipeline.agg_specs(r), 512, dev)[0]
+                         for r in cache["turbofan_reduced"]["requests"]])
+    rec["prefix_power_sums"]["cap_512"] = {
+        f"{r}x512": prefix_record(rows512[:r].contiguous(), rows512[:r, 0].contiguous())
+        for r in (small.pipeline.k, rows512.shape[0])}
+    rec["prefix_power_sums"]["max_abs_err"] = max(
+        [rec["prefix_power_sums"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in rec["prefix_power_sums"]["cap_512"].values()])
+    for key, r in rec["prefix_power_sums"]["cap_512"].items():
+        print(f"prefix_power_sums {key}: {r['ms']:.5f} ms (eager {r['eager_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.6f}) [{card}]", flush=True)
     crossover = afc_crossover(dev, cfg)
     for r in crossover:
         print(f"afc crossover {r['pipeline']} cap {r['cap']}: set-up {r['setup_ms']:.4f} ms, "
@@ -2079,13 +2338,14 @@ def main() -> int:
             **{key: r[key] for key in ("z", "reduced_depth", "sort_gather_ms", "sweep",
                                        "earlier_ms", "depth", "node_visits", "plan", "chunk",
                                        "blocks", "gbm", "lm_head", "sensor_health", "run",
-                                       "grids", "student_qa", "fraud_detection")
+                                       "grids", "student_qa", "fraud_detection", "cap_512")
                if key in r},
             launches_paper_pipelines=sum(
                 v.get("launches", {}).get(kname, 0) for pipe in paper["serve"].values()
                 for v in pipe.values() if isinstance(v, dict)),
             launches_host_path=host["launches"].get(kname, 0),
             launches_batched=batched["launches"].get(kname, 0),
+            launches_feature_cache=cache["launches"].get(kname, 0),
             **({"lane_shapes": lanes[kname]} if kname in lanes else {}),
             **({"host_shapes": host["kernels"][kname]} if kname in host["kernels"] else {}),
         ))
@@ -2125,6 +2385,7 @@ def main() -> int:
     serve["paper_pipelines"] = paper["serve"]
     serve["host"] = {key: val for key, val in host.items() if key != "kernels"}
     serve["batched"] = batched
+    serve["feature_cache"] = cache
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

@@ -6,7 +6,8 @@ files — without either package importing the other.  Everything it takes is
 numpy arrays, Python scalars, strings, lists and dicts:
 
 * a store: per table, its ``columns`` (name -> array), ``group_ptr``,
-  ``perm`` and ``group_ids`` (external key -> dense group index);
+  ``perm`` and ``group_ids`` (external key -> dense group index), and
+  optionally its generator's ``rng_state`` and its ``versions``;
 * a pipeline: its ``name``, ``task``, ``n_classes``, ``agg_features`` and
   ``exact_features`` (lists of field dicts), ``scaler_mean``,
   ``scaler_scale``, ``delta_default`` and a ``model`` dict (below);
@@ -50,15 +51,31 @@ _MODEL_KINDS = (*_TREE_KINDS, *_LINEAR_KINDS, "mlp")
 
 
 def store_from_numpy(tables: Mapping[str, Mapping]) -> ColumnStore:
-    """A :class:`ColumnStore` from ``{name: {columns, group_ptr, perm, group_ids}}``."""
+    """A :class:`ColumnStore` from ``{name: {columns, group_ptr, perm, group_ids}}``.
+
+    A table may also carry ``rng_state`` (the ``bit_generator.state`` dict of
+    the generator its build drew the permutations from, continued) and
+    ``versions`` (per dense group): the bridged table then draws the same
+    append positions as the table it was taken from.
+    """
     store = ColumnStore()
     for name, t in tables.items():
+        extra = {}
+        if "rng_state" in t:
+            state = t["rng_state"]
+            rng = np.random.Generator(getattr(np.random, state["bit_generator"])())
+            rng.bit_generator.state = state
+            extra["rng"] = rng
+        if "versions" in t:
+            extra["versions"] = [int(v) for v in t["versions"]]
+        # copies: an append grows the index in place
         store.add(name, Table(
-            columns={c: np.asarray(v) for c, v in t["columns"].items()},
-            group_ptr=np.asarray(t["group_ptr"], np.int64),
-            perm=np.asarray(t["perm"], np.int64),
+            columns={c: np.array(v) for c, v in t["columns"].items()},
+            group_ptr=np.array(t["group_ptr"], np.int64),
+            perm=np.array(t["perm"], np.int64),
             group_ids={int(k): int(v) for k, v in t["group_ids"].items()},
             name=name,
+            **extra,
         ))
     return store
 

@@ -46,6 +46,17 @@ Saltelli graph and the step graph until every lane is done, reading the
 lanes' done flags back after each step.  A failed capture raises; nothing
 falls back to the eager loop.
 
+**Prebuilt tables** (``build_fused_executor(..., prebuilt=True)``): the
+hot-group feature cache (``serving/feature_cache.py``) keeps each request's
+buffers and AFC tables on the device (:class:`PrebuiltTables`, made by
+:func:`build_afc_precompute`'s ``cold`` and kept fresh by its ``refresh``).
+The z⁰ program of such an executor builds no table: it reads them from
+buffers of its slot (``ptab``, ``shift`` and, for holistic features, the
+rank index), into which each run copies the lanes' entries, device to
+device, as it copies ``vals``.  A cache hit therefore builds no slot and
+launches no ``prefix_power_sums``; under ``"ref"`` the tables are ignored
+and the rescan kernels run.
+
 The QMC grid is fixed per executor, so its normal quantiles and the
 holistic replicate-table indices are computed once at build time: the AMI
 (m, k) and Saltelli (m_sobol, 2k) grids are views of one grid, one
@@ -83,15 +94,24 @@ from repro_torch.kernels.sampled_agg.ops import (
     resolve_afc_plan,
 )
 from repro_torch.kernels.sampled_agg.prefix_stats import (
+    BLOCK_S,
     N_POWERS,
+    HolisticRankIndex,
+    append_power_sums,
     build_rank_index,
+    empty_rank_index,
+    merge_sorted_prefix,
     prefix_moments_at,
+    rank_index_from_sorted,
     select_ranks_indexed,
 )
 
 __all__ = [
     "FusedExecutor",
     "FusedResult",
+    "PrebuiltFusedExecutor",
+    "PrebuiltTables",
+    "build_afc_precompute",
     "build_fused_executor",
     "fused_rows_per_iteration",
     "pipeline_executor_kwargs",
@@ -110,6 +130,28 @@ class FusedResult(NamedTuple):
     iters: torch.Tensor | int   # planner iterations run
     z: torch.Tensor             # int32 final plan
     samples_used: torch.Tensor  # int64; 0 on an inactive lane
+
+
+class PrebuiltTables(NamedTuple):
+    """A request's incremental-AFC tables, made once and kept on the device.
+
+    ``ptab (k, cap, 4)`` prefix power sums, ``shift (k,)`` their origin
+    (``vals[:, 0]``) and the holistic rank index (rows ``(h, ...)``;
+    zero-size without holistic features), each with the leading dimensions
+    of the buffers they were built from.  Built by
+    :func:`build_afc_precompute`; a ``prebuilt=True`` executor reads them.
+    """
+
+    ptab: torch.Tensor
+    shift: torch.Tensor
+    rindex: HolisticRankIndex
+
+
+def plan_ladder(z0: torch.Tensor, step: torch.Tensor, n: torch.Tensor, n_z: int) -> torch.Tensor:
+    """Every plan the planner can reach, ``min(z⁰ + i·step, n)`` for i < n_z:
+    ``(..., k, n_z)`` from ``(..., k)`` plans and sizes and ``(...,)`` steps."""
+    ladder = torch.arange(n_z, dtype=torch.int32, device=z0.device)
+    return torch.minimum(z0[..., None] + ladder * step[..., None, None], n[..., None])
 
 
 def fused_rows_per_iteration(k: int, m: int, m_sobol: int) -> int:
@@ -154,6 +196,8 @@ class FusedExecutor:
     evaluation.  :attr:`slots_built` counts the (lanes, cap) slots made:
     on the card, each is one capture of the three programs.
     """
+
+    prebuilt = False
 
     def __init__(self, model_fn, *, k, task, n_classes, m, m_sobol, alpha, gamma, tau,
                  max_iters, afc_backend, holistic, quantiles, n_boot, boot_seed, approximate,
@@ -273,15 +317,12 @@ class FusedExecutor:
         s.cap_eff = torch.clamp(s.iter_cap, max=self.max_iters)
         if self.n_hol:
             s.vals_h = s.vals[:, self.hol_idx]
-        if s.incremental:
+        if s.incremental and not self.prebuilt:
             shift = s.vals[..., 0].contiguous()
             ptab = prefix_power_sums(s.vals, shift, use_kernel=self.use_kernel)
             rindex = None
             if self.n_hol:
-                # every plan the planner can reach: min(z⁰ + i·γ, n), i = 0..max_iters
-                ladder = torch.arange(self.max_iters + 1, dtype=torch.int32, device=self.device)
-                zcand = torch.minimum(z0[..., None] + ladder * s.step[:, None, None],
-                                      n[..., None])[:, self.hol_idx]
+                zcand = plan_ladder(z0, s.step, n, self.max_iters + 1)[:, self.hol_idx]
                 rindex = build_rank_index(s.vals_h.reshape(lanes * self.n_hol, cap),
                                           n[:, self.hol_idx].reshape(-1),
                                           zcand.reshape(lanes * self.n_hol, -1))
@@ -339,7 +380,8 @@ class FusedExecutor:
         z32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
         zf = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)  # noqa: E731
         s = SimpleNamespace(
-            incremental=resolve_afc_plan(self.afc_backend, cap), graphs=None,
+            incremental=resolve_afc_plan(self.afc_backend, cap, cached=self.prebuilt),
+            graphs=None,
             # inputs: a run copies its batch in
             vals=zf(lanes, k, cap), n_in=z32(lanes, k), agg=z32(lanes, k), delta=zf(lanes),
             exact=zf(lanes, e), active=torch.zeros(lanes, dtype=torch.bool, device=dev),
@@ -348,6 +390,16 @@ class FusedExecutor:
             z=z32(lanes, k), it=z32(lanes), y_hat=zf(lanes), prob=zf(lanes), idx=zf(lanes, k),
             want=torch.zeros(lanes, dtype=torch.bool, device=dev),
         )
+        if self.prebuilt and s.incremental:
+            # the tables a run copies in from the lanes' cache entries
+            rindex = None
+            if self.n_hol:
+                rows, n_z = lanes * self.n_hol, self.max_iters + 1
+                block = min(BLOCK_S, cap)
+                capp = -(-cap // block) * block
+                rindex = HolisticRankIndex(zf(rows, capp), z32(rows, capp),
+                                           z32(rows, n_z, capp // block + 1), z32(rows, n_z))
+            s.tables = (zf(lanes, k, cap, N_POWERS), zf(lanes, k), rindex)
         self._slots[key] = s
         self.slots_built += 1
         return s
@@ -412,8 +464,7 @@ class FusedExecutor:
 
     def __call__(self, vals, n, agg_ids, delta, exact, active=None, tau=None,
                  iter_cap=None) -> FusedResult:
-        as_t = lambda x, dtype: torch.as_tensor(x).to(dtype)  # noqa: E731
-        vals, n, exact = as_t(vals, f32), as_t(n, torch.int32), as_t(exact, f32)
+        vals, n, exact = _as(vals, f32), _as(n, torch.int32), _as(exact, f32)
         single = vals.dim() == 2
         if single:
             vals, n, exact = vals[None], n[None], exact[None]
@@ -422,14 +473,19 @@ class FusedExecutor:
             raise ValueError(f"fused executor built for k = {self.k}, "
                              f"got buffers {tuple(vals.shape)}")
         s = self._slot(lanes, cap, exact.shape[-1])
-        s.vals.copy_(vals)
+        # a pinned host buffer is copied asynchronously, in stream order
+        s.vals.copy_(vals, non_blocking=True)
         s.n_in.copy_(n)
-        s.agg.copy_(as_t(agg_ids, torch.int32))
-        s.delta.copy_(as_t(delta, f32))
+        return self._run(s, agg_ids, delta, exact, active, tau, iter_cap, single)
+
+    def _run(self, s, agg_ids, delta, exact, active, tau, iter_cap, single) -> FusedResult:
+        """Copy the knobs in, capture a new slot, drive the programs, read out."""
+        s.agg.copy_(_as(agg_ids, torch.int32))
+        s.delta.copy_(_as(delta, f32))
         s.exact.copy_(exact)
-        s.active.copy_(as_t(True if active is None else active, torch.bool))
-        s.tau.copy_(as_t(self.tau if tau is None else tau, f32))
-        s.iter_cap.copy_(as_t(self.max_iters if iter_cap is None else iter_cap, torch.int32))
+        s.active.copy_(_as(True if active is None else active, torch.bool))
+        s.tau.copy_(_as(self.tau if tau is None else tau, f32))
+        s.iter_cap.copy_(_as(self.max_iters if iter_cap is None else iter_cap, torch.int32))
         if self.capture and s.graphs is None:
             self._capture(s)
         self._drive(s)
@@ -440,6 +496,53 @@ class FusedExecutor:
             return FusedResult(y_hat=res.y_hat[0], prob=res.prob[0], iters=int(res.iters[0]),
                                z=res.z[0], samples_used=res.samples_used[0])
         return res
+
+
+def _as(x, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(x).to(dtype)
+
+
+class PrebuiltFusedExecutor(FusedExecutor):
+    """``run(vals, n, agg_ids, delta, exact, tables, active=None, tau=None,
+    iter_cap=None)``: the cache-fed twin of :class:`FusedExecutor`.
+
+    ``tables`` is one request's :class:`PrebuiltTables` (with ``vals``
+    ``(k, cap)`` and ``n`` ``(k,)``), or a sequence of one a lane (with
+    sequences of the lanes' ``vals`` and ``n``), all on the executor's
+    device, as :class:`~repro_torch.serving.feature_cache.FeatureCache`
+    keeps them.  They are copied into the slot, device to device, one
+    launch a buffer; the z⁰ program reads them and builds none.
+    """
+
+    prebuilt = True
+
+    def __call__(self, vals, n, agg_ids, delta, exact, tables, active=None, tau=None,
+                 iter_cap=None) -> FusedResult:
+        exact = _as(exact, f32)
+        single = isinstance(tables, PrebuiltTables)
+        if single:
+            vals, n, tables, exact = [vals], [n], [tables], exact[None]
+        cap = vals[0].shape[-1]
+        want = (self.k, cap)
+        for v, t in zip(vals, tables, strict=True):
+            if tuple(v.shape) != want or tuple(t.ptab.shape[:2]) != want:
+                raise ValueError(f"prebuilt executor: lanes must share buffers {want}, got "
+                                 f"{tuple(v.shape)} and tables {tuple(t.ptab.shape)}")
+        s = self._slot(len(tables), cap, exact.shape[-1])
+        self._load(s, vals, n, tables)
+        return self._run(s, agg_ids, delta, exact, active, tau, iter_cap, single)
+
+    def _load(self, s, vals, n, tables) -> None:
+        """Copy the lanes' entries into slot ``s``: one launch a buffer."""
+        torch.stack(list(vals), out=s.vals)
+        torch.stack([x.to(torch.int32) for x in n], out=s.n_in)
+        if s.incremental:
+            ptab, shift, rindex = s.tables
+            torch.stack([t.ptab for t in tables], out=ptab)
+            torch.stack([t.shift for t in tables], out=shift)
+            if self.n_hol:
+                for f, buf in enumerate(rindex):
+                    torch.cat([t.rindex[f] for t in tables], out=buf)
 
 
 def build_fused_executor(
@@ -463,9 +566,14 @@ def build_fused_executor(
     device=None,
     use_kernel: bool = True,
     capture: bool | None = None,
+    prebuilt: bool = False,
 ) -> FusedExecutor:
     """Returns ``run(vals, n, agg_ids, delta, exact, active=None, tau=None,
-    iter_cap=None) -> FusedResult`` (see :class:`FusedExecutor`).
+    iter_cap=None) -> FusedResult`` (see :class:`FusedExecutor`), or with
+    ``prebuilt=True`` its cache-fed twin ``run(vals, n, agg_ids, delta,
+    exact, tables, ...)`` (:class:`PrebuiltFusedExecutor`), whose AFC
+    strategy resolves with ``cached=True`` (incremental at every cap under
+    "auto").
 
     ``model_fn``: ``(rows (N, k), exact (N, e)) -> (N,)`` predictions
     (regression values, or class ids ``0 .. n_classes − 1`` for
@@ -483,8 +591,90 @@ def build_fused_executor(
     eagerly, for comparison only.  Tensors may be passed on any device;
     they are copied into the bucket's buffers on ``device``.
     """
-    return FusedExecutor(
+    cls = PrebuiltFusedExecutor if prebuilt else FusedExecutor
+    return cls(
         model_fn, k=k, task=task, n_classes=n_classes, m=m, m_sobol=m_sobol, alpha=alpha,
         gamma=gamma, tau=tau, max_iters=max_iters, afc_backend=afc_backend, holistic=holistic,
         quantiles=quantiles, n_boot=n_boot, boot_seed=boot_seed, approximate=approximate,
         device=device, use_kernel=use_kernel, capture=capture)
+
+
+def build_afc_precompute(
+    *,
+    k: int,
+    alpha: float = 0.05,
+    gamma: float = 0.01,
+    max_iters: int = 32,
+    holistic: Sequence[int] = (),
+    quantiles: Sequence[float] | None = None,
+    approximate: Sequence[bool] | None = None,
+    device=None,
+    use_kernel: bool = True,
+) -> SimpleNamespace:
+    """The incremental-AFC precompute of a cached executor and its append refresh.
+
+    Returns ``SimpleNamespace(cold, refresh)``:
+
+    ``cold(vals (..., k, cap), n (..., k)) -> PrebuiltTables``
+        the tables the executor's z⁰ program would build (shift basis
+        ``vals[..., 0]``, the ladder ``min(z⁰ + i·γ, n)``), with the
+        buffers' leading dimensions: ONE ``prefix_power_sums`` launch over
+        all rows, so the misses of a batch share it.  It runs on the
+        current stream, as the kernel's launch state requires.
+
+    ``refresh(vals (k, cap), n (k,), tables, j, x, aff) -> (vals', n', tables')``
+        applies one logged insertion of ``x (k,)`` at prefix position ``j``
+        (an int) into the rows flagged by ``aff (k,)``: the buffer shifts
+        right from j, the tables take :func:`append_power_sums`, the rank
+        index :func:`merge_sorted_prefix` and counts over the new ladder.
+        Callers route ``j == 0`` to ``cold`` (it replaces the shift basis).
+    """
+    dev = resolve_device(device)
+    hol = tuple(int(j) for j in holistic)
+    n_hol = len(hol)
+    if quantiles is not None and len(quantiles) != n_hol:
+        raise ValueError("quantiles must align with holistic indices")
+    hol_idx = torch.tensor(hol, dtype=torch.int64, device=dev)
+    approx = torch.tensor([True] * k if approximate is None else list(approximate),
+                          dtype=torch.bool, device=dev)
+    n_z = max_iters + 1
+
+    def zcand_of(n):
+        z0 = torch.where(approx, initial_plan(n, alpha), n)
+        return plan_ladder(z0, gamma_abs(n, gamma), n, n_z)
+
+    def cold(vals, n) -> PrebuiltTables:
+        vals = _as(vals, f32)
+        lead, cap = tuple(vals.shape[:-2]), vals.shape[-1]
+        n = torch.clamp(_as(n, torch.int32), max=cap)
+        shift = vals[..., 0].contiguous()
+        ptab = prefix_power_sums(vals, shift, use_kernel=use_kernel)
+        if not n_hol:
+            return PrebuiltTables(ptab, shift, empty_rank_index(lead, vals.device))
+        zc = zcand_of(n)[..., hol_idx, :]
+        ri = build_rank_index(vals[..., hol_idx, :].reshape(-1, cap),
+                              n[..., hol_idx].reshape(-1), zc.reshape(-1, n_z))
+        return PrebuiltTables(ptab, shift, HolisticRankIndex(
+            *(t.reshape(lead + (n_hol,) + tuple(t.shape[1:])) for t in ri)))
+
+    def refresh(vals, n, tables: PrebuiltTables, j: int, x, aff):
+        cap = vals.shape[-1]
+        n = torch.clamp(_as(n, torch.int32), max=cap)
+        x = torch.as_tensor(x, dtype=f32, device=vals.device)
+        aff = torch.as_tensor(aff, dtype=torch.bool, device=vals.device)
+        c = torch.arange(cap, device=vals.device)
+        prev = torch.cat([vals[:, :1], vals[:, :-1]], dim=1)
+        inserted = torch.where(c[None, :] < j, vals,
+                               torch.where(c[None, :] == j, x[:, None], prev))
+        vals2 = torch.where(aff[:, None] & (j < cap), inserted, vals)
+        ptab2 = append_power_sums(tables.ptab, tables.shift, j, x, aff)
+        n2 = torch.clamp(n + aff.to(torch.int32), max=cap)
+        rindex = tables.rindex
+        if n_hol:
+            msv, msi, _ = merge_sorted_prefix(rindex.sorted_vals, rindex.sorted_idx, n[hol_idx],
+                                              cap, j, x[hol_idx], aff[hol_idx])
+            block = rindex.sorted_vals.shape[1] // (rindex.blk_cnt.shape[-1] - 1)
+            rindex = rank_index_from_sorted(msv, msi, zcand_of(n2)[hol_idx], block=block)
+        return vals2, n2, PrebuiltTables(ptab2, tables.shift, rindex)
+
+    return SimpleNamespace(cold=cold, refresh=refresh)

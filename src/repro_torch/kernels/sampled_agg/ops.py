@@ -53,7 +53,7 @@ AFC_REF_MAX_CAP = 1024
 AFC_BACKENDS = ("auto", "incremental", "ref")
 
 
-def resolve_afc_plan(afc_backend: str, cap: int | None = None) -> bool:
+def resolve_afc_plan(afc_backend: str, cap: int | None = None, *, cached: bool = False) -> bool:
     """Whether the executor takes the incremental AFC path.
 
     ``"incremental"``: the once-per-request prefix tables
@@ -61,13 +61,17 @@ def resolve_afc_plan(afc_backend: str, cap: int | None = None) -> bool:
     the rescan, one ``sampled_moments`` pass per evaluation, as in the
     reference.  ``"auto"``: rescan for cap buckets at or below
     :data:`AFC_REF_MAX_CAP`, incremental above (``cap=None`` validates the
-    string only and answers incremental).  The backend picks the strategy
-    only; which implementation runs follows the device.
+    string only and answers incremental).  ``cached=True`` declares an
+    executor fed prebuilt tables by the feature cache
+    (``serving/feature_cache.py``): a hit pays no set-up, so "auto" is
+    incremental at every cap; ``"ref"`` and ``"incremental"`` still win.
+    The backend picks the strategy only; which implementation runs follows
+    the device.
     """
     if afc_backend not in AFC_BACKENDS:
         raise ValueError(f"unknown afc_backend {afc_backend!r}; choose from {AFC_BACKENDS}")
     if afc_backend == "auto":
-        return cap is None or cap > AFC_REF_MAX_CAP
+        return cached or cap is None or cap > AFC_REF_MAX_CAP
     return afc_backend == "incremental"
 
 

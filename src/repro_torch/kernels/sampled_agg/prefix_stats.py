@@ -21,6 +21,11 @@ precomputed per candidate z at block granularity.  An order statistic of
 the live prefix is then an unrolled binary search over the block counts
 plus one S-element scan.  The reference writes these in jnp, not Pallas,
 so they are plain PyTorch here.
+
+A streaming append (``data/store.Table.append``) inserts one value into a
+cached request's buffers; :func:`append_power_sums` and
+:func:`merge_sorted_prefix` apply it to the tables and the sorted runs as
+delta updates (jnp in the reference too, so plain PyTorch here).
 """
 from __future__ import annotations
 
@@ -31,14 +36,17 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sampled_agg.compensated import comp_cumsum
+from repro_torch.kernels.sampled_agg.compensated import comp_cumsum, two_sum
 
 __all__ = [
     "BLOCK_S",
     "HolisticRankIndex",
     "N_POWERS",
+    "append_power_sums",
     "build_rank_index",
     "chunk_threads",
+    "empty_rank_index",
+    "merge_sorted_prefix",
     "prefix_moments_at",
     "prefix_power_sums",
     "prefix_power_sums_ref",
@@ -287,3 +295,92 @@ def select_ranks_indexed(
     hit = member & (running == (r + 1)[:, :, None])
     val = torch.where(hit, gv, torch.zeros_like(gv)).sum(dim=-1)
     return torch.where(hit.any(dim=-1), val, torch.full_like(val, torch.inf))
+
+
+def empty_rank_index(lead: tuple[int, ...] = (), device=None) -> HolisticRankIndex:
+    """A zero-size :class:`HolisticRankIndex` (no holistic feature), with
+    leading dimensions ``lead``."""
+    zi = torch.zeros(lead + (0, 0), dtype=torch.int32, device=device)
+    return HolisticRankIndex(
+        sorted_vals=torch.zeros(lead + (0, 0), dtype=torch.float32, device=device),
+        sorted_idx=zi,
+        blk_cnt=torch.zeros(lead + (0, 0, 0), dtype=torch.int32, device=device),
+        zcand=zi,
+    )
+
+
+# --------------------------------------------------------------------------
+# Streaming-append delta updates
+# --------------------------------------------------------------------------
+def append_power_sums(
+    ptab: torch.Tensor,      # (k, cap, 4) prefix power-sum tables
+    shift: torch.Tensor,     # (k,) their accumulation origin
+    j: int,                  # insertion position, 1 <= j
+    x: torch.Tensor,         # (k,) inserted value a feature row
+    aff: torch.Tensor | None = None,  # (k,) bool: rows the event touches
+) -> torch.Tensor:
+    """The tables after inserting ``x`` at prefix position ``j``.
+
+    ``P'[c] = P[c]`` for c < j and ``P'[c] = P[c−1] + (x − shift)^p`` for
+    c ≥ j: a shift right plus one addition, as a Knuth two-sum (one float32
+    rounding a delta).  On integer-valued data within 2²⁴ it is bitwise a
+    rebuild.  Preconditions, as in the reference: ``j ≥ 1`` (j = 0 replaces
+    the shift basis ``vals[:, 0]``: rebuild instead); ``j ≥ cap`` changes
+    nothing; ``aff`` masks the rows.
+    """
+    k, cap, _ = ptab.shape
+    pw = _powers(x.to(torch.float32) - shift.to(torch.float32))          # (k, 4)
+    shifted = torch.cat([torch.zeros_like(ptab[:, :1]), ptab[:, :-1]], dim=1)
+    s, e = two_sum(shifted, pw[:, None, :])
+    upd = s + e
+    c = torch.arange(cap, device=ptab.device)
+    mask = (c[None, :] >= j) & (j < cap)
+    if aff is not None:
+        mask = mask & aff[:, None]
+    return torch.where(mask[:, :, None], upd, ptab)
+
+
+def merge_sorted_prefix(
+    svals: torch.Tensor,     # (h, capp) sorted values, +inf past the prefix
+    sidx: torch.Tensor,      # (h, capp) int32 original positions
+    n: torch.Tensor,         # (h,) int32 live prefix lengths (<= cap)
+    cap: int,                # buffer width the positions index into
+    j: int,                  # insertion position
+    x: torch.Tensor,         # (h,) inserted value a row
+    aff: torch.Tensor | None = None,  # (h,) bool: rows the event touches
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge one appended element into sorted prefix runs: ``(svals, sidx, n)``.
+
+    Ordered by (value, original position), the order of
+    :func:`build_rank_index`'s stable argsort, so the result is bitwise a
+    full re-sort (finite values).  A row renumbers its live positions ≥ j,
+    drops the element pushed past ``cap`` (when the buffer was full),
+    inserts (x, j) at its rank and resets the +inf tail to positions in
+    order.  ``j ≥ cap`` changes nothing; ``aff`` masks the rows.
+    """
+    h, capp = svals.shape
+    pos = torch.arange(capp, dtype=torch.int32, device=svals.device)
+    nf = n.to(torch.int32)[:, None]
+    xf = x.to(torch.float32)[:, None]
+    live = sidx < nf
+    si_r = torch.where(live & (sidx >= j), sidx + 1, sidx)
+    drop = live & (si_r >= cap)
+    order = torch.argsort(drop.to(torch.int32), dim=1, stable=True)
+    sv2 = torch.take_along_dim(svals, order, dim=1)
+    si2 = torch.take_along_dim(si_r, order, dim=1)
+    nlive = nf - drop.sum(dim=1, keepdim=True, dtype=torch.int32)
+    before = (pos < nlive) & ((sv2 < xf) | ((sv2 == xf) & (si2 < j)))
+    ins = before.sum(dim=1, keepdim=True, dtype=torch.int32)
+    sv_prev = torch.cat([sv2[:, :1], sv2[:, :-1]], dim=1)
+    si_prev = torch.cat([si2[:, :1], si2[:, :-1]], dim=1)
+    sv3 = torch.where(pos < ins, sv2, torch.where(pos == ins, xf, sv_prev))
+    si3 = torch.where(pos < ins, si2, torch.where(pos == ins, torch.full_like(si2, j), si_prev))
+    n2 = torch.clamp(nlive + 1, max=cap)
+    sv4 = torch.where(pos < n2, sv3, torch.full_like(sv3, torch.inf))
+    si4 = torch.where(pos < n2, si3, pos.expand(h, -1)).to(torch.int32)
+    apply = torch.full((h,), j < cap, dtype=torch.bool, device=svals.device)
+    if aff is not None:
+        apply = apply & aff
+    return (torch.where(apply[:, None], sv4, svals),
+            torch.where(apply[:, None], si4, sidx.to(torch.int32)),
+            torch.where(apply, n2[:, 0], n.to(torch.int32)))

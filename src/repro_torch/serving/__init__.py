@@ -3,7 +3,7 @@ from repro_torch.serving.batched import (
     BatchedFusedServer,
     BatchResult,
     device_fill,
-    lane_request_inputs,
+    gather_lanes,
     sanitize_lane_inputs,
     straggler_report,
 )
@@ -15,7 +15,7 @@ __all__ = [
     "BiathlonServer",
     "ServerStats",
     "device_fill",
-    "lane_request_inputs",
+    "gather_lanes",
     "sanitize_lane_inputs",
     "straggler_report",
 ]

@@ -1,6 +1,6 @@
 """Batched Biathlon serving: many concurrent requests in one fused executor run.
 
-Port of ``repro/serving/batched.py`` (unsharded, uncached).  A batch's
+Port of ``repro/serving/batched.py`` (unsharded).  A batch's
 requests are the lanes of the fused executor (``core/executor_fused.py``):
 each lane carries its own sample buffers, group sizes, exact features and
 knobs, and stops on its own inside the shared loop, which runs until every
@@ -19,6 +19,13 @@ Two mechanisms bound the programs built:
 So the executor builds one slot per cap bucket: on the card, one capture of
 its three CUDA graphs (``compile_count``), whatever the fill or the knobs.
 ``straggler_report`` makes the batching trade measurable.
+
+A batch's prefix buffers are gathered from the store into a pinned host
+buffer (one per cap bucket, ``data/store.HostStaging``) and copied to the
+card asynchronously.  With ``cache_size`` they come, with their AFC
+tables, from the hot-group feature cache instead (``feature_cache.py``):
+a batch's misses are gathered and built together, its hits copy nothing
+from the host.
 """
 from __future__ import annotations
 
@@ -29,14 +36,15 @@ import torch
 
 from repro_torch.core.executor_fused import build_fused_executor, pipeline_executor_kwargs
 from repro_torch.core.pipeline import make_fused_model_fn
-from repro_torch.data.store import bucket_size
+from repro_torch.data.store import HostStaging, bucket_size
 from repro_torch.device import resolve_device
+from repro_torch.serving.feature_cache import FeatureCache, pipeline_feature_cache
 
 __all__ = [
     "BatchResult",
     "BatchedFusedServer",
     "device_fill",
-    "lane_request_inputs",
+    "gather_lanes",
     "sanitize_lane_inputs",
     "straggler_report",
 ]
@@ -80,20 +88,30 @@ def sanitize_lane_inputs(vals, exact, *, policy: str, where: str):
     return tuple(out)
 
 
-def lane_request_inputs(pipeline, store, req: dict, cap: int):
-    """One request's lane inputs at a cap bucket, on the host.
+def gather_lanes(pipeline, store, requests: list[dict], cap: int, lanes: int,
+                 staging: HostStaging, *, policy: str):
+    """The uncached lane inputs of a batch at a cap bucket, on the host.
 
-    Returns ``(vals (k, cap) f32, n (k,) i32 clamped, true_n (k,) i64,
-    exact (e,) f32)``.
+    The requests' padded prefixes go into ``staging``'s buffer for the
+    shape, zeros in the pad lanes, and are sanitized in place with their
+    exact features (``sanitize_lane_inputs``).  Returns ``(vals (lanes, k,
+    cap) f32 staging buffer, n (lanes, k) i32 clamped, exact (lanes, e)
+    f32)``; the caller releases ``vals`` (``HostStaging.release``) once
+    the copies that read it are enqueued.
     """
-    vals, _ = store.request_buffers(pipeline.agg_specs(req), cap, "cpu")
-    true_n = np.asarray(pipeline.group_sizes(store, req), np.int64)
-    return (
-        vals.numpy(),
-        np.minimum(true_n, cap).astype(np.int32),
-        true_n,
-        np.asarray(pipeline.exact_feature_values(store, req), np.float32),
-    )
+    vals = staging.gather(store, [pipeline.agg_specs(req) for req in requests], cap, rows=lanes)
+    arr = vals.numpy()
+    ns = np.zeros((lanes, pipeline.k), np.int32)
+    exacts = np.zeros((lanes, len(pipeline.exact_features)), np.float32)
+    for i, req in enumerate(requests):
+        ns[i] = store.request_sizes(pipeline.agg_specs(req), cap)
+        lane = arr[i]
+        clean, exacts[i] = sanitize_lane_inputs(
+            lane, pipeline.exact_feature_values(store, req), policy=policy,
+            where=f"serve_batch lane {i}")
+        if clean is not lane:
+            lane[...] = clean
+    return vals, ns, exacts
 
 
 class BatchResult(NamedTuple):
@@ -175,9 +193,12 @@ class BatchedFusedServer:
     plain versions on the card and ``capture=False`` the eager programs
     (both for comparison only).
 
-    ``mesh`` (lanes sharded over several cards) and ``cache_size`` (the
-    hot-group feature cache) are the reference's options that the port has
-    not taken yet: they raise.
+    ``cache_size`` turns on the hot-group feature cache (:attr:`cache`, an
+    LRU of that many request shapes): every lane's buffers, sizes and AFC
+    tables come from it, the executor runs ``prebuilt=True``, and pad lanes
+    reuse the first request's entry.  ``mesh`` (lanes sharded over several
+    cards) is the reference's option that the port has not taken yet: it
+    raises.
     """
 
     def __init__(self, bundle, config, batch_size: int = 8, max_cap: int | None = None,
@@ -188,10 +209,6 @@ class BatchedFusedServer:
             raise NotImplementedError(
                 "BatchedFusedServer(mesh=...): lanes sharded over several cards are not "
                 "ported yet (ROADMAP Queue 1 item 7)")
-        if cache_size is not None:
-            raise NotImplementedError(
-                "BatchedFusedServer(cache_size=...): the hot-group feature cache is not "
-                "ported yet (ROADMAP Queue 1 item 5)")
         if sanitize not in ("reject", "clamp"):
             raise ValueError(f"sanitize must be 'reject' or 'clamp', got {sanitize!r}")
         self.device = resolve_device(device)
@@ -209,8 +226,15 @@ class BatchedFusedServer:
             n_classes=max(p.n_classes, 2), m=config.m, m_sobol=config.m_sobol,
             alpha=config.alpha, gamma=config.gamma, tau=config.tau,
             max_iters=config.max_iters, n_boot=config.n_bootstrap, afc_backend=afc_backend,
-            device=self.device, use_kernel=use_kernel, capture=capture, **feat_kwargs,
+            device=self.device, use_kernel=use_kernel, capture=capture,
+            prebuilt=cache_size is not None, **feat_kwargs,
         )
+        self._staging = HostStaging(self.device)
+        self.cache: FeatureCache | None = None
+        if cache_size is not None:
+            self.cache = pipeline_feature_cache(
+                bundle.store, p.k, config, feat_kwargs, maxsize=cache_size, device=self.device,
+                use_kernel=use_kernel, staging=self._staging)
         self._caps_seen: set[int] = set()
         max_n = max(
             bundle.store[f.table].group_size(g)
@@ -267,14 +291,20 @@ class BatchedFusedServer:
                 n_devices=self.n_devices)
         lanes = self.batch_size
         cap = self.batch_cap(requests)
-        vals = np.zeros((lanes, p.k, cap), np.float32)
-        ns = np.zeros((lanes, p.k), np.int32)
-        true_ns = np.zeros((r, p.k), np.int64)
-        exacts = np.zeros((lanes, len(p.exact_features)), np.float32)
-        for i, req in enumerate(requests):
-            vals[i], ns[i], true_ns[i], exacts[i] = lane_request_inputs(p, store, req, cap)
-            vals[i], exacts[i] = sanitize_lane_inputs(
-                vals[i], exacts[i], policy=self.sanitize, where=f"serve_batch lane {i}")
+        true_ns = np.stack([np.asarray(p.group_sizes(store, req), np.int64) for req in requests])
+        if self.cache is not None:
+            # cached lanes: vals, n and tables stay on the device; pad lanes
+            # reuse the first entry (active=False keeps them out)
+            entries = self.cache.get_many([p.agg_specs(req) for req in requests], cap)
+            entries += [entries[0]] * (lanes - r)
+            exacts = np.zeros((lanes, len(p.exact_features)), np.float32)
+            for i, req in enumerate(requests):
+                exacts[i] = sanitize_lane_inputs(
+                    None, p.exact_feature_values(store, req), policy=self.sanitize,
+                    where=f"serve_batch lane {i}")[1]
+        else:
+            vals, ns, exacts = gather_lanes(p, store, requests, cap, lanes, self._staging,
+                                            policy=self.sanitize)
         deltas = np.full((lanes,), delta, np.float32)
         taus = np.full((lanes,), self.config.tau, np.float32)
         caps = np.full((lanes,), self.config.max_iters, np.int32)
@@ -283,11 +313,16 @@ class BatchedFusedServer:
                 deltas[i], taus[i] = kn.delta, kn.tau
                 caps[i] = min(int(kn.iter_cap), self.config.max_iters)
         self._caps_seen.add(cap)
-        res = self._run(
-            torch.from_numpy(vals), torch.from_numpy(ns), self._agg_ids,
-            torch.from_numpy(deltas), torch.from_numpy(exacts),
-            torch.from_numpy(np.arange(lanes) < r), torch.from_numpy(taus),
-            torch.from_numpy(caps))
+        knob_args = (torch.from_numpy(np.arange(lanes) < r), torch.from_numpy(taus),
+                     torch.from_numpy(caps))
+        if self.cache is not None:
+            res = self._run([e.vals for e in entries], [e.n for e in entries], self._agg_ids,
+                            torch.from_numpy(deltas), torch.from_numpy(exacts),
+                            [e.tables for e in entries], *knob_args)
+        else:
+            res = self._run(vals, torch.from_numpy(ns), self._agg_ids, torch.from_numpy(deltas),
+                            torch.from_numpy(exacts), *knob_args)
+            self._staging.release(vals)
         iters = res.iters.cpu().numpy()[:r]
         return BatchResult(
             y_hat=res.y_hat.cpu().numpy()[:r],

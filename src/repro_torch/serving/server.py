@@ -5,15 +5,16 @@ Port of ``repro/serving/server.py``.  Two execution modes per pipeline:
 * ``host`` — the paper-faithful ``HostLoopExecutor`` (dynamic plans,
   bucketed buffers);
 * ``fused`` — a request's ``(k, cap)`` sample buffers are gathered once
-  (its power-of-two cap bucket, at most ``max_cap``'s), moved to the
-  device, and the whole iterate-until-guaranteed loop runs there: the
-  one-lane case of the fused executor, on the card as CUDA graphs captured
-  once per cap bucket.
+  (its power-of-two cap bucket, at most ``max_cap``'s) into a pinned host
+  buffer, copied to the device asynchronously, and the whole
+  iterate-until-guaranteed loop runs there: the one-lane case of the fused
+  executor, on the card as CUDA graphs captured once per cap bucket.  With
+  ``cache_size`` the buffers and AFC tables come from the hot-group
+  feature cache (``serving/feature_cache.py``) instead.
 
 :class:`ServerStats` holds the paper's §4 metrics: latency, speedup over the
 exact baseline (``run_exact``), sample fraction and the guarantee rate.
-Batches of requests are served by ``serving/batched.BatchedFusedServer``;
-the hot-group feature cache is a later slice.
+Batches of requests are served by ``serving/batched.BatchedFusedServer``.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ from repro_torch.core import threefry
 from repro_torch.core.executor import BiathlonConfig, HostLoopExecutor, run_exact
 from repro_torch.core.executor_fused import build_fused_executor, pipeline_executor_kwargs
 from repro_torch.core.pipeline import make_fused_model_fn
-from repro_torch.data.store import bucket_size
+from repro_torch.data.store import HostStaging, bucket_size
 from repro_torch.device import resolve_device
+from repro_torch.serving.feature_cache import pipeline_feature_cache
 
 __all__ = ["BiathlonServer", "ServerStats"]
 
@@ -90,6 +92,13 @@ class BiathlonServer:
     ``use_kernel=False`` runs the plain PyTorch versions of the kernels on
     the card, and ``capture=False`` the fused executor's programs eagerly
     instead of as CUDA graphs, both for comparison only.
+
+    ``cache_size`` (fused mode) turns on the hot-group feature cache
+    (:attr:`cache`, an LRU of that many request shapes): the executor is
+    built ``prebuilt=True`` and fed each request's device-resident buffers
+    and AFC tables.  :attr:`compile_count` counts the executor's slots (on
+    the card, captures of its three graphs), one per cap bucket in
+    :attr:`compiled_buckets`; a cache hit builds none.
     """
 
     def __init__(
@@ -100,6 +109,7 @@ class BiathlonServer:
         afc_backend: str = "auto",
         *,
         max_cap: int | None = None,
+        cache_size: int | None = None,
         device=None,
         use_kernel: bool = True,
         capture: bool | None = None,
@@ -114,6 +124,8 @@ class BiathlonServer:
         self.store = bundle.store
         self.use_kernel = use_kernel
         self._max_cap = None if max_cap is None else bucket_size(max_cap)
+        self._caps_seen: set[int] = set()
+        self._fused = self.cache = None
         p.model.to(self.device)
         if mode == "host":
             self._host = HostLoopExecutor(self.store, cfg, device=self.device,
@@ -137,8 +149,24 @@ class BiathlonServer:
             device=self.device,
             use_kernel=use_kernel,
             capture=capture,
+            prebuilt=cache_size is not None,
             **feat_kwargs,
         )
+        self._staging = HostStaging(self.device)
+        if cache_size is not None:
+            self.cache = pipeline_feature_cache(
+                self.store, p.k, cfg, feat_kwargs, maxsize=cache_size, device=self.device,
+                use_kernel=use_kernel, staging=self._staging)
+
+    @property
+    def compile_count(self) -> int:
+        """Slots the fused executor built (0 in host mode)."""
+        return 0 if self._fused is None else self._fused.slots_built
+
+    @property
+    def compiled_buckets(self) -> list[int]:
+        """Cap buckets the fused mode served."""
+        return sorted(self._caps_seen)
 
     def serve(self, request: dict, key=None) -> dict:
         """Serve one request.  ``key`` (a threefry key) seeds the host loop's
@@ -163,9 +191,16 @@ class BiathlonServer:
         cap = bucket_size(int(max(n_np.max(), 1)))  # the request's power-of-two bucket
         if self._max_cap is not None:
             cap = min(cap, self._max_cap)
-        vals, sizes = self.store.request_buffers(specs, cap, self.device)
         exact = torch.from_numpy(p.exact_feature_values(self.store, request)).to(self.device)
-        res = self._fused(vals, sizes, self._agg_ids, delta, exact)
+        self._caps_seen.add(cap)
+        if self.cache is not None:
+            entry = self.cache.get(specs, cap)
+            res = self._fused(entry.vals, entry.n, self._agg_ids, delta, exact, entry.tables)
+        else:
+            buf = self._staging.gather(self.store, [specs], cap)
+            sizes = torch.from_numpy(self.store.request_sizes(specs, cap))
+            res = self._fused(buf[0], sizes, self._agg_ids, delta, exact)
+            self._staging.release(buf)
         y = float(res.y_hat)
         dt = time.perf_counter() - t0
         return {

@@ -26,14 +26,16 @@ from test_torch_bridge import bundle_to_numpy
 from repro.core.executor import BiathlonConfig as RefConfig
 from repro.data.synthetic import make_pipeline as ref_make_pipeline
 from repro.serving.batched import BatchedFusedServer as RefBatched
+from repro.serving.batched import lane_request_inputs as ref_lane_request_inputs
 from repro.serving.batched import straggler_report as ref_straggler_report
 from repro.serving.degrade import LaneKnobs
 from repro_torch.bridge import bundle_from_numpy
 from repro_torch.core.executor import BiathlonConfig
+from repro_torch.data.store import HostStaging
 from repro_torch.serving import (
     BatchedFusedServer,
     device_fill,
-    lane_request_inputs,
+    gather_lanes,
     sanitize_lane_inputs,
     straggler_report,
 )
@@ -116,12 +118,20 @@ def test_batches_match_reference_and_one_lane_runs(name, afc_backend):
         if classify:
             assert set(b.y_hat.tolist()) <= {0.0, 1.0}
         iters += b.iters.tolist()
-        # each lane is the port's own one-lane run of its request
+        # each lane is the port's own one-lane run of its request, on the
+        # inputs serve_batch gathers (bitwise the reference's lane inputs)
+        vals, ns, exacts = gather_lanes(p, port.store, reqs, b.cap, LANES, HostStaging("cpu"),
+                                        policy="reject")
+        assert not vals[fill:].any() and not ns[fill:].any()
         for i, req in enumerate(reqs):
-            vals, n, _, exact = lane_request_inputs(p, port.store, req, b.cap)
+            rv, rn, _, rx = ref_lane_request_inputs(ref.pipeline, ref.store, req, b.cap)
+            np.testing.assert_array_equal(vals[i].numpy(), np.asarray(rv))
+            np.testing.assert_array_equal(ns[i], np.asarray(rn))
+            np.testing.assert_array_equal(exacts[i], np.asarray(rx))
             kn = knobs[i]
-            one = ps._run(torch.from_numpy(vals), torch.from_numpy(n), ps._agg_ids,
-                          p.delta_default if kn is None else kn.delta, torch.from_numpy(exact),
+            one = ps._run(vals[i], torch.from_numpy(ns[i]), ps._agg_ids,
+                          p.delta_default if kn is None else kn.delta,
+                          torch.from_numpy(exacts[i]),
                           tau=None if kn is None else kn.tau,
                           iter_cap=None if kn is None else int(kn.iter_cap))
             assert one.iters == int(b.iters[i])
@@ -167,9 +177,8 @@ def test_batch_edges_and_options():
         srv.serve_batch([{"g": 0}] * 3)
     big = srv.serve_batch([{"g": 9}])
     assert big.cap == 256 and big.sample_frac[0] <= 256 / 900 + 1e-6
-    for kw, item in ((dict(mesh=object()), "item 7"), (dict(cache_size=4), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            BatchedFusedServer(port, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        BatchedFusedServer(port, cfg, device="cpu", mesh=object())
     vals = np.array([[1.0, np.nan]], np.float32)
     with pytest.raises(ValueError, match="non-finite"):
         sanitize_lane_inputs(vals, np.zeros(1), policy="reject", where="lane 0")

@@ -56,6 +56,8 @@ def bundle_to_numpy(bundle) -> dict:
                 "group_ptr": np.asarray(t.group_ptr),
                 "perm": np.asarray(t.perm),
                 "group_ids": dict(t.group_ids),
+                "rng_state": t.rng.bit_generator.state,
+                "versions": list(t.versions),
             }
             for name, t in bundle.store.tables.items()
         },
@@ -148,10 +150,21 @@ serve_pipelines.run("cpu", tiny, cfg, names=("turbofan", "sensor_health"))
 LogisticRegression(n_steps=2, device="cpu").fit([[0.0], [1.0]], [0.0, 1.0])
 sc = ex.build(get_config("qwen1.5-0.5b").reduced(), "cpu", n_users=2, n_events=500)
 lm = ex.serve(sc, ex.make_executor(sc, m=32, m_sobol=8), ex.draw_requests(sc, 1))[0]
+b = bundles[0]
+cached = BiathlonServer(b, cfg, cache_size=4, device="cpu")
+req = b.requests[0]
+first = cached.serve(req)["y_hat"]
+f = b.pipeline.agg_features[0]
+t = b.store[f.table]
+g = req[f.group_field]
+start = int(t.group_ptr[t.group_ids[g]])
+t.append({{c: v[t.perm[start:start + 1]] for c, v in t.columns.items()}}, group_key=[g])
+again = cached.serve(req)["y_hat"]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
-                  "lm_y_hat": lm["y_hat"]}}))
+                  "lm_y_hat": lm["y_hat"], "cached": [first, again],
+                  "cache": cached.cache.stats}}))
 """
 
 
@@ -160,8 +173,10 @@ def test_port_imports_and_serves_without_jax():
     of each of the eight pipelines and of ``trip_fare_median``, the linear,
     logistic and MLP models among them, through the fused executor, and the
     request log of each through the host loop with the exact baseline; the
-    two ported examples at a tiny scale; an LM-head request) with no ``jax``
-    and no ``repro.*`` module ever loaded."""
+    two ported examples at a tiny scale; an LM-head request; a request through
+    the feature cache, an append into its group and the request again, which
+    refreshes the cached entry) with no ``jax`` and no ``repro.*`` module
+    ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
@@ -174,6 +189,8 @@ def test_port_imports_and_serves_without_jax():
         assert summary["n"] == 1 and summary["speedup"] > 0
         assert 0.0 <= summary["guarantee_rate"] <= 1.0
     assert np.isfinite(out["lm_y_hat"])
+    assert np.isfinite(out["cached"]).all()
+    assert out["cache"] == dict(hits=0, misses=1, refreshes=1, corruptions=0, entries=1)
 
 
 def _imported_modules(path: Path):

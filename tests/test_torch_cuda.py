@@ -709,6 +709,86 @@ def test_single_request_captured_equals_eager(dev):
                            _host_bits([b["y_hat"], b["prob"]]))
 
 
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health"])
+def test_cached_batches_are_bitwise_the_uncached_and_a_hit_launches_nothing(dev, name):
+    """``BatchedFusedServer(cache_size=...)`` at fill 8 and 3: the miss batch
+    (one ``prefix_power_sums`` launch for all its misses, none in the
+    executor) and the hit batch (no launch, no slot) give the uncached
+    captured server's bits on every lane."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    plain = BatchedFusedServer(bundle, cfg, device=dev)
+    cached = BatchedFusedServer(bundle, cfg, cache_size=16, device=dev)
+    distinct = len({tuple(bundle.pipeline.agg_specs(r)) for r in bundle.requests[:8]})
+    for first, reqs, kn in ((True, bundle.requests[:8], knobs),
+                            (False, bundle.requests[2:5], knobs[:3])):
+        want = plain.serve_batch(reqs, knobs=kn)
+        for turn in ("miss", "hit"):
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            slots = cached.compile_count
+            got = cached.serve_batch(reqs, knobs=kn)
+            torch.cuda.synchronize()
+            launches = build.LAUNCHES.get("prefix_power_sums", 0)
+            assert (got.z == want.z).all() and (got.iters == want.iters).all(), turn
+            assert torch.equal(_host_bits(got.y_hat), _host_bits(want.y_hat)), turn
+            assert torch.equal(_host_bits(got.prob), _host_bits(want.prob)), turn
+            if turn == "miss" and first:
+                assert launches == 1, launches
+            else:
+                assert launches == 0 and cached.compile_count == slots, turn
+    assert cached.compile_count == 1
+    assert cached.cache.stats["misses"] == distinct
+    assert cached.cache.stats["hits"] == 8 - distinct + 8 + 2 * 3
+
+
+def test_cached_single_request_hit_builds_no_slot_and_launches_no_prefix(dev):
+    bundle, cfg, _ = _batch_bundle(dev, "turbofan")
+    srv = BiathlonServer(bundle, cfg, cache_size=4, device=dev)
+    want = BiathlonServer(bundle, cfg, device=dev).serve(bundle.requests[0])
+    miss = srv.serve(bundle.requests[0])
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    hit = srv.serve(bundle.requests[0])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES.get("prefix_power_sums", 0) == 0 and srv.compile_count == 1
+    for got in (miss, hit):
+        assert got["iters"] == want["iters"] and (got["z"] == want["z"]).all()
+        assert torch.equal(_host_bits([got["y_hat"], got["prob"]]),
+                           _host_bits([want["y_hat"], want["prob"]]))
+
+
+def test_pinned_gather_is_the_pageable_gather(dev):
+    """The pinned staging buffer, copied asynchronously, and reused by a
+    second gather: each copy holds the pageable gather's bits."""
+    from repro_torch.data.store import HostStaging
+
+    bundle, _, _ = _batch_bundle(dev, "sensor_health")
+    p, store = bundle.pipeline, bundle.store
+    staging = HostStaging(dev)
+    for reqs in (bundle.requests[:8], bundle.requests[3:6]):
+        specs = [p.agg_specs(r) for r in reqs]
+        buf = staging.gather(store, specs, 2048, rows=8)
+        assert buf.is_pinned() and tuple(buf.shape) == (8, p.k, 2048)
+        got = staging.to_device(buf)
+        want = torch.zeros((8, p.k, 2048), device=dev)
+        for i, sp in enumerate(specs):
+            want[i] = store.request_buffers(sp, 2048, dev)[0]
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [9, 72])
+def test_prefix_power_sums_at_the_cached_cap_512(dev, k):
+    """A cached server runs ``prefix_power_sums`` at caps of 1024 and below,
+    which the uncached path rescans: (k, 512) and (8·k, 512) twice, bitwise
+    equal, and within the tables' tolerance of the plain version."""
+    rng = np.random.default_rng(k)
+    vals = torch.from_numpy(rng.normal(1.0, 2.0, (k, 512)).astype(np.float32)).to(dev)
+    shift = vals[:, 0].contiguous()
+    a, b = prefix_power_sums(vals, shift), prefix_power_sums(vals, shift)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, prefix_power_sums_ref(vals, shift), **TABLE_TOL)
+
+
 @pytest.mark.parametrize("z", [0, 1, 353, 1499, 1500, 2048])
 def test_host_loop_draws_on_card_equal_cpu(dev, z):
     """The host loop's random draws on the card are the CPU's (and so the
