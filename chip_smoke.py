@@ -134,7 +134,30 @@ Phases (any failure exits non-zero before the result line is printed):
    executors are fed the same pooled state; a profile of one request;
 12. one 1 × 4096-token backbone forward, profiled: its latency,
    ``flash_attention``'s share of device time and the device's idle share;
-13. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+13. continuous batching and the arrival-driven runtimes at full width:
+   ``ContinuousBatchedServer`` (8 lanes, ``chunk_iters=4``) at the tight
+   setting on turbofan, sensor_health under "auto" and "ref" and
+   fraud_detection, a 64-request Poisson trace at 2× and 0.25× the
+   requests/s phase 8 measured for the captured fixed-lane server's tight
+   fill-8 batch; the main path (launch counts reset just before the
+   table's build, read after its two measured runs) compared in turns with
+   ``ServingRuntime`` over the fixed-lane server (throughput, p50 / p99
+   latency, queue delay, lane occupancy, recycles, ``chunked_straggler_report``'s
+   ``wasted_frac`` beside the batches' ``straggler_report`` waste); every
+   request's plan and iterations those of its run on a one-lane server (ŷ,
+   prob within 1e-5); on the trace at t = 0, the same run twice, the eager
+   table (``capture=False``) and the cached table bitwise, the plain
+   versions' plans equal; two slots a bucket throughout; on turbofan and
+   sensor_health a cached miss launches one ``prefix_power_sums`` and a hit
+   none, a fault storm (chunk and refill failures, poisoned lanes) replays
+   identically twice and serves each request bitwise its fault-free run,
+   and one refill and one chunk are timed (wall, device, profiled; the
+   Saltelli block a refill replays; a chunk that reads the flags before each
+   replay beside ``chunk_iters`` replays read once); ``ServingRuntime`` with
+   a ``DegradationController`` at 4× the saturating rate sheds some requests
+   and serves the rest; ``repro_torch.launch.serve.main`` runs
+   ``fused-batched`` and ``fused-continuous`` in process;
+14. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -1798,6 +1821,335 @@ def host_phase(dev, bundles: dict, cfg, card: str, rng) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 13
+CONT_LANES = 8
+CONT_CHUNK = 4
+CONT_N = 64
+CONT_CASES = (("turbofan", "auto"), ("sensor_health", "auto"), ("sensor_health", "ref"),
+              ("fraud_detection", "auto"))
+STORM = dict(seed=11, chunk_fail_prob=0.25, refill_fail_prob=0.15, poison_prob=0.2)
+
+
+def record_key(r) -> tuple:
+    """A runtime record's outcome, floats as their bits: what two runs of one
+    trace must agree on bitwise."""
+    bits = np.array([r.y_hat, r.prob], np.float32).view(np.int32).tolist()
+    return (r.req_id, r.disposition, r.z, r.iters, tuple(bits))
+
+
+def by_request(stats) -> dict:
+    return {r.req_id: r for r in stats.records}
+
+
+def fixed_lane_waste(stats) -> float:
+    """``straggler_report``'s ``wasted_frac`` over a fixed-lane run's batches:
+    the lane-iterations each batch charged past its requests' own, over all
+    it charged."""
+    batches = collections.defaultdict(list)
+    for r in stats.records:
+        if r.batch_id >= 0 and r.disposition == "ok":
+            batches[r.batch_id].append(r.iters)
+    wasted = sum(max(it) * len(it) - sum(it) for it in batches.values())
+    return wasted / max(sum(max(it) * len(it) for it in batches.values()), 1)
+
+
+def runtime_row(stats, fixed: bool) -> dict:
+    s = stats.summary()
+    row = {key: s[key] for key in ("n", "throughput_rps", "p50_latency_ms", "p99_latency_ms",
+                                   "mean_queue_delay_ms", "p99_queue_delay_ms",
+                                   "mean_batch_fill", "utilization", "n_batches",
+                                   "guarantee_rate", "compile_count")}
+    if fixed:
+        row["wasted_frac"] = fixed_lane_waste(stats)
+    else:
+        row.update(lane_occupancy=s["lane_occupancy"], n_recycles=s["n_recycles"],
+                   n_chunks=s["n_chunks"], wasted_frac=s["chunk_wasted_frac"])
+    return row
+
+
+def refill_chunk_timings(srv, bundle, knobs, card, path_stem: str) -> dict:
+    """One refill and one chunk of a table that iterates, wall (host clock
+    around the call and its read-back, median of 10) and device (a profile
+    of one: device busy, idle share, host operators, launches); the
+    Saltelli block a refill always replays (device time, CUDA events over
+    10 graph replays); a chunk that reads the lanes' flags before each
+    replay against ``chunk_iters`` replays read once, from one checkpoint."""
+    exe = srv._exe
+    reqs = bundle.requests[:CONT_LANES]
+    cap = srv.trace_cap(reqs)
+    table = srv.new_table(cap)
+    srv.admit(table, cap, [(lane, reqs[lane], knobs) for lane in range(CONT_LANES)])
+    srv.readback(table)
+    ckpt = srv.snapshot(table)
+
+    def refill():
+        t0 = time.perf_counter()
+        srv.admit(table, cap, [(0, reqs[0], knobs)])
+        srv.readback(table)
+        return dict(iters=0, latency=time.perf_counter() - t0)
+
+    def chunk():
+        srv.restore(table, ckpt)
+        t0 = time.perf_counter()
+        out = srv.readback(srv.run_chunk(table))
+        return dict(iters=int(out["it"].max()), latency=time.perf_counter() - t0)
+
+    def blind():
+        srv.restore(table, ckpt)
+        t0 = time.perf_counter()
+        for _ in range(CONT_CHUNK):
+            exe._launch(table, 0)
+        srv.readback(table)
+        return dict(iters=CONT_CHUNK, latency=time.perf_counter() - t0)
+
+    out = {}
+    for name, fn in (("refill", refill), ("chunk", chunk), ("chunk_blind", blind)):
+        fn()
+        out[f"{name}_wall_ms"] = statistics.median(fn()["latency"] for _ in range(10)) * 1e3
+    for name, fn in (("refill", refill), ("chunk", chunk)):
+        prof = profile_served(fn, ROOT / "build" / f"chip_smoke_profile_{path_stem}_{name}.txt")
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["profiled_latency_ms"]
+        out[f"{name}_profile"] = prof
+    chunk_out = chunk()
+    out["chunk_iters_run"] = chunk_out["iters"]
+    out["saltelli_ms"] = _events_ms(lambda: exe._launch(table.src, 1), 10)
+    srv.restore(table, ckpt)
+    print(f"continuous {path_stem} timings: refill wall {out['refill_wall_ms']:.3f} ms, device "
+          f"{out['refill_profile']['device_busy_ms']:.4f} ms (Saltelli block "
+          f"{out['saltelli_ms']:.4f}); chunk wall {out['chunk_wall_ms']:.3f} ms, device "
+          f"{out['chunk_profile']['device_busy_ms']:.4f} ms, {CONT_CHUNK} blind replays "
+          f"{out['chunk_blind_wall_ms']:.3f} ms; profiles {json.dumps(out['refill_profile'])} "
+          f"{json.dumps(out['chunk_profile'])} [{card}]", flush=True)
+    return out
+
+
+def continuous_case(name, afc, bundle, fixed_rps, dev, card, *, full: bool) -> dict:
+    """One pipeline under one AFC strategy: the main path (the captured
+    kernel table, built with launch counts reset and read after its two
+    measured runs, at 2× and 0.25× the fixed-lane server's tight fill-8
+    requests/s), compared in turns with ``ServingRuntime`` over the fixed-
+    lane server on the same traces; then every request against its own
+    one-lane run, the eager table bitwise, the plain versions' plans, the
+    same trace twice bitwise (arrivals at t = 0, so no decision depends on
+    wall time), two slots for the bucket throughout; with ``full`` also the
+    cached table (a hit launches no ``prefix_power_sums``), a fault storm
+    (twice, bitwise; every request served bitwise its fault-free run), and
+    timings and profiles of a refill and a chunk."""
+    from repro_torch.data.synthetic import poisson_arrivals
+    from repro_torch.kernels import build
+    from repro_torch.serving import (
+        BatchedFusedServer,
+        ContinuousBatchedServer,
+        ContinuousServingRuntime,
+        FaultProfile,
+        FaultyContinuousServer,
+        LaneKnobs,
+        ServingRuntime,
+    )
+
+    p = bundle.pipeline
+    cfg = tight_config(p)
+    delta = p.delta_default if cfg.delta is None else cfg.delta
+    kw = dict(batch_size=CONT_LANES, chunk_iters=CONT_CHUNK, afc_backend=afc, device=dev)
+    fixed = BatchedFusedServer(bundle, cfg, batch_size=CONT_LANES, afc_backend=afc, device=dev)
+    rates = {"saturating": 2.0 * fixed_rps, "light": 0.25 * fixed_rps}
+    traces = {rate: poisson_arrivals(bundle.requests, rps, n=CONT_N, seed=5)
+              for rate, rps in rates.items()}
+    at_zero = [(0.0, req) for _, req in traces["saturating"]]
+    ServingRuntime(fixed).warmup([a[1] for a in at_zero])
+    # the main path: counts reset just before the table's build, read after
+    sync(dev)
+    build.reset_launch_counts()
+    srv = ContinuousBatchedServer(bundle, cfg, **kw)
+    ContinuousServingRuntime(srv).warmup([a[1] for a in at_zero])
+    runs = {rate: [ContinuousServingRuntime(srv).run(tr, warmup=False)]
+            for rate, tr in traces.items()}
+    sync(dev)
+    launches = dict(build.LAUNCHES)
+    rec = dict(cap=srv.compiled_buckets, rates_rps=rates, launches=launches)
+    # continuous and fixed lanes in turns on each trace (continuous first)
+    for rate, tr in traces.items():
+        fx = [ServingRuntime(fixed, max_wait_s=0.002).run(tr) for _ in range(2)]
+        runs[rate].append(ContinuousServingRuntime(srv).run(tr, warmup=False))
+        cont_rows = [runtime_row(s, False) for s in runs[rate]]
+        fixed_rows = [runtime_row(s, True) for s in fx]
+        for s in runs[rate] + fx:
+            require(s.summary()["n"] == CONT_N and s.compile_count == 0,
+                    f"continuous {name} {afc} {rate}: {s.summary()}")
+        require(cont_rows[0]["n_recycles"] > 0, f"continuous {name} {afc} {rate}: no recycling")
+        rec[rate] = dict(continuous=cont_rows, fixed=fixed_rows)
+        c, f = cont_rows[0], fixed_rows[0]
+        print(f"continuous {name} {afc} {rate} ({rates[rate]:.1f} req/s, {CONT_N} requests, "
+              f"{CONT_LANES} lanes, chunk {CONT_CHUNK}): continuous / fixed-lane, in turns: "
+              f"throughput {c['throughput_rps']:.1f}, {cont_rows[1]['throughput_rps']:.1f} / "
+              f"{f['throughput_rps']:.1f}, {fixed_rows[1]['throughput_rps']:.1f} req/s; p50 "
+              f"{c['p50_latency_ms']:.3f} / {f['p50_latency_ms']:.3f} ms; p99 "
+              f"{c['p99_latency_ms']:.3f} / {f['p99_latency_ms']:.3f} ms; queue delay "
+              f"{c['mean_queue_delay_ms']:.3f} / {f['mean_queue_delay_ms']:.3f} ms; lane "
+              f"occupancy {c['lane_occupancy']:.3f}, recycles {c['n_recycles']}, chunks "
+              f"{c['n_chunks']}; wasted_frac chunked {c['wasted_frac']:.4f} / straggler "
+              f"{f['wasted_frac']:.4f} [{card}]", flush=True)
+    # 1. every request against its own run on the captured one-lane server
+    single = BatchedFusedServer(bundle, cfg, batch_size=1, afc_backend=afc, device=dev)
+    for s in runs["saturating"][:1]:
+        for r in s.records:
+            one = single.serve_batch([traces["saturating"][r.req_id][1]])
+            require(r.z == tuple(int(x) for x in one.z[0]) and r.iters == int(one.iters[0]),
+                    f"continuous {name} {afc}: request {r.req_id} {r.z} x{r.iters} vs one lane "
+                    f"{one.z[0].tolist()} x{int(one.iters[0])}")
+            y = float(one.y_hat[0])
+            require(abs(r.y_hat - y) <= 1e-5 * max(1.0, abs(y))
+                    and abs(r.prob - float(one.prob[0])) <= 1e-5,
+                    f"continuous {name} {afc}: request {r.req_id} y {r.y_hat} vs {y}, prob "
+                    f"{r.prob} vs {float(one.prob[0])}")
+    # 2.-4. the t = 0 trace: twice bitwise, eager bitwise, the plain plans
+    free = ContinuousServingRuntime(srv).run(at_zero, warmup=False)
+    want = [record_key(r) for r in sorted(free.records, key=lambda r: r.req_id)]
+    require([record_key(r) for r in sorted(ContinuousServingRuntime(srv).run(
+        at_zero, warmup=False).records, key=lambda r: r.req_id)] == want,
+        f"continuous {name} {afc}: the same trace twice differs")
+    eager = ContinuousBatchedServer(bundle, cfg, capture=False, **kw)
+    got = ContinuousServingRuntime(eager).run(at_zero)
+    require([record_key(r) for r in sorted(got.records, key=lambda r: r.req_id)] == want,
+            f"continuous {name} {afc}: captured and eager tables differ")
+    plain = ContinuousBatchedServer(bundle, cfg, use_kernel=False, **kw)
+    got = by_request(ContinuousServingRuntime(plain).run(at_zero))
+    for r in free.records:
+        g = got[r.req_id]
+        require(g.z == r.z and g.iters == r.iters
+                and abs(g.y_hat - r.y_hat) <= 1e-4 * max(1.0, abs(r.y_hat)),
+                f"continuous {name} {afc}: request {r.req_id} kernels {r.z} x{r.iters} vs "
+                f"plain {g.z} x{g.iters}")
+    rec["iters"] = [r.iters for r in sorted(free.records, key=lambda r: r.req_id)]
+    if full:
+        # 6. the cached table: a miss builds the entry, a hit launches nothing
+        cached = ContinuousBatchedServer(bundle, cfg, cache_size=CACHE_SIZE, **kw)
+        ContinuousServingRuntime(cached).warmup([a[1] for a in at_zero])
+        cap = cached.trace_cap([a[1] for a in at_zero])
+        table = cached.new_table(cap)
+        cached.cache._entries.clear()
+        counts = [served_launches(dev, lambda lane=lane: cached.readback(cached.admit(
+            table, cap, [(lane, at_zero[3][1], None)])[0]))[1].get("prefix_power_sums", 0)
+            for lane in (1, 2)]
+        require(counts == [1, 0], f"continuous {name}: miss and hit launched {counts} "
+                "prefix_power_sums")
+        got = ContinuousServingRuntime(cached).run(at_zero, warmup=False)
+        require([record_key(r) for r in sorted(got.records, key=lambda r: r.req_id)] == want,
+                f"continuous {name} {afc}: the cached table differs from the uncached")
+        rec["cached"] = dict(stats=cached.cache.stats, slots=cached.compile_count)
+        require(cached.compile_count == 2, f"cached table built {cached.compile_count} slots")
+        # 8. a fault storm, twice
+        storms = []
+        for _ in range(2):
+            fs = FaultyContinuousServer(srv, FaultProfile(**STORM))
+            st = ContinuousServingRuntime(fs, backoff_s=0.001, max_retries=2,
+                                          poison_retries=1).run(at_zero, warmup=False)
+            storms.append((fs.events, [record_key(r) for r in sorted(
+                st.records, key=lambda r: r.req_id)], st.n_rollbacks, st.n_poisoned))
+        require(storms[0] == storms[1], f"continuous {name}: the fault storm replays differently")
+        kinds = collections.Counter(kind.split(":")[0] for _, kind in storms[0][0])
+        served_ok = [k for k in storms[0][1] if k[1] == "ok"]
+        differ = [(k, want[k[0]]) for k in served_ok if k != want[k[0]]]
+        require(not differ, f"continuous {name}: {len(differ)} requests served in the storm "
+                f"differ from their fault-free runs, first {differ[:1]}")
+        require(sum(kinds.values()) > 0, f"continuous {name}: the storm injected nothing")
+        rec["storm"] = dict(events=dict(kinds), served=len(served_ok), rollbacks=storms[0][2],
+                            poisoned=storms[0][3])
+        print(f"continuous {name} fault storm: {json.dumps(rec['storm'])}, each served request "
+              f"bitwise its fault-free run, replayed identically [{card}]", flush=True)
+        rec["timings"] = refill_chunk_timings(
+            srv, bundle, LaneKnobs(delta, cfg.tau, cfg.max_iters), card, f"continuous_{name}")
+    # 5. two slots for the bucket, whatever was admitted, restored or cleared
+    for s in (srv, eager, plain):
+        require(s.compile_count == 2 and len(s.compiled_buckets) == 1,
+                f"continuous {name} {afc}: {s.compile_count} slots for {s.compiled_buckets}")
+    return rec
+
+
+def degrade_check(bundle, fixed_rps, dev, card) -> dict:
+    """``ServingRuntime`` over the captured fixed-lane server with a
+    ``DegradationController`` at 4× its saturating rate and a deadline of
+    three batches: some requests are shed, the rest served, nothing built."""
+    from repro_torch.data.synthetic import poisson_arrivals
+    from repro_torch.serving import (
+        BatchedFusedServer,
+        DegradationController,
+        ServingRuntime,
+        default_tiers,
+    )
+
+    cfg = tight_config(bundle.pipeline)
+    srv = BatchedFusedServer(bundle, cfg, batch_size=CONT_LANES, device=dev)
+    batch_s = CONT_LANES / fixed_rps
+    trace = poisson_arrivals(bundle.requests, 4.0 * fixed_rps, n=CONT_N, seed=6)
+    ServingRuntime(srv).warmup([a[1] for a in trace])
+    before = srv.compile_count
+    ctl = DegradationController(default_tiers(cfg.tau, cfg.max_iters), service_est_s=batch_s,
+                                lanes=CONT_LANES)
+    stats = ServingRuntime(srv, max_wait_s=0.002, slo_s=3.0 * batch_s, controller=ctl).run(
+        trace, warmup=False)
+    s = stats.summary()
+    require(0 < stats.n_shed < CONT_N and s["n"] > 0 and srv.compile_count == before,
+            f"degradation: {s}")
+    out = {key: s[key] for key in ("n", "n_shed", "shed_rate", "mean_tier", "max_tier",
+                                   "p99_latency_ms", "deadline_met_rate", "guarantee_rate")}
+    print(f"continuous degradation turbofan at {4.0 * fixed_rps:.1f} req/s, slo "
+          f"{3.0 * batch_s * 1e3:.2f} ms: {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def launcher_check(dev, card) -> dict:
+    """``python -m repro_torch.launch.serve`` in process, fused-batched and
+    fused-continuous, on turbofan at 2000 rows a group."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import main as serve_main
+
+    out = {}
+    for mode in ("fused-batched", "fused-continuous"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            s = serve_main(["--pipeline", "turbofan", "--mode", mode, "--device", str(dev),
+                            "--rows-per-group", "2000", "--requests", "32", "--arrival-rate",
+                            "400", "--slo-ms", "500", "--degrade"])
+        require(f"mode={mode}" in buf.getvalue() and s["n"] + s["n_shed"] == 32,
+                f"launcher {mode}: {buf.getvalue()[-400:]}")
+        out[mode] = {key: s[key] for key in ("n", "throughput_rps", "p50_latency_ms",
+                                             "p99_latency_ms", "guarantee_rate")}
+    print(f"continuous launcher: {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def continuous_phase(dev, bundles: dict, batched: dict, card: str) -> dict:
+    """Continuous batching and the arrival-driven runtimes at full width
+    (:func:`continuous_case` on turbofan, sensor_health under "auto" and
+    "ref", and fraud_detection; the cached table, the storm and the
+    timings on turbofan and sensor_health "auto"), the degradation check and
+    the launcher.  Every kernel of the path must launch in the cases' main
+    paths."""
+    t0 = time.perf_counter()
+    out, launched = {}, collections.Counter()
+    for name, afc in CONT_CASES:
+        cell = batched[name if afc == "auto" else f"{name}_{afc}"]["tight_fill8"]
+        rec = continuous_case(name, afc, bundles[name], cell["captured_requests_per_s"], dev,
+                              card, full=afc == "auto" and name != "fraud_detection")
+        launched.update(rec["launches"])
+        out[name if afc == "auto" else f"{name}_{afc}"] = rec
+    for kname in ("prefix_power_sums", "sampled_moments", "masked_select_ranks",
+                  "ensemble_sum", "sobol_points"):
+        require(launched.get(kname, 0) > 0, f"continuous path: {kname} never launched")
+    out["launches"] = dict(launched)
+    out["degradation"] = degrade_check(
+        bundles["turbofan"], batched["turbofan"]["tight_fill8"]["captured_requests_per_s"], dev,
+        card)
+    out["launcher"] = launcher_check(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"continuous phase: {out['seconds']:.1f} s, launches {json.dumps(out['launches'])} "
+          f"[{card}]", flush=True)
+    return out
+
+
 # --------------------------------------------------------------- phase 10-12
 def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
@@ -2290,6 +2642,7 @@ def main() -> int:
     backbone = backbone_profile(lm_scenario, dev,
                                 ROOT / "build" / "chip_smoke_profile_backbone4096.txt")
     print(f"backbone 1x4096 forward: {json.dumps(backbone)} [{card}]", flush=True)
+    cont = continuous_phase(dev, all_bundles, batched, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -2346,6 +2699,7 @@ def main() -> int:
             launches_host_path=host["launches"].get(kname, 0),
             launches_batched=batched["launches"].get(kname, 0),
             launches_feature_cache=cache["launches"].get(kname, 0),
+            launches_continuous=cont["launches"].get(kname, 0),
             **({"lane_shapes": lanes[kname]} if kname in lanes else {}),
             **({"host_shapes": host["kernels"][kname]} if kname in host["kernels"] else {}),
         ))
@@ -2371,6 +2725,7 @@ def main() -> int:
                                     "prefill_d128", "ratio_to_library",
                                     "bound_share", "instances")},
         backbone_4096_launches=backbone["flash_attention_launches"],
+        launches_continuous=cont["launches"].get("flash_attention", 0),
     ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
@@ -2386,6 +2741,7 @@ def main() -> int:
     serve["host"] = {key: val for key, val in host.items() if key != "kernels"}
     serve["batched"] = batched
     serve["feature_cache"] = cache
+    serve["continuous"] = cont
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

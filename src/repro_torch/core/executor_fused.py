@@ -72,6 +72,7 @@ import gc
 from types import SimpleNamespace
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import threefry
@@ -107,11 +108,16 @@ from repro_torch.kernels.sampled_agg.prefix_stats import (
 )
 
 __all__ = [
+    "CHUNK_CARRY_LEAVES",
+    "ChunkedExecutor",
     "FusedExecutor",
     "FusedResult",
+    "LaneState",
+    "PrebuiltChunkedExecutor",
     "PrebuiltFusedExecutor",
     "PrebuiltTables",
     "build_afc_precompute",
+    "build_chunked_executor",
     "build_fused_executor",
     "fused_rows_per_iteration",
     "pipeline_executor_kwargs",
@@ -256,10 +262,16 @@ class FusedExecutor:
 
     def _model(self, s, rows):
         """ONE model call on the (L·r, k) rows, each with its lane's exact
-        features: (L, r) outputs."""
+        features: (L, r) outputs.  Each lane's row starts at a multiple of 4
+        values (the outputs are padded to a row stride of ``4·ceil(r/4)``):
+        the card's vectorised reductions over a lane's outputs split a row
+        by its 16-byte alignment, so with every row aligned alike (and ``m``
+        and ``m_sobol`` multiples of 4, as the defaults are) a request's
+        bits do not depend on the lane that serves it."""
         lanes, r, _ = rows.shape
         exact = s.exact[:, None, :].expand(lanes, r, s.exact.shape[1]).reshape(lanes * r, -1)
-        return self.model_fn(rows.reshape(lanes * r, self.k), exact).to(f32).reshape(lanes, r)
+        y = self.model_fn(rows.reshape(lanes * r, self.k), exact).to(f32).reshape(lanes, r)
+        return torch.nn.functional.pad(y, (0, -r % 4))[:, :r]
 
     def _ami_prob(self, y, y_hat, delta):
         """Eq. 1 guarantee probability from the (L, m) AMI outputs; for
@@ -381,7 +393,7 @@ class FusedExecutor:
         zf = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)  # noqa: E731
         s = SimpleNamespace(
             incremental=resolve_afc_plan(self.afc_backend, cap, cached=self.prebuilt),
-            graphs=None,
+            graphs=None, programs=self._programs(),
             # inputs: a run copies its batch in
             vals=zf(lanes, k, cap), n_in=z32(lanes, k), agg=z32(lanes, k), delta=zf(lanes),
             exact=zf(lanes, e), active=torch.zeros(lanes, dtype=torch.bool, device=dev),
@@ -392,26 +404,38 @@ class FusedExecutor:
         )
         if self.prebuilt and s.incremental:
             # the tables a run copies in from the lanes' cache entries
-            rindex = None
-            if self.n_hol:
-                rows, n_z = lanes * self.n_hol, self.max_iters + 1
-                block = min(BLOCK_S, cap)
-                capp = -(-cap // block) * block
-                rindex = HolisticRankIndex(zf(rows, capp), z32(rows, capp),
-                                           z32(rows, n_z, capp // block + 1), z32(rows, n_z))
-            s.tables = (zf(lanes, k, cap, N_POWERS), zf(lanes, k), rindex)
+            s.tables = self._table_buffers(lanes, cap)
         self._slots[key] = s
         self.slots_built += 1
         return s
+
+    def _table_buffers(self, lanes: int, cap: int) -> tuple:
+        """Fixed ``(ptab (lanes, k, cap, 4), shift (lanes, k), rank index or
+        None)`` buffers for the incremental AFC tables of ``lanes`` lanes:
+        the rank index has ``lanes · h`` rows, lane after lane, in the
+        layout :func:`build_rank_index` gives them."""
+        dev = self.device
+        rindex = None
+        if self.n_hol:
+            rows, n_z = lanes * self.n_hol, self.max_iters + 1
+            block = min(BLOCK_S, cap)
+            capp = -(-cap // block) * block
+            i32 = dict(dtype=torch.int32, device=dev)
+            rindex = HolisticRankIndex(
+                torch.zeros((rows, capp), dtype=f32, device=dev), torch.zeros((rows, capp), **i32),
+                torch.zeros((rows, n_z, capp // block + 1), **i32), torch.zeros((rows, n_z), **i32))
+        return (torch.zeros((lanes, self.k, cap, N_POWERS), dtype=f32, device=dev),
+                torch.zeros((lanes, self.k), dtype=f32, device=dev), rindex)
 
     def _programs(self):
         """init_eval (z⁰), the Saltelli block at z⁰, one planner step."""
         return self._init, self._sobol0, self._step
 
     def _capture(self, s) -> None:
-        """The three programs as CUDA graphs on one memory pool, after one
-        eager pass on a side stream (which loads the kernel libraries and
-        makes every lazily built handle).
+        """The slot's programs (``s.programs``: for a run's slot the three
+        above) as CUDA graphs on one memory pool, after one eager pass on a
+        side stream (which loads the kernel libraries and makes every
+        lazily built handle).
 
         Garbage is collected first and the collector is off while the
         graphs are captured: a collection inside a capture may destroy an
@@ -422,7 +446,7 @@ class FusedExecutor:
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            for program in self._programs():
+            for program in s.programs:
                 program(s)
         cur.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
@@ -431,7 +455,7 @@ class FusedExecutor:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            for program in self._programs():
+            for program in s.programs:
                 graph = torch.cuda.CUDAGraph()
                 with build.captured_launches() as recorded, torch.cuda.graph(graph, pool=pool):
                     program(s)
@@ -442,9 +466,10 @@ class FusedExecutor:
         s.graphs = graphs
 
     def _launch(self, s, i: int) -> None:
-        """Program ``i`` (0: z⁰, 1: Saltelli at z⁰, 2: a step) on slot ``s``."""
+        """Program ``i`` of slot ``s`` (a run's slot: 0 z⁰, 1 Saltelli at z⁰,
+        2 a step), replayed if the slot was captured."""
         if s.graphs is None:
-            self._programs()[i](s)
+            s.programs[i](s)
             return
         graph, recorded = s.graphs[i]
         graph.replay()
@@ -478,14 +503,18 @@ class FusedExecutor:
         s.n_in.copy_(n)
         return self._run(s, agg_ids, delta, exact, active, tau, iter_cap, single)
 
-    def _run(self, s, agg_ids, delta, exact, active, tau, iter_cap, single) -> FusedResult:
-        """Copy the knobs in, capture a new slot, drive the programs, read out."""
+    def _set_knobs(self, s, agg_ids, delta, exact, active, tau, iter_cap) -> None:
+        """Copy a run's per-lane inputs into slot ``s`` (``None``: the build's)."""
         s.agg.copy_(_as(agg_ids, torch.int32))
         s.delta.copy_(_as(delta, f32))
-        s.exact.copy_(exact)
+        s.exact.copy_(_as(exact, f32))
         s.active.copy_(_as(True if active is None else active, torch.bool))
         s.tau.copy_(_as(self.tau if tau is None else tau, f32))
         s.iter_cap.copy_(_as(self.max_iters if iter_cap is None else iter_cap, torch.int32))
+
+    def _run(self, s, agg_ids, delta, exact, active, tau, iter_cap, single) -> FusedResult:
+        """Copy the knobs in, capture a new slot, drive the programs, read out."""
+        self._set_knobs(s, agg_ids, delta, exact, active, tau, iter_cap)
         if self.capture and s.graphs is None:
             self._capture(s)
         self._drive(s)
@@ -597,6 +626,281 @@ def build_fused_executor(
         gamma=gamma, tau=tau, max_iters=max_iters, afc_backend=afc_backend, holistic=holistic,
         quantiles=quantiles, n_boot=n_boot, boot_seed=boot_seed, approximate=approximate,
         device=device, use_kernel=use_kernel, capture=capture)
+
+
+#: The :class:`LaneState` leaves a chunk changes: a chunk-boundary checkpoint
+#: is host copies of these, and a rollback copies them back in place.  The
+#: reference's ``CHUNK_CARRY_LEAVES`` with ``want`` for its ``done`` (``done
+#: = ~want``) and without ``reps``: the port carries no holistic replicate
+#: table between steps, ``_afc`` draws it again from the lane's ``it``.
+CHUNK_CARRY_LEAVES = ("z", "it", "y_hat", "prob", "idx", "want")
+
+
+class LaneState(SimpleNamespace):
+    """The lane table of continuous batching: every lane's state as fixed
+    device tensors with a leading lanes axis, the reference's ``LaneState``
+    (``executor_fused.py:174``) over its lanes.
+
+    request inputs
+      ``n (L, k)`` group sizes clamped to the cap, ``agg (L, k)`` operator
+      ids, ``delta``, ``tau`` ``(L,)`` knobs, ``exact (L, e)``, ``active
+      (L,)`` (False: an empty lane, never iterates), ``cap_eff (L,)`` the
+      iteration ceiling, ``step (L,)`` γ; under the rescan also ``vals (L,
+      k, cap)`` and, with holistic features, ``vals_h (L, h, cap)``
+    planner carry (:data:`CHUNK_CARRY_LEAVES`)
+      ``z (L, k)``, ``it (L,)`` (also the bootstrap keys' index, so a
+      request's random stream follows it into any lane), ``y_hat``, ``prob``
+      ``(L,)``, ``idx (L, k)`` Sobol indices, ``want (L,)`` (``done`` is
+      ``~want``)
+    incremental AFC tables (``tables``)
+      ``ptab (L, k, cap, 4)``, ``shift (L, k)`` and the holistic rank index
+      (``L · h`` rows), present on the incremental path only
+
+    A table is one slot of its executor (one per (lanes, cap bucket)): the
+    captured step and lane-write graphs read these addresses, so every
+    write to it is in place (``copy_``, ``index_copy_``, ``index_fill_``);
+    a rebound attribute would leave the graphs reading stale memory.
+    """
+
+    def reset(self) -> None:
+        """Every lane empty (zeros, ``active = False``), in place: every
+        device tensor of the table, the AFC tables' included."""
+        tensors = [v for v in vars(self).values() if isinstance(v, torch.Tensor)]
+        if self.tables is not None:
+            ptab, shift, rindex = self.tables
+            tensors += [ptab, shift] + ([] if rindex is None else list(rindex))
+        for t in tensors:
+            t.zero_()
+
+    def readback(self) -> dict:
+        """Host copies of the small per-lane leaves a scheduler reads
+        (``done``, ``active``, ``it``, ``z``, ``n``, ``y_hat``, ``prob``):
+        stacked on the device as int32 bits and copied to the host once, the
+        read-back (and synchronisation) each chunk ends on."""
+        k = self.z.shape[1]
+        i32 = torch.int32
+        packed = torch.cat([self.want.to(i32)[:, None], self.active.to(i32)[:, None],
+                            self.it[:, None], self.y_hat.view(i32)[:, None],
+                            self.prob.view(i32)[:, None], self.z, self.n], dim=1).cpu().numpy()
+        return dict(done=packed[:, 0] == 0, active=packed[:, 1] != 0,
+                    it=packed[:, 2].astype(np.int64), z=packed[:, 5:5 + k].copy(),
+                    n=packed[:, 5 + k:].copy(), y_hat=packed[:, 3].copy().view(np.float32),
+                    prob=packed[:, 4].copy().view(np.float32))
+
+    def snapshot(self) -> dict[str, np.ndarray]:
+        """Checkpoint of the chunk carry: host copies of exactly the
+        :data:`CHUNK_CARRY_LEAVES`, stacked and copied to the host once.
+        Every other leaf is unchanged by a chunk."""
+        k = self.z.shape[1]
+        i32 = torch.int32
+        packed = torch.cat([self.z, self.it[:, None], self.y_hat.view(i32)[:, None],
+                            self.prob.view(i32)[:, None], self.idx.view(i32),
+                            self.want.to(i32)[:, None]], dim=1).cpu().numpy()
+        return dict(z=packed[:, :k].copy(), it=packed[:, k].copy(),
+                    y_hat=packed[:, k + 1].copy().view(np.float32),
+                    prob=packed[:, k + 2].copy().view(np.float32),
+                    idx=packed[:, k + 3:2 * k + 3].copy().view(np.float32),
+                    want=packed[:, -1] != 0)
+
+    def restore(self, ckpt: dict[str, np.ndarray]) -> None:
+        """Copy a :meth:`snapshot` back into the carry, in place.  A replay
+        after it is bitwise the fault-free run: the bootstrap keys follow
+        the restored ``it``."""
+        for name in CHUNK_CARRY_LEAVES:
+            getattr(self, name).copy_(torch.from_numpy(np.ascontiguousarray(ckpt[name])))
+
+    def clear_lanes(self, lanes) -> None:
+        """Evict lanes (quarantine, failure): ``active = want = False``, in
+        place, so no step moves them again.  Their carry is reset too (``z =
+        it = 0``, zero ŷ, prob and indices), because every step reads every
+        lane: a wrecked ``it`` or ``z`` would index the key table and the
+        prefix tables out of range on the card, a fault that poisons the
+        whole CUDA context (JAX clamps such an index; CUDA asserts).  The
+        buffers stay until the next refill of the lane."""
+        idx = torch.as_tensor(list(lanes), dtype=torch.int64).to(self.z.device)
+        if idx.numel() == 0:
+            return
+        for name, fill in (("active", False), ("want", False), ("z", 0), ("it", 0),
+                           ("y_hat", 0.0), ("prob", 0.0), ("idx", 0.0)):
+            getattr(self, name).index_fill_(0, idx, fill)
+
+
+class ChunkedExecutor(FusedExecutor):
+    """The fused executor over a lane table, for continuous batching.
+
+    Port of the reference's ``build_chunked_executor`` (``init``, ``chunk``)
+    with its refill scatter (``serving/continuous.py``).  Built by
+    :func:`build_chunked_executor`.
+
+    ``new_table(lanes, cap, e) -> LaneState``
+        the (lanes, cap) table, every lane empty.  One table per (lanes,
+        cap): a second call resets the same tensors.  Making a table makes
+        its refill slot too, the ``(1, cap)`` slot of a one-lane run, and on
+        the card captures both: the refill slot's z⁰ and Saltelli programs,
+        and the table's step and lane-write programs.
+    ``refill(table, lane, vals, n, agg_ids, delta, exact, tau, iter_cap)``
+        admits one request into ``lane``: its inputs are copied into the
+        refill slot, the z⁰ program and the Saltelli block (masked by
+        ``want``, so no flag is read back) run on that one lane, and the
+        lane-write program copies the slot's lane into row ``lane`` of every
+        table leaf (``index_copy_`` at a device index set before the
+        replay: one captured graph serves every lane) and sets its ``it`` to
+        0.  A prebuilt (cached) executor takes a trailing ``tables``
+        (:class:`PrebuiltTables`), copied into the refill slot instead of
+        built.
+    ``chunk(table) -> table``
+        at most ``chunk_iters`` replays of the table's step program: the
+        lanes' ``want`` flags are read before each, and the chunk ends when
+        no lane wants more (a done or empty lane is frozen by the step, as
+        the reference's ``while_loop`` leaves it).  Back-to-back chunks
+        replay exactly the monolithic run's steps.
+
+    :attr:`slots_built` (the refill slots) and :attr:`tables_built` count
+    the slots (on the card, captures): one of each per cap bucket, whatever
+    the fill, the knobs or the lanes admitted.
+    """
+
+    def __init__(self, model_fn, *, chunk_iters: int, **kw):
+        chunk_iters = int(chunk_iters)
+        if chunk_iters < 1:
+            raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
+        super().__init__(model_fn, **kw)
+        self.chunk_iters = chunk_iters
+        self._tables: dict[tuple[int, int, int], LaneState] = {}
+
+    @property
+    def tables_built(self) -> int:
+        return len(self._tables)
+
+    def new_table(self, lanes: int, cap: int, e: int) -> LaneState:
+        key = (lanes, cap, e)
+        t = self._tables.get(key)
+        if t is None:
+            src = self._slot(1, cap, e)
+            t = self._alloc_table(lanes, cap, e, src)
+            if self.capture:
+                if src.graphs is None:
+                    src.programs = (self._init, self._sobol0)
+                    self._capture(src)
+                self._capture(t)
+            self._tables[key] = t
+        t.reset()
+        return t
+
+    def _alloc_table(self, lanes: int, cap: int, e: int, src) -> LaneState:
+        dev, k = self.device, self.k
+        z32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
+        zf = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)  # noqa: E731
+        zb = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=dev)  # noqa: E731
+        t = LaneState(
+            incremental=src.incremental, graphs=None, programs=(self._step, self._write_lane),
+            src=src, lane=torch.zeros(1, dtype=torch.int64, device=dev),
+            n=z32(lanes, k), agg=z32(lanes, k), delta=zf(lanes), exact=zf(lanes, e),
+            active=zb(lanes), tau=zf(lanes), cap_eff=z32(lanes), step=z32(lanes),
+            z=z32(lanes, k), it=z32(lanes), y_hat=zf(lanes), prob=zf(lanes), idx=zf(lanes, k),
+            want=zb(lanes), tables=None,
+        )
+        # the leaves the lane write copies from the refill slot's one lane
+        t.copied = ["n", "agg", "delta", "exact", "active", "tau", "cap_eff", "step",
+                    "z", "y_hat", "prob", "idx", "want"]
+        if t.incremental:
+            t.tables = self._table_buffers(lanes, cap)
+        else:
+            t.vals = zf(lanes, k, cap)
+            t.copied.append("vals")
+            if self.n_hol:
+                t.vals_h = zf(lanes, self.n_hol, cap)
+                t.copied.append("vals_h")
+        return t
+
+    def _write_lane(self, t) -> None:
+        """Row ``t.lane`` of every table leaf from the refill slot's lane;
+        the lane's ``it`` to 0 (its bootstrap keys start afresh)."""
+        src, lane = t.src, t.lane
+        for name in t.copied:
+            getattr(t, name).index_copy_(0, lane, getattr(src, name))
+        t.it.index_fill_(0, lane, 0)
+        if t.incremental:
+            for dst, new in zip(t.tables[:2], src.tables[:2]):
+                dst.index_copy_(0, lane, new)
+            if self.n_hol:
+                h = self.n_hol
+                for dst, new in zip(t.tables[2], src.tables[2]):
+                    dst.view(-1, h, *dst.shape[1:]).index_copy_(
+                        0, lane, new.reshape(1, h, *new.shape[1:]))
+
+    def refill(self, t: LaneState, lane: int, vals, n, agg_ids, delta, exact, tau, iter_cap,
+               tables: PrebuiltTables | None = None) -> None:
+        src = t.src
+        k, cap = src.vals.shape[1:]
+        if self.prebuilt:
+            if tables is None:
+                raise ValueError("a prebuilt executor's refill takes the entry's tables")
+            self._load(src, [vals], [n], [tables])
+        else:
+            src.vals.copy_(_as(vals, f32).reshape(1, k, cap), non_blocking=True)
+            src.n_in.copy_(_as(n, torch.int32).reshape(1, k))
+        self._set_knobs(src, agg_ids, delta, exact, True, tau, iter_cap)
+        self._launch(src, 0)      # z⁰
+        self._launch(src, 1)      # the Saltelli block, kept only if the lane iterates
+        t.lane.fill_(int(lane))
+        self._launch(t, 1)        # the lane write
+
+    def chunk(self, t: LaneState) -> LaneState:
+        for _ in range(self.chunk_iters):
+            if not bool(t.want.any()):
+                break
+            self._launch(t, 0)
+        return t
+
+
+class PrebuiltChunkedExecutor(ChunkedExecutor):
+    """The cache-fed :class:`ChunkedExecutor`: ``refill(..., tables)`` copies
+    a cache entry's buffers and tables into the refill slot (as
+    :class:`PrebuiltFusedExecutor` does into a run's slot) and builds none;
+    the AFC strategy resolves with ``cached=True``."""
+
+    prebuilt = True
+    _load = PrebuiltFusedExecutor._load
+
+
+def build_chunked_executor(
+    model_fn,
+    *,
+    chunk_iters: int,
+    k: int,
+    task: str,
+    n_classes: int = 2,
+    m: int = 512,
+    m_sobol: int = 128,
+    alpha: float = 0.05,
+    gamma: float = 0.01,
+    tau: float = 0.95,
+    max_iters: int = 32,
+    afc_backend: str = "auto",
+    holistic: Sequence[int] = (),
+    quantiles: Sequence[float] | None = None,
+    n_boot: int = 256,
+    boot_seed: int = 0,
+    approximate: Sequence[bool] | None = None,
+    device=None,
+    use_kernel: bool = True,
+    capture: bool | None = None,
+    prebuilt: bool = False,
+) -> ChunkedExecutor:
+    """The lane-table executor of continuous batching: :class:`ChunkedExecutor`,
+    or with ``prebuilt=True`` :class:`PrebuiltChunkedExecutor`.
+
+    ``chunk_iters`` (≥ 1) is the most planner iterations one ``chunk``
+    advances a lane; every other argument is :func:`build_fused_executor`'s.
+    """
+    cls = PrebuiltChunkedExecutor if prebuilt else ChunkedExecutor
+    return cls(
+        model_fn, chunk_iters=chunk_iters, k=k, task=task, n_classes=n_classes, m=m,
+        m_sobol=m_sobol, alpha=alpha, gamma=gamma, tau=tau, max_iters=max_iters,
+        afc_backend=afc_backend, holistic=holistic, quantiles=quantiles, n_boot=n_boot,
+        boot_seed=boot_seed, approximate=approximate, device=device, use_kernel=use_kernel,
+        capture=capture)
 
 
 def build_afc_precompute(

@@ -36,7 +36,42 @@ from repro_torch.models.tabular.linear import LinearRegression
 from repro_torch.models.tabular.mlp import MLP
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest
 
-__all__ = ["PIPELINE_NAMES", "PipelineBundle", "make_pipeline", "make_pipeline_median"]
+__all__ = ["PIPELINE_NAMES", "PipelineBundle", "make_pipeline", "make_pipeline_median",
+           "poisson_arrivals"]
+
+
+def poisson_arrivals(
+    requests: list[dict],
+    rate_rps: float,
+    n: int | None = None,
+    seed: int = 0,
+    start_t: float = 0.0,
+) -> list[tuple[float, dict]]:
+    """Timestamped Poisson arrival trace over a request log.
+
+    Inter-arrival gaps are Exp(rate) — the M/*/1 open-loop workload the
+    serving runtime replays (``serving/runtime.py``).  Requests are cycled from
+    ``requests`` when ``n`` exceeds the log.  Returns ``[(t_seconds, req)]``
+    sorted by time; deterministic in ``seed``, and drawn from numpy's
+    ``default_rng(seed)`` as the reference draws it, so the two traces are
+    bitwise equal.
+
+    Degenerate inputs are pinned explicitly rather than left to numpy:
+    ``rate_rps`` must be a positive finite number (zero, negative, and NaN
+    all raise — NaN would silently satisfy neither branch of a ``<= 0``
+    check), ``n < 0`` raises, and ``n == 0`` is a well-defined EMPTY trace
+    (not whatever an empty ``cumsum`` happens to produce downstream).
+    """
+    if not (rate_rps > 0) or not np.isfinite(rate_rps):
+        raise ValueError(f"rate_rps must be a positive finite number, got {rate_rps}")
+    if n is not None and n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if not requests or n == 0:
+        return []
+    n = len(requests) if n is None else n
+    rng = np.random.default_rng(seed)
+    ts = start_t + np.cumsum(rng.exponential(1.0 / rate_rps, n))
+    return [(float(t), requests[i % len(requests)]) for i, t in enumerate(ts)]
 
 
 @dataclass

@@ -43,8 +43,10 @@ from repro_torch.serving.feature_cache import FeatureCache, pipeline_feature_cac
 __all__ = [
     "BatchResult",
     "BatchedFusedServer",
+    "chunked_straggler_report",
     "device_fill",
     "gather_lanes",
+    "lane_request_inputs",
     "sanitize_lane_inputs",
     "straggler_report",
 ]
@@ -89,7 +91,7 @@ def sanitize_lane_inputs(vals, exact, *, policy: str, where: str):
 
 
 def gather_lanes(pipeline, store, requests: list[dict], cap: int, lanes: int,
-                 staging: HostStaging, *, policy: str):
+                 staging: HostStaging, *, policy: str, where: str | None = None):
     """The uncached lane inputs of a batch at a cap bucket, on the host.
 
     The requests' padded prefixes go into ``staging``'s buffer for the
@@ -97,7 +99,8 @@ def gather_lanes(pipeline, store, requests: list[dict], cap: int, lanes: int,
     exact features (``sanitize_lane_inputs``).  Returns ``(vals (lanes, k,
     cap) f32 staging buffer, n (lanes, k) i32 clamped, exact (lanes, e)
     f32)``; the caller releases ``vals`` (``HostStaging.release``) once
-    the copies that read it are enqueued.
+    the copies that read it are enqueued.  A sanitizer error names
+    ``where`` (default: ``serve_batch lane <i>``).
     """
     vals = staging.gather(store, [pipeline.agg_specs(req) for req in requests], cap, rows=lanes)
     arr = vals.numpy()
@@ -108,7 +111,7 @@ def gather_lanes(pipeline, store, requests: list[dict], cap: int, lanes: int,
         lane = arr[i]
         clean, exacts[i] = sanitize_lane_inputs(
             lane, pipeline.exact_feature_values(store, req), policy=policy,
-            where=f"serve_batch lane {i}")
+            where=f"serve_batch lane {i}" if where is None else where)
         if clean is not lane:
             lane[...] = clean
     return vals, ns, exacts
@@ -176,6 +179,90 @@ def straggler_report(res: BatchResult) -> dict:
         "n_devices": n_dev,
         "per_device_fill": per_dev_fill,
         "lane_imbalance": float(per_dev_fill.max() - per_dev_fill.min()),
+    }
+
+
+def lane_request_inputs(pipeline, store, req: dict, cap: int, staging: HostStaging, *,
+                        policy: str = "reject", lane: int = 0):
+    """One request's lane inputs at a cap bucket: the one-lane case of
+    :func:`gather_lanes`, so the continuous refill and the fixed-lane batch
+    feed the executor the same data (a precondition of recycling parity).
+
+    Returns ``(vals (1, k, cap) f32 staging buffer, n (k,) i32 clamped,
+    true_n (k,) i64, exact (e,) f32)``; sanitizer errors name ``admit lane
+    <lane>``.  The caller releases ``vals`` once its copy is enqueued.
+    """
+    vals, ns, exacts = gather_lanes(pipeline, store, [req], cap, 1, staging, policy=policy,
+                                    where=f"admit lane {lane}")
+    return vals, ns[0], np.asarray(pipeline.group_sizes(store, req), np.int64), exacts[0]
+
+
+def chunked_straggler_report(
+    chunk_iters, occupied, *, lanes: int, n_devices: int = 1
+) -> dict:
+    """Chunk-granularity waste accounting for recycled lanes.
+
+    With continuous batching a lane serves many requests per batch window
+    and fills are NOT front-packed (a freed lane is refilled in place), so
+    :func:`straggler_report`'s batch-global and :func:`device_fill`'s
+    front-packed assumptions both break.  This report charges waste per
+    **chunk** against each device block's chunk-boundary maximum: inputs
+    are the (n_chunks, lanes) matrices of per-chunk planner-iteration
+    counts and lane occupancy the scheduler records at every chunk
+    boundary.
+
+    ``wasted_iters[l]`` counts the loop trips lane ``l`` sat through beyond
+    its own work while some co-resident lane on its device was still
+    iterating — summed over chunks, so a lane recycled mid-window is only
+    ever charged against the stragglers it ACTUALLY shared a dispatch with
+    (the fixed-lane report would charge the whole batch window).
+    ``per_device_fill`` / ``lane_imbalance`` are occupancy-true: mean
+    occupied-lane fraction per device block over chunks, well-defined for
+    any refill pattern and empty-safe (zero chunks -> zeros).
+    """
+    lanes = int(lanes)
+    n_dev = max(int(n_devices), 1)
+    if lanes % n_dev != 0:
+        raise ValueError(f"lanes {lanes} not divisible by n_devices {n_dev}")
+    per_dev = lanes // n_dev
+    it = np.asarray(chunk_iters, np.int64).reshape(-1, lanes)
+    occ = np.asarray(occupied, bool).reshape(-1, lanes)
+    if it.shape != occ.shape:
+        raise ValueError(
+            f"chunk_iters {it.shape} and occupied {occ.shape} must align"
+        )
+    n_chunks = it.shape[0]
+    if n_chunks == 0:
+        return {
+            "n_chunks": 0,
+            "lanes": lanes,
+            "n_devices": n_dev,
+            "lane_occupancy": 0.0,
+            "per_device_fill": [0.0] * n_dev,
+            "lane_imbalance": 0.0,
+            "wasted_iters": np.zeros(lanes, np.int64),
+            "wasted_frac": 0.0,
+            "total_iters": 0,
+        }
+    it = np.where(occ, it, 0)
+    blk = it.reshape(n_chunks, n_dev, per_dev)
+    occ_blk = occ.reshape(n_chunks, n_dev, per_dev)
+    # each dispatch, a lane waits for its OWN device block's straggler —
+    # the chunk-boundary device-block max, not the batch-window global max
+    blk_max = blk.max(axis=2)                                   # (C, D)
+    wasted = np.where(occ_blk, blk_max[:, :, None] - blk, 0)    # (C, D, L/D)
+    charged = np.where(occ_blk, blk_max[:, :, None], 0)
+    occ_frac = occ_blk.mean(axis=2)                             # (C, D)
+    return {
+        "n_chunks": int(n_chunks),
+        "lanes": lanes,
+        "n_devices": n_dev,
+        "lane_occupancy": float(occ.mean()),
+        "per_device_fill": [float(x) for x in occ_frac.mean(axis=0)],
+        "lane_imbalance": float((occ_frac.max(1) - occ_frac.min(1)).mean()),
+        "wasted_iters": wasted.reshape(n_chunks, lanes).sum(axis=0),
+        "wasted_frac": float(wasted.sum()) / max(int(charged.sum()), 1),
+        "total_iters": int(it.sum()),
     }
 
 

@@ -28,12 +28,13 @@ from repro.data.synthetic import make_pipeline as ref_make_pipeline
 from repro.serving.batched import BatchedFusedServer as RefBatched
 from repro.serving.batched import lane_request_inputs as ref_lane_request_inputs
 from repro.serving.batched import straggler_report as ref_straggler_report
-from repro.serving.degrade import LaneKnobs
+from repro.serving.degrade import LaneKnobs as RefLaneKnobs
 from repro_torch.bridge import bundle_from_numpy
 from repro_torch.core.executor import BiathlonConfig
 from repro_torch.data.store import HostStaging
 from repro_torch.serving import (
     BatchedFusedServer,
+    LaneKnobs,
     device_fill,
     gather_lanes,
     sanitize_lane_inputs,
@@ -71,16 +72,16 @@ def servers(name: str, afc_backend: str):
                                afc_backend=afc_backend, device="cpu"))
 
 
-def lane_knobs(pipeline, fill: int):
-    """Per-lane knobs: the defaults, a tight lane capped at 6 iterations, a
-    looser lane and a tight lane capped at 2 (tight: 0.3·δ for regression,
-    τ = 0.995 for classification)."""
+def lane_knobs(pipeline, fill: int, cls=LaneKnobs):
+    """Per-lane knobs of ``cls`` (the port's ``LaneKnobs``, or the
+    reference's for its server): the defaults, a tight lane capped at 6
+    iterations, a looser lane and a tight lane capped at 2 (tight: 0.3·δ for
+    regression, τ = 0.995 for classification)."""
     d = pipeline.delta_default
     if pipeline.task == "classification":
-        kn = [None, LaneKnobs(d, 0.995, 6), LaneKnobs(d, 0.9, 64), LaneKnobs(d, 0.995, 2)]
+        kn = [None, cls(d, 0.995, 6), cls(d, 0.9, 64), cls(d, 0.995, 2)]
     else:
-        kn = [None, LaneKnobs(0.3 * d, 0.95, 6), LaneKnobs(2.0 * d, 0.9, 64),
-              LaneKnobs(0.3 * d, 0.95, 2)]
+        kn = [None, cls(0.3 * d, 0.95, 6), cls(2.0 * d, 0.9, 64), cls(0.3 * d, 0.95, 2)]
     return kn[:fill]
 
 
@@ -112,7 +113,8 @@ def test_batches_match_reference_and_one_lane_runs(name, afc_backend):
         reqs = ref.requests[start:start + fill]
         knobs = lane_knobs(p, fill)
         assert rs.batch_cap(reqs) == ps.batch_cap(reqs) == 2048
-        a, b = rs.serve_batch(reqs, knobs=knobs), ps.serve_batch(reqs, knobs=knobs)
+        a = rs.serve_batch(reqs, knobs=lane_knobs(ref.pipeline, fill, RefLaneKnobs))
+        b = ps.serve_batch(reqs, knobs=knobs)
         assert_same_batch(a, b, classify)
         assert np.isfinite(b.y_hat).all()
         if classify:

@@ -17,8 +17,8 @@ import torch
 
 from repro.data.synthetic import make_pipeline as ref_make_pipeline
 from repro_torch.bridge import bundle_from_numpy, store_from_numpy
-from repro_torch.core.executor import run_exact
-from repro_torch.serving import BiathlonServer
+from repro_torch.core.executor import BiathlonConfig, run_exact
+from repro_torch.serving import BiathlonServer, ContinuousBatchedServer
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(rows_per_group=300, n_train_groups=60, n_serve_groups=3, n_requests=2)
@@ -160,11 +160,24 @@ g = req[f.group_field]
 start = int(t.group_ptr[t.group_ids[g]])
 t.append({{c: v[t.perm[start:start + 1]] for c, v in t.columns.items()}}, group_key=[g])
 again = cached.serve(req)["y_hat"]
+from repro_torch.serving import runtime, continuous, degrade, faults
+from repro_torch.launch import serve as launch_serve
+from repro_torch.data.synthetic import poisson_arrivals
+tight = BiathlonConfig(m=64, m_sobol=16, delta=0.1 * b.pipeline.delta_default)
+lanes = continuous.ContinuousBatchedServer(b, tight, batch_size=2, chunk_iters=2, device="cpu")
+runtime.ContinuousServingRuntime(lanes).warmup(b.requests)
+storm = faults.FaultyContinuousServer(lanes, faults.FaultProfile(
+    seed=1, chunk_fail_calls=(0,), refill_fail_calls=(1,)))
+ctl = degrade.DegradationController(degrade.default_tiers(cfg.tau, cfg.max_iters),
+                                    service_est_s=0.01, lanes=2)
+trace = runtime.ContinuousServingRuntime(storm, slo_s=60.0, controller=ctl).run(
+    poisson_arrivals(b.requests, 100.0, n=4, seed=0), warmup=False).summary()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
                   "lm_y_hat": lm["y_hat"], "cached": [first, again],
-                  "cache": cached.cache.stats}}))
+                  "cache": cached.cache.stats, "continuous": trace,
+                  "launch": launch_serve.__name__}}))
 """
 
 
@@ -175,8 +188,9 @@ def test_port_imports_and_serves_without_jax():
     request log of each through the host loop with the exact baseline; the
     two ported examples at a tiny scale; an LM-head request; a request through
     the feature cache, an append into its group and the request again, which
-    refreshes the cached entry) with no ``jax`` and no ``repro.*`` module
-    ever loaded."""
+    refreshes the cached entry; a tiny trace through the continuous runtime
+    with a chunk failure and the degradation controller; the serve launcher
+    imported) with no ``jax`` and no ``repro.*`` module ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
@@ -191,6 +205,11 @@ def test_port_imports_and_serves_without_jax():
     assert np.isfinite(out["lm_y_hat"])
     assert np.isfinite(out["cached"]).all()
     assert out["cache"] == dict(hits=0, misses=1, refreshes=1, corruptions=0, entries=1)
+    trace = out["continuous"]
+    assert trace["n"] + trace["n_shed"] == 4 and trace["n_rollbacks"] == 1
+    assert trace["n_retries"] == 2
+    assert trace["compile_count"] == 0 and trace["n_chunks"] > 0
+    assert out["launch"] == "repro_torch.launch.serve"
 
 
 def _imported_modules(path: Path):
@@ -207,7 +226,7 @@ def test_no_jax_or_reference_imports_in_port_sources():
     files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     walked = {f.parent.relative_to(port).as_posix() for f in files[:-1]}
-    for sub in ("configs", "models/lm", "models/tabular", "optim", "examples",
+    for sub in ("configs", "models/lm", "models/tabular", "optim", "examples", "launch",
                 "kernels/flash_attention", "kernels/sobol"):
         assert sub in walked, sub
     for f in files:
@@ -229,3 +248,5 @@ def test_server_defaults_to_cuda_and_raises_without_it(ref_bundle, monkeypatch):
         run_exact(port.store, port.pipeline, port.requests[0])
     with pytest.raises(ValueError, match="mode must be"):
         BiathlonServer(port, mode="batched", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        ContinuousBatchedServer(port, BiathlonConfig(m=64, m_sobol=16))

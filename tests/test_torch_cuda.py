@@ -50,7 +50,13 @@ from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum
 from repro_torch.models.lm import LM
 from repro_torch.models.lm.layers import attention_block
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
-from repro_torch.serving import BatchedFusedServer, BiathlonServer
+from repro_torch.serving import (
+    BatchedFusedServer,
+    BiathlonServer,
+    ContinuousBatchedServer,
+    poison_lane_carry,
+    scramble_chunk_carry,
+)
 
 pytestmark = pytest.mark.cuda
 TABLE_TOL = dict(rtol=3e-5, atol=1e-3)
@@ -755,6 +761,184 @@ def test_cached_single_request_hit_builds_no_slot_and_launches_no_prefix(dev):
         assert got["iters"] == want["iters"] and (got["z"] == want["z"]).all()
         assert torch.equal(_host_bits([got["y_hat"], got["prob"]]),
                            _host_bits([want["y_hat"], want["prob"]]))
+
+
+# ----------------------------------------------------- continuous batching
+def _table_trace(srv, bundle, knobs, chunks_before_recycle=1):
+    """Admit 8 requests with their knobs, run chunks; after the first chunk
+    refill every done lane with requests 8..; drain.  Returns every
+    read-back along the way."""
+    reqs = bundle.requests
+    cap = srv.trace_cap(reqs)
+    table, _ = srv.admit(srv.new_table(cap), cap,
+                         [(lane, reqs[lane], knobs[lane]) for lane in range(8)])
+    outs = [srv.readback(table)]
+    nxt = 8
+    for step in range(200):
+        out = outs[-1]
+        if step >= chunks_before_recycle and nxt < len(reqs) and out["done"].any():
+            free = [int(lane) for lane in np.flatnonzero(out["done"])][:len(reqs) - nxt]
+            srv.admit(table, cap, [(lane, reqs[nxt + i], knobs[lane])
+                                   for i, lane in enumerate(free)])
+            nxt += len(free)
+            outs.append(srv.readback(table))
+            continue
+        if out["done"].all():
+            return outs
+        outs.append(srv.readback(srv.run_chunk(table)))
+    raise AssertionError("the table never drained")
+
+
+def _same_readbacks(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        for key in ("z", "it", "n", "done", "active"):
+            assert (x[key] == y[key]).all(), key
+        for key in ("y_hat", "prob"):
+            assert torch.equal(_host_bits(x[key]), _host_bits(y[key])), key
+
+
+@pytest.mark.parametrize("afc_backend", ["auto", "ref"])
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health", "fraud_detection"])
+def test_continuous_captured_table_is_bitwise_the_eager_table(dev, name, afc_backend):
+    """The captured lane table (refill and lane-write graphs, the step
+    graph) against the eager programs on the same trace: 8 lanes with
+    knobs, done lanes refilled after the first chunk, every read-back
+    bitwise equal; two slots for the bucket, each captured."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    bundle.requests = bundle.requests + bundle.requests[:4]
+    kw = dict(batch_size=8, chunk_iters=2, afc_backend=afc_backend, device=dev)
+    captured = ContinuousBatchedServer(bundle, cfg, **kw)
+    eager = ContinuousBatchedServer(bundle, cfg, capture=False, **kw)
+    a, b = _table_trace(captured, bundle, knobs), _table_trace(eager, bundle, knobs)
+    _same_readbacks(a, b)
+    assert max(int(o["it"].max()) for o in a) > 0
+    assert captured.compile_count == eager.compile_count == 2
+    (table,) = captured._exe._tables.values()
+    assert table.graphs and table.src.graphs
+
+
+def test_one_refill_graph_serves_every_lane(dev):
+    """One request admitted into each of the 8 lanes in turn, each by its
+    own admission: the same captured refill and lane-write graphs serve
+    every lane, and every lane holds the bits of the eager refill."""
+    bundle, cfg, knobs = _batch_bundle(dev, "sensor_health")
+    srv = ContinuousBatchedServer(bundle, cfg, batch_size=8, device=dev)
+    eager = ContinuousBatchedServer(bundle, cfg, batch_size=8, device=dev, capture=False)
+    cap = srv.trace_cap(bundle.requests)
+    table, etable = srv.new_table(cap), eager.new_table(cap)
+    graphs = (table.graphs, table.src.graphs)
+    eager.admit(etable, cap, [(0, bundle.requests[1], knobs[1])])
+    want = eager.readback(etable)
+    for lane in range(8):
+        srv.admit(table, cap, [(lane, bundle.requests[1], knobs[1])])
+    out = srv.readback(table)
+    assert (table.graphs, table.src.graphs) == graphs and srv.compile_count == 2
+    for lane in range(8):
+        assert (out["z"][lane] == want["z"][0]).all() and out["it"][lane] == 0
+        assert torch.equal(_host_bits(out["y_hat"][lane:lane + 1]), _host_bits(want["y_hat"][:1]))
+        assert torch.equal(_host_bits(out["prob"][lane:lane + 1]), _host_bits(want["prob"][:1]))
+
+
+def test_restore_then_replay_is_bitwise(dev):
+    """A checkpoint taken at a chunk boundary, a chunk, the carry wrecked
+    (``scramble_chunk_carry``) and restored: the replayed chunk gives the
+    first chunk's bits, and the table drains as the fault-free one."""
+    bundle, cfg, knobs = _batch_bundle(dev, "turbofan")
+    srv = ContinuousBatchedServer(bundle, cfg, batch_size=8, chunk_iters=2, device=dev)
+    cap = srv.trace_cap(bundle.requests)
+    table, _ = srv.admit(srv.new_table(cap), cap,
+                         [(lane, bundle.requests[lane], knobs[lane]) for lane in range(8)])
+    ckpt = srv.snapshot(table)
+    first = srv.readback(srv.run_chunk(table))
+    scramble_chunk_carry(table)
+    assert (srv.readback(table)["z"] == -1).all()
+    srv.restore(table, ckpt)
+    again = srv.readback(srv.run_chunk(table))
+    _same_readbacks([first], [again])
+    assert srv.compile_count == 2
+
+
+def test_cleared_poisoned_lane_leaves_the_context_healthy(dev):
+    """A lane poisoned after a chunk (``z = -1``, NaN ŷ and prob) is cleared
+    before the next replay; the table then drains, the card stays healthy,
+    and requests admitted afterwards (the poisoned one into its own lane
+    again) get the bits of a fresh table."""
+    bundle, cfg, knobs = _batch_bundle(dev, "sensor_health")
+    srv = ContinuousBatchedServer(bundle, cfg, batch_size=8, chunk_iters=2, device=dev)
+    cap = srv.trace_cap(bundle.requests)
+    assign = [(lane, bundle.requests[lane], knobs[lane]) for lane in range(8)]
+    table, _ = srv.admit(srv.new_table(cap), cap, assign)
+    srv.run_chunk(table)
+    poison_lane_carry(table, 1)
+    assert np.isnan(srv.readback(table)["y_hat"][1])
+    srv.clear_lanes(table, [1])
+    for _ in range(50):
+        if srv.readback(srv.run_chunk(table))["done"].all():
+            break
+    torch.cuda.synchronize()
+    got = _table_trace(srv, bundle, knobs, chunks_before_recycle=10**6)
+    fresh = ContinuousBatchedServer(bundle, cfg, batch_size=8, chunk_iters=2, device=dev)
+    _same_readbacks(got, _table_trace(fresh, bundle, knobs, chunks_before_recycle=10**6))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health"])
+def test_cached_refill_launches_no_prefix_power_sums(dev, name):
+    """A cached table: a miss admission builds its entry by one ``cold``
+    launch, a hit admission launches no ``prefix_power_sums``, gathers
+    nothing and builds no slot; both give the uncached table's bits."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    plain = ContinuousBatchedServer(bundle, cfg, batch_size=8, device=dev)
+    cached = ContinuousBatchedServer(bundle, cfg, batch_size=8, cache_size=16, device=dev)
+    cap = plain.trace_cap(bundle.requests)
+    assign = [(lane, bundle.requests[lane], knobs[lane]) for lane in range(8)]
+    want = plain.readback(plain.admit(plain.new_table(cap), cap, assign)[0])
+    for turn in ("miss", "hit"):
+        table = cached.new_table(cap)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        got = cached.readback(cached.admit(table, cap, assign)[0])
+        launches = build.LAUNCHES.get("prefix_power_sums", 0)
+        _same_readbacks([got], [want])
+        if turn == "hit":
+            assert launches == 0
+        else:
+            assert launches == len({tuple(bundle.pipeline.agg_specs(r))
+                                    for r in bundle.requests[:8]})
+    assert cached.compile_count == 2
+
+
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health", "fraud_detection"])
+def test_a_request_gets_the_same_bits_in_every_lane(dev, name):
+    """One request in all 8 lanes, at a tight setting: the batch gives every
+    lane the same bits, and so does the lane table after every chunk (each
+    lane's model outputs start 16-byte aligned, so the card's reductions
+    split every lane's rows alike)."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    batched = BatchedFusedServer(bundle, cfg, device=dev)
+    table_srv = ContinuousBatchedServer(bundle, cfg, batch_size=8, chunk_iters=1, device=dev)
+    iterated = 0
+    for req in bundle.requests[:4]:
+        res = batched.serve_batch([req] * 8, knobs=[knobs[1]] * 8)
+        for field in ("y_hat", "prob"):
+            bits = _host_bits(getattr(res, field))
+            assert (bits == bits[0]).all(), (field, res.iters.tolist())
+        assert (res.z == res.z[0]).all() and (res.iters == res.iters[0]).all()
+        cap = table_srv.trace_cap([req])
+        table, _ = table_srv.admit(table_srv.new_table(cap), cap,
+                                   [(lane, req, knobs[1]) for lane in range(8)])
+        out = table_srv.readback(table)
+        while True:
+            for field in ("y_hat", "prob"):
+                bits = _host_bits(out[field])
+                assert (bits == bits[0]).all(), (field, out["it"].tolist())
+            assert (out["z"] == out["z"][0]).all()
+            if out["done"].all():
+                break
+            out = table_srv.readback(table_srv.run_chunk(table))
+        iterated += int(out["it"][0])
+    assert iterated > 0
 
 
 def test_pinned_gather_is_the_pageable_gather(dev):
