@@ -157,7 +157,28 @@ Phases (any failure exits non-zero before the result line is printed):
    a ``DegradationController`` at 4× the saturating rate sheds some requests
    and serves the rest; ``repro_torch.launch.serve.main`` runs
    ``fused-batched`` and ``fused-continuous`` in process;
-14. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+14. lanes sharded over a serving mesh (``launch/mesh.py``) at full width:
+   ``BatchedFusedServer(mesh=make_serving_mesh())`` over every visible card
+   and over 2 and 4 shards simulated on the card, turbofan and
+   sensor_health at the tight setting, fills 8, 3 and 1 (sensor_health
+   also under "ref" over 2 shards, fill 8), against the unsharded captured
+   server: the card mesh bitwise (on one card it is one shard), simulated
+   shards with equal plans and iterations, ŷ and prob within 1e-5, bitwise
+   run to run; one slot a bucket on every shard, each shard's
+   ``sobol_points`` at its build and ``prefix_power_sums`` at its capture
+   and every z⁰ replay (the main path: counts reset just before the mesh
+   servers' builds, read after their batches); ``straggler_report``'s
+   per-shard fields; one tight fill-8 turbofan batch unsharded and over 2
+   and 4 shards in turns (wall p50), each profiled (device busy by stream,
+   the streams' overlap, idle share); ``ContinuousBatchedServer`` over 2
+   shards on phase 13's 64 turbofan requests at t = 0 (plans and
+   iterations those of the unsharded table, phase 13's fault storm twice
+   alike and bitwise its fault-free sharded run, two slots a bucket on
+   every shard); the launcher's ``fused-sharded`` and ``fused-continuous
+   --devices 1``; ``python -m repro_torch.analysis.check`` on the card (no
+   finding, the facts of ``baseline.json``'s cuda section) and its
+   ``--mutation-test`` (all nine caught);
+15. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -1316,8 +1337,7 @@ def batched_phase(dev, bundles: dict, cfg, card: str) -> dict:
             launched.update({kk: v for kk, v in cell["launches"].items() if "." not in kk})
             rec[key] = cell
         for s in srv.values():
-            require(s.compile_count == len(s.compiled_buckets),
-                    f"{name} {afc}: {s.compile_count} slots for buckets {s.compiled_buckets}")
+            s.check_compile_contract()
         rec["buckets"] = srv["captured"].compiled_buckets
         if afc == "auto":
             for turn in ("captured", "eager"):
@@ -2037,7 +2057,7 @@ def continuous_case(name, afc, bundle, fixed_rps, dev, card, *, full: bool) -> d
         require([record_key(r) for r in sorted(got.records, key=lambda r: r.req_id)] == want,
                 f"continuous {name} {afc}: the cached table differs from the uncached")
         rec["cached"] = dict(stats=cached.cache.stats, slots=cached.compile_count)
-        require(cached.compile_count == 2, f"cached table built {cached.compile_count} slots")
+        cached.check_compile_contract()
         # 8. a fault storm, twice
         storms = []
         for _ in range(2):
@@ -2061,8 +2081,8 @@ def continuous_case(name, afc, bundle, fixed_rps, dev, card, *, full: bool) -> d
             srv, bundle, LaneKnobs(delta, cfg.tau, cfg.max_iters), card, f"continuous_{name}")
     # 5. two slots for the bucket, whatever was admitted, restored or cleared
     for s in (srv, eager, plain):
-        require(s.compile_count == 2 and len(s.compiled_buckets) == 1,
-                f"continuous {name} {afc}: {s.compile_count} slots for {s.compiled_buckets}")
+        s.check_compile_contract()
+        require(len(s.compiled_buckets) == 1, f"continuous {name} {afc}: {s.compiled_buckets}")
     return rec
 
 
@@ -2147,6 +2167,349 @@ def continuous_phase(dev, bundles: dict, batched: dict, card: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"continuous phase: {out['seconds']:.1f} s, launches {json.dumps(out['launches'])} "
           f"[{card}]", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------- phase 14
+SHARD_COUNTS = (2, 4)
+SHARD_PIPELINES = ("turbofan", "sensor_health")
+SHARD_REPS = 3
+# a shard of L/D lanes against the unsharded L: plans and iterations equal,
+# y_hat and prob within this (a slot of another lane count may round apart)
+SHARD_TOL = 1e-5
+
+
+def compare_sharded(name, base, other) -> dict:
+    """Equal plans and iterations, ŷ within SHARD_TOL·max(1, |y|) and prob
+    within SHARD_TOL; returns the largest differences."""
+    require((base.z == other.z).all() and (base.iters == other.iters).all(),
+            f"{name}: plans differ: {base.z.tolist()} x{base.iters.tolist()} vs "
+            f"{other.z.tolist()} x{other.iters.tolist()}")
+    dy = np.abs(base.y_hat - other.y_hat) / np.maximum(1.0, np.abs(base.y_hat))
+    dp = np.abs(base.prob - other.prob)
+    require(bool((dy <= SHARD_TOL).all() and (dp <= SHARD_TOL).all()),
+            f"{name}: y_hat {base.y_hat.tolist()} vs {other.y_hat.tolist()}, prob "
+            f"{base.prob.tolist()} vs {other.prob.tolist()}")
+    return dict(max_rel_dy=float(dy.max(initial=0.0)), max_dprob=float(dp.max(initial=0.0)))
+
+
+def stream_overlap(trace: Path) -> dict:
+    """Device activity (kernels, copies, sets) of a profiler's chrome trace by
+    stream: each stream's busy time, the busy time of all streams together
+    (their union) and the overlap, the time two streams ran at once (the sum
+    of the streams' busy times less the union)."""
+    def union(iv) -> float:
+        total, end = 0.0, -1.0
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    per = collections.defaultdict(list)
+    for e in json.loads(trace.read_text()).get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            per[str(e.get("args", {}).get("stream"))].append((e["ts"], e["ts"] + e["dur"]))
+    busy = {s: union(iv) / 1e3 for s, iv in per.items()}
+    together = union([x for iv in per.values() for x in iv]) / 1e3
+    return dict(streams=len(per), busy_ms_by_stream=busy, busy_union_ms=together,
+                overlap_ms=sum(busy.values()) - together)
+
+
+def profile_overlap(fn, path: Path) -> dict:
+    """:func:`profile_served` of ``fn`` with its chrome trace kept, read by
+    :func:`stream_overlap`: the idle share is 1 − the union of the streams'
+    busy time over the profiled latency."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows, device = profile_rows(prof, path)
+    trace = path.with_suffix(".json")
+    prof.export_chrome_trace(str(trace))
+    ov = stream_overlap(trace)
+    trace.unlink()
+    return dict(device_busy_ms=sum(r[0] for r in device) / 1e3,
+                device_launches=sum(r[2] for r in device),
+                host_ops=sum(r[2] for r in rows if r[3] > 0.0),
+                profiled_latency_ms=out["latency"] * 1e3,
+                idle_share=1.0 - ov["busy_union_ms"] / (out["latency"] * 1e3), **ov)
+
+
+def sharded_batches(name, bundle, cfg, dev, meshes, card, afc="auto") -> dict:
+    """One pipeline's batches at the tight setting, fills 8, 3 and 1, through
+    the unsharded captured server (the yardstick, outside the counts) and a
+    server on each mesh (the main path: counts reset just before their
+    builds, read after their batches): a mesh over every visible card bitwise
+    the unsharded server, simulated shards within :data:`SHARD_TOL` and
+    bitwise run to run; one slot a bucket on every shard; each shard's
+    ``sobol_points`` at its build and ``prefix_power_sums`` at its capture and
+    each z⁰ replay (incremental)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import BatchedFusedServer, straggler_report
+
+    p = bundle.pipeline
+    fills = BATCH_FILLS if afc == "auto" else (BATCH_LANES,)
+    base = BatchedFusedServer(bundle, cfg, batch_size=BATCH_LANES, afc_backend=afc, device=dev)
+    want = {}
+    for fill in fills:
+        base.serve_batch(bundle.requests[:fill], knobs=batch_knobs(p, True, fill))
+        want[fill] = base.serve_batch(bundle.requests[:fill], knobs=batch_knobs(p, True, fill))
+    sync(dev)
+    build.reset_launch_counts()
+    servers = {m: BatchedFusedServer(bundle, cfg, batch_size=BATCH_LANES, mesh=mesh,
+                                     afc_backend=afc) for m, mesh in meshes.items()}
+    got = {m: {fill: srv.serve_batch(bundle.requests[:fill], knobs=batch_knobs(p, True, fill))
+               for fill in fills} for m, srv in servers.items()}
+    again = {m: srv.serve_batch(bundle.requests[:BATCH_LANES],
+                                knobs=batch_knobs(p, True, BATCH_LANES))
+             for m, srv in servers.items()}
+    sync(dev)
+    launches = dict(build.LAUNCHES) | dict(build.PATHS)
+    rec = dict(launches=launches, cases={})
+    shards = sum(len(mesh.devices) for mesh in meshes.values())
+    require(launches.get("sobol_points", 0) == shards,
+            f"sharded {name}: {launches.get('sobol_points', 0)} sobol_points for {shards} shards")
+    if afc == "auto":
+        # each shard: one launch in the eager pass before each capture, one a z⁰ replay
+        want_pps = sum(len(mesh.devices) * (len(servers[m].compiled_buckets) + len(fills) + 1)
+                       for m, mesh in meshes.items())
+        require(launches.get("prefix_power_sums", 0) == want_pps,
+                f"sharded {name}: {launches.get('prefix_power_sums', 0)} prefix_power_sums, "
+                f"{want_pps} expected (every shard's capture and z0 replays)")
+    if afc == "ref":
+        for kname in ("sampled_moments", "masked_select_ranks"):
+            require(launches.get(kname, 0) >= shards,
+                    f"sharded {name} ref: {launches.get(kname, 0)} {kname} for {shards} shards")
+    for m, srv in servers.items():
+        srv.check_compile_contract()
+        d = len(meshes[m].devices)
+        require(srv.shard_compile_counts == [len(srv.compiled_buckets)] * d,
+                f"sharded {name} {m}: shard slots {srv.shard_compile_counts}")
+        case = {}
+        for fill in fills:
+            a, b = want[fill], got[m][fill]
+            if m == "cards" and d == 1:
+                compare_batches(f"sharded {name} {m} fill {fill}", a, b, bitwise=True)
+                case[f"fill{fill}"] = dict(bitwise=True)
+            else:
+                case[f"fill{fill}"] = compare_sharded(f"sharded {name} {m} fill {fill}", a, b)
+        compare_batches(f"sharded {name} {m} twice", got[m][BATCH_LANES], again[m],
+                        bitwise=True)
+        rep = straggler_report(got[m][BATCH_LANES])
+        case.update(shards=d, buckets=srv.compiled_buckets, iters=got[m][BATCH_LANES].iters.tolist(),
+                    per_device_fill=rep["per_device_fill"].tolist(),
+                    lane_imbalance=rep["lane_imbalance"], wasted_frac=rep["wasted_frac"],
+                    wasted_frac_unsharded=straggler_report(want[BATCH_LANES])["wasted_frac"])
+        rec["cases"][m] = case
+        print(f"sharded {name} {afc} {m} ({d} shards): {json.dumps(case)} [{card}]", flush=True)
+    rec["servers"] = servers
+    rec["base"] = base
+    return rec
+
+
+def sharded_timings(bundle, cfg, dev, servers: dict, card) -> dict:
+    """One tight fill-8 batch unsharded and over 2 and 4 simulated shards, in
+    turns (unsharded, 2, 4, 4, 2, unsharded; :data:`SHARD_REPS` batches a
+    turn): wall p50; then each profiled, device busy time by stream, the
+    overlap of the shards' streams and the idle share."""
+    p = bundle.pipeline
+    reqs, knobs = bundle.requests[:BATCH_LANES], batch_knobs(p, True, BATCH_LANES)
+    times = collections.defaultdict(list)
+    for turn in ("unsharded", "sim2", "sim4", "sim4", "sim2", "unsharded"):
+        for _ in range(SHARD_REPS):
+            times[turn].append(timed_batch(servers[turn], reqs, knobs)[1])
+    out = {}
+    for turn, srv in servers.items():
+        def once(srv=srv):
+            res, dt = timed_batch(srv, reqs, knobs)
+            return dict(iters=res.batch_iters, latency=dt)
+
+        prof = profile_overlap(once, ROOT / "build" / f"chip_smoke_profile_sharded_{turn}.txt")
+        out[turn] = dict(p50_ms=statistics.median(times[turn]) * 1e3,
+                         **{k: v for k, v in prof.items() if k != "busy_ms_by_stream"},
+                         busy_ms_by_stream=sorted(prof["busy_ms_by_stream"].values()))
+        print(f"sharded timing turbofan tight fill 8 {turn}: {json.dumps(out[turn])} [{card}]",
+              flush=True)
+    return out
+
+
+def sharded_continuous(bundle, fixed_rps, dev, mesh, card) -> dict:
+    """``ContinuousBatchedServer`` over 2 shards simulated on the card, on phase
+    13's 64-request turbofan trace at t = 0: every request's plan and
+    iterations those of the unsharded table; the fault storm of phase 13
+    twice alike, each request it serves bitwise its fault-free sharded run;
+    two slots a bucket on every shard.  Returns the counts of the main path
+    (the sharded table's build and runs)."""
+    from repro_torch.data.synthetic import poisson_arrivals
+    from repro_torch.kernels import build
+    from repro_torch.serving import (
+        ContinuousBatchedServer,
+        ContinuousServingRuntime,
+        FaultProfile,
+        FaultyContinuousServer,
+    )
+
+    cfg = tight_config(bundle.pipeline)
+    kw = dict(batch_size=CONT_LANES, chunk_iters=CONT_CHUNK)
+    at_zero = [(0.0, req) for _, req in poisson_arrivals(bundle.requests, 2.0 * fixed_rps,
+                                                         n=CONT_N, seed=5)]
+    plain = ContinuousBatchedServer(bundle, cfg, device=dev, **kw)
+    ContinuousServingRuntime(plain).warmup([a[1] for a in at_zero])
+    want = by_request(ContinuousServingRuntime(plain).run(at_zero, warmup=False))
+    sync(dev)
+    build.reset_launch_counts()
+    srv = ContinuousBatchedServer(bundle, cfg, mesh=mesh, **kw)
+    ContinuousServingRuntime(srv).warmup([a[1] for a in at_zero])
+    free = ContinuousServingRuntime(srv).run(at_zero, warmup=False)
+    storms = []
+    for _ in range(2):
+        fs = FaultyContinuousServer(srv, FaultProfile(**STORM))
+        st = ContinuousServingRuntime(fs, backoff_s=0.001, max_retries=2,
+                                      poison_retries=1).run(at_zero, warmup=False)
+        storms.append((fs.events, [record_key(r) for r in sorted(
+            st.records, key=lambda r: r.req_id)], st.n_rollbacks, st.n_poisoned))
+    sync(dev)
+    launches = dict(build.LAUNCHES)
+    dy = 0.0
+    for r in free.records:
+        w = want[r.req_id]
+        require(r.z == w.z and r.iters == w.iters,
+                f"sharded table: request {r.req_id} {r.z} x{r.iters} vs unsharded {w.z} "
+                f"x{w.iters}")
+        dy = max(dy, abs(r.y_hat - w.y_hat) / max(1.0, abs(w.y_hat)))
+    keys = {r.req_id: record_key(r) for r in free.records}
+    require(storms[0] == storms[1], "sharded table: the fault storm replays differently")
+    served = [k for k in storms[0][1] if k[1] == "ok"]
+    differ = [k for k in served if k != keys[k[0]]]
+    require(not differ, f"sharded table: {len(differ)} requests of the storm differ from their "
+            f"fault-free runs, first {differ[:1]}")
+    kinds = collections.Counter(kind.split(":")[0] for _, kind in storms[0][0])
+    require(sum(kinds.values()) > 0, "sharded table: the storm injected nothing")
+    srv.check_compile_contract()
+    require(srv.shard_compile_counts == [2 * len(srv.compiled_buckets)] * len(mesh.devices),
+            f"sharded table: shard slots {srv.shard_compile_counts}")
+    out = dict(shards=len(mesh.devices), n=len(free.records), max_rel_dy=dy,
+               storm=dict(events=dict(kinds), served=len(served), rollbacks=storms[0][2],
+                          poisoned=storms[0][3]),
+               shard_slots=srv.shard_compile_counts, launches=launches,
+               throughput_rps=free.summary()["throughput_rps"],
+               lane_occupancy=free.summary()["lane_occupancy"],
+               chunk_wasted_frac=free.summary()["chunk_wasted_frac"])
+    print(f"sharded continuous turbofan: {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def sharded_launcher(dev, card) -> dict:
+    """``repro_torch.launch.serve.main`` in process: ``fused-sharded`` over
+    every visible card and ``fused-continuous --devices 1``, on turbofan at
+    2000 rows a group."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import main as serve_main
+
+    out = {}
+    for mode, extra in (("fused-sharded", []), ("fused-continuous", ["--devices", "1"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            s = serve_main(["--pipeline", "turbofan", "--mode", mode, "--device", str(dev),
+                            "--rows-per-group", "2000", "--requests", "32", "--arrival-rate",
+                            "400"] + extra)
+        require(f"mode={mode}" in buf.getvalue() and s["n"] == 32
+                and s["n_devices"] == (torch.cuda.device_count() if not extra else 1),
+                f"launcher {mode}: {buf.getvalue()[-400:]}")
+        out[mode] = {key: s[key] for key in ("n", "n_devices", "throughput_rps",
+                                             "p50_latency_ms", "guarantee_rate")}
+    print(f"sharded launcher: {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def checker_on_card(card) -> dict:
+    """``python -m repro_torch.analysis.check`` in process on the card: no
+    finding and the facts of ``baseline.json``'s cuda section; then
+    ``--mutation-test``, every seeded violation caught."""
+    import contextlib
+    import gc
+    import io
+
+    from repro_torch.analysis import check
+
+    t0 = time.perf_counter()
+    gc.collect()
+    out = {"gc": dict(objects=len(gc.get_objects()), collect_s=time.perf_counter() - t0)}
+    for name, argv in (("check", ["--device", "cuda"]),
+                       ("mutation_test", ["--device", "cuda", "--mutation-test"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = check.main(argv)
+        text = buf.getvalue()
+        (ROOT / "build" / f"chip_smoke_{name}.txt").write_text(text)
+        require(rc == 0, f"checker {name} on the card: rc {rc}: {text[-1500:]}")
+        lines = text.strip().splitlines()
+        out[name] = dict(seconds=time.perf_counter() - t0, last=lines[-1],
+                         by_check=next((x for x in lines if x.startswith("seconds by")), None))
+    require("all seeded mutations caught" in out["mutation_test"]["last"],
+            f"mutation test: {out['mutation_test']['last']}")
+    print(f"sharded checker: {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def sharded_phase(dev, bundles: dict, cfg, batched: dict, card: str) -> dict:
+    """Lanes over a serving mesh at full width (:func:`sharded_batches` on
+    turbofan and sensor_health over every visible card and over 2 and 4
+    shards simulated on the card, sensor_health under "ref" over 2; the
+    timings; :func:`sharded_continuous`), the launcher and the checker.
+    Every kernel of the path must launch in the cases' main paths."""
+    from repro_torch.launch.mesh import make_serving_mesh, simulated_devices
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(key):
+        parts[key] = time.perf_counter() - t0 - sum(parts.values())
+
+    meshes = {"cards": make_serving_mesh(),
+              **{f"sim{d}": make_serving_mesh(devices=simulated_devices(d, dev))
+                 for d in SHARD_COUNTS}}
+    out, launched = {}, collections.Counter()
+    for name in SHARD_PIPELINES:
+        rec = sharded_batches(name, bundles[name], cfg, dev, meshes, card)
+        launched.update({k: v for k, v in rec["launches"].items() if "." not in k})
+        part(name)
+        if name == "turbofan":
+            servers = {"unsharded": rec["base"], "sim2": rec["servers"]["sim2"],
+                       "sim4": rec["servers"]["sim4"]}
+            out["timings"] = sharded_timings(bundles[name], cfg, dev, servers, card)
+            part("timings")
+        out[name] = {k: v for k, v in rec.items() if k not in ("servers", "base")}
+    rec = sharded_batches("sensor_health", bundles["sensor_health"], cfg, dev,
+                          {"sim2": meshes["sim2"]}, card, afc="ref")
+    launched.update({k: v for k, v in rec["launches"].items() if "." not in k})
+    out["sensor_health_ref"] = {k: v for k, v in rec.items() if k not in ("servers", "base")}
+    part("sensor_health_ref")
+    cont = sharded_continuous(bundles["turbofan"],
+                              batched["turbofan"]["tight_fill8"]["captured_requests_per_s"],
+                              dev, meshes["sim2"], card)
+    launched.update(cont["launches"])
+    out["continuous"] = cont
+    part("continuous")
+    for kname in ("prefix_power_sums", "sampled_moments", "masked_select_ranks",
+                  "ensemble_sum", "sobol_points"):
+        require(launched.get(kname, 0) > 0, f"sharded path: {kname} never launched")
+    out["launches"] = dict(launched)
+    out["launcher"] = sharded_launcher(dev, card)
+    part("launcher")
+    out["checker"] = checker_on_card(card)
+    part("checker")
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    print(f"sharded phase: {out['seconds']:.1f} s ({json.dumps(parts)}), launches "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
     return out
 
 
@@ -2643,6 +3006,7 @@ def main() -> int:
                                 ROOT / "build" / "chip_smoke_profile_backbone4096.txt")
     print(f"backbone 1x4096 forward: {json.dumps(backbone)} [{card}]", flush=True)
     cont = continuous_phase(dev, all_bundles, batched, card)
+    shard = sharded_phase(dev, all_bundles, cfg, batched, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -2700,6 +3064,7 @@ def main() -> int:
             launches_batched=batched["launches"].get(kname, 0),
             launches_feature_cache=cache["launches"].get(kname, 0),
             launches_continuous=cont["launches"].get(kname, 0),
+            launches_sharded=shard["launches"].get(kname, 0),
             **({"lane_shapes": lanes[kname]} if kname in lanes else {}),
             **({"host_shapes": host["kernels"][kname]} if kname in host["kernels"] else {}),
         ))
@@ -2726,6 +3091,7 @@ def main() -> int:
                                     "bound_share", "instances")},
         backbone_4096_launches=backbone["flash_attention_launches"],
         launches_continuous=cont["launches"].get("flash_attention", 0),
+        launches_sharded=shard["launches"].get("flash_attention", 0),
     ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
@@ -2742,6 +3108,7 @@ def main() -> int:
     serve["batched"] = batched
     serve["feature_cache"] = cache
     serve["continuous"] = cont
+    serve["sharded"] = shard
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

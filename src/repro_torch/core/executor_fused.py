@@ -57,6 +57,14 @@ device, as it copies ``vals``.  A cache hit therefore builds no slot and
 launches no ``prefix_power_sums``; under ``"ref"`` the tables are ignored
 and the rescan kernels run.
 
+**Lanes over shards** (:func:`shard_lanes_executor`,
+:func:`shard_lanes_state_executor`): a serving mesh's lanes split into
+blocks, one a shard, each shard an executor of its own (model and constants
+on its device) with its own slot, graphs and stream.  Every live shard's
+replays are issued before any shard's flags are read, so the shards' loops
+overlap; a shard whose lanes are done stops.  No program reads another
+shard's tensors.
+
 The QMC grid is fixed per executor, so its normal quantiles and the
 holistic replicate-table indices are computed once at build time: the AMI
 (m, k) and Saltelli (m_sobol, 2k) grids are views of one grid, one
@@ -68,6 +76,7 @@ indicator ``f == ŷ``, as the reference does.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 from types import SimpleNamespace
 from typing import NamedTuple, Sequence
@@ -75,6 +84,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import ExecutableContract, register_contract
 from repro_torch.core import threefry
 from repro_torch.core.guarantee import guarantee_prob
 from repro_torch.core.planner import direction, gamma_abs, initial_plan, next_plan
@@ -116,11 +126,16 @@ __all__ = [
     "PrebuiltChunkedExecutor",
     "PrebuiltFusedExecutor",
     "PrebuiltTables",
+    "ShardedChunkedExecutor",
+    "ShardedFusedExecutor",
+    "ShardedLaneState",
     "build_afc_precompute",
     "build_chunked_executor",
     "build_fused_executor",
     "fused_rows_per_iteration",
     "pipeline_executor_kwargs",
+    "shard_lanes_executor",
+    "shard_lanes_state_executor",
 ]
 
 f32 = torch.float32
@@ -440,7 +455,10 @@ class FusedExecutor:
         Garbage is collected first and the collector is off while the
         graphs are captured: a collection inside a capture may destroy an
         unreachable graph of another slot or executor, and CUDA refuses
-        that while a stream captures (the capture is invalidated).
+        that while a stream captures (the capture is invalidated).  The
+        capture stream is the side stream, on the executor's device: the
+        default capture stream is made once, on whichever device was current
+        then, and a shard on another card cannot capture on it.
         """
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
@@ -457,7 +475,8 @@ class FusedExecutor:
         try:
             for program in s.programs:
                 graph = torch.cuda.CUDAGraph()
-                with build.captured_launches() as recorded, torch.cuda.graph(graph, pool=pool):
+                with build.captured_launches() as recorded, torch.cuda.graph(
+                        graph, pool=pool, stream=side):
                     program(s)
                 graphs.append((graph, recorded))
         finally:
@@ -518,6 +537,10 @@ class FusedExecutor:
         if self.capture and s.graphs is None:
             self._capture(s)
         self._drive(s)
+        return self._result(s, single)
+
+    def _result(self, s, single: bool) -> FusedResult:
+        """Copies of slot ``s``'s lanes' results (the one lane's if ``single``)."""
         used = torch.where(s.active, torch.minimum(s.z, s.n).sum(-1), 0)
         res = FusedResult(y_hat=s.y_hat.clone(), prob=s.prob.clone(), iters=s.it.clone(),
                           z=s.z.clone(), samples_used=used)
@@ -626,6 +649,39 @@ def build_fused_executor(
         gamma=gamma, tau=tau, max_iters=max_iters, afc_backend=afc_backend, holistic=holistic,
         quantiles=quantiles, n_boot=n_boot, boot_seed=boot_seed, approximate=approximate,
         device=device, use_kernel=use_kernel, capture=capture)
+
+
+#: The fixed-lane batch program: one slot a cap bucket, whatever the fill or
+#: the knobs (they are copied into the slot's tensors, which keep their
+#: addresses), no RNG operator inside a program.
+FUSED_CONTRACT = register_contract(ExecutableContract(
+    name="fused",
+    builder="repro_torch.core.executor_fused.build_fused_executor",
+    executables_per_bucket=1,
+    collectives=0,
+    donated=("the (lanes, cap) slot: vals, n, knobs and the loop state",),
+    while_body_flat=True,
+    description=(
+        "fixed-lane batch program (BatchedFusedServer, BiathlonServer): one slot a cap "
+        "bucket, captured once as the z0, Saltelli and step graphs on the card; "
+        "counter-based bootstrap keys gathered by each lane's it"
+    ),
+))
+
+#: The cache-fed twin: the same programs, reading the entries' tables copied
+#: into the slot instead of building them.
+FUSED_PREBUILT_CONTRACT = register_contract(ExecutableContract(
+    name="fused_prebuilt",
+    builder="repro_torch.core.executor_fused.build_fused_executor (prebuilt=True)",
+    executables_per_bucket=1,
+    collectives=0,
+    donated=("the (lanes, cap) slot: vals, n, knobs, tables and the loop state",),
+    while_body_flat=True,
+    description=(
+        "cache-fed fused programs: PrebuiltTables copied into the slot replace the "
+        "precompute; one slot a cap bucket shared by cache hits and misses"
+    ),
+))
 
 
 #: The :class:`LaneState` leaves a chunk changes: a chunk-boundary checkpoint
@@ -903,6 +959,36 @@ def build_chunked_executor(
         capture=capture)
 
 
+#: The continuous table's one-lane refill slot: admitting a request into
+#: any lane replays its graphs; the knobs are data.
+REFILL_CONTRACT = register_contract(ExecutableContract(
+    name="refill",
+    builder="repro_torch.core.executor_fused.build_chunked_executor (refill)",
+    executables_per_bucket=1,
+    collectives=0,
+    donated=("table (LaneState, written in place at a device lane index)",),
+    description=(
+        "one-lane z0 and Saltelli programs and the lane write into the table at a device "
+        "index: admitting a request builds nothing"
+    ),
+))
+
+#: The continuous table's step slot: a chunk replays it at most chunk_iters
+#: times over every lane, in place.
+CHUNK_CONTRACT = register_contract(ExecutableContract(
+    name="chunk",
+    builder="repro_torch.core.executor_fused.build_chunked_executor (chunk)",
+    executables_per_bucket=1,
+    collectives=0,
+    donated=("table (LaneState, written in place at a device lane index)",),
+    while_body_flat=True,
+    description=(
+        "the table's step program, replayed at most chunk_iters times a chunk over every "
+        "occupied lane; flat on the incremental AFC path"
+    ),
+))
+
+
 def build_afc_precompute(
     *,
     k: int,
@@ -982,3 +1068,334 @@ def build_afc_precompute(
         return vals2, n2, PrebuiltTables(ptab2, tables.shift, rindex)
 
     return SimpleNamespace(cold=cold, refresh=refresh)
+
+
+#: The cache's cold precompute runs eagerly and builds no slot (the
+#: reference compiles it once a bucket): 0 slots a bucket.
+AFC_PRECOMPUTE_CONTRACT = register_contract(ExecutableContract(
+    name="afc_precompute",
+    builder="repro_torch.core.executor_fused.build_afc_precompute",
+    executables_per_bucket=0,
+    collectives=0,
+    description=(
+        "once-a-miss precompute (prefix power sums and the holistic rank index) run "
+        "eagerly: its PrebuiltTables stay on the device in the feature cache"
+    ),
+))
+
+
+# ------------------------------------------------------------ lanes over shards
+class _Shard:
+    """One shard of a serving mesh: its executor and, on a card, its own
+    stream and a pinned flag that its lanes' ``want`` is copied into behind
+    an event, so every shard's replays are issued before any flag is read."""
+
+    def __init__(self, exe: FusedExecutor):
+        self.exe = exe
+        self.cuda = exe.device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device=exe.device)
+            self._flag = torch.zeros(1, dtype=torch.bool, pin_memory=True)
+            self._event = torch.cuda.Event()
+
+    def ctx(self):
+        """Issue work on the shard's stream (and device)."""
+        return torch.cuda.stream(self.stream) if self.cuda else contextlib.nullcontext()
+
+    def post(self, s) -> None:
+        """Inside :meth:`ctx`, after a replay: queue the copy of ``any(want)``."""
+        if self.cuda:
+            self._flag.copy_(s.want.any().view(1), non_blocking=True)
+            self._event.record(self.stream)
+
+    def wants(self, s) -> bool:
+        """Whether a lane of ``s`` wants another step, as of the last :meth:`post`."""
+        if not self.cuda:
+            return bool(s.want.any())
+        self._event.synchronize()
+        return bool(self._flag[0])
+
+
+class _Sharded:
+    """What the two sharded executors share: the shards, and the fork and
+    join of their streams around a call.  Every call forks (each shard's
+    stream waits for the current stream of its device) and joins (those
+    current streams, and the first shard's device's, wait for the shards'
+    work), so work queued before or after a call on the current stream is
+    ordered with it: an event recorded there after a call covers the copies
+    a shard made from host memory (``HostStaging.release``)."""
+
+    def __init__(self, executors):
+        self.shards = [_Shard(e) for e in executors]
+        if not self.shards:
+            raise ValueError("a serving mesh needs at least one shard")
+        self._home = self.shards[0].exe.device
+        self._buckets: set[tuple[int, int, int]] = set()
+
+    def _fork(self, shards) -> None:
+        for sh in shards:
+            if sh.cuda:
+                sh.stream.wait_stream(torch.cuda.current_stream(sh.exe.device))
+
+    def _join(self, shards) -> None:
+        for sh in shards:
+            if sh.cuda:
+                for d in {sh.exe.device, self._home}:
+                    torch.cuda.current_stream(d).wait_stream(sh.stream)
+
+    def _lanes_per_shard(self, lanes: int) -> int:
+        if lanes % len(self.shards):
+            raise ValueError(f"{lanes} lanes do not split over {len(self.shards)} shards")
+        return lanes // len(self.shards)
+
+    @property
+    def slots_built(self) -> int:
+        """Slot builds a bucket, counted once over the mesh."""
+        return len(self._buckets)
+
+
+def _block(x, b: slice, dims: int):
+    """Lanes ``b`` of a per-lane argument of ``dims`` dimensions a lane
+    stack has; an argument given once for every lane passes whole."""
+    if x is None:
+        return None
+    t = torch.as_tensor(x)
+    return t[b] if t.dim() == dims else t
+
+
+class ShardedFusedExecutor(_Sharded):
+    """``run(vals (L, k, cap), n, agg_ids, delta, exact, active=None, tau=None,
+    iter_cap=None) -> FusedResult``: :class:`FusedExecutor`'s run with the
+    lanes split over the shards of a mesh, shard i taking lanes
+    ``[i·L/D, (i+1)·L/D)``.  Built by :func:`shard_lanes_executor`.
+
+    A run copies each shard's block of lanes into the shard's own slot
+    (captured once a bucket on a card, on the shard's stream and graph pool),
+    issues every shard's z⁰ replay, reads the ``want`` flags, then replays
+    the Saltelli block and a step on each shard whose lanes still want more
+    and reads their flags again, until no shard does.  A shard whose lanes
+    are done stops: its lanes wait for their own shard only.  Each lane runs
+    the iterations it runs unsharded; the results, on the CPU, are in lane
+    order.  :attr:`slots_built` counts a bucket's build once over the mesh;
+    :attr:`shard_slots_built` each shard's own slots.
+    """
+
+    @property
+    def shard_slots_built(self) -> list[int]:
+        return [sh.exe.slots_built for sh in self.shards]
+
+    def __call__(self, vals, n, agg_ids, delta, exact, active=None, tau=None,
+                 iter_cap=None) -> FusedResult:
+        vals, n, exact = _as(vals, f32), _as(n, torch.int32), _as(exact, f32)
+        lanes, _k, cap = vals.shape
+        per = self._lanes_per_shard(lanes)
+        key = (per, cap, exact.shape[-1])
+        self._fork(self.shards)
+        slots = []
+        for i, sh in enumerate(self.shards):
+            b = slice(i * per, (i + 1) * per)
+            exe = sh.exe
+            with sh.ctx():
+                s = exe._slot(*key)
+                s.vals.copy_(vals[b], non_blocking=True)
+                s.n_in.copy_(n[b])
+                exe._set_knobs(s, _block(agg_ids, b, 2), _block(delta, b, 1), exact[b],
+                               _block(active, b, 1), _block(tau, b, 1), _block(iter_cap, b, 1))
+                if exe.capture and s.graphs is None:
+                    exe._capture(s)
+            slots.append(s)
+        self._buckets.add(key)
+        self._drive(slots)
+        parts = []
+        for sh, s in zip(self.shards, slots):
+            with sh.ctx():
+                parts.append([t.cpu() for t in sh.exe._result(s, False)])
+        self._join(self.shards)
+        return FusedResult(*(torch.cat(col) for col in zip(*parts)))
+
+    def _drive(self, slots) -> None:
+        """Every shard's z⁰; then, on the shards whose lanes want more, the
+        Saltelli block with the first step, then steps, every live shard's
+        replays issued before any flag is read."""
+        pairs = list(zip(self.shards, slots))
+        for sh, s in pairs:
+            with sh.ctx():
+                sh.exe._launch(s, 0)
+                sh.post(s)
+        live = [(sh, s) for sh, s in pairs if sh.wants(s)]
+        first = True
+        for _ in range(self.shards[0].exe.max_iters):
+            if not live:
+                return
+            for sh, s in live:
+                with sh.ctx():
+                    if first:
+                        sh.exe._launch(s, 1)
+                    sh.exe._launch(s, 2)
+                    sh.post(s)
+            first = False
+            live = [(sh, s) for sh, s in live if sh.wants(s)]
+        if live:
+            raise RuntimeError("sharded fused executor: a lane iterated past max_iters")
+
+
+def shard_lanes_executor(build, mesh) -> ShardedFusedExecutor:
+    """Data-parallel lanes over a serving mesh (``launch/mesh.py``).
+
+    ``build(device) -> FusedExecutor`` makes one shard's executor, with the
+    model and every constant on that device (the caller replicates them);
+    it is called once a shard, in mesh order.  Every lane is an independent
+    loop over its own slot, so no program reads another shard's tensors and
+    nothing crosses between devices on the hot path.  The lane count of a
+    run must split evenly over the shards.
+    """
+    return ShardedFusedExecutor([build(d) for d in mesh.devices])
+
+
+class ShardedLaneState:
+    """A continuous lane table split over the shards of a mesh: ``shards[i]``
+    is shard i's :class:`LaneState` of ``L/D`` lanes, global lanes
+    ``[i·L/D, (i+1)·L/D)``.  ``readback``, ``snapshot``, ``restore`` and
+    ``clear_lanes`` split and join by global lane, each shard's part in
+    place."""
+
+    def __init__(self, shards: Sequence[LaneState]):
+        self.shards = list(shards)
+        self.per = int(self.shards[0].z.shape[0])
+
+    @property
+    def lanes(self) -> int:
+        return self.per * len(self.shards)
+
+    def locate(self, lane: int) -> tuple[int, int]:
+        """``(shard, row)``: the shard whose table holds global ``lane``, and
+        the lane's row in it."""
+        i, row = divmod(int(lane), self.per)
+        if not 0 <= i < len(self.shards):
+            raise ValueError(f"lane {lane} outside 0..{self.lanes - 1}")
+        return i, row
+
+    def _joined(self, parts: list[dict]) -> dict:
+        return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+
+    def readback(self) -> dict:
+        return self._joined([t.readback() for t in self.shards])
+
+    def snapshot(self) -> dict[str, np.ndarray]:
+        return self._joined([t.snapshot() for t in self.shards])
+
+    def restore(self, ckpt: dict[str, np.ndarray]) -> None:
+        for i, t in enumerate(self.shards):
+            b = slice(i * self.per, (i + 1) * self.per)
+            t.restore({key: v[b] for key, v in ckpt.items()})
+
+    def clear_lanes(self, lanes) -> None:
+        rows: dict[int, list[int]] = {}
+        for lane in lanes:
+            i, row = self.locate(lane)
+            rows.setdefault(i, []).append(row)
+        for i, r in rows.items():
+            self.shards[i].clear_lanes(r)
+
+
+class ShardedChunkedExecutor(_Sharded):
+    """:class:`ChunkedExecutor` over the shards of a mesh, for
+    ``ContinuousBatchedServer(mesh=)``.  Built by
+    :func:`shard_lanes_state_executor`.
+
+    ``new_table(lanes, cap, e) -> ShardedLaneState``: one ``(lanes/D, cap)``
+    table a shard, each with its own one-lane refill slot (captured on the
+    shard's stream).  ``refill(table, lane, ...)`` runs only on the shard that
+    owns ``lane``: the reference runs the one-lane init on every device and
+    masks the write to the owner's rows, which gives the same table with D
+    times the work.  ``chunk(table)`` reads each shard's flags and replays
+    the step of every shard whose lanes want more, at most ``chunk_iters``
+    times, all live shards' replays issued before any flag is read.
+    :attr:`slots_built` and :attr:`tables_built` count a bucket's refill slot
+    and table once over the mesh; :attr:`shard_slots_built` counts both on
+    each shard.
+    """
+
+    def __init__(self, executors):
+        super().__init__(executors)
+        self.chunk_iters = self.shards[0].exe.chunk_iters
+        self._tables: dict[tuple[int, int, int], ShardedLaneState] = {}
+
+    @property
+    def tables_built(self) -> int:
+        return len(self._tables)
+
+    @property
+    def shard_slots_built(self) -> list[int]:
+        return [sh.exe.slots_built + sh.exe.tables_built for sh in self.shards]
+
+    def new_table(self, lanes: int, cap: int, e: int) -> ShardedLaneState:
+        per = self._lanes_per_shard(lanes)
+        key = (lanes, cap, e)
+        t = self._tables.get(key)
+        self._fork(self.shards)
+        if t is None:
+            parts = []
+            for sh in self.shards:
+                with sh.ctx():
+                    parts.append(sh.exe.new_table(per, cap, e))
+            t = self._tables[key] = ShardedLaneState(parts)
+            self._buckets.add((1, cap, e))
+        else:
+            for sh in self.shards:
+                with sh.ctx():
+                    sh.exe.new_table(per, cap, e)   # resets the shard's table in place
+        self._join(self.shards)
+        return t
+
+    def refill(self, t: ShardedLaneState, lane: int, vals, n, agg_ids, delta, exact, tau,
+               iter_cap) -> None:
+        i, row = t.locate(lane)
+        sh = self.shards[i]
+        self._fork([sh])
+        with sh.ctx():
+            sh.exe.refill(t.shards[i], row, vals, n, agg_ids, delta, exact, tau, iter_cap)
+        self._join([sh])
+
+    def chunk(self, t: ShardedLaneState) -> ShardedLaneState:
+        pairs = list(zip(self.shards, t.shards))
+        self._fork(self.shards)
+        for sh, part in pairs:
+            with sh.ctx():
+                sh.post(part)
+        live = [(sh, part) for sh, part in pairs if sh.wants(part)]
+        for _ in range(self.chunk_iters):
+            if not live:
+                break
+            for sh, part in live:
+                with sh.ctx():
+                    sh.exe._launch(part, 0)
+                    sh.post(part)
+            live = [(sh, part) for sh, part in live if sh.wants(part)]
+        self._join(self.shards)
+        return t
+
+
+def shard_lanes_state_executor(build, mesh) -> ShardedChunkedExecutor:
+    """Lane sharding of the continuous table: ``build(device) ->
+    ChunkedExecutor`` makes one shard's executor (model and constants on
+    that device), called once a shard in mesh order.  As with
+    :func:`shard_lanes_executor`, no program reads another shard's tensors:
+    admitting into a lane touches its owner's table only."""
+    return ShardedChunkedExecutor([build(d) for d in mesh.devices])
+
+
+#: Lanes over a mesh: each shard's programs read only that shard's tensors,
+#: and a bucket is one slot on every shard, whatever the shard count.
+SHARDED_LANES_CONTRACT = register_contract(ExecutableContract(
+    name="sharded_lanes",
+    builder="repro_torch.core.executor_fused.shard_lanes_executor",
+    executables_per_bucket=1,
+    collectives=0,
+    donated=("each shard's (lanes/D, cap) slot: vals, n, knobs and the loop state",),
+    while_body_flat=True,
+    description=(
+        "fixed-lane batch programs over a 1-D ('lanes',) mesh: one executor, slot and "
+        "stream a shard, no tensor read across shards; one slot a bucket on every shard"
+    ),
+))

@@ -12,13 +12,16 @@ Modes:
   fused-batched     arrival-driven runtime: Poisson arrivals -> request
                     queue -> max-wait/max-size admission -> fixed-lane
                     batches (serving/runtime.py)
+  fused-sharded     fused-batched with the lanes sharded over a 1-D mesh of
+                    ``--devices`` shards (launch/mesh.py; default: every
+                    visible card).  With ``--device cpu`` the shards are
+                    simulated on the CPU (``simulated_devices``), as they
+                    may be on one card by building the mesh in code
   fused-continuous  continuous batching: a persistent lane table advanced
                     ``--chunk-iters`` planner iterations per chunk, lanes
                     whose request is done refilled from the queue at chunk
                     boundaries (serving/continuous.py); --max-wait-ms does
-                    not apply
-  fused-sharded     lanes sharded over several cards: not ported yet, raises
-                    (as does --devices above 1; ROADMAP Queue 1 item 7)
+                    not apply; ``--devices N`` shards the table
 
 ``--median`` serves the appendix-D AVG→MEDIAN variant; ``sensor_health``
 has MEDIAN/QUANTILE features of its own.  On the batched and continuous
@@ -36,6 +39,8 @@ Examples:
       --mode fused-batched --arrival-rate 80 --slo-ms 250 --degrade --fault-profile spikes
   PYTHONPATH=src python -m repro_torch.launch.serve --pipeline sensor_health \\
       --mode fused-continuous --arrival-rate 80 --batch-size 8 --chunk-iters 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --pipeline turbofan \\
+      --mode fused-sharded --device cpu --devices 2 --rows-per-group 2000
   PYTHONPATH=src python -m repro_torch.launch.serve --pipeline turbofan --mode host \\
       --device cpu --rows-per-group 2000
 """
@@ -52,6 +57,7 @@ from repro_torch.data.synthetic import (
     poisson_arrivals,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_serving_mesh, simulated_devices
 from repro_torch.serving import (
     BatchedFusedServer,
     BiathlonServer,
@@ -82,7 +88,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", choices=MODES, default="host")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--devices", type=int, default=None,
-                    help="cards to shard the lanes over; only 1 is ported")
+                    help="shards of the serving mesh for fused-sharded (default: every "
+                    "visible card) and fused-continuous (default: unsharded); simulated "
+                    "on the CPU with --device cpu; --batch-size must be divisible by it")
     ap.add_argument("--chunk-iters", type=int, default=4,
                     help="planner iterations per chunk (fused-continuous)")
     ap.add_argument("--median", action="store_true",
@@ -160,7 +168,8 @@ def _continuous(srv, bundle, cfg, args, delta):
         server, slo_s=None if args.slo_ms is None else args.slo_ms / 1e3, controller=controller)
     stats = runtime.run(arrivals, warmup=False)
     print(f"[serve] {args.pipeline} mode={args.mode} rate={args.arrival_rate:.1f}rps "
-          f"lanes={args.batch_size} device={srv.device} chunk_iters={args.chunk_iters} "
+          f"lanes={args.batch_size} device={srv.device} devices={srv.n_devices} "
+          f"chunk_iters={args.chunk_iters} "
           f"delta={delta:.4f} slo={args.slo_ms}ms degrade={args.degrade} "
           f"faults={args.fault_profile}")
     return stats.summary()
@@ -190,7 +199,8 @@ def _batched(srv, bundle, cfg, args, delta):
         slo_s=None if args.slo_ms is None else args.slo_ms / 1e3, controller=controller)
     stats = runtime.run(arrivals)
     print(f"[serve] {args.pipeline} mode={args.mode} rate={args.arrival_rate:.1f}rps "
-          f"lanes={args.batch_size} device={srv.device} max_wait={args.max_wait_ms:.0f}ms "
+          f"lanes={args.batch_size} device={srv.device} devices={srv.n_devices} "
+          f"max_wait={args.max_wait_ms:.0f}ms "
           f"delta={delta:.4f} slo={args.slo_ms}ms degrade={args.degrade} "
           f"faults={args.fault_profile}")
     return stats.summary()
@@ -200,10 +210,8 @@ def main(argv=None) -> dict:
     """Parse ``argv``, serve, print the §4 table; returns the summary printed."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.mode == "fused-sharded" or (args.devices is not None and args.devices > 1):
-        raise NotImplementedError(
-            "repro_torch.launch.serve: lanes sharded over several cards (--mode fused-sharded, "
-            "--devices > 1) are not ported yet (ROADMAP Queue 1 item 7)")
+    if args.devices is not None and args.mode not in ("fused-sharded", "fused-continuous"):
+        ap.error("--devices shards the lanes of --mode fused-sharded or fused-continuous")
     if args.fault_profile == "poison" and args.mode != "fused-continuous":
         ap.error("--fault-profile poison wrecks a lane's carry at a chunk boundary; "
                  "use --mode fused-continuous")
@@ -217,14 +225,22 @@ def main(argv=None) -> dict:
                          m=args.m, m_sobol=max(args.m // 4, 64))
     delta = cfg.delta if cfg.delta is not None else bundle.pipeline.delta_default
 
+    mesh = None
+    if args.mode == "fused-sharded" or args.devices is not None:
+        if dev.type == "cpu":
+            mesh = make_serving_mesh(devices=simulated_devices(args.devices or 1, dev))
+        else:
+            mesh = make_serving_mesh(args.devices)
+    # with a mesh the shards' devices are the mesh's
+    on = dict(device=dev) if mesh is None else dict(mesh=mesh)
     if args.mode == "fused-continuous":
         srv = ContinuousBatchedServer(bundle, cfg, batch_size=args.batch_size,
                                       chunk_iters=args.chunk_iters, cache_size=args.cache_size,
-                                      device=dev)
+                                      **on)
         summary = _continuous(srv, bundle, cfg, args, delta)
-    elif args.mode == "fused-batched":
+    elif args.mode in ("fused-batched", "fused-sharded"):
         srv = BatchedFusedServer(bundle, cfg, batch_size=args.batch_size,
-                                 cache_size=args.cache_size, device=dev)
+                                 cache_size=args.cache_size, **on)
         summary = _batched(srv, bundle, cfg, args, delta)
     else:
         srv = BiathlonServer(bundle, cfg, mode=args.mode, cache_size=args.cache_size, device=dev)
@@ -239,6 +255,7 @@ def main(argv=None) -> dict:
         _print_table({f"cache_{k}": v for k, v in cache.stats.items()})
     if args.mode != "host":
         print(f"  {'slots_built':24s} {srv.compile_count} for buckets {srv.compiled_buckets}")
+        srv.check_compile_contract()
     return summary
 
 

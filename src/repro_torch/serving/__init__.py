@@ -1,5 +1,6 @@
 """Serving front ends of the port: one request at a time, a batch of lanes, a
-lane table with continuous batching, and the arrival-driven runtimes over them."""
+lane table with continuous batching (either sharded over a mesh), and the
+arrival-driven runtimes over them."""
 from repro_torch.serving.batched import (
     BatchedFusedServer,
     BatchResult,
@@ -9,6 +10,7 @@ from repro_torch.serving.batched import (
     lane_request_inputs,
     sanitize_lane_inputs,
     straggler_report,
+    validate_serving_mesh,
 )
 from repro_torch.serving.continuous import ContinuousBatchedServer
 from repro_torch.serving.degrade import (
@@ -70,5 +72,6 @@ __all__ = [
     "sanitize_lane_inputs",
     "scramble_chunk_carry",
     "straggler_report",
+    "validate_serving_mesh",
     "validate_tiers",
 ]

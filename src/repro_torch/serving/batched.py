@@ -1,6 +1,6 @@
 """Batched Biathlon serving: many concurrent requests in one fused executor run.
 
-Port of ``repro/serving/batched.py`` (unsharded).  A batch's
+Port of ``repro/serving/batched.py``.  A batch's
 requests are the lanes of the fused executor (``core/executor_fused.py``):
 each lane carries its own sample buffers, group sizes, exact features and
 knobs, and stops on its own inside the shared loop, which runs until every
@@ -20,6 +20,11 @@ So the executor builds one slot per cap bucket: on the card, one capture of
 its three CUDA graphs (``compile_count``), whatever the fill or the knobs.
 ``straggler_report`` makes the batching trade measurable.
 
+With a ``mesh`` (``launch/mesh.py``) the lanes split over its shards
+(``executor_fused.shard_lanes_executor``): lane ``i`` runs on shard ``i //
+(batch_size / D)``, each shard with its own executor, slot, graphs and
+stream, and a lane waits only for the lanes of its own shard.
+
 A batch's prefix buffers are gathered from the store into a pinned host
 buffer (one per cap bucket, ``data/store.HostStaging``) and copied to the
 card asynchronously.  With ``cache_size`` they come, with their AFC
@@ -29,12 +34,19 @@ from the host.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.executor_fused import build_fused_executor, pipeline_executor_kwargs
+from repro_torch.analysis.contracts import assert_compile_contract
+from repro_torch.core.executor_fused import (
+    build_fused_executor,
+    pipeline_executor_kwargs,
+    shard_lanes_executor,
+)
 from repro_torch.core.pipeline import make_fused_model_fn
 from repro_torch.data.store import HostStaging, bucket_size
 from repro_torch.device import resolve_device
@@ -49,6 +61,7 @@ __all__ = [
     "lane_request_inputs",
     "sanitize_lane_inputs",
     "straggler_report",
+    "validate_serving_mesh",
 ]
 
 
@@ -88,6 +101,57 @@ def sanitize_lane_inputs(vals, exact, *, policy: str, where: str):
         buf[bad] = 0.0
         out.append(buf)
     return tuple(out)
+
+
+def validate_serving_mesh(mesh, lanes: int) -> int:
+    """Validate a serving mesh against a fixed lane count; returns its size.
+
+    Shared by the fixed-lane and continuous servers, with the reference's
+    rules: the mesh is 1-D, its axis is named ``lanes``, and it divides the
+    lane count evenly.  ``None`` means unsharded (returns 1).
+    """
+    if mesh is None:
+        return 1
+    if not hasattr(mesh, "devices"):
+        raise TypeError(f"a serving mesh has devices and axis_names; got {type(mesh).__name__} "
+                        "(build one with launch.mesh.make_serving_mesh)")
+    devices = np.asarray(mesh.devices, dtype=object)
+    if devices.ndim != 1:
+        raise ValueError(f"serving mesh must be 1-D over 'lanes', got shape {devices.shape}")
+    names = tuple(getattr(mesh, "axis_names", ()))
+    if names and names != ("lanes",):
+        raise ValueError(f"serving mesh axis must be named 'lanes', got {names}; build it with "
+                         "launch.mesh.make_serving_mesh")
+    n_devices = int(devices.size)
+    if lanes % n_devices != 0:
+        raise ValueError(f"batch_size {lanes} must be divisible by the mesh's {n_devices} devices")
+    return n_devices
+
+
+def serving_devices(mesh, device) -> list[torch.device]:
+    """The shards' devices (each resolved, so a card that is missing raises):
+    the mesh's, or ``[device]`` without a mesh.  With a mesh ``device`` must
+    be left out."""
+    if mesh is None:
+        return [resolve_device(device)]
+    if device is not None:
+        raise ValueError("pass the devices in the mesh, not device=, when a mesh is given")
+    return [resolve_device(d) for d in mesh.devices]
+
+
+def pipelines_on(pipeline, devices) -> dict:
+    """The pipeline with its model on each distinct device: the pipeline
+    itself, its model moved, on the first; a copy with a deep copy of the
+    model on every other, made once.  Shards on one device share it (it is
+    only read)."""
+    out = {}
+    for d in devices:
+        if d not in out:
+            p = pipeline if not out else dataclasses.replace(
+                pipeline, model=copy.deepcopy(pipeline.model))
+            p.model.to(d)
+            out[d] = p
+    return out
 
 
 def gather_lanes(pipeline, store, requests: list[dict], cap: int, lanes: int,
@@ -283,39 +347,60 @@ class BatchedFusedServer:
     ``cache_size`` turns on the hot-group feature cache (:attr:`cache`, an
     LRU of that many request shapes): every lane's buffers, sizes and AFC
     tables come from it, the executor runs ``prebuilt=True``, and pad lanes
-    reuse the first request's entry.  ``mesh`` (lanes sharded over several
-    cards) is the reference's option that the port has not taken yet: it
-    raises.
+    reuse the first request's entry.
+
+    ``mesh`` (a 1-D ``("lanes",)`` mesh, ``launch.mesh.make_serving_mesh``)
+    shards the lanes over its devices: lane ``i`` runs on shard ``i //
+    (batch_size / D)`` with the model copied once onto each distinct
+    device, and no program reads another shard's tensors.  A cap bucket is
+    still one slot on every shard, whatever the fill or the shard count
+    (``compile_count``; ``shard_compile_counts`` per shard).  A shard of L/D
+    lanes gives each lane the plan and iterations it gets unsharded (a
+    1-shard mesh is the unsharded server, bit for bit); ŷ and prob may round
+    apart by lane count.  With a mesh, ``device`` is left out and
+    ``cache_size`` raises, as in the reference.  :attr:`contract` names the
+    registered contract(s) ``check_compile_contract`` asserts.
     """
 
     def __init__(self, bundle, config, batch_size: int = 8, max_cap: int | None = None,
                  mesh=None, afc_backend: str = "auto", cache_size: int | None = None,
                  sanitize: str = "reject", *, device=None, use_kernel: bool = True,
                  capture: bool | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchedFusedServer(mesh=...): lanes sharded over several cards are not "
-                "ported yet (ROADMAP Queue 1 item 7)")
         if sanitize not in ("reject", "clamp"):
             raise ValueError(f"sanitize must be 'reject' or 'clamp', got {sanitize!r}")
-        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.n_devices = validate_serving_mesh(mesh, self.batch_size)
+        if cache_size is not None and mesh is not None:
+            raise ValueError("cache_size and mesh are mutually exclusive: cached lanes stack "
+                             "cache entries of one device, sharded lanes live on their shards")
+        devices = serving_devices(mesh, device)
+        self.device = devices[0]
+        self.mesh = mesh
         self.bundle = bundle
         self.config = config
-        self.batch_size = int(batch_size)
         self.sanitize = sanitize
-        self.n_devices = 1
+        if cache_size is not None:
+            self.contract = ("fused_prebuilt", "afc_precompute")
+        elif mesh is not None:
+            self.contract = ("sharded_lanes",)
+        else:
+            self.contract = ("fused",)
         p = bundle.pipeline
-        p.model.to(self.device)
+        on = pipelines_on(p, devices)
         feat_kwargs = pipeline_executor_kwargs(p.agg_features, self.device)
         self._agg_ids = feat_kwargs.pop("agg_ids")
-        self._run = build_fused_executor(
-            make_fused_model_fn(p, self.device, use_kernel=use_kernel), k=p.k, task=p.task,
-            n_classes=max(p.n_classes, 2), m=config.m, m_sobol=config.m_sobol,
-            alpha=config.alpha, gamma=config.gamma, tau=config.tau,
-            max_iters=config.max_iters, n_boot=config.n_bootstrap, afc_backend=afc_backend,
-            device=self.device, use_kernel=use_kernel, capture=capture,
-            prebuilt=cache_size is not None, **feat_kwargs,
-        )
+
+        def build(d):
+            return build_fused_executor(
+                make_fused_model_fn(on[d], d, use_kernel=use_kernel), k=p.k, task=p.task,
+                n_classes=max(p.n_classes, 2), m=config.m, m_sobol=config.m_sobol,
+                alpha=config.alpha, gamma=config.gamma, tau=config.tau,
+                max_iters=config.max_iters, n_boot=config.n_bootstrap,
+                afc_backend=afc_backend, device=d, use_kernel=use_kernel, capture=capture,
+                prebuilt=cache_size is not None, **feat_kwargs,
+            )
+
+        self._run = build(self.device) if mesh is None else shard_lanes_executor(build, mesh)
         self._staging = HostStaging(self.device)
         self.cache: FeatureCache | None = None
         if cache_size is not None:
@@ -340,8 +425,18 @@ class BatchedFusedServer:
     @property
     def compile_count(self) -> int:
         """Slots the executor built (on the card: captures of its three
-        graphs) — must equal ``len(compiled_buckets)``."""
+        graphs), a bucket built on every shard counted once."""
         return self._run.slots_built
+
+    @property
+    def shard_compile_counts(self) -> list[int]:
+        """Each shard's own slot count (empty without a mesh)."""
+        return [] if self.mesh is None else self._run.shard_slots_built
+
+    def check_compile_contract(self, *, buckets=None) -> None:
+        """Assert the slot counts against :attr:`contract` (one slot a cap
+        bucket, on every shard)."""
+        assert_compile_contract(self, self.contract, buckets=buckets)
 
     def batch_cap(self, requests: list[dict]) -> int:
         """Power-of-two bucket over THIS batch's largest group."""

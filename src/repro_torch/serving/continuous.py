@@ -1,6 +1,6 @@
 """Continuous batching: a lane table served by the chunked fused executor.
 
-Port of ``repro/serving/continuous.py`` (unsharded).  The fixed-lane server
+Port of ``repro/serving/continuous.py``.  The fixed-lane server
 (``serving/batched.py``) holds every lane of a batch until its slowest
 request is done, the waste ``straggler_report`` measures.  Here the
 executor runs at most ``chunk_iters`` planner iterations per dispatch over
@@ -21,6 +21,12 @@ captured once as CUDA graphs):
 * **table** — the ``(lanes, cap)`` slot whose step program a chunk replays,
   at most ``chunk_iters`` times, until no lane wants more.
 
+With a ``mesh`` (``launch/mesh.py``) the table splits over its shards
+(``executor_fused.shard_lanes_state_executor``): each shard holds ``L/D``
+lanes with its own refill slot, an admission runs on the lane's owner only,
+and a chunk replays every shard's step on the shard's own stream.  Each
+shard builds two slots a bucket.
+
 The server owns the executor and the buffer assembly; the caller owns the
 table and the lane bookkeeping: ``new_table`` → (``admit`` |
 ``run_chunk``)* → ``readback``.  One table serves one cap bucket (the
@@ -31,11 +37,21 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.executor_fused import build_chunked_executor, pipeline_executor_kwargs
+from repro_torch.analysis.contracts import assert_compile_contract
+from repro_torch.core.executor_fused import (
+    build_chunked_executor,
+    pipeline_executor_kwargs,
+    shard_lanes_state_executor,
+)
 from repro_torch.core.pipeline import make_fused_model_fn
 from repro_torch.data.store import HostStaging, bucket_size
-from repro_torch.device import resolve_device
-from repro_torch.serving.batched import lane_request_inputs, sanitize_lane_inputs
+from repro_torch.serving.batched import (
+    lane_request_inputs,
+    pipelines_on,
+    sanitize_lane_inputs,
+    serving_devices,
+    validate_serving_mesh,
+)
 from repro_torch.serving.feature_cache import FeatureCache, pipeline_feature_cache
 
 __all__ = ["ContinuousBatchedServer"]
@@ -52,39 +68,52 @@ class ContinuousBatchedServer:
     ``cache_size`` serves every admission from the hot-group feature cache:
     the entry's device-resident buffers and AFC tables are copied into the
     refill slot, and a hit gathers nothing from the host and launches no
-    ``prefix_power_sums``.  ``mesh`` (a table sharded over several cards) is
-    the reference's option that the port has not taken yet: it raises.
+    ``prefix_power_sums``.  ``mesh`` shards the table's lanes over its
+    devices as on ``BatchedFusedServer`` (``device`` left out, ``cache_size``
+    raises); ``table`` is then a ``ShardedLaneState`` and every method below
+    splits and joins by global lane.  :attr:`contract` names the registered
+    contracts ``check_compile_contract`` asserts (refill + chunk).
     """
 
     def __init__(self, bundle, config, batch_size: int = 8, chunk_iters: int = 4,
                  max_cap: int | None = None, mesh=None, afc_backend: str = "auto",
                  cache_size: int | None = None, sanitize: str = "reject", *, device=None,
                  use_kernel: bool = True, capture: bool | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatchedServer(mesh=...): a lane table sharded over several cards is "
-                "not ported yet (ROADMAP Queue 1 item 7)")
         if sanitize not in ("reject", "clamp"):
             raise ValueError(f"sanitize must be 'reject' or 'clamp', got {sanitize!r}")
-        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.n_devices = validate_serving_mesh(mesh, self.batch_size)
+        if cache_size is not None and mesh is not None:
+            raise ValueError("cache_size and mesh are mutually exclusive: cached admissions "
+                             "copy cache entries of one device, a sharded table lives on its "
+                             "shards")
+        devices = serving_devices(mesh, device)
+        self.device = devices[0]
+        self.mesh = mesh
         self.bundle = bundle
         self.config = config
-        self.batch_size = int(batch_size)
         self.chunk_iters = int(chunk_iters)
         self.sanitize = sanitize
-        self.n_devices = 1
+        self.contract = ("refill", "chunk", "afc_precompute") if cache_size is not None \
+            else ("refill", "chunk")
         p = bundle.pipeline
-        p.model.to(self.device)
+        on = pipelines_on(p, devices)
         feat_kwargs = pipeline_executor_kwargs(p.agg_features, self.device)
         self._agg_ids = feat_kwargs.pop("agg_ids")
-        self._exe = build_chunked_executor(
-            make_fused_model_fn(p, self.device, use_kernel=use_kernel),
-            chunk_iters=self.chunk_iters, k=p.k, task=p.task, n_classes=max(p.n_classes, 2),
-            m=config.m, m_sobol=config.m_sobol, alpha=config.alpha, gamma=config.gamma,
-            tau=config.tau, max_iters=config.max_iters, n_boot=config.n_bootstrap,
-            afc_backend=afc_backend, device=self.device, use_kernel=use_kernel,
-            capture=capture, prebuilt=cache_size is not None, **feat_kwargs,
-        )
+
+        def build(d):
+            return build_chunked_executor(
+                make_fused_model_fn(on[d], d, use_kernel=use_kernel),
+                chunk_iters=self.chunk_iters, k=p.k, task=p.task,
+                n_classes=max(p.n_classes, 2), m=config.m, m_sobol=config.m_sobol,
+                alpha=config.alpha, gamma=config.gamma, tau=config.tau,
+                max_iters=config.max_iters, n_boot=config.n_bootstrap, afc_backend=afc_backend,
+                device=d, use_kernel=use_kernel, capture=capture,
+                prebuilt=cache_size is not None, **feat_kwargs,
+            )
+
+        self._exe = build(self.device) if mesh is None else shard_lanes_state_executor(
+            build, mesh)
         self._staging = HostStaging(self.device)
         self.cache: FeatureCache | None = None
         if cache_size is not None:
@@ -113,6 +142,16 @@ class ContinuousBatchedServer:
         table slot of each cap bucket, 2 per bucket after its first table,
         whatever is admitted, restored or cleared later."""
         return self.refill_compiles + self.chunk_compiles + self.cold_compiles
+
+    @property
+    def shard_compile_counts(self) -> list[int]:
+        """Each shard's own slots (refill and table; empty without a mesh)."""
+        return [] if self.mesh is None else self._exe.shard_slots_built
+
+    def check_compile_contract(self, *, buckets=None) -> None:
+        """Assert the slot counts against :attr:`contract`: the refill slot
+        and the table slot of each cap bucket, on every shard."""
+        assert_compile_contract(self, self.contract, buckets=buckets)
 
     @property
     def refill_compiles(self) -> int:

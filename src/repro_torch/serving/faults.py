@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.executor_fused import CHUNK_CARRY_LEAVES
+from repro_torch.core.executor_fused import CHUNK_CARRY_LEAVES, ShardedLaneState
 from repro_torch.serving.feature_cache import entry_checksum
 
 __all__ = [
@@ -154,28 +154,35 @@ class FaultyServer:
 def scramble_chunk_carry(table):
     """Wreck a lane table's carry in place (what a dead dispatch leaves):
     every :data:`~repro_torch.core.executor_fused.CHUNK_CARRY_LEAVES` leaf
-    of every lane to garbage (NaN floats, -1 integers, cleared flags).  The
-    big buffers are untouched.  Returns the table."""
-    for name in CHUNK_CARRY_LEAVES:
-        leaf = getattr(table, name)
-        if leaf.dtype == torch.bool:
-            leaf.fill_(False)
-        elif leaf.dtype.is_floating_point:
-            leaf.fill_(float("nan"))
-        else:
-            leaf.fill_(-1)
+    of every lane to garbage (NaN floats, -1 integers, cleared flags), on
+    every shard of a sharded table.  The big buffers are untouched.  Returns
+    the table."""
+    for part in getattr(table, "shards", (table,)):
+        for name in CHUNK_CARRY_LEAVES:
+            leaf = getattr(part, name)
+            if leaf.dtype == torch.bool:
+                leaf.fill_(False)
+            elif leaf.dtype.is_floating_point:
+                leaf.fill_(float("nan"))
+            else:
+                leaf.fill_(-1)
     return table
 
 
 def poison_lane_carry(table, lane: int):
     """Corrupt ONE lane's carry in place (a partial-write fault): ``y_hat``
     and ``prob`` NaN, ``z = -1`` (out of range, and a regression of the
-    monotone plan).  The runtime's health check must quarantine exactly
-    this lane and leave the others bitwise as they are.  Returns the
-    table."""
-    table.y_hat[lane] = float("nan")
-    table.prob[lane] = float("nan")
-    table.z[lane] = -1
+    monotone plan).  On a sharded table the global lane is written in its
+    owner's table (``ShardedLaneState.locate``).  The runtime's health check
+    must quarantine exactly this lane and leave the others bitwise as they
+    are.  Returns the table."""
+    part = table
+    if isinstance(table, ShardedLaneState):
+        shard, lane = table.locate(lane)
+        part = table.shards[shard]
+    part.y_hat[lane] = float("nan")
+    part.prob[lane] = float("nan")
+    part.z[lane] = -1
     return table
 
 

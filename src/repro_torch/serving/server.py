@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import assert_compile_contract
 from repro_torch.core import threefry
 from repro_torch.core.executor import BiathlonConfig, HostLoopExecutor, run_exact
 from repro_torch.core.executor_fused import build_fused_executor, pipeline_executor_kwargs
@@ -126,6 +127,9 @@ class BiathlonServer:
         self._max_cap = None if max_cap is None else bucket_size(max_cap)
         self._caps_seen: set[int] = set()
         self._fused = self.cache = None
+        #: the registered contract(s) of the fused mode's slots
+        self.contract = ("fused_prebuilt", "afc_precompute") if cache_size is not None \
+            else ("fused",)
         p.model.to(self.device)
         if mode == "host":
             self._host = HostLoopExecutor(self.store, cfg, device=self.device,
@@ -167,6 +171,11 @@ class BiathlonServer:
     def compiled_buckets(self) -> list[int]:
         """Cap buckets the fused mode served."""
         return sorted(self._caps_seen)
+
+    def check_compile_contract(self, *, buckets=None) -> None:
+        """Assert the fused mode's slot count against :attr:`contract` (one
+        slot a cap bucket; a cache hit builds none)."""
+        assert_compile_contract(self, self.contract, buckets=buckets)
 
     def serve(self, request: dict, key=None) -> dict:
         """Serve one request.  ``key`` (a threefry key) seeds the host loop's

@@ -179,8 +179,8 @@ def test_batch_edges_and_options():
         srv.serve_batch([{"g": 0}] * 3)
     big = srv.serve_batch([{"g": 9}])
     assert big.cap == 256 and big.sample_frac[0] <= 256 / 900 + 1e-6
-    with pytest.raises(NotImplementedError, match="item 7"):
-        BatchedFusedServer(port, cfg, device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="make_serving_mesh"):
+        BatchedFusedServer(port, cfg, mesh=object())
     vals = np.array([[1.0, np.nan]], np.float32)
     with pytest.raises(ValueError, match="non-finite"):
         sanitize_lane_inputs(vals, np.zeros(1), policy="reject", where="lane 0")

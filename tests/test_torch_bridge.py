@@ -172,12 +172,19 @@ ctl = degrade.DegradationController(degrade.default_tiers(cfg.tau, cfg.max_iters
                                     service_est_s=0.01, lanes=2)
 trace = runtime.ContinuousServingRuntime(storm, slo_s=60.0, controller=ctl).run(
     poisson_arrivals(b.requests, 100.0, n=4, seed=0), warmup=False).summary()
+import repro_torch.analysis.check, repro_torch.analysis.mutations
+from repro_torch.analysis import contracts, program_lint
+from repro_torch.launch.mesh import make_serving_mesh, simulated_devices
+from repro_torch.serving import BatchedFusedServer
+sharded = BatchedFusedServer(b, cfg, batch_size=2, mesh=make_serving_mesh(
+    devices=simulated_devices(2, "cpu"))).serve_batch(b.requests[:2])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
                   "lm_y_hat": lm["y_hat"], "cached": [first, again],
                   "cache": cached.cache.stats, "continuous": trace,
-                  "launch": launch_serve.__name__}}))
+                  "launch": launch_serve.__name__, "sharded": int(sharded.n_devices),
+                  "contracts": sorted(contracts.all_contracts())}}))
 """
 
 
@@ -190,7 +197,9 @@ def test_port_imports_and_serves_without_jax():
     the feature cache, an append into its group and the request again, which
     refreshes the cached entry; a tiny trace through the continuous runtime
     with a chunk failure and the degradation controller; the serve launcher
-    imported) with no ``jax`` and no ``repro.*`` module ever loaded."""
+    imported; the contract checker and its mutations imported; a batch over 2
+    shards simulated on the CPU) with no ``jax`` and no ``repro.*`` module
+    ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
@@ -210,6 +219,8 @@ def test_port_imports_and_serves_without_jax():
     assert trace["n_retries"] == 2
     assert trace["compile_count"] == 0 and trace["n_chunks"] > 0
     assert out["launch"] == "repro_torch.launch.serve"
+    assert out["sharded"] == 2
+    assert {"fused", "sharded_lanes", "refill", "chunk"} <= set(out["contracts"])
 
 
 def _imported_modules(path: Path):
@@ -227,7 +238,7 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert len(files) > 20
     walked = {f.parent.relative_to(port).as_posix() for f in files[:-1]}
     for sub in ("configs", "models/lm", "models/tabular", "optim", "examples", "launch",
-                "kernels/flash_attention", "kernels/sobol"):
+                "kernels/flash_attention", "kernels/sobol", "analysis"):
         assert sub in walked, sub
     for f in files:
         for mod in _imported_modules(f):

@@ -246,8 +246,8 @@ def test_admit_and_chunk_iters_are_validated():
         srv.admit(table, 128, [(0, {"g": 8}, None)])  # a 900-row group
     with pytest.raises(ValueError, match="chunk_iters"):
         ContinuousBatchedServer(port, cfg, chunk_iters=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ContinuousBatchedServer(port, cfg, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="make_serving_mesh"):
+        ContinuousBatchedServer(port, cfg, mesh=object())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if torch.cuda.is_available():
             raise RuntimeError("device='cpu' (a card is present: nothing to check)")

@@ -47,6 +47,7 @@ from repro_torch.kernels.sobol.ops import points, to_uniforms, uniforms
 from repro_torch.kernels.sobol.sobol import MAX_RUN, sobol_points
 from repro_torch.kernels.tree_qmc.ops import predict_sum
 from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum, plan
+from repro_torch.launch.mesh import make_serving_mesh, simulated_devices
 from repro_torch.models.lm import LM
 from repro_torch.models.lm.layers import attention_block
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
@@ -1171,6 +1172,112 @@ def test_lm_backbone_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     err = (outs[True] - outs[False]).abs().max() / outs[False].abs().max()
     assert float(err) < 3e-2
+
+
+# ----------------------------------------------------- lanes over a mesh
+def _close_batches(a, b, tol: float = 1e-5):
+    """Equal plans and iterations, ŷ within tol·max(1, |y|), prob within tol."""
+    assert (a.z == b.z).all() and (a.iters == b.iters).all() and a.cap == b.cap
+    assert (np.abs(a.y_hat - b.y_hat) <= tol * np.maximum(1.0, np.abs(a.y_hat))).all()
+    assert (np.abs(a.prob - b.prob) <= tol).all()
+
+
+def test_one_card_mesh_is_bitwise_the_unsharded_server(dev):
+    """``BatchedFusedServer(mesh=make_serving_mesh())`` over every visible
+    card at fills 8, 3 and 1 with knobs: on one card (one shard) every lane
+    is bitwise the unsharded server's; one slot a bucket on every shard."""
+    bundle, cfg, knobs = _batch_bundle(dev, "turbofan")
+    mesh = make_serving_mesh()
+    base = BatchedFusedServer(bundle, cfg, device=dev)
+    srv = BatchedFusedServer(bundle, cfg, mesh=mesh)
+    for fill in (8, 3, 1):
+        a = base.serve_batch(bundle.requests[:fill], knobs=knobs[:fill])
+        b = srv.serve_batch(bundle.requests[:fill], knobs=knobs[:fill])
+        assert b.n_devices == mesh.size
+        if mesh.size == 1:
+            assert (a.z == b.z).all() and (a.iters == b.iters).all()
+            assert torch.equal(_host_bits(a.y_hat), _host_bits(b.y_hat))
+            assert torch.equal(_host_bits(a.prob), _host_bits(b.prob))
+        else:
+            _close_batches(a, b)
+    srv.check_compile_contract(buckets=[2048])
+    assert srv.shard_compile_counts == [1] * mesh.size
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("name", ["turbofan", "sensor_health"])
+def test_simulated_shards_on_one_card_hold_plans(dev, name, shards):
+    """2 and 4 shards simulated on one card, each with its own executor,
+    slot, graphs and stream: plans and iterations the unsharded server's,
+    ŷ and prob within 1e-5, the same batch twice bitwise; each shard's z⁰
+    replay launches its own ``prefix_power_sums``."""
+    bundle, cfg, knobs = _batch_bundle(dev, name)
+    base = BatchedFusedServer(bundle, cfg, device=dev)
+    srv = BatchedFusedServer(bundle, cfg, mesh=make_serving_mesh(
+        devices=simulated_devices(shards, dev)))
+    for fill in (8, 3, 1):
+        _close_batches(base.serve_batch(bundle.requests[:fill], knobs=knobs[:fill]),
+                       srv.serve_batch(bundle.requests[:fill], knobs=knobs[:fill]))
+    build.reset_launch_counts()
+    a = srv.serve_batch(bundle.requests[:8], knobs=knobs)
+    assert build.LAUNCHES["prefix_power_sums"] == shards
+    b = srv.serve_batch(bundle.requests[:8], knobs=knobs)
+    assert (a.z == b.z).all() and torch.equal(_host_bits(a.y_hat), _host_bits(b.y_hat))
+    assert torch.equal(_host_bits(a.prob), _host_bits(b.prob))
+    streams = {sh.stream.cuda_stream for sh in srv._run.shards}
+    assert len(streams) == shards
+    assert all(s.graphs for sh in srv._run.shards for s in sh.exe._slots.values())
+    srv.check_compile_contract(buckets=[2048])
+
+
+def test_sharded_table_on_one_card_holds_plans(dev):
+    """``ContinuousBatchedServer`` over 2 shards on one card against the
+    unsharded table on the same trace (recycled lanes): plans, iterations
+    and flags equal at every read-back, ŷ and prob within 1e-5; two slots a
+    bucket on every shard."""
+    bundle, cfg, knobs = _batch_bundle(dev, "sensor_health")
+    bundle.requests = bundle.requests + bundle.requests[:4]
+    kw = dict(batch_size=8, chunk_iters=2)
+    a = _table_trace(ContinuousBatchedServer(bundle, cfg, device=dev, **kw), bundle, knobs)
+    srv = ContinuousBatchedServer(bundle, cfg, mesh=make_serving_mesh(
+        devices=simulated_devices(2, dev)), **kw)
+    b = _table_trace(srv, bundle, knobs)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        for key in ("z", "it", "n", "done", "active"):
+            assert (x[key] == y[key]).all(), key
+        assert (np.abs(x["y_hat"] - y["y_hat"]) <= 1e-5 * np.maximum(1, np.abs(x["y_hat"]))).all()
+        assert (np.abs(x["prob"] - y["prob"]) <= 1e-5).all()
+    srv.check_compile_contract()
+    assert srv.shard_compile_counts == [2, 2]
+
+
+def test_captured_replays_hold_no_sync(dev):
+    """Every captured graph of a batched slot, of a 2-shard mesh's slots and
+    of a lane table replays under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.analysis import check
+
+    bundle, cfg, knobs = _batch_bundle(dev, "sensor_health")
+    srv = BatchedFusedServer(bundle, cfg, mesh=make_serving_mesh(
+        devices=simulated_devices(2, dev)))
+    srv.serve_batch(bundle.requests[:8], knobs=knobs)
+    slots = [(f"shard {i}", s) for i, sh in enumerate(srv._run.shards)
+             for s in sh.exe._slots.values()]
+    cont = ContinuousBatchedServer(bundle, cfg, batch_size=8, device=dev)
+    table = cont.new_table(cont.trace_cap(bundle.requests))
+    assert len(slots) == 2 and table.graphs and table.src.graphs
+    assert check.sync_debug_findings(slots + [("table", table), ("refill", table.src)],
+                                     "card") == []
+
+
+def test_checker_on_the_card(dev):
+    """``python -m repro_torch.analysis.check --device cuda`` on turbofan: no
+    finding, the facts of ``baseline.json``'s cuda section; every seeded
+    mutation caught on the card."""
+    from repro_torch.analysis import check
+
+    assert check.main(["--device", "cuda", "--pipelines", "turbofan"]) == 0
+    assert check.run_mutations(dev) == 0
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):

@@ -5,8 +5,11 @@ and prints the paper's §4 table (latency and the guarantee rate; speedup
 over exact for the one-request modes; throughput, queue delay and, for the
 continuous mode, lane occupancy and recycles); the arrival-driven modes
 also with deadlines, the degradation controller, faults (seeds whose first
-call fails or whose first chunk poisons a lane) and the feature cache.  The sharded mode and ``--devices 2`` raise, naming ROADMAP Queue 1
-item 7; the default device is the card, which raises without one.
+call fails or whose first chunk poisons a lane) and the feature cache.  The
+sharded modes refuse what the mesh cannot serve (``--devices`` on a mode
+that has no lanes to shard, a batch that does not split over the shards,
+the cache beside a mesh); ``tests/test_torch_sharded_serving.py`` serves
+them.  The default device is the card, which raises without one.
 """
 import pytest
 import torch
@@ -55,11 +58,16 @@ def test_every_mode_prints_the_section_4_table(mode, extra, keys, capsys):
         assert summary["n_retries"] >= 1
 
 
-@pytest.mark.parametrize("argv", [["--mode", "fused-sharded"],
-                                  ["--mode", "fused-batched", "--devices", "2"]])
-def test_sharded_lanes_raise_naming_the_roadmap_item(argv):
-    with pytest.raises(NotImplementedError, match="item 7"):
+@pytest.mark.parametrize("argv,error", [
+    (["--mode", "fused-sharded", "--devices", "3"], "divisible"),
+    (["--mode", "fused-batched", "--devices", "2"], "--devices shards"),
+], ids=["argv0", "argv1"])
+def test_sharded_lanes_raise_naming_the_roadmap_item(argv, error, capsys):
+    """What the serving mesh refuses: a batch of 8 lanes over 3 shards, and
+    ``--devices`` on a mode without a mesh (an argparse error)."""
+    with pytest.raises((ValueError, SystemExit)) as e:
         main(TINY + argv)
+    assert error in str(e.value) + capsys.readouterr().err
 
 
 def test_the_default_device_is_the_card():
