@@ -178,7 +178,28 @@ Phases (any failure exits non-zero before the result line is printed):
    --devices 1``; ``python -m repro_torch.analysis.check`` on the card (no
    finding, the facts of ``baseline.json``'s cuda section) and its
    ``--mutation-test`` (all nine caught);
-15. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+15. LM serving (``LM.prefill`` / ``decode_step``, the KV cache) for the
+    seven ported configs at full published width, one model on the card
+    at a time: qwen1.5-0.5b, qwen3-8b, qwen3-14b (48 query heads padded
+    from 40 on 8 KV heads), gemma-7b (head dim 256), internvl2-1b (256
+    frontend tokens, 16 query heads padded from 14 on 2), granite-moe-1b-a400m
+    and deepseek-v2-236b (MLA, q/k 192 and v 128; cut to 3 layers: its
+    dense layer and two MoE layers of 160 experts, ≈ 18.5 GB); seeded
+    random weights.  B = 2 prompts of 1024 positions, 16 teacher-forced
+    decode steps (``flash_attention`` first checked and timed at gemma's
+    (2, 16, 1024, 256) and MLA's (2, 128, 1024, 192 / 128) beside its
+    plain version and SDPA), through the kernel and through the plain path (the MoE
+    configs' plain run on the kernel run's expert choices,
+    ``RoutingReplay``): logits and caches within ``STATE_REL_TOL``;
+    ``flash_attention`` once a layer a prefill (the main path of this
+    phase: counts reset just before each prefill), never in decode, its
+    paths by head dim; decode of the last token against the full prefill
+    on the kernel path (one prompt; MoE dropless and sorted), the reference
+    test's tolerance; the capacity guard; granite's sorted MoE backend
+    bitwise run to run and against the einsum backend; parameter, cache
+    and peak bytes; for qwen3-8b and granite the prefill time and decode
+    ms a step at B = 1 and 8;
+16. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -187,6 +208,7 @@ the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -2803,6 +2825,379 @@ def backbone_profile(sc, dev, path: Path) -> dict:
                 top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:6]])
 
 
+# ------------------------------------------------------------------ phase 15
+LM_SERVE_ARCHS = ("qwen1.5-0.5b", "qwen3-8b", "qwen3-14b", "gemma-7b", "internvl2-1b",
+                  "granite-moe-1b-a400m", "deepseek-v2-236b")
+# the one depth cut: 472 GB of bf16 weights at 60 layers; 3 keep the dense
+# layer and two MoE layers (160 experts, top-6, MLA at kv_lora 512)
+LM_SERVE_DEPTH = {"deepseek-v2-236b": 3}
+LM_SERVE_B, LM_SERVE_LEN, LM_SERVE_STEPS = 2, 1024, 16
+LM_SERVE_TIMED = ("qwen3-8b", "granite-moe-1b-a400m")
+LM_DECODE_BATCHES, LM_DECODE_TIMED_STEPS = (1, 8), 32
+# the reference test's prefill/decode consistency tolerance (bf16)
+CONSISTENCY_TOL = dict(rtol=5e-2, atol=5e-1)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def lm_inputs(cfg, dev, b: int, seed: int):
+    """``b`` prompts of ``LM_SERVE_LEN`` positions (the VLM's 256 frontend
+    tokens among them) and ``LM_SERVE_STEPS`` teacher-forced decode tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_front = cfg.n_frontend_tokens if cfg.frontend else 0
+    tokens = torch.randint(0, cfg.vocab, (b, LM_SERVE_LEN - n_front), generator=gen, device=dev)
+    steps = torch.randint(0, cfg.vocab, (LM_SERVE_STEPS, b, 1), generator=gen, device=dev)
+    fe = (torch.randn((b, n_front, cfg.d_model), generator=gen, device=dev)
+          if cfg.frontend else None)
+    return tokens, steps, fe
+
+
+class RoutingReplay:
+    """Patches ``moe._router`` to record the expert choices of one run and
+    hand them, call by call, to a second run, which takes its own gates at
+    those experts (renormalised) and counts the tokens whose own top-k set
+    differs.  A top-k choice within a bf16 rounding of a tie goes either
+    way, and one different expert moves a token's state by a gate's share
+    of an expert's output: two paths that round differently are compared
+    on the same choices, and the count says how many of them their own
+    routers would have changed."""
+
+    def __init__(self):
+        self.calls, self.mode, self.at = [], None, 0
+        self.tokens = self.differing = 0
+
+    def run(self, mode: str):
+        import contextlib
+
+        from repro_torch.models.lm import moe as moe_lib
+
+        @contextlib.contextmanager
+        def patched():
+            orig = moe_lib._router
+
+            def router(p, x_flat, cfg):
+                gates, idx = orig(p, x_flat, cfg)
+                if self.mode == "record":
+                    self.calls.append(idx)
+                    return gates, idx
+                want = self.calls[self.at]
+                self.at += 1
+                self.tokens += idx.shape[0]
+                self.differing += int((idx.sort(-1).values != want.sort(-1).values)
+                                      .any(-1).sum())
+                probs = torch.softmax(x_flat.to(torch.float32) @ p["router"], dim=-1)
+                g = probs.gather(-1, want)
+                return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want
+
+            self.mode = mode
+            moe_lib._router = router
+            try:
+                yield self
+            finally:
+                moe_lib._router = orig
+                self.mode = None
+
+        return patched()
+
+
+def lm_serve_run(lm, params, tokens, steps, fe, max_seq: int) -> dict:
+    """Prefill then teacher-forced decode steps; the flash_attention launches
+    (counts reset just before the prefill) of the prefill and of each step."""
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    logits, cache = lm.prefill(params, tokens, fe, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_launches, paths = build.LAUNCHES["flash_attention"], dict(build.PATHS)
+    out = [logits]
+    for tok in steps:
+        logits, cache = lm.decode_step(params, cache, tok)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return dict(logits=out, cache=cache, prefill_launches=prefill_launches, paths=paths,
+                decode_launches=build.LAUNCHES["flash_attention"] - prefill_launches)
+
+
+def lm_timings(cfg, params, card: str) -> dict:
+    """Prefill of the phase's (B, 1024) prompts (CUDA events, median of 5)
+    and decode ms a step at B = 1 and 8 after 1024-position prompts."""
+    from repro_torch.models.lm import LM
+
+    lm, dev = LM(cfg), params["embed"].device
+    tokens, _, fe = lm_inputs(cfg, dev, LM_SERVE_B, seed=11)
+    max_seq = LM_SERVE_LEN + LM_DECODE_TIMED_STEPS + 1  # one more step is profiled
+    out = {}
+    lm.prefill(params, tokens, fe, max_seq=max_seq)
+    times = []
+    for _ in range(5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        lm.prefill(params, tokens, fe, max_seq=max_seq)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    out["prefill_ms"] = statistics.median(times)
+    out["prefill_tokens"] = LM_SERVE_B * LM_SERVE_LEN
+    for b in LM_DECODE_BATCHES:
+        tokens, _, fe = lm_inputs(cfg, dev, b, seed=12)
+        steps = torch.randint(0, cfg.vocab, (LM_DECODE_TIMED_STEPS, b, 1), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(13))
+        _, cache = lm.prefill(params, tokens, fe, max_seq=max_seq)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(LM_DECODE_TIMED_STEPS + 1)]
+        events[0].record()
+        for i, tok in enumerate(steps):
+            lm.decode_step(params, cache, tok)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        per_step = [a.elapsed_time(z) for a, z in zip(events, events[1:])]
+        out[f"decode_b{b}_ms_per_step"] = statistics.median(per_step)
+        out[f"decode_b{b}_ms_mean"] = sum(per_step) / len(per_step)
+        if b == 1:
+            out["decode_b1_profile"] = decode_profile(lm, params, cache, steps[0], cfg.arch_id)
+        del cache
+    print(f"lm serving {cfg.arch_id} timings: prefill {LM_SERVE_B}x{LM_SERVE_LEN} "
+          f"{out['prefill_ms']:.3f} ms (median of 5); decode "
+          + ", ".join(f"B={b} {out[f'decode_b{b}_ms_per_step']:.3f} ms a step (median, mean "
+                      f"{out[f'decode_b{b}_ms_mean']:.3f}, {LM_DECODE_TIMED_STEPS} steps)"
+                      for b in LM_DECODE_BATCHES) + f"; one B=1 step profiled: "
+          f"{json.dumps(out['decode_b1_profile'])} [{card}]", flush=True)
+    return out
+
+
+def decode_profile(lm, params, cache, tok, arch: str) -> dict:
+    """One decode step under ``torch.profiler``: its host wall time, device
+    busy time, host operators and the device's top entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, device = profile_rows(prof, ROOT / "build" / f"chip_smoke_profile_decode_{arch}.txt")
+    busy_ms = sum(r[0] for r in device) / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                device_launches=sum(r[2] for r in device),
+                host_operators=sum(r[2] for r in rows if r[3] > 0.0 and r[1].startswith("aten::")),
+                top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:5]],
+                top_host=[[k[:40], h / 1e3, c] for _, k, c, h in
+                          sorted(rows, key=lambda r: -r[3])[:5]])
+
+
+def lm_serve_config(arch: str, dev, card: str) -> dict:
+    """One config at full width: kernel path against plain path, prefill /
+    decode consistency, the capacity guard, and for granite the sorted MoE
+    backend run to run and against the einsum backend."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.cache import DECODE_RESERVE
+    from repro_torch.models.lm.moe import dropless
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(arch)
+    rec = dict(arch=arch, family=cfg.family, d_model=cfg.d_model, n_layers=cfg.n_layers)
+    if arch in LM_SERVE_DEPTH:
+        cut = LM_SERVE_DEPTH[arch]
+        print(f"lm serving {arch}: depth cut from {cfg.n_layers} to {cut} layers "
+              f"({cfg.dense_layers} dense, {cut - cfg.dense_layers} MoE); full width", flush=True)
+        rec["depth_cut_from"] = cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=cut)
+        rec["n_layers"] = cut
+    torch.cuda.reset_peak_memory_stats()
+    rec["allocated_before"] = torch.cuda.memory_allocated()  # earlier phases' tensors
+    t0 = time.perf_counter()
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    rec["param_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    rec["params"] = sum(t.numel() for t in leaves)
+    rec["init_s"] = time.perf_counter() - t0
+    max_seq = LM_SERVE_LEN + DECODE_RESERVE
+    tokens, steps, fe = lm_inputs(cfg, dev, LM_SERVE_B, seed=1)
+    runs = {}
+    replay = RoutingReplay()
+    with torch.no_grad():
+        for use_kernel, mode in ((True, "record"), (False, "replay")):
+            with replay.run(mode) if cfg.moe else contextlib.nullcontext():
+                runs[use_kernel] = lm_serve_run(LM(cfg, use_kernel=use_kernel), params, tokens,
+                                                steps, fe, max_seq)
+        kernel, plain = runs[True], runs[False]
+        if cfg.moe:
+            require(replay.at == len(replay.calls), f"{arch}: {replay.at} of "
+                    f"{len(replay.calls)} recorded routings replayed")
+            rec["routing_replayed"] = dict(tokens=replay.tokens, own_choice_differs=replay.differing)
+        require(kernel["prefill_launches"] == cfg.n_layers,
+                f"{arch}: {kernel['prefill_launches']} flash_attention launches in prefill, "
+                f"expected {cfg.n_layers}")
+        require(kernel["decode_launches"] == 0 and plain["prefill_launches"] == 0
+                and plain["decode_launches"] == 0,
+                f"{arch}: flash_attention launched in decode or on the plain path")
+        vocab = cfg.vocab
+        errs = [rel_err(a[:, :vocab], b[:, :vocab])
+                for a, b in zip(kernel["logits"], plain["logits"])]
+        cache_errs = {n: rel_err(kernel["cache"][n], plain["cache"][n])
+                      for n in kernel["cache"] if n != "pos"}
+        for a in kernel["logits"]:
+            require(bool(torch.isfinite(a[:, :vocab]).all()), f"{arch}: logits not finite")
+        require(max(errs) < STATE_REL_TOL and max(cache_errs.values()) < STATE_REL_TOL,
+                f"{arch}: kernel path against plain path: logits {errs}, cache {cache_errs} "
+                f"beyond {STATE_REL_TOL}")
+        require(kernel["cache"]["pos"] == LM_SERVE_LEN + LM_SERVE_STEPS,
+                f"{arch}: cache pos {kernel['cache']['pos']}")
+        if cfg.mla:
+            d, dv = cfg.mla.nope_dim + cfg.mla.rope_dim, cfg.mla.v_dim
+        else:
+            d = dv = cfg.resolved_head_dim
+        rec.update(prefill_logits_rel_err=errs[0], decode_logits_rel_err=max(errs[1:]),
+                   cache_rel_err=cache_errs, flash_attention_launches=kernel["prefill_launches"],
+                   head_dims=[d, dv], paths={n: c for n, c in kernel["paths"].items()
+                                             if n.startswith("flash_attention.")},
+                   cache_bytes=sum(t.numel() * t.element_size()
+                                   for n, t in kernel["cache"].items() if n != "pos"))
+        del runs, kernel, plain
+
+        # prefill / decode consistency on the kernel path, one prompt; MoE
+        # dropless and sorted (an expert's capacity follows the token count,
+        # and the einsum groups do not divide 1023 tokens)
+        ccfg = dropless(cfg) if cfg.moe else cfg
+        lm = LM(ccfg, moe_backend="sorted" if cfg.moe else "einsum")
+        t1, _, fe1 = lm_inputs(cfg, dev, 1, seed=2)
+        full, _ = lm.prefill(params, t1, fe1)
+        _, cache = lm.prefill(params, t1[:, :-1], fe1)
+        step, _ = lm.decode_step(params, cache, t1[:, -1:])
+        full, step = full[:, :vocab], step[:, :vocab]
+        gap = float((step - full).abs().max())
+        require(torch.allclose(step, full, **CONSISTENCY_TOL),
+                f"{arch}: decode(prefill(t[:-1]), t[-1]) against prefill(t): max |diff| {gap}")
+        rec["consistency_max_abs_diff"] = gap
+        del cache
+
+        # the capacity guard: a cache of 9 positions after an 8-token prompt
+        lm = LM(cfg)
+        _, cache = lm.prefill(params, tokens[:1, :8], fe[:1] if fe is not None else None,
+                              max_seq=9 + (cfg.n_frontend_tokens if cfg.frontend else 0))
+        lm.decode_step(params, cache, tokens[:1, :1])
+        try:
+            lm.decode_step(params, cache, tokens[:1, :1])
+            require(False, f"{arch}: decode past max_seq did not raise")
+        except ValueError as e:
+            require("KV cache exhausted" in str(e), f"{arch}: guard raised {e}")
+        del cache
+
+        if arch == "granite-moe-1b-a400m":
+            rec["sorted_backend"] = sorted_backend_check(cfg, params, tokens, fe, max_seq)
+        if arch in LM_SERVE_TIMED:
+            rec["timings"] = lm_timings(cfg, params, card)
+    torch.cuda.synchronize()
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.perf_counter() - t0
+    del params, leaves
+    return rec
+
+
+def sorted_backend_check(cfg, params, tokens, fe, max_seq) -> dict:
+    """The sorted MoE backend's prefill twice (bitwise equal), and against the
+    einsum backend's on the sorted run's expert choices (``RoutingReplay``),
+    both dropless (their capacities differ by design: per group of 256
+    tokens against the whole call)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.moe import dropless
+
+    lm = LM(cfg, moe_backend="sorted")
+    (a, ca), (b, cb) = (lm.prefill(params, tokens, fe, max_seq=max_seq) for _ in range(2))
+    require(torch.equal(a, b) and all(torch.equal(ca[n], cb[n]) for n in ca if n != "pos"),
+            "granite: the sorted MoE backend is not bitwise equal run to run")
+    del ca, cb
+    replay = RoutingReplay()
+    with replay.run("record"):
+        s_log, s_cache = LM(dropless(cfg), moe_backend="sorted").prefill(params, tokens, fe,
+                                                                          max_seq=max_seq)
+    with replay.run("replay"):
+        e_log, e_cache = LM(dropless(cfg), moe_backend="einsum").prefill(params, tokens, fe,
+                                                                          max_seq=max_seq)
+    vocab = cfg.vocab
+    out = dict(bitwise_run_to_run=True,
+               routing_replayed=dict(tokens=replay.tokens, own_choice_differs=replay.differing),
+               logits_rel_err=rel_err(s_log[:, :vocab], e_log[:, :vocab]),
+               cache_rel_err={n: rel_err(s_cache[n], e_cache[n]) for n in s_cache if n != "pos"})
+    require(out["logits_rel_err"] < STATE_REL_TOL
+            and max(out["cache_rel_err"].values()) < STATE_REL_TOL,
+            f"granite: sorted against einsum backend (dropless): {out}")
+    return out
+
+
+# flash_attention at head dims the LM-head phases do not reach: gemma-7b's
+# 256 and deepseek-v2-236b's MLA (q/k 192, v 128), one 2 x 1024 prefill each
+LM_SERVE_ATTENTION = {
+    "gemma_7b_2x16x1024x256": (2, 16, 16, 1024, 1024, 256, 256),
+    "deepseek_mla_2x128x1024x192_v128": (2, 128, 128, 1024, 1024, 192, 128),
+}
+
+
+def lm_serving_attention(dev, card: str) -> dict:
+    """The kernel against its plain version (and its emulated roundings) at
+    the new served head dims, timed beside the plain version and SDPA."""
+    out = {}
+    for i, (name, shape) in enumerate(LM_SERVE_ATTENTION.items()):
+        qkv, err = attention_check(dev, name, shape, torch.bfloat16, True, seed=100 + i)
+        out[name] = dict(attention_timings(dev, qkv, True, reps=5), max_abs_err=err)
+        r = out[name]
+        print(f"flash_attention {name}: {r['ms']:.5f} ms (eager {r['eager_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
+              f"by {r['bound_by']}) [{card}]", flush=True)
+        del qkv
+    return out
+
+
+def lm_serving_phase(dev, card: str) -> dict:
+    """Phase 15: LM serving (prefill, decode, the KV cache) for the seven
+    ported configs at full width, one model on the card at a time."""
+    import gc
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    out, launches = {"attention": lm_serving_attention(dev, card)}, collections.Counter()
+    for arch in LM_SERVE_ARCHS:
+        rec = lm_serve_config(arch, dev, card)
+        launches["flash_attention"] += rec["flash_attention_launches"]
+        print(f"lm serving {arch}: {rec['n_layers']} layers, d {rec['d_model']}, "
+              f"{rec['params']} parameters ({rec['param_bytes']} bytes), cache "
+              f"{rec['cache_bytes']} bytes at B={LM_SERVE_B} x {LM_SERVE_LEN + 64}, peak "
+              f"{rec['max_memory_allocated']} bytes allocated ("
+              f"{rec['max_memory_allocated'] - rec['allocated_before']} above the "
+              f"{rec['allocated_before']} held before the model); flash_attention "
+              f"{rec['flash_attention_launches']} launches a prefill, 0 a decode step, head dims "
+              f"q/k {rec['head_dims'][0]} v {rec['head_dims'][1]}: {json.dumps(rec['paths'])}; "
+              f"kernel vs plain: prefill logits {rec['prefill_logits_rel_err']:.3g}, decode "
+              f"logits {rec['decode_logits_rel_err']:.3g}, cache "
+              f"{json.dumps({n: round(e, 5) for n, e in rec['cache_rel_err'].items()})}; "
+              f"consistency max |diff| {rec['consistency_max_abs_diff']:.3g}; "
+              f"{rec['seconds']:.1f} s [{card}]", flush=True)
+        if "routing_replayed" in rec:
+            print(f"lm serving {arch}: the plain path took the kernel path's expert choices; "
+                  f"its own router chose other experts for {rec['routing_replayed']['own_choice_differs']} "
+                  f"of {rec['routing_replayed']['tokens']} routed tokens", flush=True)
+        if "sorted_backend" in rec:
+            print(f"lm serving {arch} sorted MoE backend: {json.dumps(rec['sorted_backend'])}",
+                  flush=True)
+        out[arch] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    out["launches"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm serving phase: {out['seconds']:.1f} s, flash_attention launches "
+          f"{launches['flash_attention']} in kernel-path prefills [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -3007,6 +3402,7 @@ def main() -> int:
     print(f"backbone 1x4096 forward: {json.dumps(backbone)} [{card}]", flush=True)
     cont = continuous_phase(dev, all_bundles, batched, card)
     shard = sharded_phase(dev, all_bundles, cfg, batched, card)
+    lm_serving = lm_serving_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -3074,6 +3470,9 @@ def main() -> int:
                 for n in set(runs_k["auto"][2]) | set(runs_k["ref"][2])
                 if n.startswith(kname + ".")}
     fa = rec["flash_attention"]
+    fa["max_abs_err"] = max([fa["max_abs_err"]]
+                            + [r["max_abs_err"] for r in lm_serving["attention"].values()])
+    fa["phases"] = fa["phases"] + list(lm_serving["attention"])
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3092,6 +3491,8 @@ def main() -> int:
         backbone_4096_launches=backbone["flash_attention_launches"],
         launches_continuous=cont["launches"].get("flash_attention", 0),
         launches_sharded=shard["launches"].get("flash_attention", 0),
+        launches_lm_serving=lm_serving["launches"].get("flash_attention", 0),
+        lm_serving_shapes=lm_serving["attention"],
     ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
@@ -3109,6 +3510,7 @@ def main() -> int:
     serve["feature_cache"] = cache
     serve["continuous"] = cont
     serve["sharded"] = shard
+    serve["lm_serving"] = lm_serving
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

@@ -14,10 +14,12 @@ It serves one request at a time end to end,
 parametric (AVG/SUM/COUNT/VAR/STD) and holistic (MEDIAN/QUANTILE)
 aggregates: ``turbofan`` and ``sensor_health``.  It also serves the LM-head
 pipeline, ``examples.serve_lm_head``: a dense LM backbone
-(``models/lm``, ``configs``: ``qwen1.5-0.5b``, forward only) whose pooled
-state feeds an MLP head (``models/tabular/mlp.py``, trained with
-``optim.adamw``) beside three Biathlon-approximated aggregates; on the card
-its attention runs the ``flash_attention`` kernel.
+(``models/lm``, ``configs``: ``qwen1.5-0.5b``) whose pooled state feeds an
+MLP head (``models/tabular/mlp.py``, trained with ``optim.adamw``) beside
+three Biathlon-approximated aggregates; on the card its attention runs the
+``flash_attention`` kernel.  The LM serves (prefill, decode, the KV cache:
+``models/lm/cache.py``) the dense, VLM and MoE families of seven configs,
+MLA included.
 """
 from repro_torch.device import resolve_device
 

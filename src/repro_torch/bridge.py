@@ -16,10 +16,11 @@ numpy arrays, Python scalars, strings, lists and dicts:
   ``depth`` and ``base``; for ``"linear"`` / ``"logistic"`` its ``coef``
   and ``intercept``; for ``"mlp"`` its ``params`` (as below);
 * a bundle: ``pipeline``, ``store``, ``requests``, ``labels``, ``name``;
-* an LM's parameter tree: nested dicts of arrays (``embed``, ``unembed``,
-  ``final_norm`` and the stacked ``blocks.{ln1, ln2, attn.{wq, wk, wv, wo,
-  bq, bk, bv}, ffn.{w_gate, w_up, w_down}}`` leaves with their leading
-  ``(L, …)`` axis), in float32 or in ``ml_dtypes`` bfloat16;
+* an LM's parameter tree: nested dicts and lists of arrays (``embed``,
+  ``unembed``, ``final_norm``, ``frontend_adapter``, the ``dense0`` list of
+  unstacked blocks and the stacked ``blocks.{ln1, ln2, attn.*, ffn.* |
+  moe.*}`` leaves with their leading ``(L, …)`` axis), in float32 or in
+  ``ml_dtypes`` bfloat16;
 * an MLP's parameters: a list of ``{"w", "b"}`` dicts of arrays.
 """
 from __future__ import annotations
@@ -142,13 +143,22 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def lm_params_from_numpy(tree: Mapping, dtype: torch.dtype, device="cpu") -> dict:
-    """An LM parameter tree of ``dtype`` tensors on ``device`` from nested dicts of arrays."""
-    return {
-        key: lm_params_from_numpy(val, dtype, device) if isinstance(val, Mapping)
-        else _tensor(val, dtype, device)
-        for key, val in tree.items()
-    }
+# leaves the LM keeps in float32 whatever the model's type (``moe.init_moe``)
+FLOAT32_LEAVES = frozenset({"router"})
+
+
+def lm_params_from_numpy(tree, dtype: torch.dtype, device="cpu", name: str = ""):
+    """An LM parameter tree on ``device`` from nested dicts and lists of arrays.
+
+    Each leaf becomes a ``dtype`` tensor (the model's type), but for the
+    leaves named in ``FLOAT32_LEAVES`` (the MoE router), which stay float32
+    as the model keeps them; both packages then compute the same thing from
+    the same weights."""
+    if isinstance(tree, Mapping):
+        return {key: lm_params_from_numpy(val, dtype, device, key) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_numpy(val, dtype, device, name) for val in tree]
+    return _tensor(tree, torch.float32 if name in FLOAT32_LEAVES else dtype, device)
 
 
 def mlp_params_from_numpy(layers, device="cpu") -> list[dict]:

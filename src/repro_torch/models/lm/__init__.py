@@ -1,4 +1,4 @@
-"""The dense LM substrate: layer primitives and the forward pass."""
+"""The LM substrate: layers, MoE, the forward pass and serving (prefill, decode)."""
 from repro_torch.models.lm.model import LM
 
 __all__ = ["LM"]

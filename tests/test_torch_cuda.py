@@ -6,13 +6,14 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import MLAConfig, get_config
 from repro_torch.core import threefry
 from repro_torch.core.executor import BiathlonConfig
 from repro_torch.core.executor_fused import build_fused_executor
@@ -49,6 +50,7 @@ from repro_torch.kernels.tree_qmc.ops import predict_sum
 from repro_torch.kernels.tree_qmc.tree_qmc import Plan, candidates, ensemble_sum, plan
 from repro_torch.launch.mesh import make_serving_mesh, simulated_devices
 from repro_torch.models.lm import LM
+from repro_torch.models.lm import moe as lm_moe
 from repro_torch.models.lm.layers import attention_block
 from repro_torch.models.tabular.trees import GradientBoosting, RandomForest, TreeEnsemble
 from repro_torch.serving import (
@@ -1153,7 +1155,7 @@ def test_attention_routes_to_the_kernel_on_the_card(dev):
     params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
     layer0 = {n: t[0] for n, t in params["blocks"]["attn"].items()}
     x = torch.zeros((1, 48, cfg.d_model), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         attention_block(layer0, x, cfg, window=16)
 
 
@@ -1172,6 +1174,76 @@ def test_lm_backbone_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     err = (outs[True] - outs[False]).abs().max() / outs[False].abs().max()
     assert float(err) < 3e-2
+
+
+def _serving_cfg(kind: str):
+    """Reduced configs at the served head dims: MLA's q/k 192 and v 128
+    (deepseek-v2-236b's dims on 4 heads, its FFNs dense: a top-k choice
+    within a bf16 rounding of a tie would let the two paths route apart),
+    and gemma-7b's 256."""
+    if kind == "mla":
+        cfg = get_config("deepseek-v2-236b").reduced()
+        return dataclasses.replace(cfg, family="dense", moe=None, mla=MLAConfig())
+    return dataclasses.replace(get_config("gemma-7b").reduced(), head_dim=256)
+
+
+@pytest.mark.parametrize("kind", ["mla", "head_dim_256"])
+def test_lm_prefill_kernel_matches_plain_at_served_head_dims(dev, kind):
+    """Prefill and two decode steps, kernel path against plain path: one
+    flash_attention launch a layer (dense0 included) in prefill, none in
+    decode; logits and caches within 3e-2 relative."""
+    cfg = _serving_cfg(kind)
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 200))).to(dev)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2, 1))).to(dev)
+    outs = {}
+    for use_kernel in (True, False):
+        lm = LM(cfg, use_kernel=use_kernel)
+        build.reset_launch_counts()
+        logits, cache = lm.prefill(params, tokens)
+        assert build.LAUNCHES["flash_attention"] == (cfg.n_layers if use_kernel else 0)
+        got = [logits]
+        for tok in steps:
+            logits, cache = lm.decode_step(params, cache, tok)
+            got.append(logits)
+        assert build.LAUNCHES["flash_attention"] == (cfg.n_layers if use_kernel else 0)
+        outs[use_kernel] = got + [cache[n] for n in sorted(cache) if n != "pos"]
+    torch.cuda.synchronize()
+    for a, b in zip(outs[True], outs[False]):
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        live = b > -1e29
+        assert float((a - b)[live].abs().max() / b[live].abs().max()) < 3e-2
+
+
+def test_sorted_moe_is_bitwise_run_to_run_on_the_card(dev):
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    p = lm_moe.init_moe(torch.Generator(device=dev).manual_seed(0), cfg.d_model, cfg.moe,
+                        torch.bfloat16)
+    x = torch.randn((2, 512, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    runs = [lm_moe.moe_ffn_sorted(p, x, cfg.moe) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    # dropless: the backends' capacities differ by design (a group's, the call's)
+    moe_cfg = lm_moe.dropless(cfg).moe
+    einsum = lm_moe.moe_ffn_einsum(p, x, moe_cfg)
+    runs[0] = lm_moe.moe_ffn_sorted(p, x, moe_cfg)
+    assert float((runs[0] - einsum).float().abs().max() / einsum.float().abs().max()) < 3e-2
+
+
+def test_lm_decode_capacity_guard_on_the_card(dev):
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 16))).to(dev)
+    _, cache = lm.prefill(params, tokens, max_seq=18)
+    assert cache["k"].is_cuda and cache["pos"] == 16
+    for _ in range(2):
+        _, cache = lm.decode_step(params, cache, tokens[:, :1])
+    with pytest.raises(ValueError, match="cache exhausted"):
+        lm.decode_step(params, cache, tokens[:, :1])
+    assert lm.init_cache(2, 8)["k"].is_cuda
 
 
 # ----------------------------------------------------- lanes over a mesh

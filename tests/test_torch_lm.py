@@ -52,8 +52,10 @@ def test_config_is_the_references():
                       _cfgs("bfloat16")):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert got.resolved_head_dim == want.resolved_head_dim
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma-7b")
+    for arch in ("xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2"):
+        ref_get_config(arch)
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(arch)
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -169,6 +171,10 @@ def test_init_has_the_references_tree_and_scales():
 
 
 def test_other_families_raise():
-    moe = dataclasses.replace(get_config("qwen1.5-0.5b"), family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        LM(moe)
+    """The SSM, hybrid and audio families (xlstm-1.3b, zamba2-2.7b,
+    seamless-m4t-large-v2) are not ported."""
+    for arch in ("xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2"):
+        family = ref_get_config(arch).family
+        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), family=family)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            LM(cfg)
