@@ -199,7 +199,29 @@ Phases (any failure exits non-zero before the result line is printed):
     bitwise run to run and against the einsum backend; parameter, cache
     and peak bytes; for qwen3-8b and granite the prefill time and decode
     ms a step at B = 1 and 8;
-16. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+16. LM serving for the SSM, hybrid and audio families at full published
+    width, one model on the card at a time, seeded random bf16 weights:
+    ``flash_attention`` first checked (plain version, emulated roundings)
+    and timed beside its plain version, SDPA (with the window's boolean
+    mask) and its bound at zamba2's windowed (1, 32, 8192, 80), window
+    4096, and seamless's cross (2, 16, 256 on 1024, 64); then zamba2-2.7b
+    at B = 1 × 8192 (S % 4096 = 0; the 16 decode steps wrap the ring) and
+    B = 2 × 1024 (below the window), seamless-m4t-large-v2 at B = 2, 1024
+    frontend frames and a 256-token prompt, xlstm-1.3b at B = 2 × 1024,
+    each prefill and 16 teacher-forced decode steps through the kernel and
+    through the plain path, and (zamba2, seamless) through the plain path
+    in float32 on the same weights: the kernel path's logits and every
+    cache leaf no further from the float32 run than ``ANCHOR_FACTOR`` times
+    the bf16 plain path's (xlstm, with no attention: bitwise the plain
+    path); ``flash_attention`` launches a prefill by kind and
+    head dim (zamba2 9, all windowed at head dim 80; seamless 24
+    bidirectional encoder, 24 causal decoder and 24 cross, Sq ≠ Sk; xlstm
+    none), none in decode, all on the TMA path; on zamba2 at 8192 the
+    last decode step (position 8207, the ring wrapped) against the prefill
+    of all 8208 tokens, the reference test's tolerance; parameter, cache
+    and peak bytes, the
+    prefill time and decode ms a step at B = 1 and 8;
+17. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -2536,25 +2558,26 @@ def sharded_phase(dev, bundles: dict, cfg, batched: dict, card: str) -> dict:
 
 
 # --------------------------------------------------------------- phase 10-12
-def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int) -> tuple[int, int]:
+def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int,
+                   window: int = 0) -> tuple[int, int]:
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
-    once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask)."""
-    if not causal:
-        pairs = sq * sk
-    elif sq <= sk:
-        pairs = sq * (sq + 1) // 2
-    else:
-        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+    once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask; with
+    a window W, only the keys above q − W count)."""
+    rows = np.arange(sq)
+    hi = np.minimum(rows, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
     nbytes = itemsize * (b * h * sq * d + b * hkv * sk * (d + dv) + b * h * sq * dv)
     return nbytes, b * h * pairs * (2 * d + 2 * dv)
 
 
-def attention_check(dev, name, shape, dtype, causal, seed):
-    """The kernel against its plain version on seeded inputs; returns
-    (inputs, max |err|), failing beyond ``ATTN_TOL``.  A bf16 call must have
-    taken the TMA path and be within ``EMULATION_TOL`` of its emulated
-    roundings plus, for each output, the slack of the p's that the kernel
-    may round to the other side of a bf16 tie (``emulation.bf16_path``)."""
+def attention_check(dev, name, shape, dtype, causal, seed, window: int = 0):
+    """The kernel against its plain version on seeded inputs (``window`` > 0:
+    a sliding window); returns (inputs, max |err|), failing beyond
+    ``ATTN_TOL``.  A bf16 call must have taken the TMA path and be within
+    ``EMULATION_TOL`` of its emulated roundings plus, for each output, the
+    slack of the p's that the kernel may round to the other side of a bf16
+    tie (``emulation.bf16_path``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.emulation import beyond, bf16_path, key_tile
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
@@ -2565,19 +2588,20 @@ def attention_check(dev, name, shape, dtype, causal, seed):
     q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
                for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
     build.reset_launch_counts()
-    got = flash_attention(q, k, v, causal=causal)
+    got = flash_attention(q, k, v, causal=causal, window=window)
     path = "tma" if dtype == torch.bfloat16 else "simt"
     require(build.PATHS == {f"flash_attention.{path}": 1},
             f"flash_attention {name}: took {dict(build.PATHS)}, expected the {path} path")
     rep = h // hkv
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-    want = flash_attention_ref(q, kr, vr, causal=causal)
+    want = flash_attention_ref(q, kr, vr, causal=causal, window=window)
     err = float((got.float() - want.float()).abs().max())
     require(torch.allclose(got.float(), want.float(), **ATTN_TOL[dtype]),
             f"flash_attention {name}: max |err| {err} beyond {ATTN_TOL[dtype]}")
     line = f"flash_attention {name} ({path}): max |err| {err:.3g} (tolerance {ATTN_TOL[dtype]})"
     if dtype == torch.bfloat16:
-        emulated, slack = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv), slack=True)
+        emulated, slack = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv), slack=True,
+                                    window=window)
         em_err = float((got.float() - emulated.float()).abs().max())
         n_beyond = int(beyond(got, emulated, slack, **EMULATION_TOL).sum())
         past_ulp = int(beyond(got, emulated, torch.zeros_like(slack), **EMULATION_TOL).sum())
@@ -2592,33 +2616,36 @@ def attention_check(dev, name, shape, dtype, causal, seed):
     return (q, k, v), err
 
 
-def attention_timings(dev, qkv, causal: bool, reps: int) -> dict:
-    """Kernel, plain version and ``F.scaled_dot_product_attention`` on one input."""
+def attention_timings(dev, qkv, causal: bool, reps: int, window: int = 0) -> dict:
+    """Kernel, plain version and ``F.scaled_dot_product_attention`` on one
+    input; with a window, SDPA takes the equivalent boolean mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref, live_keys
 
     q, k, v = qkv
     b, h, sq, d = q.shape
     _, hkv, sk, dv = v.shape
-    ms, eager_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), reps)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal), reps)[0]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-                         reps)[0]
-    lib_err = float((F.scaled_dot_product_attention(q, k, v, is_causal=causal).float()
-                     - flash_attention_ref(q, k, v, causal=causal).float()).abs().max())
+    kw = dict(causal=causal, window=window)
+    mask = live_keys(sq, sk, causal, window, q.device) if window else None
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None)
+    ms, eager_ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps)[0]
+    library_ms = time_ms(sdpa, reps)[0]
+    lib_err = float((sdpa().float() - flash_attention_ref(q, k, v, **kw).float()).abs().max())
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    b_ms, b_by = bound(*attention_work(b, h, hkv, sq, sk, d, dv, causal, q.element_size()),
-                       ops_per_s=peak)
-    return dict(shape=[b, h, sq, d], dtype=str(q.dtype).removeprefix("torch."), causal=causal,
-                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
-                library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(*attention_work(b, h, hkv, sq, sk, d, dv, causal, q.element_size(),
+                                       window), ops_per_s=peak)
+    return dict(shape=[b, h, sq, d], sk=sk, dtype=str(q.dtype).removeprefix("torch."),
+                causal=causal, window=window, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
 
 
 def ptxas_report(name: str) -> dict:
     """Registers and spill bytes of each bf16 ``flash_attention`` instance
-    (``sm90::flash_attention_kernel<DP>``), from the ``-Xptxas -v`` log of
+    (``sm90::flash_attention_kernel<DP, kWindow>``), from the ``-Xptxas -v`` log of
     the library that was loaded, with any ``setmaxnreg`` warning of the
     compiler."""
     from repro_torch.kernels import build
@@ -2626,8 +2653,8 @@ def ptxas_report(name: str) -> dict:
     out, entry = {}, None
     for line in build.log_path(name).read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"4sm90\w*flash_attention_kernelILi(\d+)E", line)
-            entry = f"dp{m.group(1)}" if m else None
+            m = re.search(r"4sm90\w*flash_attention_kernelILi(\d+)ELb([01])E", line)
+            entry = f"dp{m.group(1)}" + ("_window" if m.group(2) == "1" else "") if m else None
             if entry:
                 out[entry] = {}
         elif entry and "spill stores" in line:
@@ -3198,6 +3225,276 @@ def lm_serving_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+# (name, arch, batch, prompt positions): zamba2 past its 4096 window (8192 =
+# 2 W, so S % W = 0 and the 16 decode steps wrap the ring) and below it;
+# seamless's 256-token decoder prompts over 1024 frontend frames; xlstm
+FAMILY_CASES = (("zamba2_b1x8192", "zamba2-2.7b", 1, 8192),
+                ("zamba2_b2x1024", "zamba2-2.7b", 2, 1024),
+                ("seamless_b2x256", "seamless-m4t-large-v2", 2, 256),
+                ("xlstm_b2x1024", "xlstm-1.3b", 2, 1024))
+FAMILY_STEPS = 16
+# A family with attention is held to the float32 run of its weights (plain
+# path): the kernel path no further from it than this factor times the bf16
+# plain path's own distance.  At full depth zamba2's two bf16 paths lie
+# 6.5-7% from the float32 run and 3.7% from each other (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md §6), past STATE_REL_TOL; xlstm, with no attention,
+# is bitwise.
+ANCHOR_FACTOR = 1.5
+# flash_attention at the shapes these families give it, before the models:
+# zamba2's shared block at 8192 positions (head dim 80, window 4096) and
+# seamless's cross attention (256 decoder positions on 1024 frames)
+FAMILY_ATTENTION = {
+    "zamba2_window_1x32x8192x80_w4096": ((1, 32, 32, 8192, 8192, 80, 80), True, 4096),
+    "seamless_cross_2x16x256on1024x64": ((2, 16, 16, 256, 1024, 64, 64), False, 0),
+}
+
+
+def family_inputs(cfg, dev, b: int, s: int, seed: int):
+    """``b`` prompts of ``s`` tokens, ``FAMILY_STEPS`` teacher-forced decode
+    tokens and, for the audio family, ``n_frontend_tokens`` frames."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    steps = torch.randint(0, cfg.vocab, (FAMILY_STEPS, b, 1), generator=gen, device=dev)
+    fe = (torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen, device=dev)
+          if cfg.frontend else None)
+    return tokens, steps, fe
+
+
+@contextlib.contextmanager
+def attention_kinds():
+    """Counts each ``flash_attention`` launch that ``ops.attention`` makes by
+    (kind, head dim): ``window``, ``causal``, ``bidirectional`` or ``cross``
+    (non-causal, Sq ≠ Sk)."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    orig, kinds = attn_ops.flash_attention, collections.Counter()
+
+    def spy(q, k, v, *, causal=True, window=0):
+        out = orig(q, k, v, causal=causal, window=window)
+        kind = ("window" if window else "causal" if causal
+                else "cross" if q.shape[2] != k.shape[2] else "bidirectional")
+        kinds[f"{kind}_d{q.shape[-1]}"] += 1
+        return out
+
+    attn_ops.flash_attention = spy
+    try:
+        yield kinds
+    finally:
+        attn_ops.flash_attention = orig
+
+
+def family_timings(cfg, params, s: int, card: str) -> dict:
+    """Prefill of (2, s) prompts (CUDA events, median of 3; the case runs
+    before warmed it up) and decode ms a step at B = 1 and 8 after
+    s-position prompts (median of 16 steps)."""
+    from repro_torch.models.lm import LM
+
+    lm, dev = LM(cfg), params["embed"].device
+    out = {}
+    tokens, _, fe = family_inputs(cfg, dev, 2, s, seed=11)
+    times = []
+    for _ in range(3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        lm.prefill(params, tokens, fe)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    out["prefill_ms"] = statistics.median(times)
+    out["prefill_shape"] = [2, s]
+    for b in LM_DECODE_BATCHES:
+        tokens, steps, fe = family_inputs(cfg, dev, b, s, seed=12)
+        _, cache = lm.prefill(params, tokens, fe)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(FAMILY_STEPS + 1)]
+        events[0].record()
+        for i, tok in enumerate(steps):
+            lm.decode_step(params, cache, tok)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        per_step = [a.elapsed_time(z) for a, z in zip(events, events[1:])]
+        out[f"decode_b{b}_ms_per_step"] = statistics.median(per_step)
+        del cache
+    print(f"lm families {cfg.arch_id} timings: prefill 2x{s} {out['prefill_ms']:.3f} ms "
+          f"(median of 3); decode " + ", ".join(
+              f"B={b} {out[f'decode_b{b}_ms_per_step']:.3f} ms a step" for b in LM_DECODE_BATCHES)
+          + f" (median of {FAMILY_STEPS}) [{card}]", flush=True)
+    return out
+
+
+def _run_errors(a: dict, b: dict, vocab: int) -> dict:
+    """Relative errors of run a against run b: logits (max over the prefill
+    and the decode steps) and each cache leaf."""
+    return dict(logits=max(rel_err(x[:, :vocab], y[:, :vocab])
+                           for x, y in zip(a["logits"], b["logits"])),
+                **{k: rel_err(a["cache"][k], b["cache"][k]) for k in a["cache"] if k != "pos"})
+
+
+def _float32(tree):
+    return ({k: _float32(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.float())
+
+
+def family_case(name, cfg, params, b, s, dev, card) -> dict:
+    """One case, kernel path against plain path: prefill then
+    ``FAMILY_STEPS`` teacher-forced decode steps; with attention, both
+    against the float32 plain run of the same weights (``ANCHOR_FACTOR``),
+    without, bitwise."""
+    from repro_torch.models.lm import LM
+
+    tokens, steps, fe = family_inputs(cfg, dev, b, s, seed=1)
+    hd = cfg.resolved_head_dim
+    expected = {"hybrid": {f"window_d{hd}": cfg.n_layers // max(cfg.attn_every, 1)},
+                "audio": {f"bidirectional_d{hd}": cfg.enc_layers, f"causal_d{hd}": cfg.n_layers,
+                          f"cross_d{hd}": cfg.n_layers},
+                "ssm": {}}[cfg.family]
+    runs = {}
+    for use_kernel in (True, False):
+        with attention_kinds() as kinds:
+            t0 = time.perf_counter()
+            runs[use_kernel] = lm_serve_run(LM(cfg, use_kernel=use_kernel), params, tokens,
+                                            steps, fe, max_seq=None)
+            runs[use_kernel]["seconds"] = time.perf_counter() - t0
+            runs[use_kernel]["kinds"] = dict(kinds)
+    kernel, plain = runs[True], runs[False]
+    n = sum(expected.values())
+    require(kernel["prefill_launches"] == n and kernel["kinds"] == expected,
+            f"{name}: flash_attention launches {kernel['prefill_launches']} in prefill, "
+            f"{kernel['kinds']}, expected {expected}")
+    require(kernel["decode_launches"] == 0 and plain["prefill_launches"] == 0
+            and plain["decode_launches"] == 0 and not plain["kinds"],
+            f"{name}: flash_attention launched in decode or on the plain path")
+    paths = {k: c for k, c in kernel["paths"].items() if k.startswith("flash_attention.")}
+    require(paths == ({"flash_attention.tma": n} if n else {}),
+            f"{name}: flash_attention paths {paths}")
+    vocab = cfg.vocab
+    errs = [rel_err(a[:, :vocab], b_[:, :vocab]) for a, b_ in zip(kernel["logits"], plain["logits"])]
+    cache_errs = {k: rel_err(kernel["cache"][k], plain["cache"][k])
+                  for k in kernel["cache"] if k != "pos"}
+    for a in kernel["logits"]:
+        require(bool(torch.isfinite(a[:, :vocab]).all()), f"{name}: logits not finite")
+    require(kernel["cache"]["pos"] == s + FAMILY_STEPS, f"{name}: cache pos")
+    anchor = {}
+    if n:
+        wide = _float32(params)
+        f32 = lm_serve_run(LM(dataclasses.replace(cfg, dtype="float32"), use_kernel=False), wide,
+                           tokens, steps, fe, max_seq=None)
+        del wide
+        anchor = {"kernel": _run_errors(kernel, f32, vocab), "plain": _run_errors(plain, f32, vocab)}
+        del f32
+        far = {k: (e, anchor["plain"][k]) for k, e in anchor["kernel"].items()
+               if not e <= ANCHOR_FACTOR * anchor["plain"][k]}
+        require(not far, f"{name}: kernel path further from the float32 run than {ANCHOR_FACTOR}x "
+                f"the plain path: (kernel, plain) {far}")
+    else:
+        require(all(torch.equal(a, b_) for a, b_ in zip(kernel["logits"], plain["logits"]))
+                and all(torch.equal(kernel["cache"][k], plain["cache"][k]) for k in cache_errs),
+                f"{name}: no attention, yet the kernel and plain paths differ")
+    rec = dict(shape=[b, s], prefill_logits_rel_err=errs[0], decode_logits_rel_err=max(errs[1:]),
+               cache_rel_err=cache_errs, from_float32=anchor,
+               flash_attention_launches=kernel["prefill_launches"],
+               kinds=kernel["kinds"], paths=paths, head_dim=cfg.resolved_head_dim,
+               kernel_run_s=kernel["seconds"], plain_run_s=plain["seconds"],
+               cache_bytes=sum(t.numel() * t.element_size()
+                               for k, t in kernel["cache"].items() if k != "pos"))
+    if cfg.family == "hybrid":
+        rec["ring_slots"] = kernel["cache"]["k"].shape[2]
+    if name == "zamba2_b1x8192":
+        # the last decode step (position 8207, after 16 writes that wrapped
+        # the aligned ring's slots 0-15) against the prefill of all 8208
+        # tokens, on the kernel path (8208 = 36 chunks of 228; 8193 would
+        # run 2731 chunks of 3)
+        full, _ = LM(cfg).prefill(params, torch.cat([tokens, *steps], dim=1))
+        step, full = kernel["logits"][-1][:, :vocab], full[:, :vocab]
+        rec["consistency_max_abs_diff"] = gap = float((step - full).abs().max())
+        require(torch.allclose(step, full, **CONSISTENCY_TOL),
+                f"{name}: the last decode step against prefill(t + steps): max |diff| {gap}")
+    print(f"lm families {name}: B={b} x {s}, flash_attention {rec['flash_attention_launches']} "
+          f"launches a prefill {json.dumps(rec['kinds'])}, 0 a decode step, paths "
+          f"{json.dumps(paths)}; kernel vs plain: prefill logits {errs[0]:.3g}, decode logits "
+          f"{rec['decode_logits_rel_err']:.3g}, cache "
+          f"{json.dumps({k: round(e, 5) for k, e in cache_errs.items()})}"
+          + (f"; from the float32 run, kernel "
+             f"{json.dumps({k: round(e, 5) for k, e in anchor['kernel'].items()})}, plain "
+             f"{json.dumps({k: round(e, 5) for k, e in anchor['plain'].items()})}"
+             if anchor else "; bitwise (no attention)")
+          + (f"; consistency max |diff| {rec['consistency_max_abs_diff']:.3g}"
+             if "consistency_max_abs_diff" in rec else "")
+          + f"; cache {rec['cache_bytes']} bytes; prefill + {FAMILY_STEPS} steps "
+          f"{kernel['seconds']:.2f} s kernel, {plain['seconds']:.2f} s plain [{card}]",
+          flush=True)
+    return rec
+
+
+def lm_families_attention(dev, card: str) -> dict:
+    """The kernel against its plain version (and its emulated roundings) at
+    the shapes the SSM, hybrid and audio families give it, timed beside the
+    plain version and SDPA (with the window's boolean mask)."""
+    out = {}
+    for i, (name, (shape, causal, window)) in enumerate(FAMILY_ATTENTION.items()):
+        qkv, err = attention_check(dev, name, shape, torch.bfloat16, causal, seed=200 + i,
+                                   window=window)
+        out[name] = r = dict(attention_timings(dev, qkv, causal, reps=5, window=window),
+                             max_abs_err=err)
+        print(f"flash_attention {name}: {r['ms']:.5f} ms (eager {r['eager_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
+              f"by {r['bound_by']}) [{card}]", flush=True)
+        del qkv
+    return out
+
+
+def lm_families_phase(dev, card: str) -> dict:
+    """Phase 16: LM serving for the SSM, hybrid and audio families at full
+    published width, one model on the card at a time."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import tree_leaves
+
+    t0 = time.perf_counter()
+    out, launches = {"attention": lm_families_attention(dev, card)}, collections.Counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in dict.fromkeys(a for _, a, _, _ in FAMILY_CASES):
+        cfg = get_config(arch)
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+            leaves = tree_leaves(params)
+            rec = dict(family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                       params=sum(t.numel() for t in leaves),
+                       param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+                       allocated_before=before, cases={})
+            del leaves
+            for name, a, b, s in FAMILY_CASES:
+                if a == arch:
+                    rec["cases"][name] = family_case(name, cfg, params, b, s, dev, card)
+                    launches["flash_attention"] += rec["cases"][name]["flash_attention_launches"]
+            rec["timings"] = family_timings(cfg, params, min(s for _, a, _, s in FAMILY_CASES
+                                                             if a == arch), card)
+        torch.cuda.synchronize()
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        rec["seconds"] = time.perf_counter() - t1
+        print(f"lm families {arch}: {cfg.family}, {cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{rec['params']} parameters ({rec['param_bytes']} bytes), peak "
+              f"{rec['max_memory_allocated']} bytes allocated ({before} held before the "
+              f"model); {rec['seconds']:.1f} s [{card}]", flush=True)
+        out[arch] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    out["launches"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm families phase: {out['seconds']:.1f} s, flash_attention launches "
+          f"{launches['flash_attention']} in kernel-path prefills [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -3403,6 +3700,7 @@ def main() -> int:
     cont = continuous_phase(dev, all_bundles, batched, card)
     shard = sharded_phase(dev, all_bundles, cfg, batched, card)
     lm_serving = lm_serving_phase(dev, card)
+    lm_families = lm_families_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -3471,8 +3769,9 @@ def main() -> int:
                 if n.startswith(kname + ".")}
     fa = rec["flash_attention"]
     fa["max_abs_err"] = max([fa["max_abs_err"]]
-                            + [r["max_abs_err"] for r in lm_serving["attention"].values()])
-    fa["phases"] = fa["phases"] + list(lm_serving["attention"])
+                            + [r["max_abs_err"] for r in lm_serving["attention"].values()]
+                            + [r["max_abs_err"] for r in lm_families["attention"].values()])
+    fa["phases"] = fa["phases"] + list(lm_serving["attention"]) + list(lm_families["attention"])
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3493,6 +3792,8 @@ def main() -> int:
         launches_sharded=shard["launches"].get("flash_attention", 0),
         launches_lm_serving=lm_serving["launches"].get("flash_attention", 0),
         lm_serving_shapes=lm_serving["attention"],
+        launches_lm_families=lm_families["launches"].get("flash_attention", 0),
+        lm_families_shapes=lm_families["attention"],
     ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
@@ -3511,6 +3812,7 @@ def main() -> int:
     serve["continuous"] = cont
     serve["sharded"] = shard
     serve["lm_serving"] = lm_serving
+    serve["lm_families"] = lm_families
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

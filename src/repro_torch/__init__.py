@@ -18,8 +18,10 @@ pipeline, ``examples.serve_lm_head``: a dense LM backbone
 MLP head (``models/tabular/mlp.py``, trained with ``optim.adamw``) beside
 three Biathlon-approximated aggregates; on the card its attention runs the
 ``flash_attention`` kernel.  The LM serves (prefill, decode, the KV cache:
-``models/lm/cache.py``) the dense, VLM and MoE families of seven configs,
-MLA included.
+``models/lm/cache.py``) all ten configs of the reference: the dense, VLM
+and MoE families (MLA included), the SSM (xLSTM), hybrid (Mamba2 with a
+shared sliding-window attention block) and audio (encoder-decoder)
+families.
 """
 from repro_torch.device import resolve_device
 

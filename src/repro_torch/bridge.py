@@ -143,22 +143,36 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-# leaves the LM keeps in float32 whatever the model's type (``moe.init_moe``)
-FLOAT32_LEAVES = frozenset({"router"})
+# leaves the LM keeps in float32 whatever the model's type, by the last keys
+# of their path: the MoE router (``moe.init_moe``), Mamba2's and the xLSTM
+# cells' gate and decay leaves (``ssm.init_mamba2``, ``init_mlstm``,
+# ``init_slstm``)
+FLOAT32_LEAVES = frozenset({
+    ("moe", "router"),
+    *(("mamba", "cell", name) for name in ("dt_bias", "a_log", "d_skip")),
+    *(("mlstm", "cell", name) for name in ("w_i", "w_f", "b_i", "b_f")),
+    *(("slstm", "cell", name) for name in ("w", "r", "b")),
+})
 
 
-def lm_params_from_numpy(tree, dtype: torch.dtype, device="cpu", name: str = ""):
+def _float32_leaf(path: tuple) -> bool:
+    return any(path[-len(keys):] == keys for keys in FLOAT32_LEAVES)
+
+
+def lm_params_from_numpy(tree, dtype: torch.dtype, device="cpu", path: tuple = ()):
     """An LM parameter tree on ``device`` from nested dicts and lists of arrays.
 
     Each leaf becomes a ``dtype`` tensor (the model's type), but for the
-    leaves named in ``FLOAT32_LEAVES`` (the MoE router), which stay float32
-    as the model keeps them; both packages then compute the same thing from
-    the same weights."""
+    leaves whose path (the dict keys down to them) ends in one of
+    ``FLOAT32_LEAVES``, which stay float32 as the model keeps them; both
+    packages then compute the same thing from the same weights.  ``path``
+    places a subtree (``("mamba", "cell")`` for one Mamba2 cell)."""
     if isinstance(tree, Mapping):
-        return {key: lm_params_from_numpy(val, dtype, device, key) for key, val in tree.items()}
+        return {key: lm_params_from_numpy(val, dtype, device, (*path, key))
+                for key, val in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [lm_params_from_numpy(val, dtype, device, name) for val in tree]
-    return _tensor(tree, torch.float32 if name in FLOAT32_LEAVES else dtype, device)
+        return [lm_params_from_numpy(val, dtype, device, path) for val in tree]
+    return _tensor(tree, torch.float32 if _float32_leaf(path) else dtype, device)
 
 
 def mlp_params_from_numpy(layers, device="cpu") -> list[dict]:

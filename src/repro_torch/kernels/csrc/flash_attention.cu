@@ -1,12 +1,19 @@
-// flash_attention: blockwise online-softmax attention, causal work skipped.
+// flash_attention: blockwise online-softmax attention, causal and
+// sliding-window work skipped.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention/flash_attention.py
 // (flash_attention, body _kernel): q (B, H, Sq, D), k (B, Hkv, Sk, D),
 // v (B, Hkv, Sk, Dv) -> (B, H, Sq, Dv) in q's type.  Causal scores above the
 // diagonal are −1e30 with the mask aligned at the top left (query row i sees
-// keys 0..i); the running max, denominator and output accumulator are
-// float32; the denominator is clamped at 1e-30.  Query head h reads KV head
-// h / (H / Hkv), which equals the reference's repeat of the KV heads.
+// keys 0..i); with a sliding window W > 0, the scores of keys at or below
+// i − W are −1e30 too (query row i sees keys i − W < key, and, causal, key
+// <= i: the reference's attention_full(window=W) with no q offset).  A
+// query tile starts at the first key tile that holds a key above its first
+// row's window and so skips the tiles wholly below the window, as it skips
+// those wholly above the diagonal; W = 0 is no window.  The running max,
+// denominator and output accumulator are float32; the denominator is
+// clamped at 1e-30.  Query head h reads KV head h / (H / Hkv), which
+// equals the reference's repeat of the KV heads.
 // Tensors may be strided views (only the last axis must be contiguous), so
 // the model's (B, S, H, D) layout is read and written without transposes.
 // Any Sq and Sk; D, Dv <= 256.  One entry point, two kernels picked by type:
@@ -25,7 +32,8 @@
 //   softmax    on the accumulator fragments: the row max over a quad of
 //              lanes by two shuffles, p = ex2(s·(log2(e)·D^-½) − m) (one
 //              FFMA and one ex2 a score), the mask only on tiles that cross
-//              the diagonal or the ragged end of Sk;
+//              the diagonal, the window's lower edge or the ragged end of
+//              Sk;
 //   O += P·V   wgmma m64nDvk16 with P from registers (the S fragments
 //              rounded to bf16 in place) and V MN-major in shared memory,
 //              so V is never transposed;
@@ -42,7 +50,9 @@
 // panels of 64 columns (what TMA writes and wgmma reads); D and Dv are
 // padded with zero columns to DP = 64, 128 or 256 (the larger of the two)
 // and Bc = 128 keys at DP <= 128, 64 at DP = 256, so registers and the
-// stages fit.  Rows past Sq or Sk come back from TMA as zeros, and a key
+// stages fit.  Each DP has two instances: one with the sliding window, and
+// one without, whose loop never tests it.
+// Rows past Sq or Sk come back from TMA as zeros, and a key
 // past Sk is masked, so it adds exactly 0.  Where a view breaks TMA's rules
 // (a 16-byte-aligned base, strides that are multiples of 16 bytes), the
 // producer warpgroup fills the same ring with plain loads instead: slower,
@@ -106,7 +116,7 @@ struct Problem {
   const void *q, *k, *v;
   void* o;
   Strides qs, ks, vs, os;
-  int batch, n_heads, group, sq, sk, d, dv, causal;
+  int batch, n_heads, group, sq, sk, d, dv, causal, window;
   float scale;
   int device;
   cudaStream_t stream;
@@ -163,7 +173,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
                        Strides vs, Strides os, int n_heads, int group, int sq, int sk, int d,
-                       int dv, int causal, float scale) {
+                       int dv, int causal, int window, float scale) {
   constexpr int kDvPad = DVL * 32;
   extern __shared__ float smem[];
   const int ldk = padded_k_stride(d);
@@ -199,10 +209,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int n_kt = (sk + kBlockK - 1) / kBlockK;
   if (causal) n_kt = min(n_kt, (min(q0 + kBlockQ, sq) - 1) / kBlockK + 1);
+  // the first tile holding a key above row q0's window
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
   const float* q_w = q_s + row0 * d;
   float* p_w = p_s + warp * kRowsPerWarp * kBlockK;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     const int nk = min(kBlockK, sk - k0);
     __syncthreads();  // the previous tile's readers are done
@@ -241,6 +253,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (causal) {
         if (k0 + lane > qg) x0 = kNegInf;
         if (k0 + lane + 32 > qg) x1 = kNegInf;
+      }
+      if (window > 0) {
+        if (k0 + lane <= qg - window) x0 = kNegInf;
+        if (k0 + lane + 32 <= qg - window) x1 = kNegInf;
       }
       const float m_new = fmaxf(m_run[r], warp_max(fmaxf(in0 ? x0 : kNegInf,
                                                          in1 ? x1 : kNegInf)));
@@ -295,7 +311,7 @@ cudaError_t launch(const Problem& a) {
   flash_attention_kernel<float, DVL><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks, a.vs, a.os,
-      a.n_heads, a.group, a.sq, a.sk, a.d, a.dv, a.causal, a.scale);
+      a.n_heads, a.group, a.sq, a.sk, a.d, a.dv, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -347,7 +363,7 @@ struct Params {
   const bf16 *q, *k, *v;
   bf16* o;
   Strides qs, ks, vs, os;
-  int n_heads, group, sq, sk, d, dv, causal;
+  int n_heads, group, sq, sk, d, dv, causal, window;
   int use_tma;   // else the producer warpgroup loads the ring itself
   int o_pairs;   // the output takes aligned bf16x2 stores
   float scale_log2;  // D^-½ · log2(e)
@@ -563,7 +579,9 @@ __device__ __forceinline__ void publish(uint64_t* bar, int tid) {
   if (tid == 0) mbar_arrive(bar);
 }
 
-template <int DP>
+// kWindow: the instance that applies p.window; the one without is the
+// unwindowed kernel as it was, with no test of the window in its loop.
+template <int DP, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -582,6 +600,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qk_panels = (p.d + kPanel - 1) / kPanel, v_panels = (p.dv + kPanel - 1) / kPanel;
   int n_kt = (p.sk + kBc - 1) / kBc;
   if (p.causal) n_kt = min(n_kt, (min(q0 + kBlockQ, p.sq) - 1) / kBc + 1);
+  // Tiles kt0 .. n_kt − 1 hold the block's keys: kt0 is the first with a
+  // key above row q0's window.  The loops below count tiles t from 0 (the
+  // ring's stages and phases), tile t holding keys from (kt0 + t)·Bc.
+  const int window = kWindow ? p.window : 0;
+  const int kt0 = kWindow ? max(0, q0 - window + 1) / kBc : 0;
+  const int n_t = n_kt - kt0;
 
   // panels wholly past D or Dv are never loaded: zero columns, once
   zero_smem(q_s + qk_panels * L::kQPanelBytes, (L::kPanels - qk_panels) * L::kQPanelBytes);
@@ -612,17 +636,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int pn = 0; pn < qk_panels; ++pn) {
           tma_load(q_s + pn * L::kQPanelBytes, &tq, q_full, pn * kPanel, q0, h, b);
         }
-        for (int kt = 0; kt < n_kt; ++kt) {
-          const int s = kt % kStages;
-          if (kt >= kStages) mbar_wait(&empty[s], (kt / kStages - 1) & 1);
+        for (int t = 0; t < n_t; ++t) {
+          const int s = t % kStages, row = (kt0 + t) * kBc;
+          if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
           uint8_t* k_st = kv_s + s * L::kStageBytes;
           uint8_t* v_st = k_st + L::kKBytes;
           mbar_expect_tx(&full[s], (qk_panels + v_panels) * L::kKVPanelBytes);
           for (int pn = 0; pn < qk_panels; ++pn) {
-            tma_load(k_st + pn * L::kKVPanelBytes, &tk, &full[s], pn * kPanel, kt * kBc, hk, b);
+            tma_load(k_st + pn * L::kKVPanelBytes, &tk, &full[s], pn * kPanel, row, hk, b);
           }
           for (int pn = 0; pn < v_panels; ++pn) {
-            tma_load(v_st + pn * L::kKVPanelBytes, &tv, &full[s], pn * kPanel, kt * kBc, hk, b);
+            tma_load(v_st + pn * L::kKVPanelBytes, &tv, &full[s], pn * kPanel, row, hk, b);
           }
         }
       }
@@ -632,12 +656,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bf16* vb = p.v + b * p.vs.b + hk * p.vs.h;
       load_tile(q_s, qb, p.qs.s, q0, p.sq, p.d, kBlockQ, qk_panels, tid);
       publish(q_full, tid);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
-        if (kt >= kStages) mbar_wait(&empty[s], (kt / kStages - 1) & 1);
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % kStages, row = (kt0 + t) * kBc;
+        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
         uint8_t* k_st = kv_s + s * L::kStageBytes;
-        load_tile(k_st, kb, p.ks.s, kt * kBc, p.sk, p.d, kBc, qk_panels, tid);
-        load_tile(k_st + L::kKBytes, vb, p.vs.s, kt * kBc, p.sk, p.dv, kBc, v_panels, tid);
+        load_tile(k_st, kb, p.ks.s, row, p.sk, p.d, kBc, qk_panels, tid);
+        load_tile(k_st + L::kKBytes, vb, p.vs.s, row, p.sk, p.dv, kBc, v_panels, tid);
         publish(&full[s], tid);
       }
     }
@@ -648,15 +672,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row_base = q0 + 64 * cw;
     const int r0 = row_base + 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
     const bool active = row_base < p.sq;
-    // Both consumers compute all n_kt tiles of the block (under causal a
-    // tile past a warpgroup's rows is masked whole and adds 0), and a
-    // warpgroup wholly past Sq computes on zero rows and stores nothing:
-    // no branch holds a wgmma, and the two take equal turns below.
+    // Both consumers compute all n_t tiles of the block (a tile past a
+    // warpgroup's causal rows or below its window is masked whole and adds
+    // 0), and a warpgroup wholly past Sq computes on zero rows and stores
+    // nothing: no branch holds a wgmma, and the two take equal turns below.
     const uint8_t* q_w = q_s + cw * 64 * 128;
-    auto k_stage = [&](int kt) { return kv_s + (kt % kStages) * L::kStageBytes; };
-    auto release = [&](int kt) {
+    auto k_stage = [&](int t) { return kv_s + (t % kStages) * L::kStageBytes; };
+    auto release = [&](int t) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[kt % kStages]);
+      if (lane == 0) mbar_arrive(&empty[t % kStages]);
     };
     // The consumers issue their batches of wgmma in turns (named barrier
     // 2 + w is warpgroup w's turn), so that one's softmax runs against the
@@ -670,9 +694,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2], sum[2];
 
-    // S = Q·Kᵀ of tile kt into sc, 16 columns of D a step
-    auto issue_s = [&](int kt) {
-      const uint8_t* k_st = k_stage(kt);
+    // S = Q·Kᵀ of tile t into sc, 16 columns of D a step
+    auto issue_s = [&](int t) {
+      const uint8_t* k_st = k_stage(t);
 #pragma unroll
       for (int ks = 0; ks < DP / 16; ++ks) {
         const int pn = ks / 4, off = (ks % 4) * 32;
@@ -681,28 +705,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       wgmma_commit();
     };
-    // O += P·V of tile kt, 16 keys a step; V panels are 64 columns of Dv apart
-    auto issue_pv = [&](int kt) {
-      const uint8_t* v_st = k_stage(kt) + L::kKBytes;
+    // O += P·V of tile t, 16 keys a step; V panels are 64 columns of Dv apart
+    auto issue_pv = [&](int t) {
+      const uint8_t* v_st = k_stage(t) + L::kKBytes;
 #pragma unroll
       for (int kk = 0; kk < kBc / 16; ++kk) {
         mma_rs<DP>(o, pa[kk], desc(v_st + kk * 16 * 128, L::kKVPanelBytes, 1024), 1);
       }
       wgmma_commit();
     };
-    // The online softmax of tile kt: masks sc, moves the running max m and
+    // The online softmax of tile t: masks sc, moves the running max m and
     // leaves P = 2^(S·scale·log2(e) − m) in sc, the rescale of the earlier
     // tiles in corr and the tile's row sums (of this thread) in sum.
     // sc[4j + e] is (row r0 + 8·(e / 2), key k0 + 8j + 2·(lane % 4) + e % 2).
-    auto softmax = [&](int kt) {
-      const int k0 = kt * kBc;
-      if (k0 + kBc > p.sk || (p.causal && k0 + kBc - 1 > row_base)) {
+    auto softmax = [&](int t) {
+      const int k0 = (kt0 + t) * kBc;
+      if (k0 + kBc > p.sk || (p.causal && k0 + kBc - 1 > row_base) ||
+          (kWindow && k0 <= row_base + 63 - window)) {
 #pragma unroll
         for (int j = 0; j < kBc / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-            if (key >= p.sk || (p.causal && key > r0 + 8 * (e >> 1))) sc[4 * j + e] = -INFINITY;
+            const int row = r0 + 8 * (e >> 1);
+            if (key >= p.sk || (p.causal && key > row) || (kWindow && key <= row - window)) {
+              sc[4 * j + e] = -INFINITY;
+            }
           }
         }
       }
@@ -749,30 +777,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     softmax(0);
     rescale_and_pack();
-    // Tile kt's Q·Kᵀ is issued together with tile kt − 1's P·V, and tile
-    // kt's softmax runs while that P·V is in flight.
-    for (int kt = 1; kt < n_kt; ++kt) {
-      mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
+    // Tile t's Q·Kᵀ is issued together with tile t − 1's P·V, and tile
+    // t's softmax runs while that P·V is in flight.
+    for (int t = 1; t < n_t; ++t) {
+      mbar_wait(&full[t % kStages], (t / kStages) & 1);
       wait_turn();
       wgmma_fence();
-      issue_s(kt);
-      issue_pv(kt - 1);
+      issue_s(t);
+      issue_pv(t - 1);
       pass_turn();
       wgmma_wait<1>();
       fence_regs(sc);
-      softmax(kt);
+      softmax(t);
       wgmma_wait<0>();
       fence_regs(o);
-      release(kt - 1);
+      release(t - 1);
       rescale_and_pack();
     }
     wait_turn();
     wgmma_fence();
-    issue_pv(n_kt - 1);
+    issue_pv(n_t - 1);
     if (cw == 0) pass_turn();  // consumer 1's last batch hands no turn back
     wgmma_wait<0>();
     fence_regs(o);
-    release(n_kt - 1);
+    release(n_t - 1);
 
     if (!active) return;
     bf16* ob = p.o + b * p.os.b + h * p.os.h;
@@ -874,11 +902,11 @@ cudaError_t encode(CUtensorMap* map, const void* base, const TmaView& t, int box
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DP>
+template <int DP, bool kWindow>
 cudaError_t launch(const Problem& a, int* path) {
   using L = Tile<DP>;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = allow_smem(flash_attention_kernel<DP>, configured, a.device);
+  cudaError_t err = allow_smem(flash_attention_kernel<DP, kWindow>, configured, a.device);
   if (err != cudaSuccess) return err;
   const int hkv = a.n_heads / a.group;
   const TmaView vq = tma_view(a.q, a.d, a.sq, a.n_heads, a.batch, a.qs);
@@ -900,22 +928,28 @@ cudaError_t launch(const Problem& a, int* path) {
   p.qs = a.qs, p.ks = a.ks, p.vs = a.vs, p.os = a.os;
   p.n_heads = a.n_heads, p.group = a.group, p.sq = a.sq, p.sk = a.sk, p.d = a.d, p.dv = a.dv;
   p.causal = a.causal;
+  p.window = a.window;
   p.use_tma = tma;
   p.o_pairs = a.dv % 2 == 0 && a.os.s % 2 == 0 && a.os.h % 2 == 0 && a.os.b % 2 == 0 &&
               reinterpret_cast<uintptr_t>(a.o) % 4 == 0;
   p.scale_log2 = a.scale * 1.4426950408889634f;
   const dim3 grid(a.batch * a.n_heads, (a.sq + kBlockQ - 1) / kBlockQ);
   if (grid.y > kMaxGridY) return cudaErrorInvalidValue;
-  flash_attention_kernel<DP><<<grid, kThreads, L::kSmemBytes, a.stream>>>(tq, tk, tv, p);
+  flash_attention_kernel<DP, kWindow><<<grid, kThreads, L::kSmemBytes, a.stream>>>(tq, tk, tv, p);
   *path = tma ? kPathTma : kPathLoads;
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const Problem& a, int* path) {
+template <bool kWindow>
+cudaError_t dispatch_dp(const Problem& a, int* path) {
   const int dp = std::max(a.d, a.dv);
-  return dp <= 64    ? launch<64>(a, path)
-         : dp <= 128 ? launch<128>(a, path)
-                     : launch<256>(a, path);
+  return dp <= 64    ? launch<64, kWindow>(a, path)
+         : dp <= 128 ? launch<128, kWindow>(a, path)
+                     : launch<256, kWindow>(a, path);
+}
+
+cudaError_t dispatch(const Problem& a, int* path) {
+  return a.window > 0 ? dispatch_dp<true>(a, path) : dispatch_dp<false>(a, path);
 }
 
 }  // namespace sm90
@@ -924,6 +958,8 @@ cudaError_t dispatch(const Problem& a, int* path) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, (batch, head,
 // sequence) for each of q, k, v, o; the last axis of each is contiguous.
+// window: 0, or W > 0 with Sq − W < Sk, so that every query row has a key
+// in its window (a block whose rows have none would have no tile to run).
 // *path tells which kernel and load path a successful launch took:
 // kPathSimt, kPathTma or kPathLoads.
 extern "C" int flash_attention_launch(
@@ -931,9 +967,11 @@ extern "C" int flash_attention_launch(
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int batch, int n_heads, int n_kv_heads, int sq, int sk,
-    int d, int dv, int causal, float scale, int dtype, int device, void* stream, int* path) {
+    int d, int dv, int causal, int window, float scale, int dtype, int device, void* stream,
+    int* path) {
   if (batch < 1 || sq < 1 || sk < 1 || d < 1 || dv < 1 || d > kMaxDim || dv > kMaxDim ||
-      n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
+      n_kv_heads < 1 || n_heads % n_kv_heads != 0 || window < 0 ||
+      (window > 0 && sq - window >= sk) ||
       static_cast<long long>(batch) * n_heads > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -941,7 +979,8 @@ extern "C" int flash_attention_launch(
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   const Problem a{q, k, v, o,
                   {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
-                  batch, n_heads, n_heads / n_kv_heads, sq, sk, d, dv, causal, scale, device,
+                  batch, n_heads, n_heads / n_kv_heads, sq, sk, d, dv, causal, window, scale,
+                  device,
                   static_cast<cudaStream_t>(stream)};
   *path = kPathSimt;
   const cudaError_t err = dtype == 0   ? simt::dispatch(a)

@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention.ref import live_keys
+
 __all__ = ["beyond", "bf16_path", "key_tile"]
 
 f32 = torch.float32
@@ -48,9 +50,13 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def bf16_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-              block_k: int, slack: bool = False):
+              block_k: int, slack: bool = False, window: int = 0):
     """(B, H, Sq, Dv) in q's type, from (B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, Dv),
-    the softmax online over tiles of ``block_k`` keys (the kernel's: :func:`key_tile`).
+    the softmax online over tiles of ``block_k`` keys (the kernel's: :func:`key_tile`),
+    with the sliding ``window`` of ``ref.flash_attention_ref``.  A tile whose
+    keys a row does not see leaves that row's state as it was (−inf, 0, 0
+    before its first seen key), so the kernel's skipping of tiles wholly
+    below the window or above the diagonal changes no bit.
 
     With ``slack``, returns ``(out, slack)``: slack (B, H, Sq, Dv) float32 is
     how far the kernel's float32 output may lie from the emulation's before
@@ -69,8 +75,8 @@ def bf16_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     c = torch.tensor(d ** -0.5, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
     c = c.to(q.device)
     s = q.to(f32) @ k.to(f32).transpose(-1, -2)
-    if causal:
-        keep = torch.arange(sk, device=q.device)[None, :] <= torch.arange(sq, device=q.device)[:, None]
+    keep = live_keys(sq, sk, causal, window, q.device)
+    if keep is not None:
         s = torch.where(keep, s, -torch.inf)
     shape = q.shape[:-1]
     m = torch.full(shape, -torch.inf, dtype=f32, device=q.device)

@@ -5,9 +5,12 @@ for any ``Sq``, ``Sk`` (no tile-multiple asserts) and ``D``, ``Dv`` up to
 256.  Takes the reference's ``(B, H, S, D)`` layout as tensors or strided
 views whose last axis is contiguous, and KV heads that divide the query
 heads (query head h reads KV head ``h // (H // Hkv)``, as a repeat of the
-KV heads would give).  bf16 inputs (the model's) go to the tensor-core
-kernel (``wgmma`` products, K/V tiles fed by TMA into a 2-3 stage ring),
-float32 inputs to the scalar float32 kernel; either is one launch of
+KV heads would give).  ``window=W > 0`` is a sliding window: query row i
+sees the keys above i − W (and, causal, none past i), as the reference's
+``attention_full(window=W)`` does, and tiles wholly below it are skipped;
+Sq − W must be below Sk, so that every row has a key.  bf16 inputs (the
+model's) go to the tensor-core kernel (``wgmma`` products, K/V tiles fed by
+TMA into a 2-3 stage ring), float32 inputs to the scalar float32 kernel; either is one launch of
 ``flash_attention``, and the path it took is counted in ``build.PATHS``:
 ``flash_attention.tma``, ``flash_attention.loads`` (a bf16 view whose base
 or strides TMA cannot read, loaded by the producer warps instead) or
@@ -34,7 +37,7 @@ _PATHS = ("simt", "tma", "loads")
 def bind(lib: ctypes.CDLL):
     """The typed entry point ``flash_attention_launch`` of a loaded library."""
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                       ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
@@ -62,13 +65,14 @@ def flash_attention(
     v: torch.Tensor,   # (B, Hkv, Sk, Dv)
     *,
     causal: bool = True,
+    window: int = 0,
 ) -> torch.Tensor:
     """(B, H, Sq, Dv) attention in q's type, laid out in memory as q is."""
-    return launch_with(_fn, q, k, v, causal=causal)
+    return launch_with(_fn, q, k, v, causal=causal, window=window)
 
 
 def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool) -> torch.Tensor:
+                causal: bool, window: int = 0) -> torch.Tensor:
     """:func:`flash_attention` through the entry point that ``entry()`` gives
     (see :func:`bind`), asked for once the inputs have passed their checks."""
     if q.dtype not in _DTYPES:
@@ -84,6 +88,9 @@ def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: {hkv} KV heads do not divide {h} query heads")
     if max(d, dv) > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+    if window < 0 or (window > 0 and sq - window >= sk):
+        raise ValueError(f"flash_attention: window {window} leaves some of {sq} query rows "
+                         f"without a key of {sk} (need 0, or Sq - window < Sk)")
     # the output takes q's memory order: (B, S, H, Dv) for a transposed model-layout q
     if q.stride(1) < q.stride(2):
         out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -95,7 +102,8 @@ def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device, stream = build.stream_of(q)
     path = ctypes.c_int(-1)
     err = entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-                  b, h, hkv, sq, sk, d, dv, int(causal), d ** -0.5, _DTYPES[q.dtype],
+                  b, h, hkv, sq, sk, d, dv, int(causal), int(window), d ** -0.5,
+                  _DTYPES[q.dtype],
                   device, stream, ctypes.byref(path))
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1

@@ -23,14 +23,15 @@ def attention(
     v: torch.Tensor,   # (B, S, Hkv, Dv)
     *,
     causal: bool = True,
+    window: int = 0,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """Returns (B, S, H, Dv)."""
+    """Returns (B, S, H, Dv); ``window`` > 0 is a sliding window."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if use_kernel and q.is_cuda:
-        return flash_attention(qt, kt, vt, causal=causal).transpose(1, 2)
+        return flash_attention(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
     h, hkv = q.shape[2], k.shape[2]
     if hkv != h:
         kt = kt.repeat_interleave(h // hkv, dim=1)
         vt = vt.repeat_interleave(h // hkv, dim=1)
-    return flash_attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
+    return flash_attention_ref(qt, kt, vt, causal=causal, window=window).transpose(1, 2)

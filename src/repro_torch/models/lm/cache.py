@@ -1,54 +1,101 @@
-"""Serving state: ``repro/models/lm/cache.py`` for the dense, VLM and MoE families.
+"""Serving state: ``repro/models/lm/cache.py``, all six families.
 
-Cache layouts (a leading layer axis, ``dense0`` first):
+Cache layouts (leading stacked-layer axes first):
 
 * dense / vlm / moe : {"k","v": (L, B, S, Hkv, hd), "pos"}
 * deepseek (MLA)    : {"ckv": (L, B, S, kv_lora), "kpe": (L, B, S, rope), "pos"}
+* hybrid (zamba2)   : {"conv": (G, per, B, K-1, C), "ssm": (G, per, B, H, N, P)
+                       float32, "k","v": (G, B, W, Hkv, hd), "pos"}: a ring of
+                       W slots for the shared attention block
+* ssm (xlstm)       : {"mC": (G, M, B, H, P, P), "mn", "mm", "sc", "sn", "sm",
+                       "sh", "pos"}, float32
+* audio (seamless)  : {"k","v": self-attention, "ck","cv": (L, B, S_enc, Hkv,
+                       hd), "pos"}
 
 ``pos`` is a Python int: decode runs eagerly, so the capacity guard reads
-it without a synchronisation.  ``decode_step`` writes each layer's slot
-``pos`` in place and returns the same dict with ``pos + 1``; prefill
-writes each layer's keys and values straight into a cache of ``max_seq``
-positions.  The SSM, hybrid and audio caches are not ported (ROADMAP
-Queue 1 item 9).
+it without a synchronisation.  The guard covers the absolute-slot caches
+(dense, VLM, MoE, audio) only, as in the reference: the hybrid's ring wraps
+and the xLSTM's state is O(1).  ``decode_step`` writes each layer's slot or
+state in place and returns the same dict with ``pos + 1``; prefill writes
+each layer's keys, values and states straight into the cache.
+
+The hybrid's ring is the reference's, quirks included: prefill sizes it to
+``w = min(sliding_window or S, S)`` and keeps the last w keys, and decode
+writes slot ``pos % w``.  So below the window (S < W) the first decode
+step overwrites position 0, and past it with S % W ≠ 0 the slots are
+misaligned with ``pos % W``; ``init_cache`` sizes its ring by ``max_seq``
+instead (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import ssm as ssm_lib
 from repro_torch.models.lm.layers import (
     attention_block_decode,
     attention_block_with_kv,
+    cross_attention_decode,
+    cross_attention_with_kv,
+    glu_ffn,
     mla_block_decode,
     mla_block_with_cache,
     rms_norm,
 )
+from repro_torch.models.lm.model import stacked
 
 __all__ = ["DECODE_RESERVE", "build_prefill_cache", "decode_step", "init_cache"]
 
+f32 = torch.float32
 # Decode slots reserved past the prefill length when the caller does not pass
 # an explicit ``max_seq``.  Positions past ``pos`` are masked in attention, so
 # the zero padding never leaks into logits.
 DECODE_RESERVE = 64
 
 
-def _leaves(model) -> dict:
-    """Cache leaf -> per-token shape after (L, B, S)."""
-    cfg = model.cfg
+def _leaves(model, batch: int, max_seq: int) -> dict:
+    """Cache leaf -> (shape, type, fill) of an empty cache (the reference's
+    ``init_cache``)."""
+    cfg, dt = model.cfg, model.dtype
+    fam = cfg.family
+    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    if fam == "hybrid":
+        s = cfg.ssm
+        per = cfg.attn_every
+        g = cfg.n_layers // per
+        di = s.expand * cfg.d_model
+        w = min(cfg.sliding_window or max_seq, max_seq)
+        return {"conv": ((g, per, batch, s.d_conv - 1, di + 2 * s.d_state), dt, 0.0),
+                "ssm": ((g, per, batch, di // s.head_dim, s.d_state, s.head_dim), f32, 0.0),
+                "k": ((g, batch, w, *kv), dt, 0.0), "v": ((g, batch, w, *kv), dt, 0.0)}
+    if fam == "ssm":
+        s = cfg.ssm
+        g, m = cfg.n_layers // s.slstm_every, s.slstm_every - 1
+        h, d = cfg.n_heads, cfg.d_model
+        p_dim = s.expand * d // h
+        return {"mC": ((g, m, batch, h, p_dim, p_dim), f32, 0.0),
+                "mn": ((g, m, batch, h, p_dim), f32, 0.0),
+                "mm": ((g, m, batch, h), f32, -1e30),
+                "sc": ((g, batch, d), f32, 0.0), "sn": ((g, batch, d), f32, 0.0),
+                "sm": ((g, batch, d), f32, -1e30), "sh": ((g, batch, d), f32, 0.0)}
+    n_layers = cfg.n_layers
     if cfg.mla:
-        return {"ckv": (cfg.mla.kv_lora,), "kpe": (cfg.mla.rope_dim,)}
-    shape = (cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": shape, "v": shape}
+        per_token = {"ckv": (cfg.mla.kv_lora,), "kpe": (cfg.mla.rope_dim,)}
+    else:
+        per_token = {"k": kv, "v": kv}
+    leaves = {name: ((n_layers, batch, max_seq, *shape), dt, 0.0)
+              for name, shape in per_token.items()}
+    if fam == "audio":
+        enc = (n_layers, batch, cfg.n_frontend_tokens, *kv)
+        leaves.update(ck=(enc, dt, 0.0), cv=(enc, dt, 0.0))
+    return leaves
 
 
 def init_cache(model, batch: int, max_seq: int, device=None) -> dict:
     """An empty cache of ``max_seq`` positions on ``device`` (default the card)."""
     dev = resolve_device(device)
-    n_layers = model.cfg.n_layers
-    cache = {name: torch.zeros((n_layers, batch, max_seq, *shape), dtype=model.dtype,
-                               device=dev)
-             for name, shape in _leaves(model).items()}
+    cache = {name: torch.full(shape, fill, dtype=dtype, device=dev)
+             for name, (shape, dtype, fill) in _leaves(model, batch, max_seq).items()}
     cache["pos"] = 0
     return cache
 
@@ -66,26 +113,34 @@ def _cache_len(s: int, max_seq: int | None) -> int:
 def build_prefill_cache(model, params, tokens, frontend=None, max_seq=None):
     """Run the full-sequence forward, returning (last logits, decode cache).
 
-    ``max_seq`` bounds the total sequence (prefill + decode steps) the cache
-    can hold; defaults to ``prefill_len + DECODE_RESERVE``.  The VLM prepends
-    ``frontend @ frontend_adapter`` to the token embeddings.
+    ``max_seq`` bounds the total sequence (prefill + decode steps) that an
+    absolute-slot cache can hold; defaults to ``prefill_len +
+    DECODE_RESERVE``.  The VLM prepends ``frontend @ frontend_adapter`` to
+    the token embeddings; the audio family encodes ``frontend`` and
+    attends to it.  The SSM and hybrid families ignore ``max_seq``.
     """
     cfg = model.cfg
-    b = tokens.shape[0]
     x = model.embed(params, tokens)
     if cfg.family == "vlm" and frontend is not None:
         fe = frontend.to(model.dtype) @ params["frontend_adapter"]
         x = torch.cat([fe, x], dim=1)
-    s = x.shape[1]
+    prefill = {"ssm": _prefill_ssm, "hybrid": _prefill_hybrid, "audio": _prefill_audio}.get(
+        cfg.family, _prefill_attn)
+    x, cache = prefill(model, params, x, frontend, max_seq)
+    cache["pos"] = x.shape[1]
+    h_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return model.logits_last(params, h_last), cache
+
+
+def _prefill_attn(model, params, x, frontend, max_seq):
+    b, s = x.shape[:2]
     cache = init_cache(model, b, _cache_len(s, max_seq), x.device)
-    names = list(_leaves(model))
+    names = [n for n in cache if n != "pos"]
     for i, bp in enumerate(model.layers(params)):
         x, extra = _prefill_attn_ffn(model, bp, x)
         for name, val in zip(names, extra):
             cache[name][i, :, :s] = val
-    cache["pos"] = s
-    h_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return model.logits_last(params, h_last), cache
+    return x, cache
 
 
 def _prefill_attn_ffn(model, bp, x):
@@ -99,6 +154,84 @@ def _prefill_attn_ffn(model, bp, x):
                                             use_kernel=model.use_kernel)
     x = x + a
     return x + model._ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps)), (c1, c2)
+
+
+def _shared_block(model, shared, x, attend):
+    """The hybrid's shared attention + FFN block; ``attend(h)`` gives the
+    attention's (out, k, v)."""
+    cfg = model.cfg
+    a, k, v = attend(rms_norm(x, shared["ln1"], cfg.norm_eps))
+    x = x + a
+    return x + glu_ffn(shared["ffn"], rms_norm(x, shared["ln2"], cfg.norm_eps), cfg.act), k, v
+
+
+def _prefill_hybrid(model, params, x, frontend, max_seq):
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    b, s = x.shape[:2]
+    # the reference's ring: the last w keys, w = min(window or s, s) (module docstring)
+    w = min(cfg.sliding_window or s, s)
+    cache = {name: torch.empty(shape, dtype=dtype, device=x.device)
+             for name, (shape, dtype, _) in _leaves(model, b, w).items()}
+    shared = params["shared_block"]
+    attend = lambda h: attention_block_with_kv(  # noqa: E731
+        shared["attn"], h, cfg, window=cfg.sliding_window, block=model.attn_block,
+        use_kernel=model.use_kernel)
+    for g, (mamba, _) in enumerate(model.groups(params)):
+        for j, mp in enumerate(stacked(mamba)):
+            out, ssm_state, conv_tail = ssm_lib.mamba2_block(
+                mp["cell"], rms_norm(x, mp["ln"], eps), cfg, return_state=True)
+            x = x + out
+            cache["ssm"][g, j] = ssm_state
+            cache["conv"][g, j] = conv_tail
+        x, k, v = _shared_block(model, shared, x, attend)
+        cache["k"][g] = k[:, -w:]
+        cache["v"][g] = v[:, -w:]
+    return x, cache
+
+
+def _prefill_ssm(model, params, x, frontend, max_seq):
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    cache = {name: torch.empty(shape, dtype=dtype, device=x.device)
+             for name, (shape, dtype, _) in _leaves(model, x.shape[0], x.shape[1]).items()}
+    for g, (mlstm, slstm) in enumerate(model.groups(params)):
+        for j, mp in enumerate(stacked(mlstm)):
+            out, state = ssm_lib.mlstm_block(mp["cell"], rms_norm(x, mp["ln"], eps), cfg,
+                                             return_state=True)
+            x = x + out
+            for name, val in zip(("mC", "mn", "mm"), state):
+                cache[name][g, j] = val
+        out, state = ssm_lib.slstm_block(slstm["cell"], rms_norm(x, slstm["ln"], eps), cfg,
+                                         return_state=True)
+        x = x + out
+        for name, val in zip(("sc", "sn", "sm", "sh"), state):
+            cache[name][g] = val
+    return x, cache
+
+
+def _prefill_audio(model, params, x, frontend, max_seq):
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    b, s = x.shape[:2]
+    enc_out = model._encode(params, frontend)
+    cache = init_cache(model, b, _cache_len(s, max_seq), x.device)
+    enc_shape = (cfg.n_layers, *enc_out.shape[:2], *cache["ck"].shape[3:])
+    cache["ck"], cache["cv"] = (torch.empty(enc_shape, dtype=model.dtype, device=x.device)
+                                for _ in range(2))
+    for i, bp in enumerate(stacked(params["dec_blocks"])):
+        a, k, v = attention_block_with_kv(bp["self_attn"], rms_norm(x, bp["ln1"], eps), cfg,
+                                          block=model.attn_block, use_kernel=model.use_kernel)
+        x = x + a
+        a, ck, cv = cross_attention_with_kv(bp["cross_attn"], rms_norm(x, bp["ln_x"], eps),
+                                            enc_out, use_kernel=model.use_kernel)
+        x = x + a
+        x = x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps), cfg.act)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        cache["ck"][i] = ck
+        cache["cv"][i] = cv
+    return x, cache
 
 
 # ==========================================================================
@@ -117,22 +250,78 @@ def decode_step(model, params, cache, tokens):
     """tokens (B, 1) -> (logits (B, Vp), the cache updated in place)."""
     cfg = model.cfg
     pos = cache["pos"]
-    names = list(_leaves(model))
-    _check_cache_capacity(pos, cache[names[0]].shape[2])
+    fam = cfg.family
+    if fam not in ("ssm", "hybrid"):
+        _check_cache_capacity(pos, cache["ckv" if cfg.mla else "k"].shape[2])
     x = model.embed(params, tokens)
-    for i, bp in enumerate(model.layers(params)):
-        x = _decode_attn_ffn(model, bp, x, *(cache[name][i] for name in names), pos)
+    step = {"ssm": _decode_ssm, "hybrid": _decode_hybrid, "audio": _decode_audio}.get(
+        fam, _decode_attn)
+    x = step(model, params, cache, x, pos)
     cache["pos"] = pos + 1
     h_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return model.logits_last(params, h_last), cache
 
 
-def _decode_attn_ffn(model, bp, x, c1, c2, pos):
+def _decode_attn(model, params, cache, x, pos):
     cfg = model.cfg
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if cfg.mla:
-        a, _, _ = mla_block_decode(bp["attn"], h, c1, c2, pos, cfg)
-    else:
-        a, _, _ = attention_block_decode(bp["attn"], h, c1, c2, pos, cfg)
-    x = x + a
-    return x + model._ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
+    c1, c2 = ("ckv", "kpe") if cfg.mla else ("k", "v")
+    for i, bp in enumerate(model.layers(params)):
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if cfg.mla:
+            a, _, _ = mla_block_decode(bp["attn"], h, cache[c1][i], cache[c2][i], pos, cfg)
+        else:
+            a, _, _ = attention_block_decode(bp["attn"], h, cache[c1][i], cache[c2][i], pos, cfg)
+        x = x + a
+        x = x + model._ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
+    return x
+
+
+def _decode_hybrid(model, params, cache, x, pos):
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    shared = params["shared_block"]
+    w = cache["k"].shape[2]
+    for g, (mamba, _) in enumerate(model.groups(params)):
+        for j, mp in enumerate(stacked(mamba)):
+            out, conv, ssm_state = ssm_lib.mamba2_decode(
+                mp["cell"], rms_norm(x, mp["ln"], eps), cache["conv"][g, j], cache["ssm"][g, j],
+                cfg)
+            x = x + out
+            cache["conv"][g, j] = conv
+            cache["ssm"][g, j] = ssm_state
+        attend = lambda h, g=g: attention_block_decode(  # noqa: E731
+            shared["attn"], h, cache["k"][g], cache["v"][g], pos, cfg, window=w)
+        x, _, _ = _shared_block(model, shared, x, attend)
+    return x
+
+
+def _decode_ssm(model, params, cache, x, pos):
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    for g, (mlstm, slstm) in enumerate(model.groups(params)):
+        for j, mp in enumerate(stacked(mlstm)):
+            state = tuple(cache[name][g, j] for name in ("mC", "mn", "mm"))
+            out, state = ssm_lib.mlstm_decode(mp["cell"], rms_norm(x, mp["ln"], eps), state, cfg)
+            x = x + out
+            for name, val in zip(("mC", "mn", "mm"), state):
+                cache[name][g, j] = val
+        state = tuple(cache[name][g] for name in ("sc", "sn", "sm", "sh"))
+        out, state = ssm_lib.slstm_decode(slstm["cell"], rms_norm(x, slstm["ln"], eps), state,
+                                          cfg)
+        x = x + out
+        for name, val in zip(("sc", "sn", "sm", "sh"), state):
+            cache[name][g] = val
+    return x
+
+
+def _decode_audio(model, params, cache, x, pos):
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    for i, bp in enumerate(stacked(params["dec_blocks"])):
+        a, _, _ = attention_block_decode(bp["self_attn"], rms_norm(x, bp["ln1"], eps),
+                                         cache["k"][i], cache["v"][i], pos, cfg)
+        x = x + a
+        x = x + cross_attention_decode(bp["cross_attn"], rms_norm(x, bp["ln_x"], eps),
+                                       cache["ck"][i], cache["cv"][i])
+        x = x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps), cfg.act)
+    return x

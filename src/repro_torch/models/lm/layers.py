@@ -1,15 +1,17 @@
 """Transformer layer primitives of the LM: ``repro/models/lm/layers.py``.
 
 Functional, as in the reference: params are nested dicts of tensors, layers
-are plain functions.  Full-sequence (prefill) attention, GQA and MLA alike,
-routes by device:
+are plain functions.  Full-sequence (prefill) attention, GQA, MLA, sliding
+windows and the encoder-decoder's cross attention alike, routes by device:
 
 * on the card it calls ``kernels/flash_attention/ops.attention``, that is
-  the ``flash_attention`` CUDA kernel (or, under ``use_kernel=False``, its
-  plain version on the card);
+  the ``flash_attention`` CUDA kernel, windowed where the reference's
+  attention is (or, under ``use_kernel=False``, its plain version on the
+  card);
 * on the CPU it calls ``attention_full`` or ``attention_blockwise`` by the
-  reference's rule (``s > 2·block and s % block == 0``), so that the CPU
-  tests compare like with like.
+  reference's rule (``s > 2·block and s % block == 0``; cross attention is
+  always ``attention_full`` there), so that the CPU tests compare like with
+  like.
 
 Decode attention (``attention_decode``, and MLA's absorbed form in
 ``mla_block_decode``) is plain PyTorch in float32 on either device, as the
@@ -36,6 +38,8 @@ __all__ = [
     "attention_decode",
     "attention_full",
     "attention_qkv",
+    "cross_attention_decode",
+    "cross_attention_with_kv",
     "glu_ffn",
     "init_attention",
     "init_ffn",
@@ -267,21 +271,17 @@ def attention_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions) -> tupl
 
 def _attend(q, k, v, *, causal: bool, window: int, block: int, use_kernel: bool,
             scale: float | None = None) -> torch.Tensor:
-    """Full-sequence attention routed by device (module docstring).
+    """Full-sequence attention routed by device (module docstring); on the
+    CPU ``block=0`` always takes ``attention_full``.
 
     On the card the kernel scales by ``D^-½``; ``scale`` may only restate it
     (MLA's ``(nope + rope)^-½`` is q's own ``D^-½``)."""
     s = q.shape[1]
     if q.is_cuda:
-        if window > 0:
-            raise NotImplementedError(
-                f"window={window}: sliding-window attention on the card is not ported "
-                "(the flash_attention kernel has no window; ROADMAP Queue 1 item 9)"
-            )
         if scale is not None and scale != q.shape[-1] ** -0.5:
             raise ValueError(f"scale {scale}: the flash_attention kernel scales by D^-1/2")
-        return ops.attention(q, k, v, causal=causal, use_kernel=use_kernel)
-    if s > 2 * block and s % block == 0:
+        return ops.attention(q, k, v, causal=causal, window=window, use_kernel=use_kernel)
+    if block and s > 2 * block and s % block == 0:
         return attention_blockwise(q, k, v, causal=causal, window=window, block=block,
                                    scale=scale)
     return attention_full(q, k, v, causal=causal, window=window, scale=scale)
@@ -357,6 +357,30 @@ def attention_block_decode(
     cache_v[:, slot] = v[:, 0]
     o = attention_decode(q, cache_k, cache_v, pos, window=0)
     return _out(o, p["wo"]), cache_k, cache_v
+
+
+def cross_attention_with_kv(
+    p: dict,
+    x: torch.Tensor,           # (B, S, D) decoder states
+    enc_out: torch.Tensor,     # (B, S_enc, D) encoder output
+    *,
+    use_kernel: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``LM._cross_attention`` (projections without bias,
+    norm or rope; no mask), also returning the encoder-side (k, v) that the
+    reference's prefill computes again for its cross cache."""
+    q = _project(x, p["wq"])
+    k = _project(enc_out, p["wk"])
+    v = _project(enc_out, p["wv"])
+    o = _attend(q, k, v, causal=False, window=0, block=0, use_kernel=use_kernel)
+    return _out(o, p["wo"]), k, v
+
+
+def cross_attention_decode(p: dict, x: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor) -> torch.Tensor:
+    """One decode position (B, 1, D) against the cross cache (B, S_enc, Hkv, hd)."""
+    o = attention_decode(_project(x, p["wq"]), ck, cv, ck.shape[1] - 1)
+    return _out(o, p["wo"])
 
 
 # --------------------------------------------------------------------------

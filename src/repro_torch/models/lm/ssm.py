@@ -1,0 +1,412 @@
+"""State-space and recurrent blocks: ``repro/models/lm/ssm.py``.
+
+Mamba2 (SSD) for the hybrid family (zamba2) and the xLSTM cells (mLSTM,
+sLSTM) for the SSM family (xlstm).  Prefill runs the chunked-parallel forms
+(a Python loop over chunks where the reference uses ``lax.scan``): within a
+chunk the work is batched products, and only the O(L/Q) inter-chunk state
+recurrence is sequential.  Decode runs the exact O(1)-per-token recurrence
+on the carried state.  The sLSTM is a sequential loop over positions in
+both, as in the reference.
+
+These are plain PyTorch on either device: the reference computes them in
+``jnp`` and ``lax.scan`` with no Pallas kernel.  Numerics follow the
+reference: decays in log space and ≤ 0 before exponentiation (Mamba2), or
+stabilised by running maxima (mLSTM, sLSTM); states, gates and log
+arithmetic in float32.  Where the reference mixes bf16 and float32
+operands, JAX promotes them silently; here each is cast explicitly at the
+same place (a bf16 value is exact in float32, so "bf16 operands, float32
+accumulation" is the float32 product of the bf16 values).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lm.layers import _normal, rms_norm
+
+__all__ = [
+    "init_mamba2",
+    "init_mlstm",
+    "init_slstm",
+    "mamba2_block",
+    "mamba2_decode",
+    "mlstm_block",
+    "mlstm_decode",
+    "slstm_block",
+    "slstm_decode",
+]
+
+f32 = torch.float32
+
+
+def _fit_chunk(length: int, chunk: int) -> int:
+    """Largest divisor of ``length`` not exceeding ``chunk`` (>=1)."""
+    q = min(chunk, length)
+    while length % q != 0:
+        q -= 1
+    return q
+
+
+def _full(shape, value, dtype, device) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (torch's switches to x past 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _chunks(t: torch.Tensor, q: int):
+    """(B, L, ...) -> the L/q chunks (B, q, ...) in order."""
+    return t.split(q, dim=1)
+
+
+# ==========================================================================
+# Mamba2 / SSD
+# ==========================================================================
+def init_mamba2(generator: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> dict:
+    """Mamba2 parameters with leading axes ``lead``, with the reference's
+    stds; ``dt_bias``, ``a_log`` and ``d_skip`` float32 (A = −1 at init)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    h = di // s.head_dim
+    n = s.d_state
+    lead = tuple(lead)
+    dev = generator.device
+    d_in = 2 * di + 2 * n + h  # z, x, B, C, dt
+    return {
+        "in_proj": _normal(generator, (*lead, d, d_in), d ** -0.5).to(dtype),
+        "conv_w": _normal(generator, (*lead, s.d_conv, di + 2 * n), 0.1).to(dtype),
+        "conv_b": _full((*lead, di + 2 * n), 0.0, dtype, dev),
+        "dt_bias": _full((*lead, h), 0.0, f32, dev),
+        "a_log": _full((*lead, h), 0.0, f32, dev),
+        "d_skip": _full((*lead, h), 1.0, f32, dev),
+        "out_norm": _full((*lead, di), 1.0, dtype, dev),
+        "out_proj": _normal(generator, (*lead, di, d), di ** -0.5).to(dtype),
+    }
+
+
+def _split_mamba_proj(proj: torch.Tensor, cfg: ModelConfig):
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    h = di // s.head_dim
+    n = s.d_state
+    z, xbc, dt = proj.split([di, di + 2 * n, h], dim=-1)
+    return z, xbc, dt, di, h, n
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, window K.  xbc: (B, L, C); w: (K, C)."""
+    k, length = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = pad[:, :length] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i : i + length] * w[i]
+    return F.silu((out + b).to(f32)).to(xbc.dtype)
+
+
+def _ssd_chunked(
+    x: torch.Tensor,   # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) positive
+    a: torch.Tensor,   # (H,) negative
+    b_: torch.Tensor,  # (B, L, N)
+    c_: torch.Tensor,  # (B, L, N)
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba2 paper §6) from the zero state; returns
+    (y (B, L, H, P), final state (B, H, N, P))."""
+    bsz, length, n_heads, p_dim = x.shape
+    q = _fit_chunk(length, chunk)
+    lga = (dt * a[None, None, :]).to(f32)          # (B,L,H) log-decay <= 0
+    xbar = x.to(f32) * dt[..., None]               # (B,L,H,P)
+    h = torch.zeros((bsz, n_heads, b_.shape[-1], p_dim), dtype=f32, device=x.device)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    ys = []
+    for lg, xc, bc, cc in zip(_chunks(lga, q), _chunks(xbar, q), _chunks(b_.to(f32), q),
+                              _chunks(c_.to(f32), q)):
+        cum = torch.cumsum(lg, dim=1)              # (B,Q,H) inclusive
+        cum_t = cum.transpose(1, 2)                # (B,H,Q)
+        total = cum_t[:, :, -1]                    # (B,H)
+        # ---- intra-chunk (masked decay attention) --------------------------
+        scores = cc @ bc.transpose(1, 2)           # (B,Q,Q)
+        decay = torch.exp(cum_t[:, :, :, None] - cum_t[:, :, None, :])  # (B,H,Q,Q)
+        w = scores[:, None] * torch.where(mask, decay, 0.0)
+        y = torch.einsum("bhij,bjhp->bihp", w, xc)
+        # ---- inter-chunk (carried state) -----------------------------------
+        y = y + torch.einsum("bin,bhnp->bihp", cc, h) * torch.exp(cum)[..., None]
+        # ---- state update --------------------------------------------------
+        to_end = torch.exp(total[:, None, :] - cum)  # (B,Q,H)
+        xw = xc * to_end[..., None]
+        h = torch.exp(total)[:, :, None, None] * h + torch.einsum("bjn,bjhp->bhnp", bc, xw)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+    """Full-sequence Mamba2 block (prefill).  x: (B, L, D).
+
+    With ``return_state`` also returns (final SSM state (B, H, N, P) float32,
+    the conv window's tail (B, K−1, di + 2N)): what :func:`mamba2_decode`
+    needs to continue the sequence.
+    """
+    s = cfg.ssm
+    proj = x @ p["in_proj"]
+    z, xbc_raw, dtr, di, h, n = _split_mamba_proj(proj, cfg)
+    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xs, b_, c_ = xbc.split([di, n, n], dim=-1)
+    dt = softplus(dtr.to(f32) + p["dt_bias"])      # (B,L,H)
+    a = -torch.exp(p["a_log"])
+    xh = xs.reshape(*xs.shape[:2], h, s.head_dim)
+    y, h_fin = _ssd_chunked(xh, dt, a, b_, c_, s.chunk)
+    y = y + p["d_skip"][None, None, :, None] * xh.to(f32)
+    y = y.reshape(*xs.shape[:2], di).to(x.dtype)
+    y = y * F.silu(z.to(f32)).to(x.dtype)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, h_fin, xbc_raw[:, -(s.d_conv - 1):, :]
+    return out
+
+
+def mamba2_decode(
+    p: dict,
+    x: torch.Tensor,            # (B, 1, D)
+    conv_state: torch.Tensor,   # (B, K-1, di + 2N)
+    ssm_state: torch.Tensor,    # (B, H, N, P)
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """O(1) recurrent decode step: (out (B, 1, D), conv state, SSM state)."""
+    s = cfg.ssm
+    proj = x @ p["in_proj"]
+    z, xbc, dtr, di, h, n = _split_mamba_proj(proj[:, 0], cfg)
+    # conv over the ring of the last K inputs: float32 products of the
+    # model's values summed in float32, as the reference's einsum
+    win = torch.cat([conv_state, xbc[:, None, :]], dim=1)       # (B,K,C)
+    conv = (win.to(f32) * p["conv_w"].to(f32)).sum(dim=1).to(x.dtype) + p["conv_b"]
+    conv = F.silu(conv.to(f32)).to(x.dtype)
+    conv_state = win[:, 1:, :]
+    xs, b_, c_ = conv.split([di, n, n], dim=-1)
+    dt = softplus(dtr.to(f32) + p["dt_bias"])                    # (B,H)
+    a = -torch.exp(p["a_log"])
+    decay = torch.exp(dt * a[None, :])                           # (B,H)
+    xh = xs.reshape(-1, h, s.head_dim).to(f32)                   # (B,H,P)
+    xbar = xh * dt[..., None]
+    ssm_state = decay[:, :, None, None] * ssm_state + torch.einsum(
+        "bn,bhp->bhnp", b_.to(f32), xbar)
+    y = torch.einsum("bn,bhnp->bhp", c_.to(f32), ssm_state)
+    y = y + p["d_skip"][None, :, None] * xh
+    y = y.reshape(-1, 1, di).to(x.dtype)
+    y = y * F.silu(z.to(f32)).to(x.dtype)[:, None, :]
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], conv_state, ssm_state
+
+
+# ==========================================================================
+# mLSTM (xLSTM matrix-memory cell), chunkwise-parallel + recurrent
+# ==========================================================================
+def init_mlstm(generator: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> dict:
+    """mLSTM parameters with leading axes ``lead``; the gates' ``w_i``,
+    ``w_f``, ``b_i`` and ``b_f`` float32 (forget gates open: ``b_f`` = 3)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    h = cfg.n_heads
+    lead = tuple(lead)
+    dev = generator.device
+    std = d ** -0.5
+    return {
+        "w_q": _normal(generator, (*lead, d, di), std).to(dtype),
+        "w_k": _normal(generator, (*lead, d, di), std).to(dtype),
+        "w_v": _normal(generator, (*lead, d, di), std).to(dtype),
+        "w_i": _normal(generator, (*lead, d, h), std),
+        "w_f": _normal(generator, (*lead, d, h), std),
+        "b_i": _full((*lead, h), 0.0, f32, dev),
+        "b_f": _full((*lead, h), 3.0, f32, dev),
+        "w_gate": _normal(generator, (*lead, d, di), std).to(dtype),
+        "out_norm": _full((*lead, di), 1.0, dtype, dev),
+        "out_proj": _normal(generator, (*lead, di, d), di ** -0.5).to(dtype),
+    }
+
+
+def _mlstm_chunked(q, k, v, log_i, log_f, chunk, compute_dtype=f32):
+    """Stabilized chunkwise mLSTM from the empty state.
+
+    q, k, v: (B, L, H, P); log_i, log_f: (B, L, H) float32.  Returns (h (B,
+    L, H, P) float32, final state (C (B, H, P, P), n (B, H, P), m (B, H)),
+    float32, with true scale exp(m)·stored).
+
+    ``compute_dtype`` is the type of the chunk products' q, k, v operands
+    (the model's), accumulated in float32; ``q · P^-½`` is rounded to it, as
+    the reference's weakly typed scale leaves it.  The state update
+    contracts pairwise, ``(sw·k)ᵀ @ v``, never forming (B, H, Q, P, P).
+    """
+    bsz, length, n_heads, p_dim = q.shape
+    q_len = _fit_chunk(length, chunk)
+    scale = p_dim ** -0.5
+    dev = q.device
+    c_mem = torch.zeros((bsz, n_heads, p_dim, p_dim), dtype=f32, device=dev)
+    n_mem = torch.zeros((bsz, n_heads, p_dim), dtype=f32, device=dev)
+    m = torch.full((bsz, n_heads), -1e30, dtype=f32, device=dev)
+    mask = torch.tril(torch.ones((q_len, q_len), dtype=torch.bool, device=dev))
+    hs = []
+    for qt, kt, vt, li, lf in zip(*(_chunks(t.to(compute_dtype), q_len) for t in (q, k, v)),
+                                  _chunks(log_i, q_len), _chunks(log_f, q_len)):
+        kf, vf = kt.to(f32), vt.to(f32)
+        qs = (qt * scale).to(f32)
+        b = torch.cumsum(lf, dim=1).transpose(1, 2)        # (B,H,Q) inclusive
+        li_t = li.transpose(1, 2)                          # (B,H,Q)
+        total = b[:, :, -1]                                # (B,H)
+        # log-weight of key j for query i (j <= i): b_i - b_j + log_i_j
+        logw = b[:, :, :, None] - b[:, :, None, :] + li_t[:, :, None, :]
+        logw = torch.where(mask, logw, -torch.inf)
+        m_intra = logw.amax(dim=-1)                        # (B,H,Q)
+        m_inter = m[:, :, None] + b                        # (B,H,Q)
+        m_i = torch.clamp(torch.maximum(m_intra, m_inter), min=-1e30)
+        w = torch.exp(logw - m_i[..., None])               # (B,H,Q,Q)
+        qk = torch.einsum("bihp,bjhp->bhij", qt.to(f32), kf) * scale
+        wqk = w * qk
+        num = torch.einsum("bhij,bjhp->bihp", wqk, vf)
+        den = wqk.sum(dim=-1)                              # (B,H,Q)
+        inter_scale = torch.exp(m_inter - m_i)             # (B,H,Q)
+        num = num + torch.einsum("bihp,bhpr->bihr", qs, c_mem) * (
+            inter_scale.transpose(1, 2)[..., None])
+        den = den + torch.einsum("bihp,bhp->bhi", qs, n_mem) * inter_scale
+        hden = torch.maximum(den.abs(), torch.exp(-m_i))   # (B,H,Q)
+        hs.append(num / hden.transpose(1, 2)[..., None])   # (B,Q,H,P)
+        # ---- state update -------------------------------------------------
+        lw_state = total[:, :, None] - b + li_t            # (B,H,Q) log-weights
+        m_new = torch.maximum(m + total, lw_state.amax(dim=-1))
+        sw = torch.exp(lw_state - m_new[:, :, None])       # (B,H,Q)
+        swk = sw.transpose(1, 2)[..., None] * kf           # (B,Q,H,P)
+        carry = torch.exp(m + total - m_new)
+        c_mem = carry[:, :, None, None] * c_mem + swk.permute(0, 2, 3, 1) @ vf.transpose(1, 2)
+        n_mem = carry[:, :, None] * n_mem + swk.sum(dim=1)
+        m = m_new
+    return torch.cat(hs, dim=1), (c_mem, n_mem, m)
+
+
+def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+    """Full-sequence mLSTM block (prefill).  x: (B, L, D)."""
+    s = cfg.ssm
+    bsz, length, d = x.shape
+    n_heads = cfg.n_heads
+    di = s.expand * d
+    p_dim = di // n_heads
+    q = (x @ p["w_q"]).reshape(bsz, length, n_heads, p_dim)
+    k = (x @ p["w_k"]).reshape(bsz, length, n_heads, p_dim)
+    v = (x @ p["w_v"]).reshape(bsz, length, n_heads, p_dim)
+    # xLSTM's exponential input gate: log i is the preactivation itself
+    xf = x.to(f32)
+    li = xf @ p["w_i"] + p["b_i"]
+    lf = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
+    y, state = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=x.dtype)
+    y = y.reshape(bsz, length, di).to(x.dtype)
+    y = y * F.silu((x @ p["w_gate"]).to(f32)).to(x.dtype)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, state
+    return out
+
+
+def mlstm_decode(p: dict, x: torch.Tensor, state: tuple, cfg: ModelConfig):
+    """x: (B, 1, D); state: (C, n, m) -> (out (B, 1, D), new state)."""
+    s = cfg.ssm
+    bsz, _, d = x.shape
+    n_heads = cfg.n_heads
+    di = s.expand * d
+    p_dim = di // n_heads
+    xt = x[:, 0]
+    q = (xt @ p["w_q"]).reshape(bsz, n_heads, p_dim).to(f32) * p_dim ** -0.5
+    k = (xt @ p["w_k"]).reshape(bsz, n_heads, p_dim).to(f32)
+    v = (xt @ p["w_v"]).reshape(bsz, n_heads, p_dim).to(f32)
+    xf = xt.to(f32)
+    li = xf @ p["w_i"] + p["b_i"]                                  # (B,H)
+    lf = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
+    c_mem, n_mem, m = state
+    m_new = torch.maximum(lf + m, li)
+    keep, take = torch.exp(lf + m - m_new), torch.exp(li - m_new)
+    c_mem = keep[:, :, None, None] * c_mem + take[:, :, None, None] * (k[..., :, None] * v[..., None, :])
+    n_mem = keep[:, :, None] * n_mem + take[:, :, None] * k
+    num = (q[:, :, None, :] @ c_mem)[:, :, 0]                      # (B,H,P)
+    den = torch.maximum((q * n_mem).sum(dim=-1).abs(), torch.exp(-m_new))
+    y = (num / den[..., None]).reshape(bsz, 1, di).to(x.dtype)
+    y = y * F.silu((x @ p["w_gate"]).to(f32)).to(x.dtype)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], (c_mem, n_mem, m_new)
+
+
+# ==========================================================================
+# sLSTM (scalar-memory cell with exponential gating)
+# ==========================================================================
+def init_slstm(generator: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> dict:
+    """sLSTM parameters with leading axes ``lead``; ``w``, ``r`` and ``b``
+    float32 (the forget gate's third of ``b`` at 3)."""
+    d = cfg.d_model
+    hs = cfg.n_heads
+    dh = d // hs
+    lead = tuple(lead)
+    dev = generator.device
+    b = torch.cat([torch.zeros((2 * d,), device=dev), torch.full((d,), 3.0, device=dev),
+                   torch.zeros((d,), device=dev)])
+    return {
+        "w": _normal(generator, (*lead, d, 4 * d), d ** -0.5),
+        "r": _normal(generator, (*lead, hs, dh, 4 * dh), dh ** -0.5),
+        "b": b.expand(*lead, 4 * d).clone(),
+        "out_norm": _full((*lead, d), 1.0, dtype, dev),
+        "up": _normal(generator, (*lead, d, 4 * d // 3), d ** -0.5).to(dtype),
+        "down": _normal(generator, (*lead, 4 * d // 3, d), (4 * d // 3) ** -0.5).to(dtype),
+    }
+
+
+def _slstm_scan(p, x_seq: torch.Tensor, cfg: ModelConfig, state=None):
+    """x_seq: (B, L, D) -> (h (B, L, D) float32, final state (c, n, m, h)).
+
+    A sequential loop over the L positions."""
+    bsz, length, d = x_seq.shape
+    hs = cfg.n_heads
+    dh = d // hs
+    if state is None:
+        zeros = torch.zeros((bsz, d), dtype=f32, device=x_seq.device)
+        state = (zeros, zeros, torch.full((bsz, d), -1e30, dtype=f32, device=x_seq.device), zeros)
+    c, n, m, h = state
+    wx = x_seq.to(f32) @ p["w"] + p["b"]  # (B,L,4D): the input part, precomputed
+    r = p["r"]
+    outs = []
+    for t in range(length):
+        rec = torch.bmm(h.reshape(bsz, hs, dh).transpose(0, 1), r).transpose(0, 1)
+        za, ia, fa, oa = (wx[:, t] + rec.reshape(bsz, 4 * d)).chunk(4, dim=-1)
+        z = torch.tanh(za)
+        log_f = F.logsigmoid(fa)
+        o = torch.sigmoid(oa)
+        m_new = torch.maximum(log_f + m, ia)
+        keep, take = torch.exp(log_f + m - m_new), torch.exp(ia - m_new)
+        c = keep * c + take * z
+        n = keep * n + take
+        h = o * c / torch.maximum(n, torch.exp(-m_new))
+        m = m_new
+        outs.append(h)
+    return torch.stack(outs, dim=1), (c, n, m, h)
+
+
+def _slstm_out(p, h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(h.to(x.dtype), p["out_norm"], cfg.norm_eps)
+    u = F.gelu((h @ p["up"]).to(f32), approximate="tanh").to(x.dtype)
+    return u @ p["down"]
+
+
+def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+    """Full-sequence sLSTM block (prefill).  x: (B, L, D)."""
+    h, state = _slstm_scan(p, x, cfg)
+    out = _slstm_out(p, h, x, cfg)
+    if return_state:
+        return out, state
+    return out
+
+
+def slstm_decode(p: dict, x: torch.Tensor, state: tuple, cfg: ModelConfig):
+    """x: (B, 1, D); state: (c, n, m, h) -> (out (B, 1, D), new state)."""
+    h, new_state = _slstm_scan(p, x, cfg, state)
+    return _slstm_out(p, h, x, cfg), new_state

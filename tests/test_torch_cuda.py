@@ -1136,10 +1136,67 @@ def test_flash_attention_is_deterministic(dev):
         assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv,window", [
+    (1, 2, 2, 300, 300, 64, 64, 5),        # a window under one tile
+    (1, 2, 2, 300, 300, 64, 64, 128),      # a tile's width
+    (1, 2, 1, 520, 520, 64, 64, 129),      # across tile edges, GQA
+    (1, 2, 2, 1000, 1000, 128, 128, 300),
+    (1, 2, 2, 200, 200, 256, 256, 70),     # 64-key tiles at D = 256
+    (1, 2, 2, 130, 130, 64, 64, 130),      # the window covers every key (W >= Sk)
+    (1, 2, 2, 130, 130, 64, 64, 1000),
+    (1, 4, 4, 700, 700, 80, 80, 256),      # zamba2's head dim 80 (DP = 128)
+    (2, 2, 2, 256, 1024, 64, 64, 100),     # Sq < Sk (seamless's cross shape)
+    (1, 2, 2, 600, 300, 64, 64, 400),      # Sq > Sk, Sq - W < Sk
+    (1, 2, 2, 300, 300, 36, 36, 77),       # 72-byte rows: the producer loads
+])
+def test_flash_attention_window_matches_plain(dev, dtype, causal, b, h, hkv, sq, sk, d, dv,
+                                              window):
+    """A sliding window on both kernels: keys at or below q − W masked, the
+    tiles wholly below it skipped; within the card tolerance of the plain
+    version and, bf16, one ulp of the emulated roundings plus each output's
+    tie slack."""
+    rng = np.random.default_rng(sq * 7 + window + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
+               for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv)))
+    build.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    path = "simt" if dtype == torch.float32 else "loads" if d % 8 else "tma"
+    assert build.PATHS == {f"flash_attention.{path}": 1}
+    rep = h // hkv
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    want = flash_attention_ref(q, kr, vr, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        emulated, slack = bf16_path(q, kr, vr, causal=causal, block_k=key_tile(d, dv),
+                                    slack=True, window=window)
+        assert int(beyond(got, emulated, slack, **EMULATION_TOL).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_zero_is_no_window(dev, dtype):
+    """``window=0`` and a window past every key give bitwise-equal outputs
+    (no key masked, no tile skipped), and a window that leaves a row without
+    a key is refused."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, 4, 700, 64)).astype(np.float32))
+               .to(dev, dtype) for _ in range(3))
+    for causal in (True, False):
+        base = flash_attention(q, k, v, causal=causal)
+        assert torch.equal(base, flash_attention(q, k, v, causal=causal, window=0))
+        assert torch.equal(base, flash_attention(q, k, v, causal=causal, window=700 + 128))
+    with pytest.raises(ValueError, match="without a key"):
+        flash_attention(q, k[:, :, :100], v[:, :, :100], causal=False, window=600)
+    with pytest.raises(ValueError, match="without a key"):
+        flash_attention(q, k, v, window=-1)
+
+
 def test_attention_routes_to_the_kernel_on_the_card(dev):
     """A CUDA tensor launches the kernel (one count per call, reading the
-    model layout in place); ``use_kernel=False`` launches nothing; sliding
-    windows raise on the card."""
+    model layout in place); ``use_kernel=False`` launches nothing; a sliding
+    window launches the kernel with the window."""
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, torch.bfloat16)
                for s in ((2, 48, 4, 32), (2, 48, 2, 32), (2, 48, 2, 32)))
@@ -1154,9 +1211,16 @@ def test_attention_routes_to_the_kernel_on_the_card(dev):
     cfg = get_config("qwen1.5-0.5b").reduced()
     params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
     layer0 = {n: t[0] for n, t in params["blocks"]["attn"].items()}
-    x = torch.zeros((1, 48, cfg.d_model), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        attention_block(layer0, x, cfg, window=16)
+    x = torch.from_numpy(rng.normal(0, 1, (1, 48, cfg.d_model)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    build.reset_launch_counts()
+    got = attention_block(layer0, x, cfg, window=16)
+    assert build.LAUNCHES["flash_attention"] == 1
+    want = attention_block(layer0, x, cfg, window=16, use_kernel=False)
+    assert build.LAUNCHES["flash_attention"] == 1
+    torch.cuda.synchronize()
+    err = (got - want).float().abs().max() / want.float().abs().max()
+    assert float(err) < 3e-2
 
 
 def test_lm_backbone_kernel_matches_plain(dev):
@@ -1208,6 +1272,52 @@ def test_lm_prefill_kernel_matches_plain_at_served_head_dims(dev, kind):
             logits, cache = lm.decode_step(params, cache, tok)
             got.append(logits)
         assert build.LAUNCHES["flash_attention"] == (cfg.n_layers if use_kernel else 0)
+        outs[use_kernel] = got + [cache[n] for n in sorted(cache) if n != "pos"]
+    torch.cuda.synchronize()
+    for a, b in zip(outs[True], outs[False]):
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        live = b > -1e29
+        assert float((a - b)[live].abs().max() / b[live].abs().max()) < 3e-2
+
+
+def _family_cfg(arch: str):
+    """Reduced configs of the SSM, hybrid and audio families; zamba2's at
+    its published head dim 80."""
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, head_dim=80) if cfg.family == "hybrid" else cfg
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "seamless-m4t-large-v2", "xlstm-1.3b"])
+def test_lm_families_kernel_matches_plain(dev, arch):
+    """Prefill and two decode steps of the SSM, hybrid and audio families,
+    kernel path against plain path: flash_attention once a group (hybrid,
+    windowed, S = 200 past its window of 64) or once an encoder layer and
+    twice a decoder layer (audio: causal self and non-causal cross
+    attention, Sq 200 on Sk 8 frames) in prefill, never in decode, never
+    in the xLSTM; logits and caches within 3e-2 relative."""
+    cfg = _family_cfg(arch)
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 200))).to(dev)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2, 1))).to(dev)
+    fe = (torch.from_numpy(rng.normal(0, 1, (2, cfg.n_frontend_tokens, cfg.d_model))
+                           .astype(np.float32)).to(dev) if cfg.frontend else None)
+    launches = {"hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                "audio": cfg.enc_layers + 2 * cfg.n_layers, "ssm": 0}[cfg.family]
+    outs = {}
+    for use_kernel in (True, False):
+        lm = LM(cfg, use_kernel=use_kernel)
+        build.reset_launch_counts()
+        logits, cache = lm.prefill(params, tokens, fe)
+        assert build.LAUNCHES["flash_attention"] == (launches if use_kernel else 0)
+        got = [logits]
+        for tok in steps:
+            logits, cache = lm.decode_step(params, cache, tok)
+            got.append(logits)
+        assert build.LAUNCHES["flash_attention"] == (launches if use_kernel else 0)
+        if use_kernel and launches:
+            assert set(build.PATHS) == {"flash_attention.tma"}
         outs[use_kernel] = got + [cache[n] for n in sorted(cache) if n != "pos"]
     torch.cuda.synchronize()
     for a, b in zip(outs[True], outs[False]):

@@ -105,3 +105,53 @@ def test_bf16_kernel_roundings_stay_within_the_card_tolerance(b, h, s, d, block_
                      interpret=True)
     torch.testing.assert_close(got.float(), torch.from_numpy(np.asarray(want, np.float32)),
                                **CARD_BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,window", [
+    (96, 96, 1),      # each row sees itself only
+    (96, 96, 17),     # a window within one tile
+    (300, 300, 130),  # across 128-key tiles
+    (48, 80, 20),     # Sq < Sk, top-left alignment
+    (80, 48, 40),     # Sq > Sk: Sq - window < Sk, every row keeps a key
+    (64, 64, 64),     # the window covers every earlier key
+])
+def test_plain_window_matches_attention_full(causal, sq, sk, window):
+    """``flash_attention_ref(window=)``, and ``ops.attention(window=)`` on a
+    CPU tensor, against the reference's ``attention_full(window=)`` (no q
+    offset): keys at or below q − window masked, causal or not, GQA."""
+    q, k, v = _qkv(sq * 7 + window, (1, sq, 4, 32), (1, sk, 2, 32), (1, sk, 2, 16))
+    want = ref_attention_full(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                              window=window)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    expand = lambda t: t.transpose(1, 2).repeat_interleave(2, dim=1)  # noqa: E731
+    plain = flash_attention_ref(tq.transpose(1, 2), expand(tk), expand(tv), causal=causal,
+                                window=window)
+    assert torch.equal(plain.transpose(1, 2), got)
+
+
+@pytest.mark.parametrize("causal,window,sq,sk", [
+    (True, 100, 300, 300),
+    (True, 64, 512, 512),
+    (False, 100, 384, 512),
+])
+def test_bf16_kernel_roundings_with_a_window(causal, window, sq, sk):
+    """The emulated bf16 kernel with a window stays within the card tests'
+    bf16 tolerance of the float32 plain version, and the last query tile's
+    output does not depend on the key tiles wholly below its window (which
+    the kernel skips): other keys and values there change no bit."""
+    q, k, v = _qkv(window + sk, (1, 2, sq, 64), (1, 2, sk, 64), (1, 2, sk, 64))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = bf16_path(tq, tk, tv, causal=causal, block_k=128, window=window)
+    plain = flash_attention_ref(tq.float(), tk.float(), tv.float(), causal=causal, window=window)
+    torch.testing.assert_close(got.float(), plain, **CARD_BF16_TOL)
+    q0 = (sq - 1) // 128 * 128
+    first = max(0, q0 - window + 1) // 128 * 128
+    assert first > 0
+    other_k, other_v = tk.clone(), tv.clone()
+    other_k[:, :, :first] = -tk[:, :, :first] * 3
+    other_v[:, :, :first] = 1e3
+    other = bf16_path(tq, other_k, other_v, causal=causal, block_k=128, window=window)
+    assert torch.equal(other[:, :, q0:], got[:, :, q0:])

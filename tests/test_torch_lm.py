@@ -23,12 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.configs import get_config as ref_get_config
 from repro.models.lm import LM as RefLM
 from repro.models.lm import layers as ref_layers
 from repro_torch.bridge import lm_params_from_numpy
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.lm import LM
+from repro_torch.models.lm.model import FAMILIES
 from repro_torch.models.lm import layers
 
 REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -48,14 +50,15 @@ def _cfgs(dtype):
 
 
 def test_config_is_the_references():
-    for want, got in ((ref_get_config("qwen1.5-0.5b"), get_config("qwen1.5-0.5b")),
-                      _cfgs("bfloat16")):
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        assert got.resolved_head_dim == want.resolved_head_dim
-    for arch in ("xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2"):
-        ref_get_config(arch)
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    """All ten architectures, full and reduced, in the reference's order."""
+    assert ARCH_IDS == REF_ARCH_IDS
+    for arch in ARCH_IDS:
+        for want, got in ((ref_get_config(arch), get_config(arch)),
+                          (ref_get_config(arch).reduced(), get_config(arch).reduced())):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
+            assert got.resolved_head_dim == want.resolved_head_dim
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("qwen9-1t")
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -170,11 +173,9 @@ def test_init_has_the_references_tree_and_scales():
     assert bool((got["blocks"]["ln1"] == 1).all()) and bool((got["blocks"]["attn"]["bq"] == 0).all())
 
 
-def test_other_families_raise():
-    """The SSM, hybrid and audio families (xlstm-1.3b, zamba2-2.7b,
-    seamless-m4t-large-v2) are not ported."""
-    for arch in ("xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2"):
-        family = ref_get_config(arch).family
-        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), family=family)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            LM(cfg)
+def test_unknown_family_raises():
+    """``LM`` takes the six families of the reference and refuses any other."""
+    assert set(FAMILIES) == {ref_get_config(a).family for a in REF_ARCH_IDS}
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), family="diffusion")
+    with pytest.raises(ValueError, match="unknown family 'diffusion'"):
+        LM(cfg)

@@ -1,12 +1,15 @@
 """LM serving in the port against the JAX reference, on the CPU.
 
-``LM.prefill`` / ``decode_step`` / ``init_cache`` for the seven ported
-architectures (``dense``: qwen1.5-0.5b, qwen3-8b, qwen3-14b, gemma-7b;
-``vlm``: internvl2-1b; ``moe``: granite-moe-1b-a400m and deepseek-v2-236b
+``LM.prefill`` / ``decode_step`` / ``init_cache`` for the seven
+architectures of the attention families (``dense``: qwen1.5-0.5b,
+qwen3-8b, qwen3-14b, gemma-7b; ``vlm``: internvl2-1b; ``moe``:
+granite-moe-1b-a400m and deepseek-v2-236b
 with MLA and a leading dense layer) at their reduced configs (4 layers,
 d 128), and the layers under them: ``attention_decode`` (with and without a
 window), MLA's block, with-cache and absorbed decode, both MoE dispatch
 backends with a capacity that drops tokens, and zero-padded query heads.
+The SSM, hybrid and audio families are held in
+``tests/test_torch_lm_families.py``.
 
 The parameters come from the port's ``LM.init`` in float32 (whose tree,
 shapes and types are checked against the reference's) with every bias and
@@ -49,6 +52,9 @@ from torch_pipeline_parity import one_torch_thread  # noqa: F401  (autouse)
 REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 NEW_ARCHS = ("qwen3-8b", "qwen3-14b", "gemma-7b", "internvl2-1b", "granite-moe-1b-a400m",
              "deepseek-v2-236b")
+# the attention families' seven architectures (the SSM, hybrid and audio
+# families: tests/test_torch_lm_families.py)
+ARCHS = tuple(a for a in ARCH_IDS if get_config(a).family in ("dense", "vlm", "moe"))
 # leaf -> (centre, spread) of the noise that replaces it
 NOISY = {"bq": (0.0, 0.5), "bk": (0.0, 0.5), "bv": (0.0, 0.5),
          "ln1": (1.0, 0.3), "ln2": (1.0, 0.3), "final_norm": (1.0, 0.3),
@@ -191,7 +197,7 @@ def test_config_and_param_count_are_the_references(arch):
     assert dataclasses.asdict(got.reduced()) == dataclasses.asdict(want.reduced())
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_has_the_references_tree(arch):
     ref_cfg, cfg = _cfgs(arch, "bfloat16")
     want = jax.eval_shape(RefLM(ref_cfg, remat=False).init, jax.random.PRNGKey(0))
@@ -216,7 +222,7 @@ def test_init_has_the_references_tree(arch):
 
 
 # ------------------------------------------------------------------ cache
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_cache_is_the_references(arch):
     ref_lm, _, lm, _ = _models(arch, "bfloat16")
     want = ref_lm.init_cache(B, 40)
@@ -230,7 +236,7 @@ def test_init_cache_is_the_references(arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_reference(arch, dtype, routing):
     """Prefill logits and cache, then three teacher-forced decode steps."""
     ref_lm, ref_params, lm, params = _models(arch, dtype)
@@ -277,7 +283,7 @@ def _reference_guard_steps(max_seq):
                               jnp.asarray(tokens), max_seq)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_capacity_guard_raises_at_the_references_positions(arch):
     """A cache of no, two and (max_seq below the prompt) no decode slots."""
     _, _, lm, params = _models(arch, "float32")
@@ -290,7 +296,7 @@ def test_capacity_guard_raises_at_the_references_positions(arch):
         assert got == _reference_guard_steps(max_seq) == max(max_seq - 16, 0), max_seq
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_consistency(arch):
     """decode(prefill(t[:-1]), t[-1]) matches prefill(t), with the reference
     test's tolerance (bf16).  MoE runs dropless here (``DROPLESS``): an
