@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero before the result line is printed):
 
-1. print the card (``nvidia-smi`` name and power limit) and build the six
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
+1. print the card (``nvidia-smi`` name and power limit) and build the
+   CUDA sources under ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    in parallel), with their build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and time both with CUDA events;
@@ -221,7 +221,30 @@ Phases (any failure exits non-zero before the result line is printed):
     of all 8208 tokens, the reference test's tolerance; parameter, cache
     and peak bytes, the
     prefill time and decode ms a step at B = 1 and 8;
-17. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+17. LM training: (a) the two backward kernels of ``flash_attention``
+    (``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``) against the
+    plain backward (``ref.flash_attention_bwd_ref``, KV head by KV head
+    where it would not fit) on the forward kernel's output and row
+    log-sum-exp at qwen1.5-0.5b's (4, 16, 1024, 64) causal, qwen3-8b's
+    (1, 32 on 8, 1024, 128), MLA's (2, 128, 1024, 192 / 128), zamba2's
+    (1, 32, 8192, 80) with window 4096, seamless's bidirectional
+    (2, 16, 1024, 64) and cross (2, 16, 256 on 1024, 64), gemma's
+    (2, 16, 1024, 256) and one float32 case, each kernel timed beside its
+    bound, the plain backward and SDPA's autograd backward; (b)
+    full-width qwen1.5-0.5b (bf16, float32 Adam moments, remat) through
+    ``Trainer`` at B = 4 x 1024 for 5 steps, the main path of the phase
+    (counts reset just before, read just after): the step-0 loss within
+    1.5 of ln V, 24 launches of each backward kernel and 48 forward
+    launches a step, a checkpoint at step 3 from which a fresh ``Trainer``
+    gives steps 4 and 5 bitwise, one step profiled, step 0 against the
+    plain path (``use_kernel=False``) within ``TRAIN_REL_TOL`` and each
+    attention projection's gradient, layer by layer, within
+    ``ATTN_GRAD_TOL``, which a planted fault (``dq`` or ``dk`` zeroed)
+    must pass; step wall ms, tokens/s, peak bytes and each save's host
+    snapshot ms; (c) one train step of each of the ten configs at
+    ``.reduced()``, kernel path against plain path, with the same
+    attention-gradient check;
+18. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -234,6 +257,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2563,12 +2587,17 @@ def attention_work(b, h, hkv, sq, sk, d, dv, causal: bool, itemsize: int,
     """(bytes, FLOPs) of one attention call: q, k, v read once and o written
     once; 2·D + 2·Dv FLOPs per live (q, k) pair (top-left causal mask; with
     a window W, only the keys above q − W count)."""
+    pairs = live_pairs(sq, sk, causal, window)
+    nbytes = itemsize * (b * h * sq * d + b * hkv * sk * (d + dv) + b * h * sq * dv)
+    return nbytes, b * h * pairs * (2 * d + 2 * dv)
+
+
+def live_pairs(sq, sk, causal: bool, window: int) -> int:
+    """(q, k) pairs a causal / windowed mask leaves live (top-left aligned)."""
     rows = np.arange(sq)
     hi = np.minimum(rows, sk - 1) if causal else np.full(sq, sk - 1)
     lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq, np.int64)
-    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
-    nbytes = itemsize * (b * h * sq * d + b * hkv * sk * (d + dv) + b * h * sq * dv)
-    return nbytes, b * h * pairs * (2 * d + 2 * dv)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def attention_check(dev, name, shape, dtype, causal, seed, window: int = 0):
@@ -3495,6 +3524,473 @@ def lm_families_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 17
+# the backward kernels at the shapes of the training path:
+# name -> ((b, h, hkv, sq, sk, d, dv), causal, window, dtype)
+BWD_SHAPES = {
+    "qwen05b_4x16x1024x64_causal": ((4, 16, 16, 1024, 1024, 64, 64), True, 0, torch.bfloat16),
+    "qwen3_8b_1x32on8x1024x128_causal": ((1, 32, 8, 1024, 1024, 128, 128), True, 0,
+                                         torch.bfloat16),
+    "mla_2x128x1024x192v128_causal": ((2, 128, 128, 1024, 1024, 192, 128), True, 0,
+                                      torch.bfloat16),
+    "zamba2_1x32x8192x80_window4096": ((1, 32, 32, 8192, 8192, 80, 80), True, 4096,
+                                       torch.bfloat16),
+    "seamless_2x16x1024x64_bidirectional": ((2, 16, 16, 1024, 1024, 64, 64), False, 0,
+                                            torch.bfloat16),
+    "seamless_cross_2x16x256on1024x64": ((2, 16, 16, 256, 1024, 64, 64), False, 0,
+                                         torch.bfloat16),
+    "gemma_2x16x1024x256_causal": ((2, 16, 16, 1024, 1024, 256, 256), True, 0, torch.bfloat16),
+    "f32_1x16x512x64_causal": ((1, 16, 16, 512, 512, 64, 64), True, 0, torch.float32),
+}
+# the backward kernels against the plain backward, max |Δ| over max |plain|
+# of each gradient: float32 differs in summation order only; bf16 gradients
+# are float32 sums rounded once to bf16 (2^-8 relative)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# full-width training: qwen1.5-0.5b through Trainer, B x S tokens a step
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE = "qwen1.5-0.5b", 4, 1024, 5, 3
+# kernel path against plain path on one bf16 step, loss and grad norm
+# relative: one bf16 ulp in an attention output moves later layers' bf16
+# roundings (the LM paths' STATE_REL_TOL)
+TRAIN_REL_TOL = STATE_REL_TOL
+# the reference smoke test's bound on the step-0 loss around ln(vocab)
+LOSS_AT_INIT_TOL = 1.5
+# the attention projections' step-0 gradients, kernel path against plain
+# path: max |g_kernel - g_plain| / max |g_plain| of each leaf, layer by layer
+# (not the key bias: softmax over keys is blind to it, so its gradient is
+# rounding noise on both paths).  In bf16 the sound paths read 0.0355 at
+# full-width qwen1.5-0.5b and 0.0145-0.0347 on the nine configs with
+# attention at .reduced() (MoE routing replayed), a zeroed dq or dk
+# 0.908-1.0 (NVIDIA H100 80GB HBM3, 700 W)
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bv", "wq_a", "wq_b", "wkv_a", "wkv_b")
+ATTN_GRAD_TOL = 0.1
+
+
+def bwd_work(shape, causal, window, itemsize) -> dict:
+    """(bytes, operations) of each backward kernel and of the whole backward.
+
+    The whole backward's function needs five products of the live pairs'
+    size (S = QKᵀ, dP = dO·Vᵀ, dQ, dK, dV): 2.5 times the forward's two;
+    q, k, v, o, dO and the row log-sum-exp read once, dq, dk, dv written
+    once.  Alone, the dQ kernel's function needs S, dP and dQ (reading q, k,
+    v, o, dO and L, writing dq and Δ), the dK/dV kernel's S, dP, dK and dV
+    (reading q, k, v, dO, L and Δ, writing dk and dv)."""
+    b, h, hkv, sq, sk, d, dv = shape
+    pairs = b * h * live_pairs(sq, sk, causal, window)
+    q, o = b * h * sq * d, b * h * sq * dv
+    k, v = b * hkv * sk * d, b * hkv * sk * dv
+    rows = b * h * sq * 4
+    return {
+        "backward": (itemsize * (2 * q + 2 * k + 2 * v + 2 * o) + rows,
+                     2.5 * pairs * (2 * d + 2 * dv)),
+        "flash_attention_bwd_dq": (itemsize * (2 * q + k + v + 2 * o) + 2 * rows,
+                                   pairs * (4 * d + 2 * dv)),
+        "flash_attention_bwd_dkv": (itemsize * (q + 2 * k + 2 * v + o) + 2 * rows,
+                                    pairs * (4 * d + 4 * dv)),
+    }
+
+
+def plain_backward(q, k, v, o, do, causal, window):
+    """The plain backward, KV head by KV head (with its query heads) where
+    one call's (B, H, Sq, Sk) float32 matrices would pass 4 GiB."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    b, h, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if b * h * sq * sk * 4 <= 4 << 30:
+        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    g = h // hkv
+    parts = [flash_attention_bwd_ref(q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
+                                     o[:, j * g:(j + 1) * g], do[:, j * g:(j + 1) * g],
+                                     causal=causal, window=window) for j in range(hkv)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window, reps) -> float | None:
+    """Device ms of autograd's backward of ``F.scaled_dot_product_attention``
+    on the same inputs (the window as a boolean mask), or None where SDPA
+    refuses the shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import live_keys
+
+    h, hkv = q.shape[1], k.shape[1]
+    mask = live_keys(q.shape[2], k.shape[2], causal, window, q.device) if window else None
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             is_causal=causal and mask is None,
+                                             enable_gqa=hkv != h)
+        run = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        run()
+        return _events_ms(run, reps)
+    except (RuntimeError, TypeError):  # a shape no SDPA backend takes, or no enable_gqa
+        return None
+
+
+def backward_case(dev, name, shape, causal, window, dtype, seed, card) -> dict:
+    """The two backward kernels against the plain backward on seeded inputs
+    (the forward's output and row log-sum-exp from the kernel), each kernel
+    timed (CUDA-graph replay) beside its bound, the plain backward and
+    SDPA's autograd backward."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import backward as bwd
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+
+    b, h, hkv, sq, sk, d, dv = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
+                   for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv), (b, h, sq, dv)))
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    build.reset_launch_counts()
+    got = bwd.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    require(build.LAUNCHES == {bwd.DQ: 1, bwd.DKV: 1},
+            f"backward {name}: launches {dict(build.LAUNCHES)}")
+    want = plain_backward(q, k, v, out, do, causal, window)
+    errs, abs_errs = {}, {}
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        require(g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+                f"backward {name}: {what} {g.dtype} {tuple(g.shape)} or not finite")
+        abs_errs[what] = float((g.float() - w.float()).abs().max())
+        errs[what] = abs_errs[what] / float(w.float().abs().max())
+        require(errs[what] < BWD_TOL[dtype],
+                f"backward {name}: {what} max |err| / max |plain| {errs[what]} beyond "
+                f"{BWD_TOL[dtype]}")
+    del want
+    prepared = bwd.prepare(q, k, v, out, lse, do, causal=causal, window=window)
+    bwd.launch(bwd.DQ, prepared)
+    reps = 3 if sq * sk > 1 << 24 else 10
+    times = {n: time_ms(lambda n=n: bwd.launch(n, prepared), reps) for n in (bwd.DQ, bwd.DKV)}
+    build.reset_launch_counts()
+    plain_ms = _events_ms(lambda: plain_backward(q, k, v, out, do, causal, window), 2)
+    library_ms = sdpa_backward_ms(q, k, v, do, causal, window, 3)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    work = bwd_work(shape, causal, window, q.element_size())
+    bounds = {n: bound(*w, ops_per_s=peak) for n, w in work.items()}
+    rec = dict(shape=[b, h, hkv, sq, sk, d, dv], causal=causal, window=window,
+               dtype=str(dtype).removeprefix("torch."), rel_err=errs, max_abs_err=abs_errs,
+               plain_ms=plain_ms, library_ms=library_ms,
+               backward_bound_ms=bounds["backward"][0], backward_bound_by=bounds["backward"][1],
+               kernels={n: dict(ms=times[n][0], eager_ms=times[n][1], bound_ms=bounds[n][0],
+                                bound_by=bounds[n][1]) for n in (bwd.DQ, bwd.DKV)})
+    total = sum(r["ms"] for r in rec["kernels"].values())
+    print(f"flash_attention backward {name}: dq {times[bwd.DQ][0]:.4f} ms (bound "
+          f"{bounds[bwd.DQ][0]:.4f} by {bounds[bwd.DQ][1]}), dkv {times[bwd.DKV][0]:.4f} ms "
+          f"(bound {bounds[bwd.DKV][0]:.4f} by {bounds[bwd.DKV][1]}), both {total:.4f} ms "
+          f"against the whole backward's bound {bounds['backward'][0]:.4f} ms; plain "
+          f"{plain_ms:.3f} ms, SDPA autograd "
+          + ("refused" if library_ms is None else f"{library_ms:.4f} ms")
+          + f"; max |err| / max |plain| {json.dumps({k: round(e, 6) for k, e in errs.items()})}"
+          f" [{card}]", flush=True)
+    return rec
+
+
+def attn_grads(model, params, batch) -> dict:
+    """The step-0 gradients of the attention projections: leaf path ->
+    float32 tensor."""
+    from repro_torch.train.step import loss_and_grads
+
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                walk(sub, path + (key,))
+        elif isinstance(tree, (list, tuple)):
+            for i, sub in enumerate(tree):
+                walk(sub, path + (str(i),))
+        elif path[-1] in ATTN_LEAVES:
+            out["/".join(path)] = tree.float()
+
+    walk(loss_and_grads(model, params, batch)[2], ())
+    return out
+
+
+def attn_grad_errs(got: dict, want: dict) -> dict:
+    """max |got - want| / max |want| of each attention leaf; a leaf stacked
+    over layers (under ``blocks``, ``enc_blocks``, ``dec_blocks``) layer by
+    layer, its largest kept."""
+    errs = {}
+    for name, w in want.items():
+        g = got[name]
+        if not name.split("/")[0].endswith("blocks"):
+            g, w = g[None], w[None]
+        worst = 0.0
+        for a, b in zip(g, w):
+            diff, den = float((a - b).abs().max()), float(b.abs().max())
+            worst = max(worst, diff / den if den else (0.0 if diff == 0.0 else math.inf))
+        errs[name] = worst
+    return errs
+
+
+@contextlib.contextmanager
+def planted_backward_fault(which: str):
+    """The attention backward with its ``dq`` or ``dk`` zeroed: the fault
+    that the gradient check must catch."""
+    from repro_torch.kernels.flash_attention import autograd
+
+    real, slot = autograd.flash_attention_bwd, ("dq", "dk").index(which)
+
+    def faulty(*args, **kwargs):
+        grads = list(real(*args, **kwargs))
+        grads[slot] = torch.zeros_like(grads[slot])
+        return tuple(grads)
+
+    autograd.flash_attention_bwd = faulty
+    try:
+        yield
+    finally:
+        autograd.flash_attention_bwd = real
+
+
+def attn_grad_check(kernel_lm, plain_lm, params, batch, what: str) -> dict:
+    """The attention leaves' step-0 gradients of the kernel path against the
+    plain path within ``ATTN_GRAD_TOL``, and each planted fault beyond it.
+    A MoE config's kernel-path runs replay the plain path's expert choices
+    (``RoutingReplay``)."""
+    replay = RoutingReplay()
+
+    def grads(lm, mode):
+        if not lm.cfg.moe:
+            return attn_grads(lm, params, batch)
+        replay.at = 0
+        with replay.run(mode):
+            out = attn_grads(lm, params, batch)
+        require(mode == "record" or replay.at == len(replay.calls), f"{what}: {replay.at} of "
+                f"{len(replay.calls)} recorded routings replayed")
+        return out
+
+    want = grads(plain_lm, "record")
+    sound = attn_grad_errs(grads(kernel_lm, "replay"), want)
+    faults = {}
+    for which in ("dq", "dk"):
+        with planted_backward_fault(which):
+            faults[which] = max(attn_grad_errs(grads(kernel_lm, "replay"), want).values())
+    require(max(sound.values()) <= ATTN_GRAD_TOL,
+            f"{what}: attention gradients, kernel path against plain path, {sound} beyond "
+            f"{ATTN_GRAD_TOL}")
+    require(min(faults.values()) > ATTN_GRAD_TOL,
+            f"{what}: a planted backward fault reads {faults}, within {ATTN_GRAD_TOL}")
+    return dict(worst=max(sound.values()), leaves=sound, planted=faults)
+
+
+def train_step_profile(step_fn, params, opt, batch, path: Path) -> dict:
+    """One train step under ``torch.profiler``: device-busy ms, the
+    flash_attention forward and backward kernels' device ms, top entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt, batch, 0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del out
+    _, device = profile_rows(prof, path)
+    busy = sum(r[0] for r in device) / 1e3
+    fwd = sum(r[0] for r in device if "flash_attention_kernel" in r[1]) / 1e3
+    bwd = sum(r[0] for r in device if "dq_kernel" in r[1] or "dkv_kernel" in r[1]) / 1e3
+    require(fwd > 0.0 and bwd > 0.0, "train-step profile shows no flash_attention forward or "
+                                     "backward device time")
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy, device_idle_share=max(
+        0.0, 1.0 - busy / wall), flash_attention_fwd_ms=fwd, flash_attention_bwd_ms=bwd,
+        device_launches=sum(r[2] for r in device),
+        top_device=[[k[:70], d / 1e3, c] for d, k, c, _ in device[:8]])
+
+
+def full_width_training(dev, card) -> dict:
+    """Phase 17(b): full-width qwen1.5-0.5b through ``Trainer`` (bf16,
+    float32 moments, remat), the main path of this phase."""
+    import gc
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    tc = TrainerConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, total_steps=TRAIN_STEPS + 1,
+                       save_every=TRAIN_SAVE, lr=3e-4, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(LM(cfg, remat=True), str(root / "run"), tc, device=dev)
+    params, opt = trainer.init_state()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the host snapshot that a save takes on the training thread, between
+    # one step's dt and the next step's start
+    save_ms, real_save = [], trainer.manager.save
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        real_save(*args, **kwargs)
+        save_ms.append((time.perf_counter() - t) * 1e3)
+
+    trainer.manager.save = timed_save
+    # the main path: counts set to 0 just before, read just after
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    (params, opt), hist = trainer.run(steps=TRAIN_STEPS, state=(params, opt))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require([h["step"] for h in hist] == list(range(TRAIN_STEPS)), f"training steps {hist}")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+            f"training: a loss or grad norm is not finite: {hist}")
+    ln_v = math.log(cfg.vocab)
+    require(abs(hist[0]["loss"] - ln_v) < LOSS_AT_INIT_TOL,
+            f"step-0 loss {hist[0]['loss']} not within {LOSS_AT_INIT_TOL} of ln V = {ln_v}")
+    require(trainer.manager.steps() == [TRAIN_SAVE],
+            f"checkpoints {trainer.manager.steps()}, expected [{TRAIN_SAVE}]")
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    require(per_step.get("flash_attention_bwd_dq") == per_step.get("flash_attention_bwd_dkv")
+            == cfg.n_layers and per_step.get("flash_attention") == 2 * cfg.n_layers,
+            f"launches a step {per_step}: expected {cfg.n_layers} of each backward kernel and "
+            f"{2 * cfg.n_layers} forward (remat recomputes each layer's)")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a fresh Trainer resumes from the step-3 checkpoint: steps 4 and 5 bitwise
+    t1 = time.perf_counter()
+    resumed = Trainer(LM(cfg, remat=True), str(root / "run"), tc, device=dev)
+    (params, opt), hist2 = resumed.run(steps=TRAIN_STEPS - TRAIN_SAVE)
+    resume_s = time.perf_counter() - t1
+    want = [(h["step"], h["loss"], h["grad_norm"]) for h in hist[TRAIN_SAVE:]]
+    got = [(h["step"], h["loss"], h["grad_norm"]) for h in hist2]
+    require(got == want, f"resumed steps {got} are not bitwise the uninterrupted run's {want}")
+    ckpt_bytes = (root / "run" / f"step_{TRAIN_SAVE:08d}.ckpt").stat().st_size
+
+    # profile one more step (the resumed state) for where the time goes
+    batch = resumed._batch(TRAIN_STEPS)
+    prof = train_step_profile(resumed.step_fn, params, opt, batch,
+                              ROOT / "build" / "chip_smoke_profile_train.txt")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the plain path at step 0 from the same initial weights
+    plain = Trainer(LM(cfg, remat=True, use_kernel=False), str(root / "plain"), tc, device=dev)
+    build.reset_launch_counts()
+    _, plain_hist = plain.run(steps=1)
+    require(not build.LAUNCHES, f"plain-path training launched {dict(build.LAUNCHES)}")
+    errs = {key: abs(hist[0][key] - plain_hist[0][key]) / abs(plain_hist[0][key])
+            for key in ("loss", "grad_norm")}
+    require(all(e <= TRAIN_REL_TOL for e in errs.values()),
+            f"step 0, kernel path against plain path: relative {errs} beyond {TRAIN_REL_TOL}")
+    params, _ = plain.init_state()
+    grads = attn_grad_check(LM(cfg, remat=True), plain.model, params, plain._batch(0),
+                            f"{TRAIN_ARCH} step 0")
+    del params
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    walls = [h["dt"] * 1e3 for h in hist]
+    # steps 1 .. TRAIN_SAVE - 1: after the first (cuBLAS and allocator
+    # warm-up) and before the checkpoint's writer threads share the host
+    steady = statistics.median(walls[1:TRAIN_SAVE])
+    rec = dict(arch=TRAIN_ARCH, batch=TRAIN_B, seq=TRAIN_S, params=n_params,
+               state_bytes=state_bytes, peak_bytes=peak, losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist], step_wall_ms=walls,
+               step_wall_ms_median=steady, tokens_per_s=TRAIN_B * TRAIN_S / (steady / 1e3),
+               plain_step0=dict(loss=plain_hist[0]["loss"], grad_norm=plain_hist[0]["grad_norm"],
+                                wall_ms=plain_hist[0]["dt"] * 1e3),
+               kernel_vs_plain_rel=errs, attn_grads=grads, save_snapshot_ms=save_ms,
+               resumed=got, checkpoint_bytes=ckpt_bytes,
+               run_s=run_s, resume_s=resume_s, profile=prof, launches=launches,
+               launches_per_step=per_step)
+    print(f"lm training {TRAIN_ARCH}: B={TRAIN_B} x {TRAIN_S}, {n_params} parameters, "
+          f"{TRAIN_STEPS} steps, losses {[round(x, 4) for x in rec['losses']]}, step wall ms "
+          f"{[round(w, 1) for w in walls]} (steps 1-{TRAIN_SAVE - 1}, no save in flight: median "
+          f"{steady:.1f}, "
+          f"{rec['tokens_per_s']:.0f} tokens/s), device busy {prof['device_busy_ms']:.1f} ms "
+          f"a profiled step (idle {prof['device_idle_share']:.3f}; flash_attention forward "
+          f"{prof['flash_attention_fwd_ms']:.2f} ms, backward {prof['flash_attention_bwd_ms']:.2f}"
+          f" ms), peak {peak} bytes allocated ({state_bytes} of parameters and Adam moments); "
+          f"launches a step {json.dumps(per_step)}; resumed at step {TRAIN_SAVE} from a "
+          f"{ckpt_bytes}-byte checkpoint: steps {[g[0] for g in got]} bitwise; kernel vs plain "
+          f"at step 0: loss {errs['loss']:.3g}, grad norm {errs['grad_norm']:.3g} relative, "
+          f"attention leaves {grads['worst']:.4g} at worst (planted faults "
+          f"{json.dumps(grads['planted'])}); save snapshot ms {[round(t, 1) for t in save_ms]}"
+          f" (outside every step's dt); "
+          f"the 5-step run {run_s:.1f} s (its save included), the resumed run {resume_s:.1f} s "
+          f"(restore included) [{card}]", flush=True)
+    return rec
+
+
+def config_train_steps(dev, card) -> dict:
+    """Phase 17(c): one bf16 train step of every config at ``.reduced()``,
+    kernel path against plain path from the same weights and batch."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import build_train_step, synthetic_batch
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        runs, lms = {}, {}
+        for use_kernel in (True, False):
+            lm = lms[use_kernel] = LM(cfg, use_kernel=use_kernel, remat=True, loss_chunk=64)
+            batch = synthetic_batch(lm, 2, 128, 0, 0, device=dev)
+            build.reset_launch_counts()
+            _, _, m = build_train_step(lm)(params, adamw_init(params), batch, 0)
+            torch.cuda.synchronize()
+            runs[use_kernel] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                    launches=dict(build.LAUNCHES))
+        k, p = runs[True], runs[False]
+        attn = cfg.family != "ssm"
+        require(not p["launches"] and (k["launches"].get("flash_attention_bwd_dq", 0) > 0) == attn
+                and k["launches"].get("flash_attention_bwd_dq") == k["launches"].get(
+                    "flash_attention_bwd_dkv"),
+                f"{arch} train step: launches kernel {k['launches']}, plain {p['launches']}")
+        errs = {key: abs(k[key] - p[key]) / abs(p[key]) for key in ("loss", "grad_norm")}
+        require(all(math.isfinite(k[key]) for key in errs)
+                and all(e <= TRAIN_REL_TOL for e in errs.values()),
+                f"{arch} train step, kernel against plain: {k} {p}")
+        grads = attn_grad_check(lms[True], lms[False], params, batch,
+                                f"{arch} train step") if attn else None
+        out[arch] = dict(kernel=k, plain=p, rel_err=errs, attn_grads=grads)
+        print(f"lm training reduced {arch}: loss {k['loss']:.5f} (plain {p['loss']:.5f}), grad "
+              f"norm {k['grad_norm']:.5f} (plain {p['grad_norm']:.5f})"
+              + ("" if grads is None else
+                 f", attention leaves {grads['worst']:.4g} at worst (planted faults "
+                 f"{json.dumps(grads['planted'])})")
+              + f"; launches {json.dumps(k['launches'])} [{card}]", flush=True)
+        del params
+    return out
+
+
+def lm_training_phase(dev, card: str) -> dict:
+    """Phase 17: LM training, the backward kernels first."""
+    import gc
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    out = {"backward": {}}
+    for i, (name, (shape, causal, window, dtype)) in enumerate(BWD_SHAPES.items()):
+        out["backward"][name] = backward_case(dev, name, shape, causal, window, dtype,
+                                              seed=300 + i, card=card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["qwen"] = full_width_training(dev, card)
+    out["configs"] = config_train_steps(dev, card)
+    build.reset_launch_counts()
+    out["launches"] = out["qwen"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm training phase: {out['seconds']:.1f} s, launches on the main path "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -3701,6 +4197,7 @@ def main() -> int:
     shard = sharded_phase(dev, all_bundles, cfg, batched, card)
     lm_serving = lm_serving_phase(dev, card)
     lm_families = lm_families_phase(dev, card)
+    lm_training = lm_training_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -3794,7 +4291,31 @@ def main() -> int:
         lm_serving_shapes=lm_serving["attention"],
         launches_lm_families=lm_families["launches"].get("flash_attention", 0),
         lm_families_shapes=lm_families["attention"],
+        launches_lm_training=lm_training["launches"].get("flash_attention", 0),
+        lm_training_lse="on the training path each launch also writes the row log-sum-exp",
     ))
+    qwen_case = lm_training["backward"]["qwen05b_4x16x1024x64_causal"]
+    for kname, what in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dk dv")):
+        kernels.append(dict(
+            name=kname, route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="none: the Pallas kernel (src/repro/kernels/flash_attention/"
+                     "flash_attention.py:98) has no backward; the reference differentiates "
+                     "src/repro/models/lm/layers.py:98 by XLA autodiff",
+            launches=lm_training["launches"].get(kname, 0),
+            launches_per_step=lm_training["qwen"]["launches_per_step"].get(kname, 0),
+            max_abs_err=max(max(r["max_abs_err"][g] for g in what.split())
+                            for r in lm_training["backward"].values()),
+            ms=qwen_case["kernels"][kname]["ms"], eager_ms=qwen_case["kernels"][kname]["eager_ms"],
+            plain_ms=qwen_case["plain_ms"], bound_ms=qwen_case["kernels"][kname]["bound_ms"],
+            bound_by=qwen_case["kernels"][kname]["bound_by"], library_ms=qwen_case["library_ms"],
+            shape=qwen_case["shape"], dtype=qwen_case["dtype"],
+            note="plain_ms and library_ms are the whole backward's (the plain version and "
+                 "SDPA's autograd compute dq, dk and dv in one call)",
+            shapes={n: dict(ms=r["kernels"][kname]["ms"], bound_ms=r["kernels"][kname]["bound_ms"],
+                            bound_by=r["kernels"][kname]["bound_by"], plain_ms=r["plain_ms"],
+                            library_ms=r["library_ms"], rel_err=r["rel_err"])
+                    for n, r in lm_training["backward"].items()},
+        ))
     serve = {name: dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
              for name, (outs, p50, *_) in results.items()}
     serve.update({f"reduced_{name}": dict(p50_ms=p50 * 1e3, iters=[o["iters"] for o in outs])
@@ -3813,6 +4334,7 @@ def main() -> int:
     serve["sharded"] = shard
     serve["lm_serving"] = lm_serving
     serve["lm_families"] = lm_families
+    serve["lm_training"] = lm_training
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

@@ -12,7 +12,9 @@ KERNEL is ``flash_attention``, ``ensemble_sum``, ``prefix_power_sums``,
 HEAD~:src/...``).  It is built with the port's nvcc command into
 ``build/repro_torch/ab-other.so``; its C entry point must take this tree's
 arguments, as both libraries are called through the wrapper's own launch
-code (``launch_with``), so only the loaded library differs.  For
+code (``launch_with``), so only the loaded library differs (a
+``flash_attention.cu`` from before the row log-sum-exp output needs a last
+``float* lse`` parameter added, unused: the A/B launches pass null).  For
 ``sampled_moments``, ``masked_select_ranks`` and ``sobol_points`` OTHER.cu
 may be left out: the other side is then this build's earlier design (the
 rows, rank and direct paths); a copy of ``quantile_select.cu`` with another

@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` stays the reference; this package imports nothing
 from it and nothing of JAX.  Module names follow the reference
-(``configs/``, ``core/``, ``data/``, ``examples/``, ``kernels/``,
-``models/``, ``optim/``, ``serving/``), so each
+(``checkpoint/``, ``configs/``, ``core/``, ``data/``, ``examples/``,
+``kernels/``, ``launch/``, ``models/``, ``optim/``, ``serving/``,
+``train/``), so each
 module's counterpart is found at the same path.  Every TPU kernel on the
 ported path is a CUDA kernel for Hopper under ``kernels/csrc/``, built with
 ``nvcc`` at first use (``kernels/build.py``) and held against its plain
@@ -21,7 +22,9 @@ three Biathlon-approximated aggregates; on the card its attention runs the
 ``models/lm/cache.py``) all ten configs of the reference: the dense, VLM
 and MoE families (MLA included), the SSM (xLSTM), hybrid (Mamba2 with a
 shared sliding-window attention block) and audio (encoder-decoder)
-families.
+families, and trains them (``train/``, ``checkpoint/``,
+``launch/train.py``): on the card the attention's gradient is the
+``flash_attention`` backward kernels.
 """
 from repro_torch.device import resolve_device
 

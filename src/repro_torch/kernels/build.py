@@ -56,7 +56,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("prefix_stats", "sampled_agg", "quantile_select", "tree_qmc", "sobol",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

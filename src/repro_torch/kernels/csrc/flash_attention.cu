@@ -16,7 +16,12 @@
 // equals the reference's repeat of the KV heads.
 // Tensors may be strided views (only the last axis must be contiguous), so
 // the model's (B, S, H, D) layout is read and written without transposes.
-// Any Sq and Sk; D, Dv <= 256.  One entry point, two kernels picked by type:
+// Any Sq and Sk; D, Dv <= 256.  Optionally (a non-null `lse`) each query
+// row's log-sum-exp of its scaled scores, float32 (B, H, Sq) contiguous:
+// the training path's forward saves it for the backward kernels
+// (flash_attention_bwd.cu).  Without it, the kernels store nothing else and
+// compute exactly what they computed before it existed.
+// One entry point, two kernels picked by type:
 //
 // bf16 (the model's type): `sm90::flash_attention_kernel`, on the tensor
 // cores.  One block of three warpgroups per (b·h, q tile of 128 rows), the
@@ -115,6 +120,7 @@ struct Strides {
 struct Problem {
   const void *q, *k, *v;
   void* o;
+  float* lse;  // (B, H, Sq) float32, or null
   Strides qs, ks, vs, os;
   int batch, n_heads, group, sq, sk, d, dv, causal, window;
   float scale;
@@ -171,9 +177,9 @@ size_t smem_bytes(int d, int dvl) {
 template <typename T, int DVL>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-                       Strides vs, Strides os, int n_heads, int group, int sq, int sk, int d,
-                       int dv, int causal, int window, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       Strides qs, Strides ks, Strides vs, Strides os, int n_heads, int group,
+                       int sq, int sk, int d, int dv, int causal, int window, float scale) {
   constexpr int kDvPad = DVL * 32;
   extern __shared__ float smem[];
   const int ldk = padded_k_stride(d);
@@ -296,6 +302,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = lane + 32 * c;
       if (col < dv) store(ob + qg * os.s + col, acc[r][c] / l);
     }
+    if (lse != nullptr && lane == 0) {
+      lse[static_cast<long long>(blockIdx.x) * sq + qg] = m_run[r] + logf(l);
+    }
   }
 }
 
@@ -310,7 +319,7 @@ cudaError_t launch(const Problem& a) {
   if (grid.y > kMaxGridY) return cudaErrorInvalidValue;
   flash_attention_kernel<float, DVL><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks, a.vs, a.os,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.qs, a.ks, a.vs, a.os,
       a.n_heads, a.group, a.sq, a.sk, a.d, a.dv, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -362,6 +371,7 @@ struct Tile {
 struct Params {
   const bf16 *q, *k, *v;
   bf16* o;
+  float* lse;  // (B, H, Sq), or null
   Strides qs, ks, vs, os;
   int n_heads, group, sq, sk, d, dv, causal, window;
   int use_tma;   // else the producer warpgroup loads the ring itself
@@ -810,6 +820,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = fmaxf(l[r], 1e-30f);
     }
+    if (p.lse != nullptr && lane % 4 == 0) {
+      // m is in the base-2 domain of the scaled scores: lse = ln 2 · (m + log2 l)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < p.sq) {
+          p.lse[static_cast<long long>(blockIdx.x) * p.sq + row] =
+              0.6931471805599453f * (m[r] + log2f(l[r]));
+        }
+      }
+    }
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
@@ -925,6 +946,7 @@ cudaError_t launch(const Problem& a, int* path) {
   p.k = static_cast<const bf16*>(a.k);
   p.v = static_cast<const bf16*>(a.v);
   p.o = static_cast<bf16*>(a.o);
+  p.lse = a.lse;
   p.qs = a.qs, p.ks = a.ks, p.vs = a.vs, p.os = a.os;
   p.n_heads = a.n_heads, p.group = a.group, p.sq = a.sq, p.sk = a.sk, p.d = a.d, p.dv = a.dv;
   p.causal = a.causal;
@@ -961,14 +983,16 @@ cudaError_t dispatch(const Problem& a, int* path) {
 // window: 0, or W > 0 with Sq − W < Sk, so that every query row has a key
 // in its window (a block whose rows have none would have no tile to run).
 // *path tells which kernel and load path a successful launch took:
-// kPathSimt, kPathTma or kPathLoads.
+// kPathSimt, kPathTma or kPathLoads.  lse: null, or (B, H, Sq) float32
+// contiguous for each query row's log-sum-exp (natural log) of its scaled
+// scores.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int batch, int n_heads, int n_kv_heads, int sq, int sk,
     int d, int dv, int causal, int window, float scale, int dtype, int device, void* stream,
-    int* path) {
+    int* path, float* lse) {
   if (batch < 1 || sq < 1 || sk < 1 || d < 1 || dv < 1 || d > kMaxDim || dv > kMaxDim ||
       n_kv_heads < 1 || n_heads % n_kv_heads != 0 || window < 0 ||
       (window > 0 && sq - window >= sk) ||
@@ -977,7 +1001,7 @@ extern "C" int flash_attention_launch(
   }
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  const Problem a{q, k, v, o,
+  const Problem a{q, k, v, o, lse,
                   {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
                   batch, n_heads, n_heads / n_kv_heads, sq, sk, d, dv, causal, window, scale,
                   device,

@@ -14,7 +14,10 @@ TMA into a 2-3 stage ring), float32 inputs to the scalar float32 kernel; either 
 ``flash_attention``, and the path it took is counted in ``build.PATHS``:
 ``flash_attention.tma``, ``flash_attention.loads`` (a bf16 view whose base
 or strides TMA cannot read, loaded by the producer warps instead) or
-``flash_attention.simt``.  The plain version is ``ref.flash_attention_ref``.
+``flash_attention.simt``.  With ``return_lse=True`` it also returns each
+query row's float32 log-sum-exp of its scaled scores, ``(B, H, Sq)``, which
+the backward kernels (``backward.py``) read; without it the kernel stores
+nothing more.  The plain version is ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ def bind(lib: ctypes.CDLL):
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.POINTER(ctypes.c_int)])
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,13 +69,15 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
-) -> torch.Tensor:
-    """(B, H, Sq, Dv) attention in q's type, laid out in memory as q is."""
-    return launch_with(_fn, q, k, v, causal=causal, window=window)
+    return_lse: bool = False,
+):
+    """(B, H, Sq, Dv) attention in q's type, laid out in memory as q is;
+    with ``return_lse``, also the (B, H, Sq) float32 row log-sum-exp."""
+    return launch_with(_fn, q, k, v, causal=causal, window=window, return_lse=return_lse)
 
 
 def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool, window: int = 0) -> torch.Tensor:
+                causal: bool, window: int = 0, return_lse: bool = False):
     """:func:`flash_attention` through the entry point that ``entry()`` gives
     (see :func:`bind`), asked for once the inputs have passed their checks."""
     if q.dtype not in _DTYPES:
@@ -96,16 +101,18 @@ def launch_with(entry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     else:
         out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if sq == 0 or sk == 0 or b * h == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-torch.inf)) if return_lse else out
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     device, stream = build.stream_of(q)
     path = ctypes.c_int(-1)
     err = entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
                   b, h, hkv, sq, sk, d, dv, int(causal), int(window), d ** -0.5,
                   _DTYPES[q.dtype],
-                  device, stream, ctypes.byref(path))
+                  device, stream, ctypes.byref(path), None if lse is None else lse.data_ptr())
     build.check(err, NAME)
     build.LAUNCHES[NAME] += 1
     build.PATHS[f"{NAME}.{_PATHS[path.value]}"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -21,11 +21,27 @@ and by family
 
 Python loops over the stacked layers take the place of the reference's
 ``lax.scan``.  Serving (``prefill``, ``decode_step``, ``init_cache``) is in
-``cache.py``.  The training losses are not ported (ROADMAP Queue 1 item 9).
+``cache.py``.
+
+Training: :meth:`LM.train_loss` is the reference's next-token loss for all
+six families (the VLM's frontend positions dropped from the loss, the audio
+family through encoder and decoder), its softmax cross-entropy streamed over
+sequence chunks of at most ``loss_chunk`` positions (:meth:`LM._chunked_xent`,
+the reference's single-host branch: ``(B, S, V)`` logits never exist at
+once).  The reference's vocab-sharded branch (``_sharded_chunk_xent``) needs
+the tensor-parallel rules of ``sharding.py``, which the port does not have
+yet.  ``remat=True`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) where the reference's
+``_maybe_remat`` applies ``jax.checkpoint``, at the reference's sites only;
+it changes memory, not numbers.  On the card the attention's gradient
+is the ``flash_attention`` backward kernels (``kernels/flash_attention/
+autograd.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import moe as moe_lib
@@ -77,10 +93,12 @@ class LM:
     ``"sorted"``.  ``use_kernel=False`` sends prefill attention on the card
     to the plain version of the ``flash_attention`` kernel (for comparison
     only); on the CPU the attention is always the reference's plain route.
+    ``remat`` and ``loss_chunk`` are the reference's (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, *, moe_backend: str = "einsum",
-                 attn_block: int = 1024, use_kernel: bool = True):
+                 attn_block: int = 1024, use_kernel: bool = True, remat: bool = True,
+                 loss_chunk: int = 512):
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}; "
                              f"known: {', '.join(FAMILIES)}")
@@ -90,6 +108,8 @@ class LM:
         self.moe_backend = moe_backend
         self.attn_block = attn_block
         self.use_kernel = use_kernel
+        self.remat = remat
+        self.loss_chunk = loss_chunk
         self.vp = _padded_vocab(cfg.vocab)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -199,7 +219,7 @@ class LM:
 
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) token ids -> (B, S, D) embeddings in the model's type."""
-        return params["embed"][torch.clamp(tokens, 0, self.vp - 1)].to(self.dtype)
+        return F.embedding(torch.clamp(tokens, 0, self.vp - 1), params["embed"]).to(self.dtype)
 
     def layers(self, params):
         """Every attention + FFN block in order: ``dense0``, then ``blocks``."""
@@ -213,33 +233,67 @@ class LM:
             return zip(stacked(params["mlstm"]), stacked(params["slstm"]))
         return ((gp, None) for gp in stacked(params["mamba"]))
 
+    def _maybe_remat(self, fn):
+        """``fn`` recomputed in the backward pass under ``remat`` (the
+        reference's ``_maybe_remat``), for the calls through which a
+        gradient is being taken: a tensor argument requires one."""
+        if not self.remat:
+            return fn
+
+        def run(*args):
+            if torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad
+                                               for a in args):
+                return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+            return fn(*args)
+
+        return run
+
+    def _mlstm_body(self, x, mp):
+        return x + ssm_lib.mlstm_block(mp["cell"], rms_norm(x, mp["ln"], self.cfg.norm_eps),
+                                       self.cfg)
+
+    def _mamba_body(self, x, mp):
+        return x + ssm_lib.mamba2_block(mp["cell"], rms_norm(x, mp["ln"], self.cfg.norm_eps),
+                                        self.cfg)
+
     def _backbone(self, params, x):
-        """Full-sequence forward through all blocks.  x: (B, S, D)."""
+        """Full-sequence forward through all blocks.  x: (B, S, D).  Under
+        remat: each scanned attention + FFN block (not ``dense0``), each
+        mLSTM and each Mamba2 block, as in the reference."""
         cfg = self.cfg
         eps = cfg.norm_eps
         if cfg.family == "ssm":
+            m_body = self._maybe_remat(self._mlstm_body)
             for mlstm, slstm in self.groups(params):
                 for mp in stacked(mlstm):
-                    x = x + ssm_lib.mlstm_block(mp["cell"], rms_norm(x, mp["ln"], eps), cfg)
+                    x = m_body(x, mp)
                 x = x + ssm_lib.slstm_block(slstm["cell"], rms_norm(x, slstm["ln"], eps), cfg)
             return x
         if cfg.family == "hybrid":
+            m_body = self._maybe_remat(self._mamba_body)
             for mamba, _ in self.groups(params):
                 for mp in stacked(mamba):
-                    x = x + ssm_lib.mamba2_block(mp["cell"], rms_norm(x, mp["ln"], eps), cfg)
+                    x = m_body(x, mp)
                 x = self._apply_attn_ffn(params["shared_block"], x, window=cfg.sliding_window)
             return x
-        for bp in self.layers(params):
+        for bp in params.get("dense0", []):
             x = self._apply_attn_ffn(bp, x)
+        body = self._maybe_remat(self._apply_attn_ffn)
+        for bp in stacked(params["blocks"]):
+            x = body(bp, x)
         return x
 
     # ------------------------------------------------------- encoder-decoder
     def _encode(self, params, frontend):
         """Audio encoder over stub frame embeddings: (B, S_enc, D)."""
         x = frontend.to(self.dtype) @ params["frontend_adapter"]
+        body = self._maybe_remat(self._apply_encoder_block)
         for bp in stacked(params["enc_blocks"]):
-            x = self._apply_attn_ffn(bp, x, causal=False)
+            x = body(bp, x)
         return rms_norm(x, params["enc_norm"], self.cfg.norm_eps)
+
+    def _apply_encoder_block(self, bp, x):
+        return self._apply_attn_ffn(bp, x, causal=False)
 
     def _cross_attention(self, p, x, enc_out):
         return cross_attention_with_kv(p, x, enc_out, use_kernel=self.use_kernel)[0]
@@ -254,8 +308,9 @@ class LM:
         return x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg.act)
 
     def _decoder(self, params, x, enc_out):
+        body = self._maybe_remat(self._apply_cross_block)
         for bp in stacked(params["dec_blocks"]):
-            x = self._apply_cross_block(bp, x, enc_out)
+            x = body(bp, x, enc_out)
         return x
 
     def logits_last(self, params, h_last):
@@ -263,6 +318,61 @@ class LM:
         logits = (h_last @ params["unembed"]).to(f32)
         live = torch.arange(self.vp, device=logits.device)[None, :] < self.cfg.vocab
         return torch.where(live, logits, -1e30)
+
+    # ---------------------------------------------------------------- losses
+    def _xent_chunk(self, hh, w, ll, mm):
+        """One chunk's (loss sum, correct count): hh (B, c, D), ll and mm (B, c)."""
+        logits = (hh @ w).to(f32)                              # (B, c, Vp)
+        live = torch.arange(self.vp, device=logits.device) < self.cfg.vocab
+        logits = torch.where(live, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, ll[..., None])[..., 0]
+        loss = torch.sum((lse - gold) * mm)
+        with torch.no_grad():
+            correct = torch.sum((gold >= logits.amax(dim=-1)).to(f32) * mm)
+        return loss, correct
+
+    def _chunked_xent(self, params, h, labels, mask):
+        """Streaming softmax cross-entropy over sequence chunks: the
+        reference's single-host branch.  h: (B, S, D); labels (B, S) int;
+        mask (B, S) float32.  The chunk is the largest divisor of S not above
+        ``loss_chunk``; padded vocab columns are −1e30.  Returns (mean loss
+        over the masked positions, {"acc", "tokens"})."""
+        b, s, d = h.shape
+        c = min(self.loss_chunk, s)
+        while s % c != 0:
+            c -= 1
+        w = params["unembed"]
+        loss_sum = torch.zeros((), dtype=f32, device=h.device)
+        correct = torch.zeros((), dtype=f32, device=h.device)
+        for c0 in range(0, s, c):
+            loss, corr = self._xent_chunk(h[:, c0:c0 + c], w, labels[:, c0:c0 + c],
+                                          mask[:, c0:c0 + c])
+            loss_sum = loss_sum + loss
+            correct = correct + corr
+        denom = torch.clamp(mask.sum(), min=1.0)
+        return loss_sum / denom, {"acc": correct / denom, "tokens": denom}
+
+    def train_loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """batch: {"tokens": (B, S+1) [, "frontend": (B, P, D)]} -> (loss, metrics).
+
+        Labels below 0 are masked out of the loss."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        mask = (labels >= 0).to(f32)
+        labels = torch.clamp(labels, min=0).to(torch.int64)
+        x = self.embed(params, inputs)
+        if cfg.family == "audio":
+            h = self._decoder(params, x, self._encode(params, batch["frontend"]))
+        elif cfg.family == "vlm":
+            fe = batch["frontend"].to(self.dtype) @ params["frontend_adapter"]
+            h = self._backbone(params, torch.cat([fe, x], dim=1))
+            h = h[:, cfg.n_frontend_tokens:]  # loss only over text positions
+        else:
+            h = self._backbone(params, x)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return self._chunked_xent(params, h, labels, mask)
 
     # --------------------------------------------------------------- serving
     def prefill(self, params, tokens, frontend=None, max_seq=None):

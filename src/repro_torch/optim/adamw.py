@@ -1,17 +1,30 @@
-"""AdamW: ``adamw_init`` and ``adamw_update`` of ``repro/optim/adamw.py``.
+"""AdamW, gradient clipping and LR schedules: ``repro/optim/adamw.py``.
 
 The optimizer state mirrors the params tree (nested dicts, lists and
 tuples of tensors).  Moments are float32 whatever the parameters' type; the
 update is computed in float32 and cast back to each parameter's type.
-Clipping and schedules are not ported (no caller in the port).
+The global norm of :func:`clip_by_global_norm` and the schedules are
+float32, as in the reference; a schedule takes the step as an int or a
+0-d tensor and returns a 0-d float32 tensor on the step's device.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import math
+
 import torch
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "tree_leaves", "tree_map"]
+__all__ = [
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "clip_by_global_norm",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+    "tree_leaves",
+    "tree_map",
+]
 
 f32 = torch.float32
 PyTree = Any
@@ -81,3 +94,42 @@ def adamw_update(
         return tree_map(lambda _: next(it), grads)
 
     return rebuild(0), AdamWState(step=step, mu=rebuild(1), nu=rebuild(2))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.Tensor]:
+    """``grads`` scaled by ``min(1, max_norm / max(‖g‖, 1e-12))`` (in float32,
+    cast back to each leaf's type) and the float32 global norm ‖g‖."""
+    leaves = tree_leaves(grads)
+    sq = torch.zeros((), dtype=f32, device=leaves[0].device)
+    for g in leaves:
+        sq = sq + torch.sum(torch.square(g.to(f32)))
+    gnorm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.to(f32) * scale).to(g.dtype), grads), gnorm
+
+
+def _step_f32(step) -> torch.Tensor:
+    if torch.is_tensor(step):
+        return step.to(f32)
+    return torch.tensor(step, dtype=f32)
+
+
+def cosine_schedule(base_lr: float, total_steps: int) -> Callable:
+    def sched(step):
+        frac = torch.clamp(_step_f32(step) / total_steps, 0.0, 1.0)
+        return base_lr * 0.5 * (1.0 + torch.cos(math.pi * frac))
+
+    return sched
+
+
+def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
+                         min_frac: float = 0.1) -> Callable:
+    def sched(step):
+        s = _step_f32(step)
+        warm = s / max(warmup, 1)
+        frac = torch.clamp((s - warmup) / max(total_steps - warmup, 1), 0.0, 1.0)
+        cos = min_frac + (1.0 - min_frac) * 0.5 * (1.0 + torch.cos(math.pi * frac))
+        return base_lr * torch.where(s < warmup, warm, cos)
+
+    return sched

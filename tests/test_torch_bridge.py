@@ -178,17 +178,25 @@ from repro_torch.launch.mesh import make_serving_mesh, simulated_devices
 from repro_torch.serving import BatchedFusedServer
 sharded = BatchedFusedServer(b, cfg, batch_size=2, mesh=make_serving_mesh(
     devices=simulated_devices(2, "cpu"))).serve_batch(b.requests[:2])
+from repro_torch.launch import train as launch_train
+from repro_torch.examples import train_lm
+from repro_torch.optim import compress
+from repro_torch.checkpoint import CheckpointManager
+trained = launch_train.main(["--arch", "qwen1.5-0.5b", "--steps", "2", "--batch", "1", "--seq",
+                             "8", "--device", "cpu", "--ckpt", {ckpt!r}, "--save-every", "1"])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
                   "lm_y_hat": lm["y_hat"], "cached": [first, again],
                   "cache": cached.cache.stats, "continuous": trace,
                   "launch": launch_serve.__name__, "sharded": int(sharded.n_devices),
-                  "contracts": sorted(contracts.all_contracts())}}))
+                  "contracts": sorted(contracts.all_contracts()),
+                  "trained": [h["loss"] for h in trained],
+                  "ckpt_steps": CheckpointManager({ckpt!r}).steps()}}))
 """
 
 
-def test_port_imports_and_serves_without_jax():
+def test_port_imports_and_serves_without_jax(tmp_path):
     """A fresh interpreter imports the port and serves on the CPU (a request
     of each of the eight pipelines and of ``trip_fare_median``, the linear,
     logistic and MLP models among them, through the fused executor, and the
@@ -198,9 +206,11 @@ def test_port_imports_and_serves_without_jax():
     refreshes the cached entry; a tiny trace through the continuous runtime
     with a chunk failure and the degradation controller; the serve launcher
     imported; the contract checker and its mutations imported; a batch over 2
-    shards simulated on the CPU) with no ``jax`` and no ``repro.*`` module
-    ever loaded."""
-    code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"))
+    shards simulated on the CPU; two reduced qwen1.5-0.5b training steps
+    through the training launcher, each checkpointed, and the example trainer,
+    compression and checkpoint modules imported) with no ``jax`` and no
+    ``repro.*`` module ever loaded."""
+    code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"), ckpt=str(tmp_path / "ckpt"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
@@ -221,6 +231,8 @@ def test_port_imports_and_serves_without_jax():
     assert out["launch"] == "repro_torch.launch.serve"
     assert out["sharded"] == 2
     assert {"fused", "sharded_lanes", "refill", "chunk"} <= set(out["contracts"])
+    assert len(out["trained"]) == 2 and np.isfinite(out["trained"]).all()
+    assert out["ckpt_steps"] == [1, 2]
 
 
 def _imported_modules(path: Path):
@@ -238,7 +250,7 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert len(files) > 20
     walked = {f.parent.relative_to(port).as_posix() for f in files[:-1]}
     for sub in ("configs", "models/lm", "models/tabular", "optim", "examples", "launch",
-                "kernels/flash_attention", "kernels/sobol", "analysis"):
+                "kernels/flash_attention", "kernels/sobol", "analysis", "train", "checkpoint"):
         assert sub in walked, sub
     for f in files:
         for mod in _imported_modules(f):

@@ -1467,3 +1467,148 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+# ------------------------------------------------ flash_attention backward
+# the backward kernels against the plain backward, max |Δ| over max |plain|
+# of each gradient: float32 differs in summation order only; bf16 gradients
+# are float32 sums rounded once to bf16 (2^-8 relative), and the kernel's Δ
+# takes the forward's bf16 output, as the plain version here does
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _bwd_inputs(dev, dtype, b, h, hkv, sq, sk, d, dv, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dev, dtype)
+                 for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv), (b, h, sq, dv)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv,causal,window", [
+    (2, 4, 4, 100, 100, 64, 64, True, 0),       # ragged tiles
+    (1, 8, 2, 256, 256, 128, 128, True, 0),     # GQA
+    (2, 4, 4, 200, 200, 192, 128, True, 0),     # MLA's D != Dv
+    (1, 4, 4, 300, 300, 80, 80, True, 64),      # a window (zamba2's head dim)
+    (2, 4, 4, 160, 160, 64, 64, False, 0),      # bidirectional
+    (2, 4, 4, 48, 200, 64, 64, False, 0),       # cross: Sq != Sk
+    (1, 2, 2, 130, 130, 256, 256, True, 0),     # gemma's 256
+    (1, 2, 1, 90, 70, 40, 24, False, 40),       # odd dims, a non-causal window
+])
+def test_flash_attention_backward_matches_plain(dev, dtype, b, h, hkv, sq, sk, d, dv, causal,
+                                                window):
+    from repro_torch.kernels.flash_attention.backward import DKV, DQ, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, live_keys
+
+    q, k, v, do = _bwd_inputs(dev, dtype, b, h, hkv, sq, sk, d, dv, seed=sq + d)
+    plain_out = flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    assert torch.equal(out, plain_out)
+    kf = k.float().repeat_interleave(h // hkv, 1)
+    s = (q.float() * d ** -0.5) @ kf.transpose(-1, -2)
+    keep = live_keys(sq, sk, causal, window, dev)
+    if keep is not None:
+        s = torch.where(keep, s, -torch.inf)
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) < 1e-4
+    build.reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == {DQ: 1, DKV: 1}
+    want = flash_attention_bwd_ref(q, k, v, out, do, causal=causal, window=window)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, what
+        assert bool(torch.isfinite(g).all()), what
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err < BWD_TOL[dtype], (what, err)
+
+
+def test_flash_attention_backward_is_deterministic(dev):
+    """No atomics: two backward launches on one input give the same bits,
+    GQA's group sums included."""
+    from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
+
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 16, 4, 1024, 1024, 128, 128, seed=3)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    second = flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("kind", ["gqa", "mla", "window", "cross"])
+def test_gradients_reach_the_projections_through_the_kernel(dev, kind):
+    """A bf16 attention block on the card under autograd: the forward is one
+    flash_attention launch and the backward one launch of each backward
+    kernel; every projection's gradient is finite, not zero, and within 3e-2
+    (max-normalised) of the plain path's (``use_kernel=False``, autograd of
+    the plain version)."""
+    from repro_torch.kernels.flash_attention.backward import DKV, DQ
+    from repro_torch.models.lm.layers import (
+        cross_attention_with_kv,
+        init_attention,
+        init_mla,
+        mla_block,
+    )
+
+    cfg = dataclasses.replace(get_config({"gqa": "qwen3-8b", "mla": "deepseek-v2-236b",
+                                          "window": "zamba2-2.7b",
+                                          "cross": "seamless-m4t-large-v2"}[kind]).reduced(),
+                              dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = (init_mla if kind == "mla" else init_attention)(gen, cfg, torch.bfloat16)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 160, cfg.d_model)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    enc = torch.from_numpy(rng.normal(0, 1, (2, 96, cfg.d_model)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    grads = {}
+    for use_kernel in (True, False):
+        leaves = {n: t.detach().clone().requires_grad_(True) for n, t in p.items()}
+        build.reset_launch_counts()
+        if kind == "mla":
+            y = mla_block(leaves, x, cfg, use_kernel=use_kernel)
+        elif kind == "cross":
+            y = cross_attention_with_kv(leaves, x, enc, use_kernel=use_kernel)[0]
+        else:
+            y = attention_block(leaves, x, cfg, window=cfg.sliding_window, use_kernel=use_kernel)
+        assert build.LAUNCHES["flash_attention"] == int(use_kernel)
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[DQ] == build.LAUNCHES[DKV] == int(use_kernel)
+        grads[use_kernel] = {n: t.grad for n, t in leaves.items()}
+    names = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo") if kind == "mla" else ("wq", "wk", "wv", "wo")
+    for n in names:
+        g, w = grads[True][n], grads[False][n]
+        assert g is not None and bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0), n
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err < 3e-2, (n, err)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-236b", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_kernel_matches_plain(dev, arch):
+    """One bf16 train step of a reduced config on the card, kernel path
+    against plain path from the same weights and batch: loss and grad norm
+    within 3e-2 relative; the kernel path launches each backward kernel once
+    an attention call (twice under remat, with the forward recomputed)."""
+    from repro_torch.kernels.flash_attention.backward import DKV, DQ
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import build_train_step, synthetic_batch
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    for use_kernel in (True, False):
+        lm = LM(cfg, use_kernel=use_kernel, remat=True, loss_chunk=64)
+        step = build_train_step(lm)
+        batch = synthetic_batch(lm, 2, 128, 0, 0, device=dev)
+        build.reset_launch_counts()
+        _, _, m = step(dict(params), adamw_init(params), batch, 0)
+        torch.cuda.synchronize()
+        out[use_kernel] = m
+        if use_kernel:
+            assert build.LAUNCHES[DQ] == build.LAUNCHES[DKV] > 0
+            assert build.LAUNCHES["flash_attention"] >= build.LAUNCHES[DQ]
+        else:
+            assert not build.LAUNCHES
+    for key in ("loss", "grad_norm"):
+        a, b = float(out[True][key]), float(out[False][key])
+        assert np.isfinite(a) and abs(a - b) <= 3e-2 * abs(b), key
