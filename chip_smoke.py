@@ -229,13 +229,15 @@ Phases (any failure exits non-zero before the result line is printed):
     (1, 32 on 8, 1024, 128), MLA's (2, 128, 1024, 192 / 128), zamba2's
     (1, 32, 8192, 80) with window 4096, seamless's bidirectional
     (2, 16, 1024, 64) and cross (2, 16, 256 on 1024, 64), gemma's
-    (2, 16, 1024, 256) and one float32 case, each kernel timed beside its
+    (2, 16, 1024, 256) and one float32 case, every bf16 launch on the
+    tensor-core kernels fed by TMA and the float32 one on the scalar
+    kernels (``build.PATHS``), each kernel timed beside its
     bound, the plain backward and SDPA's autograd backward; (b)
     full-width qwen1.5-0.5b (bf16, float32 Adam moments, remat) through
     ``Trainer`` at B = 4 x 1024 for 5 steps, the main path of the phase
     (counts reset just before, read just after): the step-0 loss within
-    1.5 of ln V, 24 launches of each backward kernel and 48 forward
-    launches a step, a checkpoint at step 3 from which a fresh ``Trainer``
+    1.5 of ln V, 24 launches of each backward kernel (every one on the
+    TMA path) and 48 forward launches a step, a checkpoint at step 3 from which a fresh ``Trainer``
     gives steps 4 and 5 bitwise, one step profiled, step 0 against the
     plain path (``use_kernel=False``) within ``TRAIN_REL_TOL`` and each
     attention projection's gradient, layer by layer, within
@@ -3646,6 +3648,10 @@ def backward_case(dev, name, shape, causal, window, dtype, seed, card) -> dict:
     torch.cuda.synchronize()
     require(build.LAUNCHES == {bwd.DQ: 1, bwd.DKV: 1},
             f"backward {name}: launches {dict(build.LAUNCHES)}")
+    # bf16 on the tensor cores fed by TMA, float32 on the scalar kernels
+    path = "tma" if dtype == torch.bfloat16 else "simt"
+    require(build.PATHS == {f"{bwd.DQ}.{path}": 1, f"{bwd.DKV}.{path}": 1},
+            f"backward {name}: paths {dict(build.PATHS)}, expected {path}")
     want = plain_backward(q, k, v, out, do, causal, window)
     errs, abs_errs = {}, {}
     for g, w, what in zip(got, want, ("dq", "dk", "dv")):
@@ -3668,13 +3674,14 @@ def backward_case(dev, name, shape, causal, window, dtype, seed, card) -> dict:
     work = bwd_work(shape, causal, window, q.element_size())
     bounds = {n: bound(*w, ops_per_s=peak) for n, w in work.items()}
     rec = dict(shape=[b, h, hkv, sq, sk, d, dv], causal=causal, window=window,
-               dtype=str(dtype).removeprefix("torch."), rel_err=errs, max_abs_err=abs_errs,
+               dtype=str(dtype).removeprefix("torch."), path=path, rel_err=errs,
+               max_abs_err=abs_errs,
                plain_ms=plain_ms, library_ms=library_ms,
                backward_bound_ms=bounds["backward"][0], backward_bound_by=bounds["backward"][1],
                kernels={n: dict(ms=times[n][0], eager_ms=times[n][1], bound_ms=bounds[n][0],
                                 bound_by=bounds[n][1]) for n in (bwd.DQ, bwd.DKV)})
     total = sum(r["ms"] for r in rec["kernels"].values())
-    print(f"flash_attention backward {name}: dq {times[bwd.DQ][0]:.4f} ms (bound "
+    print(f"flash_attention backward {name} ({path}): dq {times[bwd.DQ][0]:.4f} ms (bound "
           f"{bounds[bwd.DQ][0]:.4f} by {bounds[bwd.DQ][1]}), dkv {times[bwd.DKV][0]:.4f} ms "
           f"(bound {bounds[bwd.DKV][0]:.4f} by {bounds[bwd.DKV][1]}), both {total:.4f} ms "
           f"against the whole backward's bound {bounds['backward'][0]:.4f} ms; plain "
@@ -3837,6 +3844,7 @@ def full_width_training(dev, card) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    paths = dict(build.PATHS)
     peak = torch.cuda.max_memory_allocated()
     require([h["step"] for h in hist] == list(range(TRAIN_STEPS)), f"training steps {hist}")
     require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
@@ -3851,6 +3859,10 @@ def full_width_training(dev, card) -> dict:
             == cfg.n_layers and per_step.get("flash_attention") == 2 * cfg.n_layers,
             f"launches a step {per_step}: expected {cfg.n_layers} of each backward kernel and "
             f"{2 * cfg.n_layers} forward (remat recomputes each layer's)")
+    for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        require(paths.get(f"{kname}.tma") == launches.get(kname),
+                f"training: {kname} launched {launches.get(kname)} times, {paths} by path: "
+                f"every bf16 backward launch must take the tensor cores fed by TMA")
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -3902,7 +3914,7 @@ def full_width_training(dev, card) -> dict:
                                 wall_ms=plain_hist[0]["dt"] * 1e3),
                kernel_vs_plain_rel=errs, attn_grads=grads, save_snapshot_ms=save_ms,
                resumed=got, checkpoint_bytes=ckpt_bytes,
-               run_s=run_s, resume_s=resume_s, profile=prof, launches=launches,
+               run_s=run_s, resume_s=resume_s, profile=prof, launches=launches, paths=paths,
                launches_per_step=per_step)
     print(f"lm training {TRAIN_ARCH}: B={TRAIN_B} x {TRAIN_S}, {n_params} parameters, "
           f"{TRAIN_STEPS} steps, losses {[round(x, 4) for x in rec['losses']]}, step wall ms "
@@ -3912,7 +3924,8 @@ def full_width_training(dev, card) -> dict:
           f"a profiled step (idle {prof['device_idle_share']:.3f}; flash_attention forward "
           f"{prof['flash_attention_fwd_ms']:.2f} ms, backward {prof['flash_attention_bwd_ms']:.2f}"
           f" ms), peak {peak} bytes allocated ({state_bytes} of parameters and Adam moments); "
-          f"launches a step {json.dumps(per_step)}; resumed at step {TRAIN_SAVE} from a "
+          f"launches a step {json.dumps(per_step)}, by path {json.dumps(paths)}; resumed at "
+          f"step {TRAIN_SAVE} from a "
           f"{ckpt_bytes}-byte checkpoint: steps {[g[0] for g in got]} bitwise; kernel vs plain "
           f"at step 0: loss {errs['loss']:.3g}, grad norm {errs['grad_norm']:.3g} relative, "
           f"attention leaves {grads['worst']:.4g} at worst (planted faults "
@@ -3944,13 +3957,17 @@ def config_train_steps(dev, card) -> dict:
             _, _, m = build_train_step(lm)(params, adamw_init(params), batch, 0)
             torch.cuda.synchronize()
             runs[use_kernel] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                                    launches=dict(build.LAUNCHES))
+                                    launches=dict(build.LAUNCHES), paths=dict(build.PATHS))
         k, p = runs[True], runs[False]
         attn = cfg.family != "ssm"
         require(not p["launches"] and (k["launches"].get("flash_attention_bwd_dq", 0) > 0) == attn
                 and k["launches"].get("flash_attention_bwd_dq") == k["launches"].get(
                     "flash_attention_bwd_dkv"),
                 f"{arch} train step: launches kernel {k['launches']}, plain {p['launches']}")
+        if cfg.dtype == "bfloat16":  # every bf16 backward launch on the tensor cores
+            for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                require(k["paths"].get(f"{kname}.simt", 0) == 0,
+                        f"{arch} train step: {kname} paths {k['paths']}")
         errs = {key: abs(k[key] - p[key]) / abs(p[key]) for key in ("loss", "grad_norm")}
         require(all(math.isfinite(k[key]) for key in errs)
                 and all(e <= TRAIN_REL_TOL for e in errs.values()),
@@ -3963,7 +3980,8 @@ def config_train_steps(dev, card) -> dict:
               + ("" if grads is None else
                  f", attention leaves {grads['worst']:.4g} at worst (planted faults "
                  f"{json.dumps(grads['planted'])})")
-              + f"; launches {json.dumps(k['launches'])} [{card}]", flush=True)
+              + f"; launches {json.dumps(k['launches'])}, by path {json.dumps(k['paths'])} "
+              f"[{card}]", flush=True)
         del params
     return out
 
@@ -4303,6 +4321,8 @@ def main() -> int:
                      "src/repro/models/lm/layers.py:98 by XLA autodiff",
             launches=lm_training["launches"].get(kname, 0),
             launches_per_step=lm_training["qwen"]["launches_per_step"].get(kname, 0),
+            paths={n: c for n, c in lm_training["qwen"]["paths"].items()
+                   if n.startswith(kname + ".")},
             max_abs_err=max(max(r["max_abs_err"][g] for g in what.split())
                             for r in lm_training["backward"].values()),
             ms=qwen_case["kernels"][kname]["ms"], eager_ms=qwen_case["kernels"][kname]["eager_ms"],
@@ -4311,7 +4331,9 @@ def main() -> int:
             shape=qwen_case["shape"], dtype=qwen_case["dtype"],
             note="plain_ms and library_ms are the whole backward's (the plain version and "
                  "SDPA's autograd compute dq, dk and dv in one call)",
-            shapes={n: dict(ms=r["kernels"][kname]["ms"], bound_ms=r["kernels"][kname]["bound_ms"],
+            shapes={n: dict(path=r["path"], ms=r["kernels"][kname]["ms"],
+                            eager_ms=r["kernels"][kname]["eager_ms"],
+                            bound_ms=r["kernels"][kname]["bound_ms"],
                             bound_by=r["kernels"][kname]["bound_by"], plain_ms=r["plain_ms"],
                             library_ms=r["library_ms"], rel_err=r["rel_err"])
                     for n, r in lm_training["backward"].items()},

@@ -3,10 +3,11 @@
 
     PYTHONPATH=src python3 kernel_ab.py KERNEL [OTHER.cu]
 
-KERNEL is ``flash_attention``, ``ensemble_sum``, ``prefix_power_sums``,
-``sampled_moments``, ``masked_select_ranks`` or ``sobol_points``;
-``OTHER.cu`` another version of its source under
-``src/repro_torch/kernels/csrc/`` (``flash_attention.cu``, ``tree_qmc.cu``,
+KERNEL is ``flash_attention``, ``flash_attention_bwd`` (its two backward
+kernels), ``ensemble_sum``, ``prefix_power_sums``, ``sampled_moments``,
+``masked_select_ranks`` or ``sobol_points``; ``OTHER.cu`` another version
+of its source under ``src/repro_torch/kernels/csrc/``
+(``flash_attention.cu``, ``flash_attention_bwd.cu``, ``tree_qmc.cu``,
 ``prefix_stats.cu``, ``sampled_agg.cu``, ``quantile_select.cu``,
 ``sobol.cu``), for example the file at a parent commit (``git show
 HEAD~:src/...``).  It is built with the port's nvcc command into
@@ -14,7 +15,9 @@ HEAD~:src/...``).  It is built with the port's nvcc command into
 arguments, as both libraries are called through the wrapper's own launch
 code (``launch_with``), so only the loaded library differs (a
 ``flash_attention.cu`` from before the row log-sum-exp output needs a last
-``float* lse`` parameter added, unused: the A/B launches pass null).  For
+``float* lse`` parameter added, unused: the A/B launches pass null; a
+``flash_attention_bwd.cu`` from before its entry points reported their path
+gets an ``int *path`` argument written here, see :func:`bwd_source`).  For
 ``sampled_moments``, ``masked_select_ranks`` and ``sobol_points`` OTHER.cu
 may be left out: the other side is then this build's earlier design (the
 rows, rank and direct paths); a copy of ``quantile_select.cu`` with another
@@ -24,7 +27,9 @@ served paths give the kernel, each output held to the plain version
 (bitwise for ``ensemble_sum``, ``masked_select_ranks`` and
 ``sobol_points``; the tables' tolerance for ``prefix_power_sums`` and
 ``sampled_moments``; the card tests' bf16 tolerance for
-``flash_attention``).  Device times per call come from CUDA-graph replay,
+``flash_attention``; the plain backward's ``BWD_TOL`` for
+``flash_attention_bwd``, at ``chip_smoke.BWD_SHAPES``' bf16 shapes, beside
+SDPA's autograd backward).  Device times per call come from CUDA-graph replay,
 beside the eager time of back-to-back launches (``chip_smoke.time_ms``);
 whether the two give the same bits is reported; every kernel but
 ``flash_attention`` also times each other launch plan of this tree once,
@@ -98,6 +103,86 @@ def ab_flash(other_lib):
         times["sdpa"] = chip_smoke.time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5)[0]
         results["x".join(map(str, shape))] = times
+    return results
+
+
+def bwd_source(other: Path) -> Path:
+    """A ``flash_attention_bwd.cu`` from before its entry points reported
+    their path (the SIMT kernels' source) with an ``int *path`` argument
+    added, set to the scalar path; any other source as it is."""
+    text = other.read_text()
+    if "int *path" in text:
+        return other
+    text = text.replace("int window, float scale, int dtype, int device, void *stream\n",
+                        "int window, float scale, int dtype, int device, void *stream, int *path\n")
+    text = text.replace("const Problem a = FLASH_BWD_PROBLEM;",
+                        "const Problem a = FLASH_BWD_PROBLEM;\n  *path = 0;")
+    chip_smoke.require(text.count("*path = 0;") == 2 and "void *stream, int *path" in text,
+                       f"{other}: no flash_attention_bwd entry points to give a path argument")
+    patched = ROOT / "build" / "ab-other-flash_attention_bwd.cu"
+    patched.parent.mkdir(parents=True, exist_ok=True)
+    patched.write_text(text)
+    return patched
+
+
+def ab_flash_bwd(other_lib):
+    """The two backward kernels of this tree against another build, at the
+    bf16 shapes of ``chip_smoke.BWD_SHAPES``: each kernel's device ms (graph
+    replay) and eager ms in turns, every output of both builds held to the
+    plain backward within ``BWD_TOL``, the launches' paths, and SDPA's
+    autograd backward timed in the same call."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import backward as bwd
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+
+    fns = {"other": bwd.bind(other_lib), "this": None}
+    results = {}
+    for i, (name, (shape, causal, window, dtype)) in enumerate(chip_smoke.BWD_SHAPES.items()):
+        if dtype != torch.bfloat16:
+            continue
+        b, h, hkv, sq, sk, d, dv = shape
+        rng = np.random.default_rng(300 + i)
+        q, k, v, do = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to("cuda", dtype)
+                       for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv),
+                                 (b, h, sq, dv)))
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        want = chip_smoke.plain_backward(q, k, v, out, do, causal, window)
+        prep = {n: bwd.prepare(q, k, v, out, lse, do, causal=causal, window=window)
+                for n in fns}
+        reps = 3 if sq * sk > 1 << 24 else 10
+        times, outs = {}, {}
+        for turn, side in enumerate(TURNS):
+            build.reset_launch_counts()
+            for kname in (bwd.DQ, bwd.DKV):
+                bwd.launch(kname, prep[side], fns[side])
+            torch.cuda.synchronize()
+            times[f"{side}_{turn}_paths"] = dict(build.PATHS)
+            outs[side] = [t.clone() for t in (prep[side].dq, prep[side].dk, prep[side].dv)]
+            for g, w, what in zip(outs[side], want, ("dq", "dk", "dv")):
+                err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                chip_smoke.require(err < chip_smoke.BWD_TOL[dtype],
+                                   f"{side} {what} at {name}: {err} beyond the plain backward's "
+                                   f"tolerance")
+                times[f"{side}_{turn}_{what}_rel_err"] = err
+            for kname in (bwd.DQ, bwd.DKV):
+                dev_ms, eager_ms = chip_smoke.time_ms(
+                    lambda kname=kname: bwd.launch(kname, prep[side], fns[side]), reps)
+                times[f"{side}_{turn}_{kname}"] = dev_ms
+                times[f"{side}_{turn}_{kname}_eager"] = eager_ms
+        build.reset_launch_counts()
+        times["bitwise_equal"] = all(torch.equal(a, b) for a, b in zip(outs["other"],
+                                                                        outs["this"]))
+        times["sdpa_autograd"] = chip_smoke.sdpa_backward_ms(q, k, v, do, causal, window, 3)
+        work = chip_smoke.bwd_work(shape, causal, window, q.element_size())
+        times["bound"] = chip_smoke.bound(*work["backward"],
+                                          ops_per_s=chip_smoke.BF16_OPS_PER_S)[0]
+        for side in fns:
+            times[f"{side}_pair"] = min(
+                times[f"{side}_{t}_{bwd.DQ}"] + times[f"{side}_{t}_{bwd.DKV}"]
+                for t, s in enumerate(TURNS) if s == side)
+        results[name] = times
+        del want, prep, outs
+        torch.cuda.empty_cache()
     return results
 
 
@@ -294,7 +379,9 @@ def ab_sobol(other_lib):
     return results
 
 
-AB = {"flash_attention": ("flash_attention", ab_flash), "ensemble_sum": ("tree_qmc", ab_ensemble),
+AB = {"flash_attention": ("flash_attention", ab_flash),
+      "flash_attention_bwd": ("flash_attention_bwd", ab_flash_bwd),
+      "ensemble_sum": ("tree_qmc", ab_ensemble),
       "prefix_power_sums": ("prefix_stats", ab_prefix),
       "sampled_moments": ("sampled_agg", ab_moments),
       "masked_select_ranks": ("quantile_select", ab_select),
@@ -315,13 +402,16 @@ def main(kernel: str, other: Path | None) -> int:
     build.build_all()
     other_lib = None
     if other is not None:
+        if kernel == "flash_attention_bwd":
+            other = bwd_source(other)
         so = build.BUILD_DIR / "ab-other.so"
         subprocess.run(build.compile_command(other, so), check=True, capture_output=True)
         other_lib = ctypes.CDLL(str(so))
     results = run(other_lib)
     for shape, times in results.items():
         print(f"{kernel} {shape}: " + " ".join(
-            f"{n}={t:.5f}" for n, t in times.items() if isinstance(t, float)), flush=True)
+            f"{n}={t:.5f}" for n, t in times.items() if isinstance(t, float)
+            and not n.endswith("rel_err")), flush=True)
     print(json.dumps({"kernel": kernel, "source": source,
                       "other": "earlier path" if other is None else str(other),
                       "card": chip_smoke.card_line(),

@@ -69,7 +69,8 @@
 // scores (exact at D = 64 and 256, where D^-½ is a power of two; a float32
 // rounding otherwise), P is rounded to bf16 before P·V (the denominator
 // sums the float32 p), ex2.approx has a 2-ulp error, and the summation
-// order differs.
+// order differs.  The TMA, wgmma, load and tensor-map helpers are in
+// hopper.cuh, which the backward kernels (flash_attention_bwd.cu) share.
 //
 // float32: `simt::flash_attention_kernel`, scalar FMAs.  One block of 8
 // warps per (b·h, q tile of 32 rows); 64-key tiles staged in float32 in
@@ -96,6 +97,7 @@
 
 #include "async_copy.cuh"
 #include "device_guard.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -110,11 +112,6 @@ constexpr unsigned kMaxGridY = 65535;
 constexpr int kPathSimt = 0;   // float32: the scalar kernel
 constexpr int kPathTma = 1;    // bf16: K/V and Q loaded by TMA
 constexpr int kPathLoads = 2;  // bf16: a view TMA cannot read, loaded by the producer
-
-// Element strides of the batch, head and sequence axes (the last is 1).
-struct Strides {
-  long long b, h, s;
-};
 
 // One call's arguments, as the entry point receives them.
 struct Problem {
@@ -347,7 +344,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kConsumers = 2;                     // warpgroups of 64 query rows each
 constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 is the producer
 constexpr int kBlockQ = 64 * kConsumers;
-constexpr int kPanel = 64;  // bf16 columns in one 128-byte swizzled panel row
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128·40 + 256·232 = 384·168
 
 // Shared memory of a block for DP, the padded head dim.  Each tile is kept
@@ -379,216 +375,6 @@ struct Params {
   float scale_log2;  // D^-½ · log2(e)
 };
 
-// One box of a (columns, rows, heads, batch) tensor map into shared memory,
-// completing on `bar`; rows and columns outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head),
-      "r"(batch)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand: start address, leading
-// and stride byte offsets (in 16-byte units), layout type 1 (128B swizzle).
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
-         1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from reading an accumulator before wgmma_wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d(64 x N) = A·B + (scale_d ? d : 0), A (64 x 16) and B (16 x N) bf16 in
-// shared memory, both K-major.
-template <int N>
-__device__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
-// The same with A from registers (four bf16 pairs a thread) and B MN-major.
-template <int N>
-__device__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
-
-template <>
-__device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
-      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
-      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
-      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void zero_smem(uint8_t* dst, int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16) {
-    *reinterpret_cast<uint4*>(dst + i) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// The producer's path where TMA cannot read a view: `rows` rows of `panels`
-// panels from src (row stride `stride`), rows past n_rows and columns past
-// n_cols zero, written swizzled by the 128 producer threads.
-__device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, long long stride, int row0,
-                                          int n_rows, int n_cols, int rows, int panels, int tid) {
-  const int chunks = panels * 8;  // 16-byte chunks a row
-  for (int i = tid; i < rows * chunks; i += 128) {
-    const int r = i / chunks, c = i % chunks, row = row0 + r;
-    alignas(16) bf16 x[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int col = c * 8 + e;
-      x[e] = row < n_rows && col < n_cols ? src[row * stride + col] : __float2bfloat16_rn(0.f);
-    }
-    *reinterpret_cast<uint4*>(dst + (c / 8) * rows * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16) =
-        *reinterpret_cast<const uint4*>(x);
-  }
-}
-
-// Generic stores of the producer threads become visible to wgmma, then one
-// arrival completes the stage.
-__device__ __forceinline__ void publish(uint64_t* bar, int tid) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync 1, 128;" ::: "memory");
-  if (tid == 0) mbar_arrive(bar);
-}
-
 // kWindow: the instance that applies p.window; the one without is the
 // unwindowed kernel as it was, with no test of the window in its loop.
 template <int DP, bool kWindow>
@@ -618,12 +404,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_t = n_kt - kt0;
 
   // panels wholly past D or Dv are never loaded: zero columns, once
-  zero_smem(q_s + qk_panels * L::kQPanelBytes, (L::kPanels - qk_panels) * L::kQPanelBytes);
+  zero_smem<kThreads>(q_s + qk_panels * L::kQPanelBytes,
+                      (L::kPanels - qk_panels) * L::kQPanelBytes);
   for (int s = 0; s < kStages; ++s) {
     uint8_t* k_st = kv_s + s * L::kStageBytes;
-    zero_smem(k_st + qk_panels * L::kKVPanelBytes, (L::kPanels - qk_panels) * L::kKVPanelBytes);
-    zero_smem(k_st + L::kKBytes + v_panels * L::kKVPanelBytes,
-              (L::kPanels - v_panels) * L::kKVPanelBytes);
+    zero_smem<kThreads>(k_st + qk_panels * L::kKVPanelBytes,
+                        (L::kPanels - qk_panels) * L::kKVPanelBytes);
+    zero_smem<kThreads>(k_st + L::kKBytes + v_panels * L::kKVPanelBytes,
+                        (L::kPanels - v_panels) * L::kKVPanelBytes);
   }
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -850,77 +638,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against the driver.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 view as TMA reads it: (columns, rows, heads, batch) and the byte
-// strides of the last three axes.  `ok` is false where the view breaks
-// TMA's rules: a base or a stride that is not a multiple of 16 bytes, or a
-// stride of 2^40 bytes or more.  Only then does the producer load the ring.
-struct TmaView {
-  cuuint64_t dims[4];
-  cuuint64_t strides[3];
-  bool ok;
-};
-
-TmaView tma_view(const void* base, int cols, int rows, int heads, int batch, Strides st) {
-  TmaView t{{static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
-             static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)},
-            {},
-            reinterpret_cast<uintptr_t>(base) % 16 == 0};
-  const long long elems[3] = {st.s, st.h, st.b};
-  cuuint64_t span = (2ull * cols + 15) / 16 * 16;  // bytes spanned by the axes so far
-  for (int i = 0; i < 3; ++i) {
-    if (t.dims[i + 1] == 1) {
-      t.strides[i] = span;  // never stepped: any legal stride
-    } else {
-      const long long bytes = 2 * elems[i];
-      if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1ll << 40)) t.ok = false;
-      t.strides[i] = static_cast<cuuint64_t>(bytes);
-    }
-    span = std::max(span, t.strides[i] * t.dims[i + 1]);
-  }
-  return t;
-}
-
-// The map of a view that TMA can read: boxes of 64 columns x box_rows rows,
-// 128-byte swizzle, zeros outside.  An error where the driver offers no
-// cuTensorMapEncodeTiled or refuses the view, so that a view within TMA's
-// rules never goes to the slower loads unnoticed.
-cudaError_t encode(CUtensorMap* map, const void* base, const TmaView& t, int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                        t.dims, t.strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int DP, bool kWindow>

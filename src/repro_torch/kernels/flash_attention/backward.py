@@ -11,9 +11,15 @@ sliding window, Sq ≠ Sk, KV heads that divide the query heads, D and Dv up
 to 256, float32 or bf16 views with a contiguous last axis) together with
 the forward's output and its row log-sum-exp (``flash_attention(...,
 return_lse=True)``), and raise on anything else.  The gradients come back in
-q's type and in the memory order of q, k and v.  The plain version is
-``ref.flash_attention_bwd_ref``; ``autograd.py`` wires the kernels into
-autograd.
+q's type and in the memory order of q, k and v.  bf16 inputs (the
+model's) go to the tensor-core kernels (``wgmma`` products, tiles fed by
+TMA into a ring of stages), float32 inputs to the scalar kernels; each
+launch counts its path in ``build.PATHS``: ``<kernel>.tma``,
+``<kernel>.loads`` (a bf16 view whose base or strides TMA cannot read,
+loaded by the producer warps instead) or ``<kernel>.simt``.  The plain
+version is ``ref.flash_attention_bwd_ref``; ``emulation.bf16_backward``
+reproduces the bf16 kernels' roundings; ``autograd.py`` wires the kernels
+into autograd.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ NAME = "flash_attention_bwd"
 DQ = "flash_attention_bwd_dq"
 DKV = "flash_attention_bwd_dkv"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the entry points' `path` codes (kPathSimt, kPathTma, kPathLoads)
+_PATHS = ("simt", "tma", "loads")
 
 
 def bind(lib: ctypes.CDLL) -> tuple:
@@ -41,7 +49,8 @@ def bind(lib: ctypes.CDLL) -> tuple:
     for name in (DQ, DKV):
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         fns.append(fn)
     return tuple(fns)
@@ -107,13 +116,17 @@ def prepare(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0) ->
     return Prepared(args, q.device, strides, dq, dk, dvv, delta)
 
 
-def launch(name: str, prepared: Prepared) -> None:
+def launch(name: str, prepared: Prepared, fns=None) -> None:
     """Launch the kernel ``name`` (:data:`DQ` or :data:`DKV`) on a prepared
-    call; :data:`DKV` reads the Δ that :data:`DQ` wrote."""
-    fn = dict(zip((DQ, DKV), _fns()))[name]
+    call; :data:`DKV` reads the Δ that :data:`DQ` wrote.  ``fns``: the
+    entry points (dq, dkv) of another loaded library (:func:`bind`), for
+    an A/B of two builds."""
+    fn = dict(zip((DQ, DKV), fns or _fns()))[name]
     stream = torch.cuda.current_stream(prepared.device).cuda_stream
-    build.check(fn(*prepared.args, stream), name)
+    path = ctypes.c_int(-1)
+    build.check(fn(*prepared.args, stream, ctypes.byref(path)), name)
     build.LAUNCHES[name] += 1
+    build.PATHS[f"{name}.{_PATHS[path.value]}"] += 1
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):

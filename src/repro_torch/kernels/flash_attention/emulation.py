@@ -26,6 +26,16 @@ bf16 ulp of it, which the one ulp of the final rounding covers.
 KV heads must be expanded (``repeat_interleave``) by the caller.  The card
 tests and ``chip_smoke.py`` hold the kernel to it so; the CPU tests hold it
 to the plain version and the Pallas kernel.
+
+:func:`bf16_backward` does the same for the bf16 tensor-core backward
+kernels (``kernels/csrc/flash_attention_bwd.cu``): the scores and dP as
+float32 products, P = 2^(fma(S, D^-½·log2(e), −L·log2(e))) with the
+forward's row log-sum-exp L, dS = P ∘ (dP − Δ), P and dS rounded to bf16
+before the products, dQ summed over key tiles in order, dK and dV over the
+query heads of a group and their query tiles in order (two alternating
+partial sums added at the end where the kernel's two consumers share a
+block's keys), each scaled and rounded once.  :func:`bwd_tiles` is the
+kernel's table of instances and tiles.
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import live_keys
 
-__all__ = ["beyond", "bf16_path", "key_tile"]
+__all__ = ["beyond", "bf16_backward", "bf16_path", "bwd_tiles", "key_tile"]
 
 f32 = torch.float32
 
@@ -120,3 +130,87 @@ def beyond(got: torch.Tensor, emulated: torch.Tensor, slack: torch.Tensor, *, rt
     (one bf16 ulp of the final rounding) plus their ``slack``."""
     g, e = got.to(f32), emulated.to(f32)
     return (g - e).abs() > atol + rtol * e.abs() + slack
+
+
+#: the backward kernels' instances: accumulator widths (DN, DVN) along D and Dv
+BWD_INSTANCES = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
+#: keys of a dK/dV block
+BWD_BLOCK_KEYS = 64
+
+
+def bwd_tiles(d: int, dv: int) -> dict:
+    """The backward kernels' instance for head dims (d, dv): the first of
+    :data:`BWD_INSTANCES` that holds both (``dn``, ``dvn``), the dQ kernel's
+    key tile ``block_k``, the dK/dV kernel's query tile ``block_q`` and
+    whether its two consumers split dK and dV (``roles``) or share the
+    block's tiles (alternate tiles, two sums added at the end)."""
+    dn, dvn = next(w for w in BWD_INSTANCES if d <= w[0] and dv <= w[1])
+    roles = dn + dvn > 256
+    acc = max(dn, dvn) // 2 if roles else (dn + dvn) // 2
+    return dict(dn=dn, dvn=dvn, block_k=64 if dn // 2 <= 96 else 32,
+                block_q=64 if acc <= 96 else 32, roles=roles)
+
+
+def bf16_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, *, causal: bool, window: int = 0):
+    """(dq, dk, dv) in q's type, as the bf16 backward kernels compute them,
+    from (B, H, Sq, D) q, (B, Hkv, Sk, D) k, (B, Hkv, Sk, Dv) v, the
+    forward's output o and its gradient do (B, H, Sq, Dv), and the
+    forward's row log-sum-exp lse (B, H, Sq) float32.
+
+    What it does not reproduce is the order of the float32 sums inside the
+    tensor cores (within a tile) and the error of ``ex2.approx``: both move
+    a float32 P or dS by a few parts in 2^23, which changes its bf16 value
+    only where it lies that close to a bf16 rounding tie."""
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // hkv
+    t = bwd_tiles(d, dv)
+    dev = q.device
+    scale = torch.tensor(d ** -0.5, dtype=f32, device=dev)
+    log2e = torch.tensor(math.log2(math.e), dtype=f32, device=dev)
+    c = (scale.cpu() * log2e.cpu()).item()   # the kernel's float32 D^-½·log2(e)
+    qf, kf, vf, of, dof = (x.to(f32) for x in (q, k, v, o, do))
+    kr, vr = kf.repeat_interleave(g, dim=1), vf.repeat_interleave(g, dim=1)
+    lb = lse.to(f32) * log2e
+    # fma(s, c, -lb), rounded once: the product of two floats is exact in float64
+    x = (torch.matmul(qf, kr.transpose(-1, -2)).double() * c - lb.double()[..., None]).to(f32)
+    keep = live_keys(sq, sk, causal, window, dev)
+    if keep is not None:
+        x = torch.where(keep, x, -torch.inf)
+    p = torch.exp2(x)
+    delta = (dof * of).sum(dim=-1)
+    ds = p * (dof @ vr.transpose(-1, -2) - delta[..., None])
+    p16, ds16 = _bf16(p), _bf16(ds)
+    bk, bq = t["block_k"], t["block_q"]
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, sk, bk):
+        dq = dq + ds16[..., k0:k0 + bk] @ kr[..., k0:k0 + bk, :]
+    dq = (dq * scale).to(q.dtype)
+    # dK and dV of each block of 64 keys: its query heads in order and, for
+    # each, the tiles of block_q rows that see its keys (tiles of no live
+    # pair add zeros, which change no sum)
+    p16 = p16.reshape(b, hkv, g, sq, sk)
+    ds16 = ds16.reshape(b, hkv, g, sq, sk)
+    qg, dog = qf.reshape(b, hkv, g, sq, d), dof.reshape(b, hkv, g, sq, dv)
+    dk = torch.empty((b, hkv, sk, d), dtype=f32, device=dev)
+    dvv = torch.empty((b, hkv, sk, dv), dtype=f32, device=dev)
+    for k0 in range(0, sk, BWD_BLOCK_KEYS):
+        k1 = min(k0 + BWD_BLOCK_KEYS, sk)
+        i_lo = k0 if causal else 0
+        i_hi = min(sq, k1 - 1 + window) if window > 0 else sq
+        sums = [[torch.zeros((b, hkv, k1 - k0, d), dtype=f32, device=dev),
+                 torch.zeros((b, hkv, k1 - k0, dv), dtype=f32, device=dev)] for _ in range(2)]
+        n = 0
+        for hq in range(g):
+            for i0 in range(i_lo, i_hi, bq):
+                i1 = min(i0 + bq, sq)
+                part = sums[0 if t["roles"] else n % 2]
+                part[0] = part[0] + ds16[:, :, hq, i0:i1, k0:k1].transpose(-1, -2) @ qg[:, :, hq,
+                                                                                        i0:i1]
+                part[1] = part[1] + p16[:, :, hq, i0:i1, k0:k1].transpose(-1, -2) @ dog[:, :, hq,
+                                                                                        i0:i1]
+                n += 1
+        dk[:, :, k0:k1] = sums[0][0] + sums[1][0]
+        dvv[:, :, k0:k1] = sums[0][1] + sums[1][1]
+    return dq, (dk * scale).to(q.dtype), dvv.to(q.dtype)

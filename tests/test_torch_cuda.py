@@ -1475,6 +1475,12 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
 # are float32 sums rounded once to bf16 (2^-8 relative), and the kernel's Δ
 # takes the forward's bf16 output, as the plain version here does
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the bf16 kernels against their roundings emulated in PyTorch, elementwise:
+# one bf16 ulp of the final rounding (2^-7 relative at most), plus 2^-9 of
+# the gradient's largest magnitude for a P or dS that the tensor cores'
+# summation order or ex2.approx moved across a bf16 rounding tie (each such
+# move is one bf16 ulp of a single term of a sum over a row or column)
+BWD_EMULATION_TOL = dict(rtol=2 ** -7, atol=2 ** -9)
 
 
 def _bwd_inputs(dev, dtype, b, h, hkv, sq, sk, d, dv, seed):
@@ -1493,10 +1499,17 @@ def _bwd_inputs(dev, dtype, b, h, hkv, sq, sk, d, dv, seed):
     (2, 4, 4, 48, 200, 64, 64, False, 0),       # cross: Sq != Sk
     (1, 2, 2, 130, 130, 256, 256, True, 0),     # gemma's 256
     (1, 2, 1, 90, 70, 40, 24, False, 40),       # odd dims, a non-causal window
+    (1, 4, 2, 150, 150, 36, 36, True, 0),       # 72-byte rows: no TMA, the producer loads
 ])
 def test_flash_attention_backward_matches_plain(dev, dtype, b, h, hkv, sq, sk, d, dv, causal,
                                                 window):
+    """Both backward kernels against the plain backward (``BWD_TOL``), the
+    path each launch took (bf16: the tensor-core kernels, fed by TMA but
+    for views whose rows are not a multiple of 16 bytes; float32: the
+    scalar kernels) and, bf16, the emulated roundings
+    (``emulation.bf16_backward``) within ``BWD_EMULATION_TOL``."""
     from repro_torch.kernels.flash_attention.backward import DKV, DQ, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.emulation import bf16_backward
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, live_keys
 
     q, k, v, do = _bwd_inputs(dev, dtype, b, h, hkv, sq, sk, d, dv, seed=sq + d)
@@ -1513,12 +1526,21 @@ def test_flash_attention_backward_matches_plain(dev, dtype, b, h, hkv, sq, sk, d
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     assert build.LAUNCHES == {DQ: 1, DKV: 1}
+    path = "simt" if dtype == torch.float32 else "loads" if d % 8 or dv % 8 else "tma"
+    assert build.PATHS == {f"{DQ}.{path}": 1, f"{DKV}.{path}": 1}
     want = flash_attention_bwd_ref(q, k, v, out, do, causal=causal, window=window)
     for g, w, what in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == dtype and g.shape == w.shape, what
         assert bool(torch.isfinite(g).all()), what
         err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
         assert err < BWD_TOL[dtype], (what, err)
+    if dtype == torch.bfloat16:
+        emulated = bf16_backward(q, k, v, out, do, lse, causal=causal, window=window)
+        for g, e, what in zip(got, emulated, ("dq", "dk", "dv")):
+            g, e = g.float(), e.float()
+            slack = BWD_EMULATION_TOL["rtol"] * e.abs() + BWD_EMULATION_TOL["atol"] * e.abs().max()
+            assert int(((g - e).abs() > slack).sum()) == 0, (
+                what, float((g - e).abs().max() / e.abs().max()))
 
 
 def test_flash_attention_backward_is_deterministic(dev):
@@ -1530,6 +1552,23 @@ def test_flash_attention_backward_is_deterministic(dev):
     out, lse = flash_attention(q, k, v, return_lse=True)
     first = flash_attention_bwd(q, k, v, out, lse, do)
     second = flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_backward_is_deterministic_at_qwen3_8b(dev):
+    """qwen3-8b's GQA shape (32 query heads on 8 KV heads, head dim 128,
+    1024 tokens, causal): two launches of each backward kernel give the same
+    bits (the dK/dV block's two consumers add their sums in a fixed order),
+    both on the TMA path."""
+    from repro_torch.kernels.flash_attention.backward import DKV, DQ, flash_attention_bwd
+
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 32, 8, 1024, 1024, 128, 128, seed=8)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    build.reset_launch_counts()
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    second = flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert build.PATHS == {f"{DQ}.tma": 2, f"{DKV}.tma": 2}
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -1607,6 +1646,9 @@ def test_train_step_kernel_matches_plain(dev, arch):
         if use_kernel:
             assert build.LAUNCHES[DQ] == build.LAUNCHES[DKV] > 0
             assert build.LAUNCHES["flash_attention"] >= build.LAUNCHES[DQ]
+            # bf16: every backward launch on the tensor cores
+            assert build.PATHS[f"{DQ}.tma"] + build.PATHS[f"{DQ}.loads"] == build.LAUNCHES[DQ]
+            assert build.PATHS[f"{DKV}.tma"] + build.PATHS[f"{DKV}.loads"] == build.LAUNCHES[DKV]
         else:
             assert not build.LAUNCHES
     for key in ("loss", "grad_norm"):

@@ -12,7 +12,13 @@ CPU tensor), ``ops.attention``'s CPU route under autograd (the plain
 forward differentiated) and ``autograd.FlashAttention``'s layout and
 argument handling, its kernel launches replaced by the plain versions
 (the kernels themselves run only on the card: ``tests/test_torch_cuda.py``).
+And ``emulation.bf16_backward``, the roundings of the bf16 tensor-core
+backward kernels in PyTorch, against the plain backward and ``jax.vjp``
+(which the card tests hold the kernels to in turn).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +29,12 @@ from repro.models.lm.layers import attention_blockwise, attention_full
 from repro_torch.kernels.flash_attention import autograd as fa_autograd
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
+from repro_torch.kernels.flash_attention.emulation import (
+    BWD_BLOCK_KEYS,
+    BWD_INSTANCES,
+    bf16_backward,
+    bwd_tiles,
+)
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_ref,
     flash_attention_ref,
@@ -163,3 +175,120 @@ def test_autograd_function_wiring(name, dtype, monkeypatch):
     for got, ref in zip(leaves, ref_leaves):
         assert got.grad.shape == got.shape and got.grad.dtype == dtype
         assert _rel(got.grad.float().numpy(), ref.grad.float().numpy()) < tol
+
+
+# the bf16 kernels' tolerance against the plain backward on the card
+# (tests/test_torch_cuda.py, chip_smoke.py): max |Δ| over max |plain|
+BWD_TOL_BF16 = 1e-2
+# name: (b, h, hkv, sq, sk, d, dv, causal, window), each across the kernels'
+# tiles (64-key blocks, 32- or 64-row query tiles, 32- or 64-key dQ tiles)
+EMU_CASES = {
+    "causal": (2, 4, 4, 80, 80, 64, 64, True, 0),
+    "gqa": (1, 4, 2, 100, 100, 32, 32, True, 0),
+    "d_ne_dv": (1, 2, 2, 70, 70, 192, 128, True, 0),      # MLA's: dK and dV in two roles
+    "window": (1, 2, 1, 150, 150, 80, 80, True, 40),      # zamba2's head dim, GQA
+    "cross": (2, 2, 2, 20, 90, 64, 64, False, 0),
+    "head_dim_256": (1, 2, 2, 70, 70, 256, 256, True, 0),
+    "head_dim_128": (1, 2, 2, 90, 90, 128, 128, False, 0),  # 32-row tiles, shared
+}
+
+
+def _emulation_inputs(case, seed):
+    """bf16-representable inputs (as float32 tensors, kernel layout), the
+    plain forward's output rounded to bf16 and the exact row log-sum-exp."""
+    b, h, hkv, sq, sk, d, dv, causal, window = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(torch.bfloat16).float().transpose(1, 2)
+                   for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, dv), (b, sq, h, dv)))
+    rep = h // hkv
+    kr = k.repeat_interleave(rep, 1)
+    o = flash_attention_ref(q, kr, v.repeat_interleave(rep, 1), causal=causal,
+                            window=window).to(torch.bfloat16).float()
+    s = (q * d ** -0.5) @ kr.transpose(-1, -2)
+    keep = live_keys(sq, sk, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, -torch.inf)
+    return q, k, v, o, do, torch.logsumexp(s, dim=-1)
+
+
+@pytest.mark.parametrize("name", EMU_CASES)
+def test_bf16_emulation_matches_plain_and_jax_vjp(name):
+    """The bf16 kernels' roundings (P and dS to bf16 before the products,
+    the exp2 domain, the kernels' tile order) move each gradient, before
+    its final rounding, within half of the card tolerance of the plain
+    backward and of ``jax.vjp`` of the reference's ``attention_full``
+    (measured: 0.001-0.003); rounded to bf16 as the kernels store them,
+    within the card tolerance of the plain backward in bf16 (the final
+    rounding adds up to one bf16 ulp, 2^-7 of the largest gradient)."""
+    case = EMU_CASES[name]
+    causal, window = case[7:]
+    q, k, v, o, do, lse = _emulation_inputs(case, seed=5)
+    # float32 in: the emulation rounds P and dS but not its outputs
+    got = bf16_backward(q, k, v, o, do, lse, causal=causal, window=window)
+    plain = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    f = lambda q, k, v: attention_full(q, k, v, causal=causal, window=window)  # noqa: E731
+    _, vjp = jax.vjp(f, *(jnp.asarray(t.transpose(1, 2).numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.transpose(1, 2).numpy()))
+    for g, pl, w, what in zip(got, plain, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == pl.shape, what
+        assert _rel(g.numpy(), pl.numpy()) < 0.5 * BWD_TOL_BF16, what
+        assert _rel(g.transpose(1, 2).numpy(), w) < 0.5 * BWD_TOL_BF16, what
+    # bf16 in and out, as the kernels run
+    b16 = [t.to(torch.bfloat16) for t in (q, k, v, o, do)]
+    got16 = bf16_backward(*b16, lse, causal=causal, window=window)
+    plain16 = flash_attention_bwd_ref(*b16, causal=causal, window=window)
+    for g, pl, what in zip(got16, plain16, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16, what
+        assert _rel(g.float().numpy(), pl.float().numpy()) < BWD_TOL_BF16, what
+
+
+def test_bf16_emulation_rounds_p_and_ds():
+    """The emulation's roundings are there: against a copy of the plain
+    backward that rounds nothing but its outputs it differs, and with P and
+    dS exact in bf16 (keys of one row's equal scores, dO zero past a
+    column) it agrees with the plain backward to float32 summation order."""
+    case = EMU_CASES["causal"]
+    q, k, v, o, do, lse = _emulation_inputs(case, seed=6)
+    got = bf16_backward(q, k, v, o, do, lse, causal=True)
+    plain = flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    assert all(not torch.equal(g, pl) for g, pl in zip(got, plain))
+    # one query row, one key: P = 1 exactly, dS = dP − Δ = 0 up to rounding
+    q1, k1, v1, do1 = (t[:, :1, :1] for t in (q, k, v, do))
+    o1 = v1.clone()
+    lse1 = (q1 * 64 ** -0.5 * k1).sum(-1)
+    got1 = bf16_backward(q1, k1, v1, o1, do1, lse1, causal=True)
+    plain1 = flash_attention_bwd_ref(q1, k1, v1, o1, do1, causal=True)
+    torch.testing.assert_close(got1[2], plain1[2], rtol=0, atol=0)
+    assert float(got1[0].abs().max()) < 1e-5 and float(got1[1].abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("d,dv,dn,dvn,block_k,block_q,roles", [
+    (64, 64, 64, 64, 64, 64, False),        # qwen1.5-0.5b, seamless
+    (80, 80, 80, 80, 64, 64, False),        # zamba2: N = 80 exactly
+    (128, 128, 128, 128, 64, 32, False),    # qwen3-8b
+    (192, 128, 192, 128, 64, 64, True),     # MLA
+    (256, 256, 256, 256, 32, 32, True),     # gemma
+    (40, 24, 64, 64, 64, 64, False),        # padded up
+    (96, 96, 128, 128, 64, 32, False),
+    (130, 64, 192, 128, 64, 64, True),
+])
+def test_bwd_tiles_table(d, dv, dn, dvn, block_k, block_q, roles):
+    """The kernels' instance table as the emulation mirrors it: the training
+    path's head dims take accumulators of their exact width."""
+    assert bwd_tiles(d, dv) == dict(dn=dn, dvn=dvn, block_k=block_k, block_q=block_q,
+                                    roles=roles)
+
+
+def test_bwd_tiles_are_the_kernels():
+    """The emulation's table is the kernel source's: the instances its
+    dispatch launches, in order, and the tile rules of its ``Cfg``."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    dispatch = src[src.index("cudaError_t dispatch(const Problem& a"):]
+    found = [tuple(map(int, m)) for m in re.findall(r"launch_dq<(\d+), (\d+)>", dispatch)]
+    assert tuple(found) == BWD_INSTANCES
+    for rule in ("kBc = DN / 2 <= 96 ? 64 : 32", "kRoles = DN + DVN > 256",
+                 "kAcc = kRoles ? (DN > DVN ? DN : DVN) / 2 : (DN + DVN) / 2",
+                 "kBr = kAcc <= 96 ? 64 : 32", f"kBlockKeys = {BWD_BLOCK_KEYS};"):
+        assert rule in src, rule
