@@ -246,7 +246,37 @@ Phases (any failure exits non-zero before the result line is printed):
     snapshot ms; (c) one train step of each of the ten configs at
     ``.reduced()``, kernel path against plain path, with the same
     attention-gradient check;
-18. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+18. the LM tensor-parallel over a mesh of shards (``models/lm/sharding.py``):
+    (a) float32 qwen3-8b at full width, 4 layers, B = 2 x 256, TF32 off, on
+    meshes (1, 4) and (2, 2) of shards simulated on the card against the
+    unsharded port on the same weights: the last logits (``prefill_logits``)
+    within 1e-4, ``train_loss`` within 1e-5 and every gradient leaf,
+    gathered, within 1e-4 (max-normalised); on (1, 16), where the 8 KV
+    heads are replicated and the 32 query heads split, the logits again; a
+    planted fault each (the last shard's partial dropped from the blocks'
+    all-reduces; KV heads of the first group) beyond the bound; the sharded
+    kernel path against the sharded plain path (``use_kernel=False``) on
+    the same placed weights, logits and every gradient leaf within the same
+    bounds (a zeroed ``dq`` beyond them); where two cards or more are
+    visible, the same over real cards; (b) bf16 qwen3-8b at full width and
+    depth, B = 2 x 1024, the sharded forward at tp 4 (a main path: counts
+    reset just before, read just after) within ``STATE_REL_TOL`` of the
+    unsharded kernel path (backbone and last logits, no cache) and of the
+    sharded plain path, 144 ``flash_attention`` launches, all TMA, at (2, 8
+    on 2, 1024, 128), wall ms and the span between two events, parameter
+    and peak bytes, and a dropped partial beyond the bound; (c) bf16
+    qwen1.5-0.5b at full width, B = 4 x 1024, three ``build_train_step``
+    steps on (1, 4) with the vocab-sharded loss (a main path): step 0
+    within ``TRAIN_REL_TOL`` of the unsharded step, the block weights'
+    gradients within ``ATTN_GRAD_TOL`` layer by layer (a dropped partial
+    beyond it), the attention gradients of the sharded kernel path against
+    the sharded plain path within ``ATTN_GRAD_TOL`` (a zeroed ``dq`` or
+    ``dk`` beyond it), the forward and backward launches a step by path,
+    step wall ms and event spans, tokens/s, peak bytes and the collectives'
+    bytes from ``collectives.STATS``; and each attention shape that (a),
+    (b) and (c) launched at the shards' head counts, the forward and both
+    backward kernels against their plain versions through their wrappers;
+19. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -3695,6 +3725,7 @@ def backward_case(dev, name, shape, causal, window, dtype, seed, card) -> dict:
 def attn_grads(model, params, batch) -> dict:
     """The step-0 gradients of the attention projections: leaf path ->
     float32 tensor."""
+    from repro_torch.models.lm.sharding import active_rules, gather_params
     from repro_torch.train.step import loss_and_grads
 
     out = {}
@@ -3709,7 +3740,10 @@ def attn_grads(model, params, batch) -> dict:
         elif path[-1] in ATTN_LEAVES:
             out["/".join(path)] = tree.float()
 
-    walk(loss_and_grads(model, params, batch)[2], ())
+    grads = loss_and_grads(model, params, batch)[2]
+    if active_rules() is not None:  # Sharded leaves over the mesh of the rules
+        grads = gather_params(grads)
+    walk(grads, ())
     return out
 
 
@@ -4009,6 +4043,512 @@ def lm_training_phase(dev, card: str) -> dict:
     return out
 
 
+# phase 18: the LM over a mesh of tensor-parallel shards
+TP_PROBE_ARCH, TP_PROBE_LAYERS, TP_PROBE_B, TP_PROBE_S = "qwen3-8b", 4, 2, 256
+TP_PROBE_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+# 16 shards: qwen3-8b's 32 query heads split, its 8 KV heads replicated
+TP_KV_MESH = (1, 16)
+TP_FWD_ARCH, TP_FWD_B, TP_FWD_S, TP_FWD_MESH = "qwen3-8b", 2, 1024, (1, 4)
+TP_TRAIN_ARCH, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = "qwen1.5-0.5b", 4, 1024, 3
+TP_TRAIN_MESH = (1, 4)
+# float32 over shards against the unsharded port on the same weights, TF32
+# off: the shards sum the heads' and d_ff's partials in another order
+TP_LOGITS_TOL, TP_LOSS_TOL, TP_GRAD_TOL = 1e-4, 1e-5, 1e-4
+# the block weights' gradients checked layer by layer on the bf16 train step
+TP_GRAD_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """Counts ``ops.attention``'s calls by (B, H, Hkv, S, D) while active."""
+    from repro_torch.kernels.flash_attention import ops
+
+    seen, real = collections.Counter(), ops.attention
+
+    def recorded(q, k, v, **kwargs):
+        seen[(q.shape[0], q.shape[2], k.shape[2], q.shape[1], q.shape[3])] += 1
+        return real(q, k, v, **kwargs)
+
+    ops.attention = recorded
+    try:
+        yield seen
+    finally:
+        ops.attention = real
+
+
+@contextlib.contextmanager
+def planted_tp_fault(which: str):
+    """``partial``: the last shard's partial dropped from every block's
+    all-reduce over "model"; ``kv_group``: each shard's query heads read the
+    KV heads of the first group instead of their own."""
+    from repro_torch.models.lm import collectives, layers
+
+    if which == "partial":
+        module, name, real = collectives, "all_reduce_sum", collectives.all_reduce_sum
+
+        def faulty(xs, mesh, axis, **kwargs):
+            xs = list(xs)
+            xs[-1] = torch.zeros_like(xs[-1])
+            return real(xs, mesh, axis, **kwargs)
+    else:
+        module, name, real = layers, "kv_heads_of", layers.kv_heads_of
+
+        def faulty(first, n, group):
+            return real(0, n, group)
+
+    setattr(module, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def tp_profile(fn, path: Path) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms, device-busy ms and
+    idle share, device launches, and the top entries by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _, device = profile_rows(prof, path)
+    busy = sum(r[0] for r in device) / 1e3
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1.0 - busy / wall),
+                device_launches=sum(r[2] for r in device),
+                top_device=[[k[:70], d / 1e3, c] for d, k, c, _ in device[:6]])
+
+
+def tp_rules(cfg, dims, devices):
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.lm.sharding import ShardingRules
+
+    return ShardingRules(make_lm_mesh(dims, devices=devices), cfg)
+
+
+def tp_leaves(tree, keep=None) -> dict:
+    """'/'-joined leaf path -> tensor of a gathered tree (only the ``keep`` names)."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for key, sub in t.items():
+                walk(sub, path + (key,))
+        elif isinstance(t, (list, tuple)):
+            for i, sub in enumerate(t):
+                walk(sub, path + (str(i),))
+        elif keep is None or path[-1] in keep:
+            out["/".join(path)] = t
+
+    walk(tree, ())
+    return out
+
+
+def tp_kernel_checks(dev, shapes, dtype, card: str) -> dict:
+    """The attention shapes that a tensor-parallel main path launched (each
+    shard's own head counts: (B, H, Hkv, S, D) from ``attention_shapes``),
+    the kernels against their plain versions through their wrappers on
+    seeded inputs: the forward (``attention_check``) and both backward
+    kernels (``backward_case``), each within its phase-15 or phase-17
+    tolerance."""
+    out = {}
+    for i, (b, h, hkv, s, d) in enumerate(sorted(shapes)):
+        shape = (b, h, hkv, s, s, d, d)
+        name = f"tp_{b}x{h}on{hkv}x{s}x{d}_{str(dtype).removeprefix('torch.')}"
+        _, err = attention_check(dev, name, shape, dtype, True, 180 + i)
+        bwd = backward_case(dev, name, shape, True, 0, dtype, 190 + i, card)
+        out[name] = dict(shape=list(shape), forward_max_abs_err=err,
+                         backward_rel_err=bwd["rel_err"], backward_max_abs_err=bwd["max_abs_err"],
+                         backward_path=bwd["path"])
+    return out
+
+
+def cache_free_logits(lm, params, tokens) -> torch.Tensor:
+    """The unsharded counterpart of the sharded ``prefill_logits``: the
+    backbone and the last position's logits, with no KV cache built."""
+    from repro_torch.models.lm.layers import rms_norm
+
+    x = lm._backbone(params, lm.embed(params, tokens))
+    return lm.logits_last(params, rms_norm(x[:, -1], params["final_norm"], lm.cfg.norm_eps))
+
+
+def tp_float32_check(dev, devices_for, card: str, what: str) -> dict:
+    """Phase 18(a): float32 qwen3-8b at full width, 4 layers, TF32 off: the
+    sharded port against the unsharded one on the same weights (logits of
+    ``logits_last`` through ``prefill_logits``, ``train_loss``, every
+    gradient leaf gathered), the sharded kernel path against the sharded
+    plain path (``use_kernel=False``) on the same placed weights, the three
+    planted faults, and the kernels at the shards' shapes against their
+    plain versions (on the simulated mesh)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TP_PROBE_ARCH), n_layers=TP_PROBE_LAYERS, dtype="float32")
+    lm = LM(cfg, remat=False, loss_chunk=TP_PROBE_S)
+    lm_plain = LM(cfg, remat=False, loss_chunk=TP_PROBE_S, use_kernel=False)
+    params = lm.init(torch.Generator(device=dev).manual_seed(18))
+    batch = synthetic_batch(lm, TP_PROBE_B, TP_PROBE_S, 18, 0, device=dev)
+    prompt = batch["tokens"][:, :-1]
+    live = slice(0, cfg.vocab)
+    try:
+        with torch.no_grad():
+            want_logits = lm.prefill_logits(params, prompt)[:, live]
+        want_loss, want_m, want_g = loss_and_grads(lm, params, batch)
+        want_g = tp_leaves(want_g)
+        out = {}
+        meshes = dict(TP_PROBE_MESHES, **{"1x16_kv_replicated": TP_KV_MESH})
+        shapes = collections.Counter()
+        for name, dims in meshes.items():
+            rules = tp_rules(cfg, dims, devices_for(dims))
+            placed = shard_params(rules, params)
+            with use_rules(rules):
+                with torch.no_grad():
+                    with attention_shapes() as seen:
+                        logits = lm.prefill_logits(placed, prompt)[:, live].to(dev)
+                    shapes.update(seen)
+                    plain = lm_plain.prefill_logits(placed, prompt)[:, live].to(dev)
+                rec = dict(logits_rel=rel_err(logits, want_logits),
+                           kernel_vs_plain_logits_rel=rel_err(logits, plain))
+                if name in TP_PROBE_MESHES:
+                    with attention_shapes() as seen:
+                        loss, m, grads = loss_and_grads(lm, placed, batch)
+                    shapes.update(seen)
+                    got = tp_leaves(gather_params(grads))
+                    rec["loss_rel"] = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+                    rec["acc_equal"] = float(m["acc"]) == float(want_m["acc"])
+                    rec["grad_rel"] = {p: rel_err(got[p].to(dev), want_g[p]) for p in want_g}
+                    rec["grad_rel_max"] = max(rec["grad_rel"].values())
+                    del grads
+                    _, _, grads = loss_and_grads(lm_plain, placed, batch)
+                    plain_g = tp_leaves(gather_params(grads))
+                    rec["kernel_vs_plain_grad_rel_max"] = max(rel_err(got[p], plain_g[p])
+                                                              for p in got)
+                    del grads, got
+                if name == "1x4":
+                    with planted_tp_fault("partial"), torch.no_grad():
+                        bad, _ = lm.train_loss(placed, batch)
+                    rec["planted_partial_loss_rel"] = abs(float(bad) - float(want_loss)) / abs(
+                        float(want_loss))
+                    with planted_backward_fault("dq"):
+                        _, _, grads = loss_and_grads(lm, placed, batch)
+                    bad_g = tp_leaves(gather_params(grads))
+                    rec["planted_dq_grad_rel_max"] = max(rel_err(bad_g[p], plain_g[p])
+                                                         for p in bad_g)
+                    del grads, bad_g
+                if name in TP_PROBE_MESHES:
+                    del plain_g
+                if name.startswith("1x16"):
+                    with planted_tp_fault("kv_group"), torch.no_grad():
+                        bad = lm.prefill_logits(placed, prompt)[:, live].to(dev)
+                    rec["planted_kv_group_logits_rel"] = rel_err(bad, want_logits)
+            del placed
+            gc.collect()
+            torch.cuda.empty_cache()
+            require(rec["logits_rel"] <= TP_LOGITS_TOL,
+                    f"{what} {name}: sharded logits {rec['logits_rel']} beyond {TP_LOGITS_TOL}")
+            require(rec["kernel_vs_plain_logits_rel"] <= TP_LOGITS_TOL,
+                    f"{what} {name}: sharded logits, kernel path against plain path, "
+                    f"{rec['kernel_vs_plain_logits_rel']} beyond {TP_LOGITS_TOL}")
+            if "kernel_vs_plain_grad_rel_max" in rec:
+                require(rec["kernel_vs_plain_grad_rel_max"] <= TP_GRAD_TOL,
+                        f"{what} {name}: sharded gradients, kernel path against plain path, "
+                        f"{rec['kernel_vs_plain_grad_rel_max']} beyond {TP_GRAD_TOL}")
+            if "planted_dq_grad_rel_max" in rec:
+                require(rec["planted_dq_grad_rel_max"] > TP_GRAD_TOL,
+                        f"{what} {name}: a zeroed dq reads {rec['planted_dq_grad_rel_max']}")
+            if "loss_rel" in rec:
+                require(rec["loss_rel"] <= TP_LOSS_TOL and rec["acc_equal"],
+                        f"{what} {name}: sharded train_loss {rec['loss_rel']} beyond {TP_LOSS_TOL}")
+                require(rec["grad_rel_max"] <= TP_GRAD_TOL,
+                        f"{what} {name}: gradient leaves {rec['grad_rel']} beyond {TP_GRAD_TOL}")
+            if "planted_partial_loss_rel" in rec:
+                require(rec["planted_partial_loss_rel"] > TP_LOSS_TOL,
+                        f"{what} {name}: a dropped partial reads {rec['planted_partial_loss_rel']}")
+            if "planted_kv_group_logits_rel" in rec:
+                require(rec["planted_kv_group_logits_rel"] > TP_LOGITS_TOL,
+                        f"{what} {name}: KV heads of the wrong group read "
+                        f"{rec['planted_kv_group_logits_rel']}")
+            out[name] = rec
+            print(f"lm tensor parallel float32 {what} {TP_PROBE_ARCH} {TP_PROBE_LAYERS} layers "
+                  f"{name}: logits {rec['logits_rel']:.3g}"
+                  + (f", train_loss {rec['loss_rel']:.3g}, gradient leaves "
+                     f"{rec['grad_rel_max']:.3g} at worst" if "loss_rel" in rec else "")
+                  + " from the unsharded port; kernel path against plain path: logits "
+                  f"{rec['kernel_vs_plain_logits_rel']:.3g}"
+                  + (f", gradient leaves {rec['kernel_vs_plain_grad_rel_max']:.3g} at worst"
+                     if "kernel_vs_plain_grad_rel_max" in rec else "")
+                  + "".join(f", {k} {rec[k]:.3g}" for k in rec if k.startswith("planted"))
+                  + f" relative [{card}]", flush=True)
+        if what == "simulated":
+            out["kernels"] = tp_kernel_checks(dev, shapes, torch.float32, card)
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_forward(dev, card: str) -> dict:
+    """Phase 18(b): bf16 qwen3-8b at full width and depth, B = 2 x 1024,
+    sharded forward at tp 4 (a main path of the phase) against the unsharded
+    kernel path (the backbone and last logits, no cache: the same work) and
+    against the sharded plain path on the same placed weights."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import shard_params, use_rules
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(TP_FWD_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(19))
+    tokens = torch.randint(0, cfg.vocab, (TP_FWD_B, TP_FWD_S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(20))
+    with torch.no_grad():
+        want = cache_free_logits(lm, params, tokens)[:, :cfg.vocab]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache_free_logits(lm, params, tokens)
+        torch.cuda.synchronize()
+        unsharded_wall = (time.perf_counter() - t0) * 1e3
+    n = TP_FWD_MESH[0] * TP_FWD_MESH[1]
+    rules = tp_rules(cfg, TP_FWD_MESH, simulated_devices(n, dev))
+    placed = shard_params(rules, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(placed))
+    with use_rules(rules), torch.no_grad():
+        lm.prefill_logits(placed, tokens)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with attention_shapes() as shapes:
+            build.reset_launch_counts()  # the main path: counts set to 0 just before
+            t0 = time.perf_counter()
+            start.record()
+            logits = lm.prefill_logits(placed, tokens)
+            stop.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+    peak = torch.cuda.max_memory_allocated()
+    err = rel_err(logits[:, :cfg.vocab], want)
+    n_launch = cfg.n_layers * n
+    h_loc, kv_loc = cfg.n_heads // n, cfg.n_kv_heads // n
+    shape = (TP_FWD_B, h_loc, kv_loc, TP_FWD_S, cfg.resolved_head_dim)
+    require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()) and err <= STATE_REL_TOL,
+            f"tp forward {TP_FWD_ARCH}: sharded logits {err} beyond {STATE_REL_TOL}")
+    require(launches == {"flash_attention": n_launch}
+            and paths == {"flash_attention.tma": n_launch} and dict(shapes) == {shape: n_launch},
+            f"tp forward {TP_FWD_ARCH}: launches {launches}, paths {paths}, shapes {dict(shapes)};"
+            f" expected {n_launch} on the TMA path at {shape}")
+    with use_rules(rules), torch.no_grad():
+        plain = LM(cfg, use_kernel=False).prefill_logits(placed, tokens)[:, :cfg.vocab]
+    plain_err = rel_err(logits[:, :cfg.vocab], plain)
+    del plain
+    require(plain_err <= STATE_REL_TOL,
+            f"tp forward {TP_FWD_ARCH}: sharded logits, kernel path against plain path, "
+            f"{plain_err} beyond {STATE_REL_TOL}")
+    rec = dict(arch=TP_FWD_ARCH, mesh=list(TP_FWD_MESH), batch=TP_FWD_B, seq=TP_FWD_S,
+               logits_rel=err, kernel_vs_plain_logits_rel=plain_err, launches=launches,
+               paths=paths, shapes={str(k): v for k, v in shapes.items()}, wall_ms=wall,
+               event_span_ms=start.elapsed_time(stop), unsharded_wall_ms=unsharded_wall,
+               param_bytes=param_bytes, peak_bytes=peak)
+    with use_rules(rules), torch.no_grad():
+        rec["profile"] = tp_profile(lambda: lm.prefill_logits(placed, tokens),
+                                    ROOT / "build" / "chip_smoke_profile_tp_forward.txt")
+    with planted_tp_fault("partial"), use_rules(rules), torch.no_grad():
+        rec["planted_partial_logits_rel"] = rel_err(
+            lm.prefill_logits(placed, tokens)[:, :cfg.vocab], want)
+    require(rec["planted_partial_logits_rel"] > STATE_REL_TOL,
+            f"tp forward: a dropped partial reads {rec['planted_partial_logits_rel']}")
+    rec["kernels"] = tp_kernel_checks(dev, shapes, torch.bfloat16, card)
+    print(f"lm tensor parallel forward {TP_FWD_ARCH} bf16 {cfg.n_layers} layers over "
+          f"{TP_FWD_MESH} shards on one card: B={TP_FWD_B} x {TP_FWD_S}, logits {err:.4g} from "
+          f"the unsharded kernel path (planted dropped partial "
+          f"{rec['planted_partial_logits_rel']:.3g}), {plain_err:.4g} from the sharded plain "
+          f"path; {n_launch} flash_attention launches, all TMA, at {shape}; wall {wall:.1f} ms, "
+          f"{rec['event_span_ms']:.1f} ms between events (unsharded backbone and logits, no "
+          f"cache: wall {unsharded_wall:.1f} ms); profiled: {json.dumps(rec['profile'])}; "
+          f"{param_bytes} parameter bytes, peak {peak} bytes [{card}]",
+          flush=True)
+    del placed, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_training(dev, card: str) -> dict:
+    """Phase 18(c): bf16 qwen1.5-0.5b at full width, B = 4 x 1024: three
+    ``build_train_step`` steps under rules on (1, 4) with the vocab-sharded
+    loss (a main path of the phase), step 0 against the unsharded step, and
+    the sharded step-0 attention gradients of the kernel path against the
+    sharded plain path (``attn_grad_check``, with its planted faults)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM, collectives
+    from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
+    from repro_torch.optim.adamw import adamw_init, linear_warmup_cosine, tree_leaves
+    from repro_torch.train import build_train_step, synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_config(TP_TRAIN_ARCH)
+    lm = LM(cfg, remat=True)
+    params = lm.init(torch.Generator(device=dev).manual_seed(21))
+    batches = [synthetic_batch(lm, TP_TRAIN_B, TP_TRAIN_S, 21, s, device=dev)
+               for s in range(TP_TRAIN_STEPS)]
+    step_fn = build_train_step(lm, lr_schedule=linear_warmup_cosine(3e-4, 2, 10))
+    unsharded_ms = []
+    for _ in range(2):  # the second after the first's warm-up
+        t0 = time.perf_counter()
+        _, _, want = step_fn(params, adamw_init(params), batches[0], 0)
+        torch.cuda.synchronize()
+        unsharded_ms.append((time.perf_counter() - t0) * 1e3)
+    want = {k: float(v) for k, v in want.items()}
+    _, _, want_g = loss_and_grads(lm, params, batches[0])
+    want_g = tp_leaves(want_g, TP_GRAD_LEAVES)
+    n = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
+    rules = tp_rules(cfg, TP_TRAIN_MESH, simulated_devices(n, dev))
+    placed = shard_params(rules, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with use_rules(rules):
+        _, _, grads = loss_and_grads(lm, placed, batches[0])
+        grad_errs = attn_grad_errs({p: t.float() for p, t in tp_leaves(
+            gather_params(grads), TP_GRAD_LEAVES).items()},
+            {p: t.float() for p, t in want_g.items()})
+        with planted_tp_fault("partial"):
+            _, _, grads = loss_and_grads(lm, placed, batches[0])
+        planted = attn_grad_errs({p: t.float() for p, t in tp_leaves(
+            gather_params(grads), TP_GRAD_LEAVES).items()},
+            {p: t.float() for p, t in want_g.items()})
+        del grads
+        vs_plain = attn_grad_check(lm, LM(cfg, remat=True, use_kernel=False), placed,
+                                   batches[0], "tp training")
+        opt = adamw_init(placed)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(placed) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_stats()
+        hist = []
+        with attention_shapes() as shapes:
+            build.reset_launch_counts()  # the main path: counts set to 0 just before
+            for s, b in enumerate(batches):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                placed, opt, m = step_fn(placed, opt, b, s)
+                stop.record()
+                torch.cuda.synchronize()
+                hist.append(dict(step=s, wall_ms=(time.perf_counter() - t0) * 1e3,
+                                 event_span_ms=start.elapsed_time(stop),
+                                 **{k: float(v) for k, v in m.items()}))
+            launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+        coll = collectives.STATS.as_dict()
+        peak = torch.cuda.max_memory_allocated()
+        prof = tp_profile(lambda: step_fn(placed, opt, batches[0], TP_TRAIN_STEPS),
+                          ROOT / "build" / "chip_smoke_profile_tp_train.txt")
+    errs = {k: abs(hist[0][k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+    per_step = {k: c / TP_TRAIN_STEPS for k, c in launches.items()}
+    fwd, bwd = 2 * cfg.n_layers * n, cfg.n_layers * n
+    require(all(math.isfinite(h["loss"]) for h in hist)
+            and all(e <= TRAIN_REL_TOL for e in errs.values()),
+            f"tp training: step 0 sharded {hist[0]} against unsharded {want}: {errs}")
+    require(max(grad_errs.values()) <= ATTN_GRAD_TOL,
+            f"tp training: block gradients {grad_errs} beyond {ATTN_GRAD_TOL}")
+    require(max(planted.values()) > ATTN_GRAD_TOL,
+            f"tp training: a dropped partial reads {planted}, within {ATTN_GRAD_TOL}")
+    require(per_step == {"flash_attention": fwd, "flash_attention_bwd_dq": bwd,
+                         "flash_attention_bwd_dkv": bwd},
+            f"tp training: launches a step {per_step}; expected {fwd} forward (remat) and {bwd} "
+            "of each backward kernel")
+    for kname in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        require(paths.get(f"{kname}.tma") == launches.get(kname),
+                f"tp training: {kname} paths {paths}: every bf16 launch on the TMA path")
+    walls = [h["wall_ms"] for h in hist]
+    steady = statistics.median(walls[1:])
+    rec = dict(arch=TP_TRAIN_ARCH, mesh=list(TP_TRAIN_MESH), batch=TP_TRAIN_B, seq=TP_TRAIN_S,
+               steps=hist, unsharded_step0=want, unsharded_step_wall_ms=unsharded_ms[1],
+               step0_rel=errs, grad_rel=grad_errs, kernel_vs_plain_attn_grads=vs_plain,
+               planted_partial_grad_rel=planted, launches=launches, launches_per_step=per_step,
+               paths=paths, shapes={str(k): v for k, v in shapes.items()},
+               step_wall_ms_median=steady, tokens_per_s=TP_TRAIN_B * TP_TRAIN_S / (steady / 1e3),
+               state_bytes=state_bytes, peak_bytes=peak, collectives=coll, profile=prof,
+               collective_link_bytes_per_step=coll["link_bytes"] / TP_TRAIN_STEPS)
+    print(f"lm tensor parallel training {TP_TRAIN_ARCH} bf16 over {TP_TRAIN_MESH} shards on one "
+          f"card: B={TP_TRAIN_B} x {TP_TRAIN_S}, losses {[round(h['loss'], 4) for h in hist]}, "
+          f"step 0 against unsharded: loss {errs['loss']:.3g}, grad norm {errs['grad_norm']:.3g} "
+          f"relative; block gradients {max(grad_errs.values()):.4g} at worst (planted dropped "
+          f"partial {max(planted.values()):.3g}); sharded attention gradients, kernel path "
+          f"against plain path, {vs_plain['worst']:.4g} at worst (planted zeroed dq, dk "
+          f"{json.dumps(vs_plain['planted'])}); step wall ms {[round(w, 1) for w in walls]} "
+          f"(median of steps 1-{TP_TRAIN_STEPS - 1} {steady:.1f}, {rec['tokens_per_s']:.0f} "
+          f"tokens/s; unsharded {unsharded_ms[1]:.1f}), ms between events "
+          f"{[round(h['event_span_ms'], 1) for h in hist]}; launches a step "
+          f"{json.dumps(per_step)}, shapes {json.dumps(rec['shapes'])}; collectives "
+          f"{json.dumps(coll)} over {TP_TRAIN_STEPS} steps; one more step profiled: "
+          f"{json.dumps(prof)}; peak {peak} bytes ({state_bytes} of "
+          f"parameters and moments) [{card}]", flush=True)
+    rec["kernels"] = tp_kernel_checks(dev, shapes, torch.bfloat16, card)
+    del placed, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_tensor_parallel_phase(dev, card: str) -> dict:
+    """Phase 18: the LM tensor-parallel over a mesh of shards."""
+    from repro_torch.launch.mesh import simulated_devices
+
+    t0 = time.perf_counter()
+    out = {"float32": tp_float32_check(
+        dev, lambda dims: simulated_devices(dims[0] * dims[1], dev), card, "simulated")}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = 4 if n_cards >= 4 else 2
+        meshes = [torch.device("cuda", i) for i in range(cards)]
+        out["float32_cards"] = tp_float32_check(
+            dev, lambda dims: (meshes * 16)[:dims[0] * dims[1]], card, f"on {cards} cards")
+    else:
+        print(f"lm tensor parallel: one card visible, so the float32 check ran on simulated "
+              f"shards only (no real-card mesh) [{card}]", flush=True)
+    out["forward"] = tp_forward(dev, card)
+    out["training"] = tp_training(dev, card)
+    out["launches"] = {k: out["forward"]["launches"].get(k, 0) + out["training"]["launches"].get(
+        k, 0) for k in set(out["forward"]["launches"]) | set(out["training"]["launches"])}
+    out["vs_plain"] = dict(
+        kernels={**out["float32"]["kernels"], **out["forward"]["kernels"],
+                 **out["training"]["kernels"]},
+        float32={k: {m: r[m] for m in r if m.startswith("kernel_vs_plain")}
+                 for k, r in out["float32"].items() if k != "kernels"},
+        forward_logits_rel=out["forward"]["kernel_vs_plain_logits_rel"],
+        training_attn_grads_worst=out["training"]["kernel_vs_plain_attn_grads"]["worst"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm tensor parallel phase: {out['seconds']:.1f} s, launches on the main path "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -4216,6 +4756,7 @@ def main() -> int:
     lm_serving = lm_serving_phase(dev, card)
     lm_families = lm_families_phase(dev, card)
     lm_training = lm_training_phase(dev, card)
+    lm_tp = lm_tensor_parallel_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -4311,6 +4852,10 @@ def main() -> int:
         lm_families_shapes=lm_families["attention"],
         launches_lm_training=lm_training["launches"].get("flash_attention", 0),
         lm_training_lse="on the training path each launch also writes the row log-sum-exp",
+        launches_lm_tensor_parallel=lm_tp["launches"].get("flash_attention", 0),
+        lm_tensor_parallel_shapes=dict(forward=lm_tp["forward"]["shapes"],
+                                       training=lm_tp["training"]["shapes"]),
+        lm_tensor_parallel_vs_plain=lm_tp["vs_plain"],
     ))
     qwen_case = lm_training["backward"]["qwen05b_4x16x1024x64_causal"]
     for kname, what in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dk dv")):
@@ -4321,6 +4866,10 @@ def main() -> int:
                      "src/repro/models/lm/layers.py:98 by XLA autodiff",
             launches=lm_training["launches"].get(kname, 0),
             launches_per_step=lm_training["qwen"]["launches_per_step"].get(kname, 0),
+            launches_lm_tensor_parallel=lm_tp["launches"].get(kname, 0),
+            lm_tensor_parallel_vs_plain={n: dict(shape=r["shape"], path=r["backward_path"],
+                                                 rel_err=r["backward_rel_err"])
+                                         for n, r in lm_tp["vs_plain"]["kernels"].items()},
             paths={n: c for n, c in lm_training["qwen"]["paths"].items()
                    if n.startswith(kname + ".")},
             max_abs_err=max(max(r["max_abs_err"][g] for g in what.split())
@@ -4357,6 +4906,7 @@ def main() -> int:
     serve["lm_serving"] = lm_serving
     serve["lm_families"] = lm_families
     serve["lm_training"] = lm_training
+    serve["lm_tensor_parallel"] = lm_tp
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

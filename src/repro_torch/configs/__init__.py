@@ -3,9 +3,18 @@
 The same ten architectures, in the same order, as the reference's
 ``repro/configs/__init__.py``: the ``dense``, ``vlm``, ``moe`` (MLA
 included), ``ssm`` (xlstm-1.3b), ``hybrid`` (zamba2-2.7b) and ``audio``
-(seamless-m4t-large-v2) families.
+(seamless-m4t-large-v2) families; ``cells()`` lists the dry run's
+(arch × shape) cells as the reference's does.
 """
-from repro_torch.configs.base import MLAConfig, MoEConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import (
+    SHAPES,
+    MLAConfig,
+    MoEConfig,
+    ModelConfig,
+    ShapeConfig,
+    SSMConfig,
+    cell_applicable,
+)
 
 _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
@@ -32,4 +41,16 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "get_config"]
+def cells():
+    """All applicable (arch, shape) dry-run cells with skip reasons."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            ok, why = cell_applicable(cfg, s)
+            out.append((a, s.name, ok, why))
+    return out
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
+           "ShapeConfig", "cell_applicable", "cells", "get_config"]

@@ -3,13 +3,15 @@
 The port keeps its own copy of the reference's dataclasses (plain Python,
 but the port imports nothing of the JAX package): ``ModelConfig``, its
 MoE / MLA / SSM sub-configs, ``resolved_head_dim`` and ``reduced()``,
-verbatim.  The dry-run shapes (``ShapeConfig``, ``SHAPES``) are not ported.
+verbatim, and the dry run's shapes (``ShapeConfig``, ``SHAPES``,
+``cell_applicable``), also verbatim.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig"]
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SHAPES", "SSMConfig", "ShapeConfig",
+           "cell_applicable"]
 
 
 @dataclass(frozen=True)
@@ -181,3 +183,31 @@ class ModelConfig:
                 slstm_every=4 if self.ssm.slstm_every else 0,
             )
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str        # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    def reduced(self) -> "ShapeConfig":
+        return ShapeConfig(
+            self.name, self.kind, min(self.seq_len, 64), min(self.global_batch, 2)
+        )
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Which (arch x shape) cells run; mirrors DESIGN.md §Arch-applicability."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k decode is not sub-quadratic (skip per brief)"
+    return True, ""

@@ -8,6 +8,8 @@ windows and the encoder-decoder's cross attention alike, routes by device:
   the ``flash_attention`` CUDA kernel, windowed where the reference's
   attention is (or, under ``use_kernel=False``, its plain version on the
   card);
+* on the ``meta`` device (the dry run, ``launch/dryrun.py``) it stands for
+  that kernel: one operator with its shapes and FLOPs (``launch/cost.py``);
 * on the CPU it calls ``attention_full`` or ``attention_blockwise`` by the
   reference's rule (``s > 2·block and s % block == 0``; cross attention is
   always ``attention_full`` there), so that the CPU tests compare like with
@@ -21,6 +23,17 @@ writes its key and value into the cache's slot in place.
 Numerics follow the reference: the model's type (bf16) for parameters,
 activations and projections; float32 for norms, rope, softmax logits and
 the activation function, each cast back after.
+
+Over a mesh of shards (``sharding.py``), :func:`attention_block_shards` and
+:func:`glu_ffn_shards` run the attention block and the GLU FFN tensor-
+parallel (Megatron): each shard computes its own heads and its own slice of
+``d_ff`` with the plain functions above, and the partial sums of ``wo`` and
+``w_down`` are all-reduced over "model".  Where the divisibility guard
+replicated the weights, each shard computes the whole block and nothing is
+reduced.  Where the query heads are split and the KV heads replicated, a
+shard's query heads read the KV heads of their own GQA group
+(:func:`kv_heads_of`), and the attention kernel sees the shard's own head
+counts.
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ from repro_torch.kernels.flash_attention import ops
 __all__ = [
     "attention_block",
     "attention_block_decode",
+    "attention_block_shards",
     "attention_block_with_kv",
     "attention_blockwise",
     "attention_decode",
@@ -41,9 +55,11 @@ __all__ = [
     "cross_attention_decode",
     "cross_attention_with_kv",
     "glu_ffn",
+    "glu_ffn_shards",
     "init_attention",
     "init_ffn",
     "init_mla",
+    "kv_heads_of",
     "mla_block",
     "mla_block_decode",
     "mla_block_with_cache",
@@ -277,6 +293,10 @@ def _attend(q, k, v, *, causal: bool, window: int, block: int, use_kernel: bool,
     On the card the kernel scales by ``D^-½``; ``scale`` may only restate it
     (MLA's ``(nope + rope)^-½`` is q's own ``D^-½``)."""
     s = q.shape[1]
+    if q.is_meta:  # the dry run's trace of the card: the kernel as one operator
+        from repro_torch.launch.cost import meta_attention
+
+        return meta_attention(q, k, v, causal=causal, window=window)
     if q.is_cuda:
         if scale is not None and scale != q.shape[-1] ** -0.5:
             raise ValueError(f"scale {scale}: the flash_attention kernel scales by D^-1/2")
@@ -534,3 +554,62 @@ def glu_ffn(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return (g * u) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# Over a mesh of shards (tensor parallel)
+# --------------------------------------------------------------------------
+def kv_heads_of(first: int, n: int, group: int):
+    """The KV heads that the query heads ``first .. first + n - 1`` read under
+    GQA with ``group`` query heads a KV head: a slice where they cover whole
+    groups or lie in one, else one KV head index a query head."""
+    if n % group == 0 and first % group == 0:
+        return slice(first // group, (first + n) // group)
+    if group % n == 0 and first % n == 0:
+        return slice(first // group, first // group + 1)
+    return torch.arange(first, first + n) // group
+
+
+def _select_heads(w: torch.Tensor, heads, dim: int) -> torch.Tensor:
+    if isinstance(heads, slice):
+        return w.narrow(dim % w.dim(), heads.start, heads.stop - heads.start)
+    return w.index_select(dim, heads.to(w.device))
+
+
+def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal: bool = True,
+                           window: int = 0, block: int = 1024, use_kernel: bool = True) -> list:
+    """:func:`attention_block` over the shards of ``rules.mesh``: ``p`` holds
+    ``sharding.Sharded`` leaves, ``hs`` one input a shard; returns one output a
+    shard, all-reduced over "model" where the heads are split."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    q_split = p["wq"].split_dim() is not None
+    kv_split = p["wk"].split_dim() is not None
+    hp, hkv = p["wq"].shape[-2], p["wk"].shape[-2]
+    h_loc = hp // mesh.axis_size(tp_axis) if q_split else hp
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    outs = []
+    for n, (coord, h) in enumerate(zip(mesh.coords, hs)):
+        loc = {name: blocks[n] for name, blocks in leaves.items()}
+        if q_split and not kv_split:
+            heads = kv_heads_of(mesh.axis_index(coord, tp_axis) * h_loc, h_loc, hp // hkv)
+            for name, dim in (("wk", -2), ("wv", -2), ("bk", 0), ("bv", 0)):
+                if name in loc:
+                    loc[name] = _select_heads(loc[name], heads, dim)
+        outs.append(attention_block(loc, h, cfg, causal=causal, window=window, block=block,
+                                    use_kernel=use_kernel))
+    return all_reduce_sum(outs, mesh, tp_axis) if q_split else outs
+
+
+def glu_ffn_shards(rules, p: dict, hs: list, act: str) -> list:
+    """:func:`glu_ffn` over the shards of ``rules.mesh``: each shard its slice
+    of ``d_ff``, the ``w_down`` partial sums all-reduced over "model"."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    outs = [glu_ffn({name: blocks[n] for name, blocks in leaves.items()}, h, act)
+            for n, h in enumerate(hs)]
+    if p["w_down"].split_dim() is None:
+        return outs
+    return all_reduce_sum(outs, rules.mesh, rules.tp_axis)

@@ -28,39 +28,61 @@ six families (the VLM's frontend positions dropped from the loss, the audio
 family through encoder and decoder), its softmax cross-entropy streamed over
 sequence chunks of at most ``loss_chunk`` positions (:meth:`LM._chunked_xent`,
 the reference's single-host branch: ``(B, S, V)`` logits never exist at
-once).  The reference's vocab-sharded branch (``_sharded_chunk_xent``) needs
-the tensor-parallel rules of ``sharding.py``, which the port does not have
-yet.  ``remat=True`` recomputes each block in the backward pass
+once).  ``remat=True`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) where the reference's
 ``_maybe_remat`` applies ``jax.checkpoint``, at the reference's sites only;
 it changes memory, not numbers.  On the card the attention's gradient
 is the ``flash_attention`` backward kernels (``kernels/flash_attention/
 autograd.py``).
+
+Tensor parallel: under ``sharding.use_rules(rules)`` the dense and VLM
+families run over ``rules.mesh`` with the parameters of
+``sharding.shard_params``: :meth:`LM.train_loss` (and so the train step) and
+:meth:`LM.prefill_logits`.  The residual stream is a list of one tensor a
+shard; the embedding is looked up in each shard's vocabulary rows and summed
+over "model", each block runs tensor-parallel (``layers.attention_block_shards``,
+``layers.glu_ffn_shards``), and the loss is the reference's vocab-sharded
+branch (:func:`_sharded_chunk_xent`): local logits a shard and chunk, the
+max over "model" with its gradient stopped, the sum of exponentials and the
+gold logit summed over "model", the loss and ``correct`` summed over "data".
+Any other family under rules raises ``NotImplementedError``: it does not run
+replicated instead.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm import ssm as ssm_lib
+from repro_torch.models.lm.collectives import (
+    all_reduce_max,
+    all_reduce_sum,
+    all_to_all,
+)
 from repro_torch.models.lm.layers import (
     attention_block,
+    attention_block_shards,
     cross_attention_with_kv,
     glu_ffn,
+    glu_ffn_shards,
     init_attention,
     init_ffn,
     init_mla,
     mla_block,
     rms_norm,
 )
+from repro_torch.models.lm.sharding import active_rules, split_batch
 
-__all__ = ["FAMILIES", "LM"]
+__all__ = ["FAMILIES", "LM", "TP_FAMILIES"]
 
 f32 = torch.float32
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+#: The families that run tensor-parallel under sharding rules.
+TP_FAMILIES = ("dense", "vlm")
 
 
 def _padded_vocab(v: int, multiple: int = 256) -> int:
@@ -83,6 +105,100 @@ def _depth(tree) -> int:
 def stacked(tree):
     """The layers of a tree of stacked leaves, in order (its leading axis)."""
     return (_layer(tree, i) for i in range(_depth(tree)))
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every tensor that a call creates with a ``device`` goes to ``meta``."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        return func(*args, **kwargs)
+
+
+def _loss_chunk(s: int, loss_chunk: int) -> int:
+    """The largest divisor of s not above ``loss_chunk``."""
+    c = min(loss_chunk, s)
+    while s % c != 0:
+        c -= 1
+    return c
+
+
+def _block_offset(rules, w, n: int, dim: int) -> int:
+    """The first index along ``dim`` of shard ``n``'s block of ``w`` (0 where
+    ``dim`` is not split)."""
+    if w.split_dim() != dim:
+        return 0
+    mesh = rules.mesh
+    return mesh.axis_index(mesh.coords[n], rules.tp_axis) * (w.shape[dim] // w.grid[dim])
+
+
+def _unembed_vocab_blocks(rules, w) -> tuple[list, list, bool]:
+    """Each shard's (D, V_loc) block of the unembedding, its first vocabulary
+    id, and whether the vocabulary is split.  The rules split the (D, V) leaf
+    over its rows (their ``embed$`` pattern matches ``unembed`` first); the
+    loss wants it split over the vocabulary, as the reference's ``shard_map``
+    in_specs ``P(None, 'model')`` re-shard it: an all-to-all over "model"."""
+    mesh = rules.mesh
+    blocks = w.locals()
+    if w.split_dim() == 0:
+        blocks = all_to_all(blocks, mesh, rules.tp_axis, split_dim=1, concat_dim=0)
+    v_loc = blocks[0].shape[1]
+    offsets = [mesh.axis_index(c, rules.tp_axis) * v_loc for c in mesh.coords]
+    return blocks, offsets, v_loc != w.shape[1]
+
+
+def _sharded_chunk_xent(rules, vp: int, vocab: int, n_chunks: int, batch_split: bool = True):
+    """Returns fn(h, w, labels, mask) -> (loss_sum, correct): the reference's
+    vocab-sharded streaming softmax cross-entropy.  ``h`` (B_loc, S, D),
+    ``labels`` (B_loc, S) and ``mask`` (B_loc, S) are lists of one tensor a
+    shard, ``w`` is the unembedding's ``Sharded`` leaf (D, V), re-split over
+    the vocabulary (:func:`_unembed_vocab_blocks`).  A chunk's logits are
+    local, (B_loc, c, V_loc) a shard; the sums over the vocabulary are
+    all-reduced over "model" and the results over "data" (where
+    ``batch_split``: the shards of a data group hold their own rows).  The scalars returned are on the first shard's device.
+    """
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    dp = rules.axis("batch")
+
+    def fn(h, w, labels, mask):
+        ws, offs, split = _unembed_vocab_blocks(rules, w)
+        reduce_tp = (lambda xs: all_reduce_sum(xs, mesh, tp_axis)) if split else list
+        s = h[0].shape[1]
+        c = s // n_chunks
+        loss = [0.0] * mesh.size
+        correct = [0.0] * mesh.size
+        for c0 in range(0, s, c):
+            logits = []
+            for n in range(mesh.size):
+                lg = (h[n][:, c0:c0 + c] @ ws[n]).to(f32)               # (B_loc, c, V_loc)
+                ids = offs[n] + torch.arange(lg.shape[-1], device=lg.device)
+                logits.append(torch.where(ids < vocab, lg, -1e30))
+            # the max with its gradient stopped keeps d lse / d logits == softmax
+            mx_loc = [lg.detach().amax(dim=-1) for lg in logits]
+            mx = all_reduce_max(mx_loc, mesh, tp_axis) if split else mx_loc
+            z = reduce_tp([torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+                           for lg, m in zip(logits, mx)])
+            gold = []
+            for n, lg in enumerate(logits):
+                local = labels[n][:, c0:c0 + c] - offs[n]
+                held = (local >= 0) & (local < lg.shape[-1])
+                g = lg.gather(-1, local.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+                gold.append(torch.where(held, g, 0.0))
+            gold = reduce_tp(gold)
+            for n in range(mesh.size):
+                mm = mask[n][:, c0:c0 + c]
+                lse = torch.log(z[n]) + mx[n]
+                loss[n] = loss[n] + torch.sum((lse - gold[n]) * mm)
+                with torch.no_grad():
+                    correct[n] = correct[n] + torch.sum((gold[n] >= mx[n]).to(f32) * mm)
+        if dp is not None and batch_split and mesh.axis_size(dp) > 1:
+            loss = all_reduce_sum(loss, mesh, dp)
+            correct = all_reduce_sum(correct, mesh, dp, backward=None)
+        return loss[0], correct[0]
+
+    return fn
 
 
 class LM:
@@ -200,6 +316,12 @@ class LM:
         params.update(self._init_family(generator))
         return params
 
+    def init_shapes(self) -> dict:
+        """The parameters' tree on the ``meta`` device: shapes and types, no
+        storage (the reference's ``init_shapes``; the dry run's entry point)."""
+        with _OnMeta():
+            return self.init(torch.Generator())
+
     # --------------------------------------------------------------- forward
     def _ffn(self, bp, h):
         if "moe" in bp:
@@ -314,7 +436,13 @@ class LM:
         return x
 
     def logits_last(self, params, h_last):
-        """h_last: (B, D) -> (B, Vp) f32 logits (vocab padded masked)."""
+        """h_last: (B, D) -> (B, Vp) f32 logits (vocab padded masked).  Under
+        sharding rules ``h_last`` is a list of one (B_loc, D) state a shard,
+        and so are the logits."""
+        rules = active_rules()
+        if rules is not None:
+            self._require_shards(rules)
+            return self._logits_last_shards(rules, params["unembed"], h_last)
         logits = (h_last @ params["unembed"]).to(f32)
         live = torch.arange(self.vp, device=logits.device)[None, :] < self.cfg.vocab
         return torch.where(live, logits, -1e30)
@@ -339,9 +467,7 @@ class LM:
         ``loss_chunk``; padded vocab columns are −1e30.  Returns (mean loss
         over the masked positions, {"acc", "tokens"})."""
         b, s, d = h.shape
-        c = min(self.loss_chunk, s)
-        while s % c != 0:
-            c -= 1
+        c = _loss_chunk(s, self.loss_chunk)
         w = params["unembed"]
         loss_sum = torch.zeros((), dtype=f32, device=h.device)
         correct = torch.zeros((), dtype=f32, device=h.device)
@@ -356,7 +482,12 @@ class LM:
     def train_loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """batch: {"tokens": (B, S+1) [, "frontend": (B, P, D)]} -> (loss, metrics).
 
-        Labels below 0 are masked out of the loss."""
+        Labels below 0 are masked out of the loss.  Under sharding rules
+        ``params`` is ``shard_params``' tree and the loss runs over the mesh
+        (module docstring)."""
+        rules = active_rules()
+        if rules is not None:
+            return self._train_loss_shards(rules, params, batch)
         cfg = self.cfg
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -382,13 +513,142 @@ class LM:
         (default: prefill length + ``cache.DECODE_RESERVE``)."""
         from repro_torch.models.lm.cache import build_prefill_cache
 
+        self._no_sharded_cache("prefill")
         return build_prefill_cache(self, params, tokens, frontend, max_seq)
 
     def decode_step(self, params, cache, tokens):
         """tokens: (B, 1) -> (logits (B, Vp), the cache, updated in place)."""
         from repro_torch.models.lm.cache import decode_step
 
+        self._no_sharded_cache("decode_step")
         return decode_step(self, params, cache, tokens)
+
+    def prefill_logits(self, params, tokens, frontend=None) -> torch.Tensor:
+        """The last position's logits (B, Vp) of a prefill, without its cache;
+        under sharding rules over the mesh (the dense and VLM families)."""
+        rules = active_rules()
+        if rules is None:
+            return self.prefill(params, tokens, frontend)[0]
+        self._require_shards(rules)
+        xs = self._embed_shards(rules, params["embed"], split_batch(rules, tokens))
+        if self.cfg.family == "vlm" and frontend is not None:
+            xs = self._prepend_frontend(rules, params, split_batch(rules, frontend), xs)
+        hs = self._backbone_shards(rules, params, xs)
+        norm = params["final_norm"].locals()
+        outs = self.logits_last(params, [rms_norm(h[:, -1], norm[n], self.cfg.norm_eps)
+                                         for n, h in enumerate(hs)])
+        mesh = rules.mesh
+        if tokens.shape[0] % rules.dp() != 0:  # every shard holds every row
+            return outs[0]
+        rows: dict = {}  # one shard of each data group, in data order
+        for n, coord in enumerate(mesh.coords):
+            rows.setdefault(mesh.axis_index(coord, rules.axis("batch")), outs[n])
+        return torch.cat([rows[d].to(mesh.devices[0]) for d in sorted(rows)], dim=0)
+
+    # ------------------------------------------------------ tensor parallel
+    def _no_sharded_cache(self, what: str) -> None:
+        if active_rules() is not None:
+            raise NotImplementedError(
+                f"{what} under sharding rules: the sharded decode cache (cache_pspecs, split-K "
+                "over 'model') is not executed by the port yet (ROADMAP Queue 1 item 9); "
+                "prefill_logits runs the prefill over the mesh")
+
+    def _require_shards(self, rules) -> None:
+        if self.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.arch_id}: the {self.cfg.family} family does not run tensor-parallel "
+                f"in the port (ROADMAP Queue 1 item 9 lists what is left: the MoE/MLA families, "
+                f"then the audio, SSM and hybrid families); only {', '.join(TP_FAMILIES)} run "
+                "under sharding rules")
+
+    def _embed_shards(self, rules, leaf, ids: list) -> list:
+        """The embedding of each shard's token ids: each shard looks up the
+        vocabulary rows it holds, zeroes the rest, and the shards are summed
+        over "model" (where the vocabulary is split)."""
+        mesh = rules.mesh
+        split = leaf.split_dim() == 0
+        out = []
+        for n, (tok, w) in enumerate(zip(ids, leaf.locals())):
+            tok = torch.clamp(tok, 0, self.vp - 1)
+            if split:
+                local = tok - _block_offset(rules, leaf, n, 0)
+                held = (local >= 0) & (local < w.shape[0])
+                e = torch.where(held[..., None],
+                                F.embedding(local.clamp(0, w.shape[0] - 1), w), 0)
+            else:
+                e = F.embedding(tok, w)
+            out.append(e.to(self.dtype))
+        return all_reduce_sum(out, mesh, rules.tp_axis, backward=None) if split else out
+
+    def _prepend_frontend(self, rules, params, fes: list, xs: list) -> list:
+        """The VLM's ``frontend @ frontend_adapter`` (replicated) before each
+        shard's token embeddings."""
+        adapter = params["frontend_adapter"].locals()
+        return [torch.cat([fe.to(self.dtype) @ a, x], dim=1)
+                for fe, a, x in zip(fes, adapter, xs)]
+
+    def _apply_attn_ffn_shards(self, rules, bp, xs: list) -> list:
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        hs = [rms_norm(x, w, eps) for x, w in zip(xs, bp["ln1"].locals())]
+        a = attention_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
+                                   use_kernel=self.use_kernel)
+        xs = [x + y for x, y in zip(xs, a)]
+        hs = [rms_norm(x, w, eps) for x, w in zip(xs, bp["ln2"].locals())]
+        f = glu_ffn_shards(rules, bp["ffn"], hs, cfg.act)
+        return [x + y for x, y in zip(xs, f)]
+
+    def _backbone_shards(self, rules, params, xs: list) -> list:
+        """:meth:`_backbone` over the mesh, each block recomputed in the
+        backward pass under ``remat``."""
+        body = self._apply_attn_ffn_shards
+        for bp in stacked(params["blocks"]):
+            if self.remat and torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+                xs = checkpoint(body, rules, bp, xs, use_reentrant=False,
+                                preserve_rng_state=False)
+            else:
+                xs = body(rules, bp, xs)
+        return xs
+
+    def _logits_last_shards(self, rules, w, h_last: list) -> list:
+        """(B_loc, Vp) float32 logits a shard from one (B_loc, D) state a
+        shard: the rules split the unembedding over its rows, so each shard's
+        partial logits are all-reduced over "model"."""
+        mesh = rules.mesh
+        split = w.split_dim() == 0
+        outs = []
+        for n, (h, wn) in enumerate(zip(h_last, w.locals())):
+            if split:
+                h = h.narrow(-1, _block_offset(rules, w, n, 0), wn.shape[0])
+            outs.append((h @ wn).to(f32))
+        if split:
+            outs = all_reduce_sum(outs, mesh, rules.tp_axis)
+        live = torch.arange(self.vp, device=outs[0].device) < self.cfg.vocab
+        return [torch.where(live.to(o.device), o, -1e30) for o in outs]
+
+    def _train_loss_shards(self, rules, params, batch) -> tuple[torch.Tensor, dict]:
+        """:meth:`train_loss` over the mesh of ``rules``."""
+        cfg = self.cfg
+        self._require_shards(rules)
+        tokens = batch["tokens"]
+        denom = torch.clamp((tokens[:, 1:] >= 0).to(f32).sum(), min=1.0)
+        toks = split_batch(rules, tokens)
+        labels = [torch.clamp(t[:, 1:], min=0).to(torch.int64) for t in toks]
+        masks = [(t[:, 1:] >= 0).to(f32) for t in toks]
+        xs = self._embed_shards(rules, params["embed"], [t[:, :-1] for t in toks])
+        if cfg.family == "vlm":
+            xs = self._prepend_frontend(rules, params, split_batch(rules, batch["frontend"]), xs)
+        hs = self._backbone_shards(rules, params, xs)
+        if cfg.family == "vlm":
+            hs = [h[:, cfg.n_frontend_tokens:] for h in hs]  # loss only over text positions
+        hs = [rms_norm(h, w, cfg.norm_eps) for h, w in zip(hs, params["final_norm"].locals())]
+        s = hs[0].shape[1]
+        n_chunks = s // _loss_chunk(s, self.loss_chunk)
+        batch_split = tokens.shape[0] % rules.dp() == 0
+        loss_sum, correct = _sharded_chunk_xent(rules, self.vp, cfg.vocab, n_chunks, batch_split)(
+            hs, params["unembed"], labels, masks)
+        denom = denom.to(loss_sum.device)
+        return loss_sum / denom, {"acc": correct / denom, "tokens": denom}
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
         from repro_torch.models.lm.cache import init_cache

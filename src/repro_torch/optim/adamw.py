@@ -6,6 +6,12 @@ update is computed in float32 and cast back to each parameter's type.
 The global norm of :func:`clip_by_global_norm` and the schedules are
 float32, as in the reference; a schedule takes the step as an int or a
 0-d tensor and returns a 0-d float32 tensor on the step's device.
+
+A tree of parameters placed on a mesh (``models/lm/sharding.Sharded``
+leaves) is a tree of its distinct blocks here: the moments are sharded like
+the parameters, and the global norm counts each element once, a sharded
+leaf over all of its blocks and a replicated one once.  The blocks may lie
+on several cards; each update runs on its block's card.
 """
 from __future__ import annotations
 
@@ -37,7 +43,10 @@ class AdamWState(NamedTuple):
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    """``fn`` over the tensor leaves of ``tree`` and trees of the same structure."""
+    """``fn`` over the tensor leaves of ``tree`` and trees of the same structure
+    (a ``Sharded`` leaf is a node over its blocks)."""
+    if hasattr(tree, "like"):
+        return tree.like(tree_map(fn, *(t.blocks for t in (tree, *rest))))
     if isinstance(tree, dict):
         return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in tree}
     if isinstance(tree, (list, tuple)):
@@ -80,11 +89,12 @@ def adamw_update(
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=f32, device=t.device), t)
 
     def upd(g, m, v, p):
+        dev = p.device
         g = g.to(f32)
         m = b1 * m + (1.0 - b1) * g
         v = b2 * v + (1.0 - b2) * g * g
-        delta = (m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * p.to(f32)
-        return (p.to(f32) - lr * delta).to(p.dtype), m, v
+        delta = (m / c1.to(dev)) / (torch.sqrt(v / c2.to(dev)) + eps) + weight_decay * p.to(f32)
+        return (p.to(f32) - _on(lr, dev) * delta).to(p.dtype), m, v
 
     new: list = []
     tree_map(lambda *leaves: new.append(upd(*leaves)), grads, state.mu, state.nu, params)
@@ -103,10 +113,14 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.T
     leaves = tree_leaves(grads)
     sq = torch.zeros((), dtype=f32, device=leaves[0].device)
     for g in leaves:
-        sq = sq + torch.sum(torch.square(g.to(f32)))
+        sq = sq + torch.sum(torch.square(g.to(f32))).to(sq.device)
     gnorm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g.to(f32) * scale).to(g.dtype), grads), gnorm
+    return tree_map(lambda g: (g.to(f32) * scale.to(g.device)).to(g.dtype), grads), gnorm
+
+
+def _on(x, device):
+    return x.to(device) if torch.is_tensor(x) else x
 
 
 def _step_f32(step) -> torch.Tensor:

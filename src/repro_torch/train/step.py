@@ -12,6 +12,13 @@ loss is their mean, as the reference's ``lax.scan`` does (its metrics are
 then ``loss``, ``grad_norm`` and ``lr`` only).  The reference runs the step
 under ``jit`` with the state donated; here it runs eagerly, and the new
 parameters and moments are new tensors.
+
+Under sharding rules (``models/lm/sharding.use_rules``) the step runs over
+the mesh as it stands: ``params`` and the moments are trees of ``Sharded``
+leaves (``shard_params``, ``adamw_init`` of them), the loss and its
+gradients are the model's over the mesh, each block's gradient is summed
+over the shards that use it, and the data-parallel gradient all-reduce that
+this sum stands for is counted in ``collectives.STATS``.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.lm.collectives import count_gradient_sync
+from repro_torch.models.lm.sharding import active_rules
 from repro_torch.optim.adamw import (
     AdamWState,
     adamw_init,
@@ -51,6 +60,9 @@ def loss_and_grads(model, params, batch):
             p.requires_grad_(False)
     it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
     metrics = {k: v.detach() for k, v in metrics.items()}
+    rules = active_rules()
+    if rules is not None:
+        count_gradient_sync(rules, params)
     return loss.detach(), metrics, tree_map(lambda _: next(it), params)
 
 

@@ -184,6 +184,17 @@ from repro_torch.optim import compress
 from repro_torch.checkpoint import CheckpointManager
 trained = launch_train.main(["--arch", "qwen1.5-0.5b", "--steps", "2", "--batch", "1", "--seq",
                              "8", "--device", "cpu", "--ckpt", {ckpt!r}, "--save-every", "1"])
+from repro_torch.launch import cost, dryrun
+from repro_torch.launch.mesh import make_lm_mesh
+from repro_torch.models.lm import LM, collectives, sharding
+tp_cfg = get_config("qwen1.5-0.5b").reduced()
+tp_lm = LM(tp_cfg, loss_chunk=8)
+tp_rules = sharding.ShardingRules(make_lm_mesh((2, 2), devices=simulated_devices(4, "cpu")),
+                                  tp_cfg)
+with sharding.use_rules(tp_rules):
+    tp_loss = float(tp_lm.train_loss(sharding.shard_params(tp_rules, tp_lm.init(
+        torch.Generator().manual_seed(0))), {{"tokens": torch.randint(0, 512, (2, 9))}})[0])
+dry = dryrun.run_cell("qwen1.5-0.5b", "prefill_32k", False, {ckpt!r} + "_dryrun", reduced=True)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
@@ -192,7 +203,8 @@ print(json.dumps({{"bad": bad, "served": served, "summaries": summaries,
                   "launch": launch_serve.__name__, "sharded": int(sharded.n_devices),
                   "contracts": sorted(contracts.all_contracts()),
                   "trained": [h["loss"] for h in trained],
-                  "ckpt_steps": CheckpointManager({ckpt!r}).steps()}}))
+                  "ckpt_steps": CheckpointManager({ckpt!r}).steps(), "tp_loss": tp_loss,
+                  "dryrun": dry["status"]}}))
 """
 
 
@@ -208,7 +220,9 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     imported; the contract checker and its mutations imported; a batch over 2
     shards simulated on the CPU; two reduced qwen1.5-0.5b training steps
     through the training launcher, each checkpointed, and the example trainer,
-    compression and checkpoint modules imported) with no ``jax`` and no
+    compression and checkpoint modules imported; a reduced qwen1.5-0.5b
+    loss tensor-parallel over a (2, 2) mesh of CPU shards, and a reduced
+    dry-run cell traced on the meta device) with no ``jax`` and no
     ``repro.*`` module ever loaded."""
     code = _HYGIENE_SCRIPT.format(src=str(ROOT / "src"), ckpt=str(tmp_path / "ckpt"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -233,6 +247,7 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     assert {"fused", "sharded_lanes", "refill", "chunk"} <= set(out["contracts"])
     assert len(out["trained"]) == 2 and np.isfinite(out["trained"]).all()
     assert out["ckpt_steps"] == [1, 2]
+    assert np.isfinite(out["tp_loss"]) and out["dryrun"] == "ok"
 
 
 def _imported_modules(path: Path):

@@ -1654,3 +1654,53 @@ def test_train_step_kernel_matches_plain(dev, arch):
     for key in ("loss", "grad_norm"):
         a, b = float(out[True][key]), float(out[False][key])
         assert np.isfinite(a) and abs(a - b) <= 3e-2 * abs(b), key
+
+
+@pytest.mark.parametrize("dims", [(1, 2), (1, 4), (2, 2)], ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("arch", ["qwen3-8b", "internvl2-1b"])
+def test_tensor_parallel_float32_matches_unsharded(dev, arch, dims):
+    """Phase 18(a) at ``.reduced()``: float32, TF32 off, shards simulated on
+    the card against the unsharded port on the same weights: the last logits
+    within 1e-4, ``train_loss`` within 1e-5 and every gradient leaf, gathered,
+    within 1e-4 (max-normalised); one forward ``flash_attention`` launch a
+    layer a shard (the query heads of (1, 4) read replicated KV heads)."""
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.lm.sharding import (
+        ShardingRules,
+        gather_params,
+        shard_params,
+        use_rules,
+    )
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        lm = LM(cfg, remat=False, loss_chunk=32)
+        params = lm.init(torch.Generator(device=dev).manual_seed(5))
+        b = synthetic_batch(lm, 2, 64, 5, 0, device=dev)
+        prompt = b["tokens"][:, :-1]
+        fe = b.get("frontend")
+        with torch.no_grad():
+            want_logits = lm.prefill_logits(params, prompt, fe)[:, :cfg.vocab]
+        want_loss, _, want_g = loss_and_grads(lm, params, b)
+        n = dims[0] * dims[1]
+        rules = ShardingRules(make_lm_mesh(dims, devices=simulated_devices(n, dev)), cfg)
+        placed = shard_params(rules, params)
+        with use_rules(rules):
+            build.reset_launch_counts()
+            with torch.no_grad():
+                logits = lm.prefill_logits(placed, prompt, fe)[:, :cfg.vocab]
+            assert build.LAUNCHES["flash_attention"] == cfg.n_layers * n
+            loss, _, grads = loss_and_grads(lm, placed, b)
+        err = float((logits - want_logits).abs().max() / want_logits.abs().max())
+        assert err <= 1e-4
+        assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+        for g, w in zip(tree_leaves(gather_params(grads)), tree_leaves(want_g)):
+            assert g.shape == w.shape
+            assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -1,0 +1,168 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and its cost counters.
+
+* the FLOP counter on a loop of 10 ``(64, 64) @ (64, 64)`` products counts
+  10 · 2 · 64³ (the counterpart of the reference's
+  ``test_hlo_cost_trip_count_accounting``), and the attention kernel's
+  operator on ``meta`` counts its live pairs only;
+* the collectives' ring weighting over 2, 4 and 16 shards equals the
+  reference's ``hlo_stats.CollectiveStats`` on the same bytes;
+* every one of the 40 cells gives a record at its config's and shape's
+  ``.reduced()`` on the 16 × 16 production mesh: the 8 skips with the
+  reference's reason, the dense and VLM train and prefill cells traced
+  (``ok``, FLOPs and roofline terms against the H100's peaks), the rest
+  ``specs_only`` with the reason;
+* one full-scale cell (qwen1.5-0.5b × train_4k × 16 × 16) on the meta
+  device, in a fresh interpreter: its per-device parameter bytes equal a
+  count by hand from the reference's specs, and the process's peak RSS
+  stays under 2 GB.
+"""
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+
+from repro.configs import cells as ref_cells
+from repro.configs import get_config as ref_get_config
+from repro.launch.hlo_stats import CollectiveStats as RefCollectiveStats
+from repro.models.lm import LM as RefLM
+from repro.models.lm import sharding as ref_sharding
+from repro_torch.launch import cost, dryrun
+from repro_torch.launch.mesh import make_lm_mesh, simulated_devices
+from repro_torch.models.lm import collectives
+from torch_pipeline_parity import one_torch_thread  # noqa: F401  (autouse)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_flop_counter_counts_every_product_of_a_loop():
+    a = torch.empty((64, 64), device="meta")
+    ws = torch.empty((10, 64, 64), device="meta")
+
+    def g(a, ws):
+        for w in ws:
+            a = torch.relu(a @ w)
+        return a
+
+    _, c = cost.count(g, a, ws)
+    assert c.flops == 10 * 2 * 64 ** 3
+    # a product reads two 64 x 64 float32 operands and writes one; relu one and one
+    assert c.bytes == 10 * (3 + 2) * 64 * 64 * 4
+
+
+def test_attention_operator_counts_live_pairs():
+    q = torch.empty((2, 64, 4, 32), device="meta", requires_grad=True)
+    k = torch.empty((2, 64, 2, 32), device="meta", requires_grad=True)
+
+    def fwd_bwd(q, k):
+        o = cost.meta_attention(q, k, k, causal=True)
+        return torch.autograd.grad(o.sum(), (q, k))
+
+    (dq, dk), c = cost.count(fwd_bwd, q, k)
+    assert dq.shape == q.shape and dk.shape == k.shape
+    pairs = 64 * 65 // 2
+    assert cost.live_pairs(64, 64, True, 0) == pairs
+    assert cost.live_pairs(64, 64, False, 0) == 64 * 64
+    assert cost.live_pairs(8, 8, True, 3) == 1 + 2 + 6 * 3
+    assert c.flops == 2 * 4 * pairs * 2 * (32 + 32) + 2 * 4 * pairs * 2 * (4 * 32 + 3 * 32)
+
+
+@pytest.mark.parametrize("g", [2, 4, 16])
+def test_collective_ring_weights_are_the_references(g):
+    mesh = make_lm_mesh((1, g), devices=simulated_devices(g, "cpu"))
+    xs = [torch.ones((3, 5)) * i for i in range(g)]
+    want = RefCollectiveStats()
+    collectives.reset_stats()
+    out = collectives.all_reduce_sum(xs, mesh, "model")
+    assert torch.equal(out[-1], torch.full((3, 5), float(sum(range(g)))))
+    want.add("all-reduce", 60, g)
+    collectives.all_reduce_max(xs, mesh, "model")
+    want.add("all-reduce", 60, g)
+    gathered = collectives.all_gather(xs, mesh, "model", dim=0)
+    assert gathered[0].shape == (3 * g, 5)
+    want.add("all-gather", 60 * g, g)
+    blocks = [torch.ones((4, 16 * g)) for _ in range(g)]
+    resplit = collectives.all_to_all(blocks, mesh, "model", split_dim=1, concat_dim=0)
+    assert resplit[1].shape == (4 * g, 16)
+    want.add("all-to-all", 4 * 16 * g * 4, g)
+    got = collectives.STATS
+    assert got.link_bytes == pytest.approx(want.link_bytes, rel=1e-12)
+    assert got.per_op_bytes == want.per_op_bytes
+    assert got.per_op_count == want.per_op_count
+
+
+def test_every_cell_gives_a_record_at_reduced_size(tmp_path):
+    records = dryrun.main(["--all", "--reduced", "--out", str(tmp_path)])
+    assert len(records) == 40 and len(list(tmp_path.glob("*.json"))) == 40
+    reasons = {(a, s): why for a, s, ok, why in ref_cells() if not ok}
+    by_status: dict = {}
+    for r in records:
+        by_status.setdefault(r["status"], []).append((r["arch"], r["shape"]))
+        assert json.loads((tmp_path / f"{r['arch']}__{r['shape']}__16x16.json").read_text()) == \
+            json.loads(json.dumps(r))
+        if r["status"] == "skipped":
+            assert r["reason"] == reasons[(r["arch"], r["shape"])]
+            continue
+        assert r["n_devices"] == 256 and r["per_device_bytes"]["params"] > 0
+        if r["status"] == "specs_only":
+            assert "ROADMAP Queue 1 item 9" in r["reason"]
+            continue
+        assert r["kind"] in ("train", "prefill")
+        assert r["flops"] > 0 and r["bytes"] > 0
+        assert r["terms"]["peaks"] == "NVIDIA H100 SXM 80GB, 700 W"
+        assert r["terms"]["dominant"] in ("compute_s", "memory_s", "collective_s")
+        if r["kind"] == "train":
+            assert r["per_device_bytes"]["opt_state"] > 0
+    assert len(by_status["skipped"]) == 8
+    assert sorted(by_status["ok"]) == sorted(
+        (a, s) for a in ("qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b", "internvl2-1b")
+        for s in ("train_4k", "prefill_32k"))
+    assert len(by_status["specs_only"]) == 22
+    assert cost.HW["peak_flops"] == 989e12 and cost.HW["hbm_bw"] == 3.35e12
+    assert cost.HW["link_bw"] == 450e9
+
+
+# The peak is this process's own high-water mark since exec (VmHWM): Linux's
+# ru_maxrss also keeps the peak of the process that forked it, here a test
+# worker that may hold gigabytes.
+_FULL_CELL = r"""
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.launch import dryrun
+r = dryrun.run_cell("qwen1.5-0.5b", "train_4k", False, {out!r})
+hwm = [line for line in open("/proc/self/status") if line.startswith("VmHWM:")][0]
+r["maxrss_bytes"] = int(hwm.split()[1]) * 1024
+print(json.dumps(r))
+"""
+
+
+class _FakeMesh:
+    shape = {"data": 16, "model": 16}
+
+
+def test_full_scale_cell_on_the_meta_device(tmp_path):
+    code = _FULL_CELL.format(src=str(ROOT / "src"), out=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert r["status"] == "ok" and r["n_devices"] == 256
+    assert r["maxrss_bytes"] < 2 * 2 ** 30
+    # by hand, from the reference's specs: a leaf's elements over its axes' sizes, bf16
+    cfg = ref_get_config("qwen1.5-0.5b")
+    shapes = RefLM(cfg).init_shapes()
+    specs = ref_sharding.param_pspecs(ref_sharding.ShardingRules(_FakeMesh(), cfg), shapes)
+    leaves = jax.tree.leaves(shapes)
+    spec_leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    by_hand = sum(math.prod(s.shape) // math.prod(16 for a in p if a is not None) * 2
+                  for s, p in zip(leaves, spec_leaves))
+    assert r["per_device_bytes"]["params"] == by_hand
+    assert r["per_device_bytes"]["opt_state"] == 4 * by_hand + 4  # two float32 moments, the step
+    assert r["per_device_bytes"]["inputs"] == 256 // 16 * 4097 * 4
+    # the train step's FLOPs a device: at least the model's 6·N·tokens over 256 devices
+    assert r["flops"] >= 6 * cfg.param_count() * 256 * 4096 / 256 * 0.99
+    assert r["collectives"]["link_bytes"] > 0
