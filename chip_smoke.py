@@ -258,11 +258,12 @@ Phases (any failure exits non-zero before the result line is printed):
     kernel path against the sharded plain path (``use_kernel=False``) on
     the same placed weights, logits and every gradient leaf within the same
     bounds (a zeroed ``dq`` beyond them); where two cards or more are
-    visible, the same over real cards; (b) bf16 qwen3-8b at full width and
-    depth, B = 2 x 1024, the sharded forward at tp 4 (a main path: counts
-    reset just before, read just after) within ``STATE_REL_TOL`` of the
-    unsharded kernel path (backbone and last logits, no cache) and of the
-    sharded plain path, 144 ``flash_attention`` launches, all TMA, at (2, 8
+    visible, the same over real cards; (b) bf16 qwen3-8b at full width, cut
+    to 12 of its 36 layers (full depth until the script's run passed 600 s
+    with phase 19), B = 2 x 1024, the sharded forward at tp 4 (a main path:
+    counts reset just before, read just after) within ``STATE_REL_TOL`` of
+    the unsharded kernel path (backbone and last logits, no cache) and of the
+    sharded plain path, 48 ``flash_attention`` launches, all TMA, at (2, 8
     on 2, 1024, 128), wall ms and the span between two events, parameter
     and peak bytes, and a dropped partial beyond the bound; (c) bf16
     qwen1.5-0.5b at full width, B = 4 x 1024, three ``build_train_step``
@@ -276,7 +277,37 @@ Phases (any failure exits non-zero before the result line is printed):
     bytes from ``collectives.STATS``; and each attention shape that (a),
     (b) and (c) launched at the shards' head counts, the forward and both
     backward kernels against their plain versions through their wrappers;
-19. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+19. the MoE family tensor-parallel over a mesh of shards (the reference's
+    rules: every shard holds every expert and a slice of ``d_ff_expert``;
+    one all-reduce over "model" a MoE layer): (a) float32, TF32 off,
+    against the unsharded port on the same weights, granite-moe-1b-a400m
+    at full width, 4 layers, B = 2 x 256 on (1, 4), (2, 2) and (1, 16)
+    (the 8 KV heads replicated, ``d_ff_expert`` split 16 ways), the last
+    logits within ``TP_LOGITS_TOL``, ``train_loss`` within
+    ``TP_LOSS_TOL`` and every gradient leaf within ``TP_GRAD_TOL``, and
+    deepseek-v2-236b at full width cut to its dense layer and one MoE layer
+    (≈ 21.5 GB of float32 weights), B = 2 x 128 on (1, 4) and (2, 2) (its
+    one einsum group of 256 tokens straddles the two data shards), the
+    logits; both MoE backends on (2, 2); planted faults beyond the bound
+    (one shard's partial dropped from granite's MoE all-reduce; local
+    capacity on deepseek's sorted backend); (b) bf16 deepseek-v2-236b at
+    full width, 3 layers (as in phase 15), B = 2 x 1024, the sharded
+    forward at tp 4 (a main path: counts reset just before, read just
+    after) within ``STATE_REL_TOL`` of the unsharded kernel path and of
+    the sharded plain path on the unsharded run's expert choices
+    (``RoutingReplay`` over the shards, with the count of shard-tokens
+    whose own choice differed), 12 ``flash_attention`` launches, all TMA,
+    at (2, 32, 1024, 192 / 128), wall ms and the span between two events,
+    parameter and peak bytes; (c) bf16 granite-moe-1b-a400m at full width,
+    B = 4 x 1024, three ``build_train_step`` steps on (1, 4) (a main path):
+    step 0 within ``TRAIN_REL_TOL`` of the unsharded step and the block
+    weights' gradients (the router's too) within ``ATTN_GRAD_TOL`` layer
+    by layer, on its expert choices, the forward and backward launches a
+    step by path at (4, 4 on 2, 1024, 64), step wall ms, tokens/s, peak
+    bytes and the collectives' bytes; and each attention shape that (a)-(c)
+    launched, the forward (and where a gradient was taken both backward
+    kernels) against the plain versions through the wrappers;
+20. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -2952,11 +2983,37 @@ class RoutingReplay:
     way, and one different expert moves a token's state by a gate's share
     of an expert's output: two paths that round differently are compared
     on the same choices, and the count says how many of them their own
-    routers would have changed."""
+    routers would have changed.
 
-    def __init__(self):
-        self.calls, self.mode, self.at = [], None, 0
-        self.tokens = self.differing = 0
+    ``calls`` starts from another replay's record.  ``shards``, for a replay
+    over a mesh, is each shard's (data index, data size) in the mesh's
+    order: there the shards call the router one after another on their data
+    slices, so each recorded call serves ``len(shards)`` calls, each its
+    shard's slice of the recorded rows (the model shards of a data group
+    take the same slice)."""
+
+    def __init__(self, calls=None, shards=None):
+        self.calls, self.mode, self.at = list(calls or []), None, 0
+        self.shards = shards
+        self.tokens = 0
+        self._differing = []
+
+    @property
+    def differing(self) -> int:
+        return int(sum(int(d) for d in self._differing))
+
+    @property
+    def expected(self) -> int:
+        """The router calls that replay every recorded call once."""
+        return len(self.calls) * (len(self.shards) if self.shards else 1)
+
+    def _wanted(self):
+        if not self.shards:
+            return self.calls[self.at]
+        full = self.calls[self.at // len(self.shards)]
+        d, dp = self.shards[self.at % len(self.shards)]
+        rows = full.shape[0] // dp
+        return full[d * rows:(d + 1) * rows]
 
     def run(self, mode: str):
         import contextlib
@@ -2972,11 +3029,12 @@ class RoutingReplay:
                 if self.mode == "record":
                     self.calls.append(idx)
                     return gates, idx
-                want = self.calls[self.at]
+                want = self._wanted()
                 self.at += 1
                 self.tokens += idx.shape[0]
-                self.differing += int((idx.sort(-1).values != want.sort(-1).values)
-                                      .any(-1).sum())
+                # summed on the device: no host sync inside the run
+                self._differing.append((idx.sort(-1).values != want.sort(-1).values)
+                                       .any(-1).sum())
                 probs = torch.softmax(x_flat.to(torch.float32) @ p["router"], dim=-1)
                 g = probs.gather(-1, want)
                 return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want
@@ -4048,7 +4106,8 @@ TP_PROBE_ARCH, TP_PROBE_LAYERS, TP_PROBE_B, TP_PROBE_S = "qwen3-8b", 4, 2, 256
 TP_PROBE_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 # 16 shards: qwen3-8b's 32 query heads split, its 8 KV heads replicated
 TP_KV_MESH = (1, 16)
-TP_FWD_ARCH, TP_FWD_B, TP_FWD_S, TP_FWD_MESH = "qwen3-8b", 2, 1024, (1, 4)
+# 12 of qwen3-8b's 36 layers: the whole script stays near 600 s
+TP_FWD_ARCH, TP_FWD_LAYERS, TP_FWD_B, TP_FWD_S, TP_FWD_MESH = "qwen3-8b", 12, 2, 1024, (1, 4)
 TP_TRAIN_ARCH, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = "qwen1.5-0.5b", 4, 1024, 3
 TP_TRAIN_MESH = (1, 4)
 # float32 over shards against the unsharded port on the same weights, TF32
@@ -4059,14 +4118,16 @@ TP_GRAD_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 @contextlib.contextmanager
-def attention_shapes():
-    """Counts ``ops.attention``'s calls by (B, H, Hkv, S, D) while active."""
+def attention_shapes(with_dv: bool = False):
+    """Counts ``ops.attention``'s calls by (B, H, Hkv, S, D), with ``with_dv``
+    (B, H, Hkv, S, D, Dv), while active."""
     from repro_torch.kernels.flash_attention import ops
 
     seen, real = collections.Counter(), ops.attention
 
     def recorded(q, k, v, **kwargs):
-        seen[(q.shape[0], q.shape[2], k.shape[2], q.shape[1], q.shape[3])] += 1
+        key = (q.shape[0], q.shape[2], k.shape[2], q.shape[1], q.shape[3])
+        seen[key + (v.shape[3],) if with_dv else key] += 1
         return real(q, k, v, **kwargs)
 
     ops.attention = recorded
@@ -4146,22 +4207,26 @@ def tp_leaves(tree, keep=None) -> dict:
     return out
 
 
-def tp_kernel_checks(dev, shapes, dtype, card: str) -> dict:
+def tp_kernel_checks(dev, shapes, dtype, card: str, backward: bool = True) -> dict:
     """The attention shapes that a tensor-parallel main path launched (each
-    shard's own head counts: (B, H, Hkv, S, D) from ``attention_shapes``),
-    the kernels against their plain versions through their wrappers on
-    seeded inputs: the forward (``attention_check``) and both backward
-    kernels (``backward_case``), each within its phase-15 or phase-17
-    tolerance."""
+    shard's own head counts: (B, H, Hkv, S, D[, Dv]) from
+    ``attention_shapes``), the kernels against their plain versions through
+    their wrappers on seeded inputs: the forward (``attention_check``) and,
+    with ``backward``, both backward kernels (``backward_case``), each within
+    its phase-15 or phase-17 tolerance."""
     out = {}
-    for i, (b, h, hkv, s, d) in enumerate(sorted(shapes)):
-        shape = (b, h, hkv, s, s, d, d)
-        name = f"tp_{b}x{h}on{hkv}x{s}x{d}_{str(dtype).removeprefix('torch.')}"
+    for i, key in enumerate(sorted(shapes)):
+        b, h, hkv, s, d = key[:5]
+        dv = key[5] if len(key) > 5 else d
+        shape = (b, h, hkv, s, s, d, dv)
+        name = (f"tp_{b}x{h}on{hkv}x{s}x{d}" + (f"_v{dv}" if dv != d else "")
+                + f"_{str(dtype).removeprefix('torch.')}")
         _, err = attention_check(dev, name, shape, dtype, True, 180 + i)
-        bwd = backward_case(dev, name, shape, True, 0, dtype, 190 + i, card)
-        out[name] = dict(shape=list(shape), forward_max_abs_err=err,
-                         backward_rel_err=bwd["rel_err"], backward_max_abs_err=bwd["max_abs_err"],
-                         backward_path=bwd["path"])
+        out[name] = dict(shape=list(shape), forward_max_abs_err=err)
+        if backward:
+            bwd = backward_case(dev, name, shape, True, 0, dtype, 190 + i, card)
+            out[name].update(backward_rel_err=bwd["rel_err"], backward_max_abs_err=bwd["max_abs_err"],
+                             backward_path=bwd["path"])
     return out
 
 
@@ -4299,7 +4364,7 @@ def tp_float32_check(dev, devices_for, card: str, what: str) -> dict:
 
 
 def tp_forward(dev, card: str) -> dict:
-    """Phase 18(b): bf16 qwen3-8b at full width and depth, B = 2 x 1024,
+    """Phase 18(b): bf16 qwen3-8b at full width, 12 layers, B = 2 x 1024,
     sharded forward at tp 4 (a main path of the phase) against the unsharded
     kernel path (the backbone and last logits, no cache: the same work) and
     against the sharded plain path on the same placed weights."""
@@ -4312,7 +4377,7 @@ def tp_forward(dev, card: str) -> dict:
     from repro_torch.models.lm.sharding import shard_params, use_rules
     from repro_torch.optim.adamw import tree_leaves
 
-    cfg = get_config(TP_FWD_ARCH)
+    cfg = dataclasses.replace(get_config(TP_FWD_ARCH), n_layers=TP_FWD_LAYERS)
     lm = LM(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(19))
     tokens = torch.randint(0, cfg.vocab, (TP_FWD_B, TP_FWD_S), device=dev,
@@ -4548,6 +4613,410 @@ def lm_tensor_parallel_phase(dev, card: str) -> dict:
           f"{json.dumps(out['launches'])} [{card}]", flush=True)
     return out
 
+# phase 19: the MoE family over a mesh of tensor-parallel shards
+# (a) float32 at full width against the unsharded port on the same weights:
+# arch -> (layers, B, S, meshes, gradients checked)
+MOE_PROBE = {
+    "granite-moe-1b-a400m": (4, 2, 256, {"1x4": (1, 4), "2x2": (2, 2),
+                                         "1x16_kv_replicated": (1, 16)}, True),
+    # its dense layer and one MoE layer (160 experts): ~21.5 GB of float32
+    "deepseek-v2-236b": (2, 2, 128, {"1x4": (1, 4), "2x2": (2, 2)}, False),
+}
+MOE_SORTED_MESH = "2x2"
+MOE_FWD_ARCH, MOE_FWD_LAYERS, MOE_FWD_B, MOE_FWD_S, MOE_FWD_MESH = (
+    "deepseek-v2-236b", 3, 2, 1024, (1, 4))
+MOE_TRAIN_ARCH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 4, 1024, 3
+MOE_TRAIN_MESH = (1, 4)
+MOE_GRAD_LEAVES = TP_GRAD_LEAVES + ("router",)
+
+
+@contextlib.contextmanager
+def planted_moe_fault(which: str):
+    """``partial``: the last shard's partial dropped from the MoE layers'
+    all-reduce over "model" (the attention's untouched); ``local_capacity``:
+    each data shard queues its tokens against its own capacity, as if it
+    held the whole batch (no offsets from the earlier data shards)."""
+    from repro_torch.models.lm import collectives
+    from repro_torch.models.lm import moe as moe_lib
+
+    if which == "partial":
+        name, real = "moe_ffn_shards", moe_lib.moe_ffn_shards
+        real_sum = collectives.all_reduce_sum
+
+        def faulty_sum(xs, mesh, axis, **kwargs):
+            xs = list(xs)
+            xs[-1] = torch.zeros_like(xs[-1])
+            return real_sum(xs, mesh, axis, **kwargs)
+
+        def faulty(*args, **kwargs):
+            collectives.all_reduce_sum = faulty_sum
+            try:
+                return real(*args, **kwargs)
+            finally:
+                collectives.all_reduce_sum = real_sum
+    else:
+        name, real = "_sorted_shards", moe_lib._sorted_shards
+
+        def faulty(rules, leaves, hs, cfg, batch_split):
+            return real(rules, leaves, hs, cfg, False)
+
+    setattr(moe_lib, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(moe_lib, name, real)
+
+
+def replay_shards(rules) -> list:
+    """Each shard's (data index, data size) for ``RoutingReplay`` over the
+    mesh of ``rules`` (the batch split over the data axes)."""
+    axis = rules.axis("batch")
+    return [(rules.mesh.axis_index(c, axis), rules.dp()) for c in rules.mesh.coords]
+
+
+def moe_float32_check(dev, card: str) -> dict:
+    """Phase 19(a): float32 granite-moe-1b-a400m (4 layers) and
+    deepseek-v2-236b (its dense layer and one MoE layer) at full width, TF32
+    off, over simulated shards against the unsharded port on the same
+    weights: the last logits, and for granite ``train_loss`` and every
+    gradient leaf; both MoE backends on (2, 2); the planted faults."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, fwd_shapes, grad_shapes = {}, collections.Counter(), collections.Counter()
+    try:
+        for arch, (layers, b, s, meshes, with_grads) in MOE_PROBE.items():
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+            params = LM(cfg).init(torch.Generator(device=dev).manual_seed(29))
+            batch = synthetic_batch(LM(cfg), b, s, 29, 0, device=dev)
+            prompt, live = batch["tokens"][:, :-1], slice(0, cfg.vocab)
+            for backend in ("einsum", "sorted"):
+                lm = LM(cfg, remat=False, loss_chunk=s, moe_backend=backend)
+                with torch.no_grad():
+                    want_logits = cache_free_logits(lm, params, prompt)[:, live]
+                if with_grads:
+                    want_loss, want_m, want_g = loss_and_grads(lm, params, batch)
+                    want_g = tp_leaves(want_g)
+                todo = meshes if backend == "einsum" else {MOE_SORTED_MESH: meshes[MOE_SORTED_MESH]}
+                for name, dims in todo.items():
+                    rules = tp_rules(cfg, dims, simulated_devices(dims[0] * dims[1], dev))
+                    placed = shard_params(rules, params)
+                    with use_rules(rules):
+                        with torch.no_grad(), attention_shapes(with_dv=True) as seen:
+                            logits = lm.prefill_logits(placed, prompt)[:, live].to(dev)
+                        fwd_shapes.update(seen)
+                        rec = dict(logits_rel=rel_err(logits, want_logits))
+                        if with_grads:
+                            with attention_shapes(with_dv=True) as seen:
+                                loss, m, grads = loss_and_grads(lm, placed, batch)
+                            grad_shapes.update(seen)
+                            got = tp_leaves(gather_params(grads))
+                            del grads
+                            rec["loss_rel"] = abs(float(loss) - float(want_loss)) / abs(
+                                float(want_loss))
+                            rec["acc_equal"] = float(m["acc"]) == float(want_m["acc"])
+                            rec["grad_rel"] = {p: rel_err(got[p].to(dev), want_g[p])
+                                               for p in want_g}
+                            rec["grad_rel_max"] = max(rec["grad_rel"].values())
+                            del got
+                        # granite's 1 x 4 with each MoE partial; deepseek's queues (cap 12
+                        # for 256 tokens, 6 for a data shard's 128) with local capacity
+                        fault = ("partial" if (arch, backend, name) == (
+                                     "granite-moe-1b-a400m", "einsum", "1x4") else
+                                 "local_capacity" if (arch, backend) == (
+                                     "deepseek-v2-236b", "sorted") else None)
+                        if fault and with_grads:
+                            with planted_moe_fault(fault), torch.no_grad():
+                                bad, _ = lm.train_loss(placed, batch)
+                            rec[f"planted_{fault}_loss_rel"] = abs(
+                                float(bad) - float(want_loss)) / abs(float(want_loss))
+                        elif fault:
+                            with planted_moe_fault(fault), torch.no_grad():
+                                bad = lm.prefill_logits(placed, prompt)[:, live].to(dev)
+                            rec[f"planted_{fault}_logits_rel"] = rel_err(bad, want_logits)
+                    del placed
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    key = f"{arch} {backend} {name}"
+                    require(rec["logits_rel"] <= TP_LOGITS_TOL,
+                            f"moe float32 {key}: sharded logits {rec['logits_rel']} beyond "
+                            f"{TP_LOGITS_TOL}")
+                    if with_grads:
+                        require(rec["loss_rel"] <= TP_LOSS_TOL and rec["acc_equal"],
+                                f"moe float32 {key}: train_loss {rec['loss_rel']} beyond "
+                                f"{TP_LOSS_TOL}")
+                        require(rec["grad_rel_max"] <= TP_GRAD_TOL,
+                                f"moe float32 {key}: gradient leaves beyond {TP_GRAD_TOL}: "
+                                f"{ {p: e for p, e in rec['grad_rel'].items() if e > TP_GRAD_TOL} }")
+                    for k in rec:
+                        if k.startswith("planted"):
+                            bound = TP_LOSS_TOL if k.endswith("loss_rel") else TP_LOGITS_TOL
+                            require(rec[k] > bound, f"moe float32 {key}: {k} reads {rec[k]}")
+                    out[key] = rec
+                    print(f"lm moe tensor parallel float32 {arch} {layers} layers B={b} x {s} "
+                          f"{backend} {name}: logits {rec['logits_rel']:.3g}"
+                          + (f", train_loss {rec['loss_rel']:.3g}, gradient leaves "
+                             f"{rec['grad_rel_max']:.3g} at worst" if with_grads else "")
+                          + " from the unsharded port"
+                          + "".join(f", {k} {rec[k]:.3g}" for k in rec if k.startswith("planted"))
+                          + f" relative [{card}]", flush=True)
+                if with_grads:
+                    del want_g
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["kernels"] = tp_kernel_checks(dev, grad_shapes, torch.float32, card)
+        out["kernels"].update(tp_kernel_checks(
+            dev, [k for k in fwd_shapes if k not in grad_shapes], torch.float32, card,
+            backward=False))
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def moe_forward(dev, card: str) -> dict:
+    """Phase 19(b): bf16 deepseek-v2-236b at full width, 3 layers (its dense
+    layer and two MoE layers, as in phase 15), B = 2 x 1024, the sharded
+    forward at tp 4 (a main path of the phase) against the unsharded kernel
+    path and the sharded plain path, all on the unsharded run's expert
+    choices (``RoutingReplay`` over the shards)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import shard_params, use_rules
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(get_config(MOE_FWD_ARCH), n_layers=MOE_FWD_LAYERS)
+    vocab = cfg.vocab
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(30))
+    tokens = torch.randint(0, vocab, (MOE_FWD_B, MOE_FWD_S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(31))
+    record = RoutingReplay()
+    with torch.no_grad():
+        with record.run("record"):
+            want = cache_free_logits(lm, params, tokens)[:, :vocab]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache_free_logits(lm, params, tokens)
+        torch.cuda.synchronize()
+        unsharded_wall = (time.perf_counter() - t0) * 1e3
+    n = MOE_FWD_MESH[0] * MOE_FWD_MESH[1]
+    rules = tp_rules(cfg, MOE_FWD_MESH, simulated_devices(n, dev))
+    placed = shard_params(rules, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(placed))
+    replay = RoutingReplay(record.calls, replay_shards(rules))
+    with use_rules(rules), torch.no_grad():
+        lm.prefill_logits(placed, tokens)  # warm-up, its own routing
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with attention_shapes(with_dv=True) as shapes, replay.run("replay"):
+            build.reset_launch_counts()  # the main path: counts set to 0 just before
+            t0 = time.perf_counter()
+            start.record()
+            logits = lm.prefill_logits(placed, tokens)
+            stop.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+    peak = torch.cuda.max_memory_allocated()
+    require(replay.at == replay.expected,
+            f"moe forward: {replay.at} of {replay.expected} routings replayed")
+    err = rel_err(logits[:, :vocab], want)
+    n_launch = cfg.n_layers * n
+    m = cfg.mla
+    shape = (MOE_FWD_B, cfg.n_heads // n, cfg.n_heads // n, MOE_FWD_S, m.nope_dim + m.rope_dim,
+             m.v_dim)
+    require(bool(torch.isfinite(logits[:, :vocab]).all()) and err <= STATE_REL_TOL,
+            f"moe forward {MOE_FWD_ARCH}: sharded logits {err} beyond {STATE_REL_TOL}")
+    require(launches == {"flash_attention": n_launch}
+            and paths == {"flash_attention.tma": n_launch} and dict(shapes) == {shape: n_launch},
+            f"moe forward {MOE_FWD_ARCH}: launches {launches}, paths {paths}, shapes "
+            f"{dict(shapes)}; expected {n_launch} on the TMA path at {shape}")
+    plain_replay = RoutingReplay(record.calls, replay_shards(rules))
+    with use_rules(rules), torch.no_grad(), plain_replay.run("replay"):
+        plain = LM(cfg, use_kernel=False).prefill_logits(placed, tokens)[:, :vocab]
+    plain_err = rel_err(logits[:, :vocab], plain)
+    del plain
+    require(plain_err <= STATE_REL_TOL,
+            f"moe forward {MOE_FWD_ARCH}: sharded logits, kernel path against plain path, "
+            f"{plain_err} beyond {STATE_REL_TOL}")
+    rec = dict(arch=MOE_FWD_ARCH, layers=cfg.n_layers, mesh=list(MOE_FWD_MESH), batch=MOE_FWD_B,
+               seq=MOE_FWD_S, logits_rel=err, kernel_vs_plain_logits_rel=plain_err,
+               routing_replayed=dict(tokens=replay.tokens, own_choice_differs=replay.differing),
+               launches=launches, paths=paths, shapes={str(k): v for k, v in shapes.items()},
+               wall_ms=wall, event_span_ms=start.elapsed_time(stop),
+               unsharded_wall_ms=unsharded_wall, param_bytes=param_bytes, peak_bytes=peak)
+    rec["kernels"] = tp_kernel_checks(dev, shapes, torch.bfloat16, card, backward=False)
+    print(f"lm moe tensor parallel forward {MOE_FWD_ARCH} bf16 {cfg.n_layers} layers over "
+          f"{MOE_FWD_MESH} shards on one card: B={MOE_FWD_B} x {MOE_FWD_S}, logits {err:.4g} from "
+          f"the unsharded kernel path, {plain_err:.4g} from the sharded plain path, on the "
+          f"unsharded run's expert choices ({replay.differing} of {replay.tokens} shard-tokens "
+          f"would have chosen otherwise); {n_launch} flash_attention launches, all TMA, at "
+          f"{shape}; wall {wall:.1f} ms, {rec['event_span_ms']:.1f} ms between events "
+          f"(unsharded backbone and logits: wall {unsharded_wall:.1f} ms); {param_bytes} "
+          f"parameter bytes, peak {peak} bytes [{card}]", flush=True)
+    del placed, logits, want, record, replay, plain_replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_training(dev, card: str) -> dict:
+    """Phase 19(c): bf16 granite-moe-1b-a400m at full width, B = 4 x 1024:
+    three ``build_train_step`` steps under rules on (1, 4) (a main path of
+    the phase); step 0 and the block weights' gradients against the
+    unsharded step's, on its expert choices."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM, collectives
+    from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
+    from repro_torch.optim.adamw import adamw_init, linear_warmup_cosine, tree_leaves
+    from repro_torch.train import build_train_step, synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    lm = LM(cfg, remat=True)
+    params = lm.init(torch.Generator(device=dev).manual_seed(32))
+    batches = [synthetic_batch(lm, MOE_TRAIN_B, MOE_TRAIN_S, 32, s, device=dev)
+               for s in range(MOE_TRAIN_STEPS)]
+    step_fn = build_train_step(lm, lr_schedule=linear_warmup_cosine(3e-4, 2, 10))
+    record = RoutingReplay()
+    with record.run("record"):  # the forward and the remat's recomputation, layer by layer
+        _, _, want = step_fn(params, adamw_init(params), batches[0], 0)
+    want = {k: float(v) for k, v in want.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(params, adamw_init(params), batches[0], 0)
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t0) * 1e3
+    _, _, want_g = loss_and_grads(lm, params, batches[0])
+    want_g = {p: t.float() for p, t in tp_leaves(want_g, MOE_GRAD_LEAVES).items()}
+    n = MOE_TRAIN_MESH[0] * MOE_TRAIN_MESH[1]
+    rules = tp_rules(cfg, MOE_TRAIN_MESH, simulated_devices(n, dev))
+    placed = shard_params(rules, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with use_rules(rules):
+        replay = RoutingReplay(record.calls, replay_shards(rules))
+        with replay.run("replay"):
+            _, _, grads = loss_and_grads(lm, placed, batches[0])
+        grad_errs = attn_grad_errs({p: t.float() for p, t in tp_leaves(
+            gather_params(grads), MOE_GRAD_LEAVES).items()}, want_g)
+        del grads
+        opt = adamw_init(placed)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(placed) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_stats()
+        step_replay = RoutingReplay(record.calls, replay_shards(rules))
+        hist = []
+        with attention_shapes() as shapes:
+            build.reset_launch_counts()  # the main path: counts set to 0 just before
+            for s, b in enumerate(batches):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                with step_replay.run("replay") if s == 0 else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    start.record()
+                    placed, opt, m = step_fn(placed, opt, b, s)
+                    stop.record()
+                    torch.cuda.synchronize()
+                hist.append(dict(step=s, wall_ms=(time.perf_counter() - t0) * 1e3,
+                                 event_span_ms=start.elapsed_time(stop),
+                                 **{k: float(v) for k, v in m.items()}))
+            launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+        coll = collectives.STATS.as_dict()
+        peak = torch.cuda.max_memory_allocated()
+    for r in (replay, step_replay):
+        require(r.at == r.expected, f"moe training: {r.at} of {r.expected} routings replayed")
+    errs = {k: abs(hist[0][k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+    per_step = {k: c / MOE_TRAIN_STEPS for k, c in launches.items()}
+    fwd, bwd = 2 * cfg.n_layers * n, cfg.n_layers * n
+    shape = (MOE_TRAIN_B, cfg.n_heads // n, cfg.n_kv_heads // n, MOE_TRAIN_S,
+             cfg.resolved_head_dim)
+    require(all(math.isfinite(h["loss"]) for h in hist)
+            and all(e <= TRAIN_REL_TOL for e in errs.values()),
+            f"moe training: step 0 sharded {hist[0]} against unsharded {want}: {errs}")
+    require(max(grad_errs.values()) <= ATTN_GRAD_TOL,
+            f"moe training: block gradients {grad_errs} beyond {ATTN_GRAD_TOL}")
+    require(per_step == {"flash_attention": fwd, "flash_attention_bwd_dq": bwd,
+                         "flash_attention_bwd_dkv": bwd} and set(shapes) == {shape},
+            f"moe training: launches a step {per_step} at {dict(shapes)}; expected {fwd} forward "
+            f"(remat) and {bwd} of each backward kernel at {shape}")
+    for kname in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        require(paths.get(f"{kname}.tma") == launches.get(kname),
+                f"moe training: {kname} paths {paths}: every bf16 launch on the TMA path")
+    walls = [h["wall_ms"] for h in hist]
+    steady = statistics.median(walls[1:])
+    rec = dict(arch=MOE_TRAIN_ARCH, mesh=list(MOE_TRAIN_MESH), batch=MOE_TRAIN_B,
+               seq=MOE_TRAIN_S, steps=hist, unsharded_step0=want, unsharded_step_wall_ms=unsharded_ms,
+               step0_rel=errs, grad_rel=grad_errs,
+               routing_replayed=dict(tokens=step_replay.tokens,
+                                     own_choice_differs=step_replay.differing),
+               launches=launches, launches_per_step=per_step, paths=paths,
+               shapes={str(k): v for k, v in shapes.items()}, step_wall_ms_median=steady,
+               tokens_per_s=MOE_TRAIN_B * MOE_TRAIN_S / (steady / 1e3), state_bytes=state_bytes,
+               peak_bytes=peak, collectives=coll,
+               collective_link_bytes_per_step=coll["link_bytes"] / MOE_TRAIN_STEPS)
+    print(f"lm moe tensor parallel training {MOE_TRAIN_ARCH} bf16 over {MOE_TRAIN_MESH} shards on "
+          f"one card: B={MOE_TRAIN_B} x {MOE_TRAIN_S}, losses {[round(h['loss'], 4) for h in hist]},"
+          f" step 0 against unsharded (its expert choices; {step_replay.differing} of "
+          f"{step_replay.tokens} shard-tokens would have chosen otherwise): loss "
+          f"{errs['loss']:.3g}, grad norm {errs['grad_norm']:.3g} relative; block gradients "
+          f"{max(grad_errs.values()):.4g} at worst; step wall ms {[round(w, 1) for w in walls]} "
+          f"(median of steps 1-{MOE_TRAIN_STEPS - 1} {steady:.1f}, {rec['tokens_per_s']:.0f} "
+          f"tokens/s; unsharded {unsharded_ms:.1f}), ms between events "
+          f"{[round(h['event_span_ms'], 1) for h in hist]}; launches a step "
+          f"{json.dumps(per_step)}, shapes {json.dumps(rec['shapes'])}; collectives "
+          f"{json.dumps(coll)} over {MOE_TRAIN_STEPS} steps; peak {peak} bytes ({state_bytes} of "
+          f"parameters and moments) [{card}]", flush=True)
+    rec["kernels"] = tp_kernel_checks(dev, shapes, torch.bfloat16, card)
+    del placed, opt, record, replay, step_replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_moe_tensor_parallel_phase(dev, card: str) -> dict:
+    """Phase 19: the MoE family tensor-parallel over a mesh of shards."""
+    t0 = time.perf_counter()
+    out = {"float32": moe_float32_check(dev, card)}
+    out["forward"] = moe_forward(dev, card)
+    out["training"] = moe_training(dev, card)
+    out["launches"] = {k: out["forward"]["launches"].get(k, 0) + out["training"]["launches"].get(
+        k, 0) for k in set(out["forward"]["launches"]) | set(out["training"]["launches"])}
+    out["vs_plain"] = dict(
+        kernels={**out["float32"]["kernels"], **out["forward"]["kernels"],
+                 **out["training"]["kernels"]},
+        forward_logits_rel=out["forward"]["kernel_vs_plain_logits_rel"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm moe tensor parallel phase: {out['seconds']:.1f} s, launches on the main path "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4757,6 +5226,7 @@ def main() -> int:
     lm_families = lm_families_phase(dev, card)
     lm_training = lm_training_phase(dev, card)
     lm_tp = lm_tensor_parallel_phase(dev, card)
+    lm_moe_tp = lm_moe_tensor_parallel_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -4856,6 +5326,10 @@ def main() -> int:
         lm_tensor_parallel_shapes=dict(forward=lm_tp["forward"]["shapes"],
                                        training=lm_tp["training"]["shapes"]),
         lm_tensor_parallel_vs_plain=lm_tp["vs_plain"],
+        launches_lm_moe_tensor_parallel=lm_moe_tp["launches"].get("flash_attention", 0),
+        lm_moe_tensor_parallel_shapes=dict(forward=lm_moe_tp["forward"]["shapes"],
+                                           training=lm_moe_tp["training"]["shapes"]),
+        lm_moe_tensor_parallel_vs_plain=lm_moe_tp["vs_plain"],
     ))
     qwen_case = lm_training["backward"]["qwen05b_4x16x1024x64_causal"]
     for kname, what in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dk dv")):
@@ -4870,6 +5344,10 @@ def main() -> int:
             lm_tensor_parallel_vs_plain={n: dict(shape=r["shape"], path=r["backward_path"],
                                                  rel_err=r["backward_rel_err"])
                                          for n, r in lm_tp["vs_plain"]["kernels"].items()},
+            launches_lm_moe_tensor_parallel=lm_moe_tp["launches"].get(kname, 0),
+            lm_moe_tensor_parallel_vs_plain={
+                n: dict(shape=r["shape"], path=r["backward_path"], rel_err=r["backward_rel_err"])
+                for n, r in lm_moe_tp["vs_plain"]["kernels"].items() if "backward_path" in r},
             paths={n: c for n, c in lm_training["qwen"]["paths"].items()
                    if n.startswith(kname + ".")},
             max_abs_err=max(max(r["max_abs_err"][g] for g in what.split())
@@ -4907,6 +5385,7 @@ def main() -> int:
     serve["lm_families"] = lm_families
     serve["lm_training"] = lm_training
     serve["lm_tensor_parallel"] = lm_tp
+    serve["lm_moe_tensor_parallel"] = lm_moe_tp
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

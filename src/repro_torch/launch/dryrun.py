@@ -12,19 +12,25 @@ no HLO.  For each cell the dry run:
   3. places them by the specs of ``models/lm/sharding.py`` and records each
      device's bytes of parameters, optimizer state, inputs and cache, for
      every applicable cell and every family,
-  4. for the families that the port runs tensor-parallel (dense, VLM) and
-     the train and prefill shapes, traces the cell's step on meta shards
-     (the train step with remat; the prefill's logits) and counts its FLOPs,
-     bytes and collective traffic (``launch/cost.py``).  One data-parallel
-     replica (the model axis's 16 shards) is traced, since the others repeat
-     it; the data axes' gradient all-reduce is added from the specs,
+  4. for the families that the port runs tensor-parallel (dense, VLM, MoE)
+     and the train and prefill shapes, traces the cell's step on meta
+     shards (the train step with remat; the prefill's logits) and counts its
+     FLOPs, bytes and collective traffic (``launch/cost.py``).  One
+     data-parallel replica (the model axis's 16 shards) is traced, since the
+     others repeat it; the data axes' gradient all-reduce is added from the
+     specs.  The MoE family is traced with the einsum backend, the
+     reference's dry-run baseline (the sorted backend's ``bincount`` and
+     ``argsort`` depend on the data, which ``meta`` does not have),
   5. writes ``roofline_terms`` against the H100's published peaks
      (``cost.HW``) to ``<out>/<arch>__<shape>__<mesh>.json``.
 
-Other cells are ``specs_only``, with the reason: the MoE, SSM, hybrid and
-audio families do not run tensor-parallel in the port yet, nor does decode
-(the sharded cache).  The default output is ``build/dryrun/`` of the
-checkout (the reference's ``experiments/dryrun/`` stays its own).
+Other cells are ``specs_only``, with the reason: the SSM, hybrid and audio
+families do not run tensor-parallel in the port yet, nor does decode (the
+sharded cache).  :func:`run_cell` takes the reference's variant keywords:
+``tag`` (a separate record), ``cfg_override``, ``fsdp`` (ZeRO-3 weight
+sharding over the data axes), ``model_kwargs`` and ``train_kwargs``.  The
+default output is ``build/dryrun/`` of the checkout (the reference's
+``experiments/dryrun/`` stays its own).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k [--multi-pod]
@@ -123,7 +129,7 @@ def _merge(a: dict, b: dict) -> dict:
     return out
 
 
-def _trace(model, params, shape, rules, multi_pod: bool, placed) -> dict:
+def _trace(model, params, shape, rules, multi_pod: bool, placed, train_kwargs=None) -> dict:
     """Trace one data-parallel replica of the cell's step: per-device FLOPs,
     bytes and collectives."""
     tp, dp = rules.tp, rules.dp()
@@ -134,7 +140,7 @@ def _trace(model, params, shape, rules, multi_pod: bool, placed) -> dict:
     t0 = time.time()
     with use_rules(trace_rules):
         if shape.kind == "train":
-            step_fn = build_train_step(model)
+            step_fn = build_train_step(model, **(train_kwargs or {}))
             _, cost = count(step_fn, params, adamw_init(params), batch, 0)
         else:
             with torch.no_grad():
@@ -149,15 +155,25 @@ def _trace(model, params, shape, rules, multi_pod: bool, placed) -> dict:
         collectives.count_gradient_sync(rules, placed)
         coll = _merge(coll, collectives.STATS.as_dict())
         note += "; the data axes' gradient all-reduce added from the specs"
+    if rules.fsdp and dp > 1:
+        note += ("; FSDP's weight all-gathers and reduce-scatters over the data axes are not "
+                 "counted (the traced replica has one data shard)")
     return dict(trace_s=trace_s, flops=cost.flops / tp, bytes=cost.bytes / tp,
                 operators=cost.ops, collectives=coll, traced=note)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR, *,
-             reduced: bool = False):
+             reduced: bool = False, tag: str = "", cfg_override=None, fsdp: bool = False,
+             model_kwargs: dict | None = None, train_kwargs: dict | None = None):
     """Place (and where the port runs it, trace) one cell.  ``reduced`` takes
-    the config's and the shape's ``.reduced()`` on the production mesh."""
+    the config's and the shape's ``.reduced()`` on the production mesh.  As
+    in the reference, variants pass ``tag`` (a separate record),
+    ``cfg_override`` (ModelConfig -> ModelConfig), ``fsdp`` (ZeRO-3 weight
+    sharding over the data axes), ``model_kwargs`` (``LM`` constructor knobs)
+    and ``train_kwargs`` (``build_train_step``'s)."""
     cfg = _config(arch, reduced)
+    if cfg_override is not None:
+        cfg = cfg_override(cfg)
     shape = _shape(shape_name, reduced)
     ok, why = cell_applicable(cfg, shape)
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -165,8 +181,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
         "arch": arch,
         "shape": shape_name,
         "mesh": mesh_name,
+        "tag": tag,
         "kind": shape.kind,
         "reduced": reduced,
+        "fsdp": fsdp,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
     }
@@ -177,8 +195,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
         return record
 
     mesh = make_production_mesh(multi_pod=multi_pod)
-    rules = ShardingRules(mesh, cfg, dp_axes=DP_AXES(multi_pod))
-    model = LM(cfg, remat=(shape.kind == "train"))
+    rules = ShardingRules(mesh, cfg, dp_axes=DP_AXES(multi_pod), fsdp=fsdp)
+    model = LM(cfg, remat=(shape.kind == "train"), **(model_kwargs or {}))
     t0 = time.time()
     params = model.init_shapes()
     p_specs = param_pspecs(rules, params)
@@ -217,7 +235,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
         print(f"[dryrun] SPECS {arch} x {shape_name} x {mesh_name}: {record['reason']}")
         return record
 
-    record.update(_trace(model, params, shape, rules, multi_pod, placed))
+    record.update(_trace(model, params, shape, rules, multi_pod, placed, train_kwargs))
     record["status"] = "ok"
     record["terms"] = roofline_terms(record, cfg, shape)
     _write(record, out_dir)
@@ -261,7 +279,8 @@ def roofline_terms(record: dict, cfg, shape) -> dict:
 
 def _write(record: dict, out_dir: str):
     os.makedirs(out_dir, exist_ok=True)
-    name = f"{record['arch']}__{record['shape']}__{record['mesh']}.json"
+    tag = f"__{record['tag']}" if record.get("tag") else ""
+    name = f"{record['arch']}__{record['shape']}__{record['mesh']}{tag}.json"
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(record, f, indent=2)
 

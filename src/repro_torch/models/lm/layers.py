@@ -33,7 +33,9 @@ replicated the weights, each shard computes the whole block and nothing is
 reduced.  Where the query heads are split and the KV heads replicated, a
 shard's query heads read the KV heads of their own GQA group
 (:func:`kv_heads_of`), and the attention kernel sees the shard's own head
-counts.
+counts.  :func:`mla_block_shards` runs MLA so: each shard computes the
+latent and the query's low-rank projection from the replicated leaves, and
+its own heads of ``wq_b``, ``wkv_b`` and ``wo``.
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ __all__ = [
     "init_mla",
     "kv_heads_of",
     "mla_block",
+    "mla_block_shards",
     "mla_block_decode",
     "mla_block_with_cache",
     "rms_norm",
@@ -444,7 +447,8 @@ def _mla_query(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
 
 
 def _mla_prefill(p, x, cfg, positions, block, use_kernel):
-    """MLA, naive-expansion path: (out, ckv, k_pe).
+    """MLA, naive-expansion path: (out, ckv, k_pe), over the heads that
+    ``p``'s ``wq_b``, ``wkv_b`` and ``wo`` hold.
 
     On the card the attention is one ``flash_attention`` launch with q and k
     of dim nope + rope and v of dim ``v_dim``, a last-axis slice of the
@@ -452,10 +456,10 @@ def _mla_prefill(p, x, cfg, positions, block, use_kernel):
     ``D^-½``, which the kernel applies."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     q_nope, q_pe = _mla_query(p, x, cfg, positions)
     ckv, k_pe = _mla_latent(p, x, cfg, positions)
     kv = _project(ckv, p["wkv_b"])
+    h = kv.shape[2]  # the heads of p (a shard's own, over a mesh)
     k_nope, v = kv[..., : m.nope_dim], kv[..., m.nope_dim:]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, m.rope_dim)], dim=-1)
     qq = torch.cat([q_nope, q_pe], dim=-1)
@@ -611,5 +615,22 @@ def glu_ffn_shards(rules, p: dict, hs: list, act: str) -> list:
     outs = [glu_ffn({name: blocks[n] for name, blocks in leaves.items()}, h, act)
             for n, h in enumerate(hs)]
     if p["w_down"].split_dim() is None:
+        return outs
+    return all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+
+
+def mla_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, block: int = 1024,
+                     use_kernel: bool = True) -> list:
+    """:func:`mla_block` over the shards of ``rules.mesh``: each shard its own
+    heads of ``wq_b``, ``wkv_b`` and ``wo`` (one attention launch at the
+    shard's head count), the ``wo`` partial sums all-reduced over "model"
+    where the heads are split."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    outs = [mla_block({name: blocks[n] for name, blocks in leaves.items()}, h, cfg, block=block,
+                      use_kernel=use_kernel)
+            for n, h in enumerate(hs)]
+    if p["wo"].split_dim() is None:
         return outs
     return all_reduce_sum(outs, rules.mesh, rules.tp_axis)

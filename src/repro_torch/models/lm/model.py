@@ -35,16 +35,18 @@ it changes memory, not numbers.  On the card the attention's gradient
 is the ``flash_attention`` backward kernels (``kernels/flash_attention/
 autograd.py``).
 
-Tensor parallel: under ``sharding.use_rules(rules)`` the dense and VLM
+Tensor parallel: under ``sharding.use_rules(rules)`` the dense, VLM and MoE
 families run over ``rules.mesh`` with the parameters of
 ``sharding.shard_params``: :meth:`LM.train_loss` (and so the train step) and
 :meth:`LM.prefill_logits`.  The residual stream is a list of one tensor a
 shard; the embedding is looked up in each shard's vocabulary rows and summed
-over "model", each block runs tensor-parallel (``layers.attention_block_shards``,
-``layers.glu_ffn_shards``), and the loss is the reference's vocab-sharded
-branch (:func:`_sharded_chunk_xent`): local logits a shard and chunk, the
-max over "model" with its gradient stopped, the sum of exponentials and the
-gold logit summed over "model", the loss and ``correct`` summed over "data".
+over "model", each block runs tensor-parallel (``layers.attention_block_shards``
+or ``layers.mla_block_shards``, ``layers.glu_ffn_shards`` or
+``moe.moe_ffn_shards``, DeepSeek's ``dense0`` first), and the loss is the
+reference's vocab-sharded branch (:func:`_sharded_chunk_xent`): local logits
+a shard and chunk, the max over "model" with its gradient stopped, the sum of
+exponentials and the gold logit summed over "model", the loss and
+``correct`` summed over "data".
 Any other family under rules raises ``NotImplementedError``: it does not run
 replicated instead.
 """
@@ -73,6 +75,7 @@ from repro_torch.models.lm.layers import (
     init_ffn,
     init_mla,
     mla_block,
+    mla_block_shards,
     rms_norm,
 )
 from repro_torch.models.lm.sharding import active_rules, split_batch
@@ -82,7 +85,7 @@ __all__ = ["FAMILIES", "LM", "TP_FAMILIES"]
 f32 = torch.float32
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 #: The families that run tensor-parallel under sharding rules.
-TP_FAMILIES = ("dense", "vlm")
+TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _padded_vocab(v: int, multiple: int = 256) -> int:
@@ -525,7 +528,7 @@ class LM:
 
     def prefill_logits(self, params, tokens, frontend=None) -> torch.Tensor:
         """The last position's logits (B, Vp) of a prefill, without its cache;
-        under sharding rules over the mesh (the dense and VLM families)."""
+        under sharding rules over the mesh (the dense, VLM and MoE families)."""
         rules = active_rules()
         if rules is None:
             return self.prefill(params, tokens, frontend)[0]
@@ -533,7 +536,7 @@ class LM:
         xs = self._embed_shards(rules, params["embed"], split_batch(rules, tokens))
         if self.cfg.family == "vlm" and frontend is not None:
             xs = self._prepend_frontend(rules, params, split_batch(rules, frontend), xs)
-        hs = self._backbone_shards(rules, params, xs)
+        hs = self._backbone_shards(rules, params, xs, tokens.shape[0] % rules.dp() == 0)
         norm = params["final_norm"].locals()
         outs = self.logits_last(params, [rms_norm(h[:, -1], norm[n], self.cfg.norm_eps)
                                          for n, h in enumerate(hs)])
@@ -557,9 +560,8 @@ class LM:
         if self.cfg.family not in TP_FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.arch_id}: the {self.cfg.family} family does not run tensor-parallel "
-                f"in the port (ROADMAP Queue 1 item 9 lists what is left: the MoE/MLA families, "
-                f"then the audio, SSM and hybrid families); only {', '.join(TP_FAMILIES)} run "
-                "under sharding rules")
+                f"in the port (ROADMAP Queue 1 item 9 lists what is left: the audio, SSM and "
+                f"hybrid families); only {', '.join(TP_FAMILIES)} run under sharding rules")
 
     def _embed_shards(self, rules, leaf, ids: list) -> list:
         """The embedding of each shard's token ids: each shard looks up the
@@ -587,27 +589,42 @@ class LM:
         return [torch.cat([fe.to(self.dtype) @ a, x], dim=1)
                 for fe, a, x in zip(fes, adapter, xs)]
 
-    def _apply_attn_ffn_shards(self, rules, bp, xs: list) -> list:
+    def _apply_attn_ffn_shards(self, rules, bp, xs: list, batch_split: bool) -> list:
+        """:meth:`_apply_attn_ffn` over the mesh: MLA or GQA attention, the
+        MoE or the dense FFN, each tensor-parallel."""
         cfg = self.cfg
         eps = cfg.norm_eps
         hs = [rms_norm(x, w, eps) for x, w in zip(xs, bp["ln1"].locals())]
-        a = attention_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
-                                   use_kernel=self.use_kernel)
+        if cfg.mla:
+            a = mla_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
+                                 use_kernel=self.use_kernel)
+        else:
+            a = attention_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
+                                       use_kernel=self.use_kernel)
         xs = [x + y for x, y in zip(xs, a)]
         hs = [rms_norm(x, w, eps) for x, w in zip(xs, bp["ln2"].locals())]
-        f = glu_ffn_shards(rules, bp["ffn"], hs, cfg.act)
+        if "moe" in bp:
+            f = moe_lib.moe_ffn_shards(rules, bp["moe"], hs, cfg.moe, self.moe_backend,
+                                       batch_split=batch_split)
+        else:
+            f = glu_ffn_shards(rules, bp["ffn"], hs, cfg.act)
         return [x + y for x, y in zip(xs, f)]
 
-    def _backbone_shards(self, rules, params, xs: list) -> list:
-        """:meth:`_backbone` over the mesh, each block recomputed in the
-        backward pass under ``remat``."""
+    def _backbone_shards(self, rules, params, xs: list, batch_split: bool) -> list:
+        """:meth:`_backbone` over the mesh: ``dense0`` first (never
+        recomputed, as in the reference), then each stacked block, recomputed
+        in the backward pass under ``remat``.  ``batch_split``: each shard
+        holds its data shard's rows (else every row; the MoE's capacity
+        follows it)."""
         body = self._apply_attn_ffn_shards
+        for bp in params.get("dense0", []):
+            xs = body(rules, bp, xs, batch_split)
         for bp in stacked(params["blocks"]):
             if self.remat and torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-                xs = checkpoint(body, rules, bp, xs, use_reentrant=False,
+                xs = checkpoint(body, rules, bp, xs, batch_split, use_reentrant=False,
                                 preserve_rng_state=False)
             else:
-                xs = body(rules, bp, xs)
+                xs = body(rules, bp, xs, batch_split)
         return xs
 
     def _logits_last_shards(self, rules, w, h_last: list) -> list:
@@ -638,13 +655,13 @@ class LM:
         xs = self._embed_shards(rules, params["embed"], [t[:, :-1] for t in toks])
         if cfg.family == "vlm":
             xs = self._prepend_frontend(rules, params, split_batch(rules, batch["frontend"]), xs)
-        hs = self._backbone_shards(rules, params, xs)
+        batch_split = tokens.shape[0] % rules.dp() == 0
+        hs = self._backbone_shards(rules, params, xs, batch_split)
         if cfg.family == "vlm":
             hs = [h[:, cfg.n_frontend_tokens:] for h in hs]  # loss only over text positions
         hs = [rms_norm(h, w, cfg.norm_eps) for h, w in zip(hs, params["final_norm"].locals())]
         s = hs[0].shape[1]
         n_chunks = s // _loss_chunk(s, self.loss_chunk)
-        batch_split = tokens.shape[0] % rules.dp() == 0
         loss_sum, correct = _sharded_chunk_xent(rules, self.vp, cfg.vocab, n_chunks, batch_split)(
             hs, params["unembed"], labels, masks)
         denom = denom.to(loss_sum.device)

@@ -21,6 +21,19 @@ its order vary from run to run.  Here the contributions are gathered back
 into (token, expert) order and summed over k in a fixed order (increasing
 expert id, the order the stable sort gives them), so a run is bitwise the
 next.
+
+Over a mesh of shards (:func:`moe_ffn_shards`) the layout is the
+reference's rules': its dense-FFN patterns ``(w_gate|w_up)$`` and
+``w_down$`` match the expert leaves before the expert patterns do, so every
+shard holds every expert and a 1/tp slice of each expert's hidden width
+(``d_ff_expert``), and the shared experts' width likewise.  Each shard
+routes its own tokens (the router is replicated), dispatches them to all
+experts, runs the expert products on its slice and combines a partial
+output; the partials, routed and shared, are summed by one all-reduce over
+"model".  Capacity is the whole batch's, as GSPMD keeps the unsharded
+program's meaning: where the batch is split over the data axes, a shard's
+queue positions start after those that the tokens of the data shards
+before it took (their per-expert counts, exchanged by an all-gather).
 """
 from __future__ import annotations
 
@@ -32,7 +45,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.lm.layers import _normal
 
-__all__ = ["capacity", "dropless", "init_moe", "moe_ffn", "moe_ffn_einsum", "moe_ffn_sorted"]
+__all__ = ["capacity", "dropless", "init_moe", "moe_ffn", "moe_ffn_einsum", "moe_ffn_shards",
+           "moe_ffn_sorted"]
 
 f32 = torch.float32
 
@@ -96,24 +110,51 @@ def dropless(cfg: ModelConfig) -> ModelConfig:
     return replace(cfg, moe=replace(m, capacity_factor=1.01 * m.n_experts / m.top_k))
 
 
-def einsum_queues(idx: torch.Tensor, n_experts: int, cap: int):
+def einsum_queues(idx: torch.Tensor, n_experts: int, cap: int, offset=None):
     """Queue positions of the grouped dispatch.  idx (G, g, K) -> (positions
     (G, g, K, E) float32, kept (G, g, K, E) bool): a (token, k)'s place in
     its expert's queue within the group, counted in (token, k) order, and
-    whether it is below ``cap``."""
+    whether it is below ``cap``.
+
+    ``offset`` (G, E), where given, is each queue's length before the group's
+    first place here (the places that tokens of the group held by earlier
+    data shards took); an index below 0 then marks an empty place (another
+    shard's token), which no queue counts."""
     n_groups, gsz, k = idx.shape
-    onehot = F.one_hot(idx, n_experts).to(f32)               # (G,g,K,E)
+    onehot = F.one_hot(idx.clamp(min=0), n_experts).to(f32)  # (G,g,K,E)
+    if offset is not None:
+        onehot = onehot * (idx >= 0)[..., None]
     flat = onehot.reshape(n_groups, gsz * k, n_experts)
     pos = torch.cumsum(flat, dim=1).reshape(onehot.shape) - onehot  # exclusive
+    if offset is not None:
+        pos = pos + offset[:, None, None, :]
     return pos, (pos < cap) & (onehot > 0)
 
 
-def moe_ffn_einsum(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """GShard grouped-einsum dispatch.  x: (B, S, D) -> (B, S, D).
+def _einsum_dispatch(p, xg: torch.Tensor, gates: torch.Tensor, pos, within, cap: int):
+    """The routed experts' output of the grouped dispatch, (G, g, D), from the
+    groups' tokens xg (G, g, D), their gates (G, g, K) and queues
+    (:func:`einsum_queues`); ``p``'s expert leaves may hold a slice of
+    ``d_ff_expert`` (a partial output then).
 
     The (G, g, K, E, C) one-hots of the reference are built by one scatter
     of the kept (token, k)'s into zeros of the model's type: the same 0/1
     tensor, without ``one_hot``'s int64 intermediate."""
+    keep = torch.zeros((*pos.shape, cap), dtype=xg.dtype, device=xg.device)  # (G,g,K,E,C)
+    slot = pos.to(torch.int64).clamp(max=cap - 1)[..., None]
+    keep.scatter_(-1, slot, within[..., None].to(xg.dtype))
+    dispatch = keep.sum(2)                                   # (G,g,E,C)
+    combine = (gates[..., None, None].to(xg.dtype) * keep).sum(2)
+    del keep
+    h = torch.einsum("gtec,gtd->gecd", dispatch, xg)         # (G,E,C,D)
+    hg = torch.einsum("gecd,edf->gecf", h, p["w_gate"])
+    hu = torch.einsum("gecd,edf->gecf", h, p["w_up"])
+    out = torch.einsum("gecf,efd->gecd", _silu(hg, xg.dtype) * hu, p["w_down"])
+    return torch.einsum("gtec,gecd->gtd", combine, out)      # (G,g,D)
+
+
+def moe_ffn_einsum(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """GShard grouped-einsum dispatch.  x: (B, S, D) -> (B, S, D)."""
     b, s, d = x.shape
     t = b * s
     gsz = min(cfg.group_size, t)
@@ -121,35 +162,24 @@ def moe_ffn_einsum(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     if n_groups * gsz != t:
         raise ValueError(f"tokens {t} not divisible by group {gsz}")
     cap = capacity(gsz, cfg)
-    e = cfg.n_experts
     xg = x.reshape(n_groups, gsz, d)
 
     gates, idx = _router(p, xg.reshape(t, d), cfg)           # (T,K)
     gates = gates.reshape(n_groups, gsz, cfg.top_k)
     idx = idx.reshape(n_groups, gsz, cfg.top_k)
-    pos, within = einsum_queues(idx, e, cap)
-    keep = torch.zeros((*pos.shape, cap), dtype=x.dtype, device=x.device)  # (G,g,K,E,C)
-    slot = pos.to(torch.int64).clamp(max=cap - 1)[..., None]
-    keep.scatter_(-1, slot, within[..., None].to(x.dtype))
-    dispatch = keep.sum(2)                                   # (G,g,E,C)
-    combine = (gates[..., None, None].to(x.dtype) * keep).sum(2)
-    del keep
-    h = torch.einsum("gtec,gtd->gecd", dispatch, xg)         # (G,E,C,D)
-    hg = torch.einsum("gecd,edf->gecf", h, p["w_gate"])
-    hu = torch.einsum("gecd,edf->gecf", h, p["w_up"])
-    out = torch.einsum("gecf,efd->gecd", _silu(hg, x.dtype) * hu, p["w_down"])
-    y = torch.einsum("gtec,gecd->gtd", combine, out)         # (G,g,D)
-    y = y.reshape(b, s, d)
+    pos, within = einsum_queues(idx, cfg.n_experts, cap)
+    y = _einsum_dispatch(p, xg, gates, pos, within, cap).reshape(b, s, d)
     if "shared" in p:
         y = y + _shared_ffn(p, x)
     return y
 
 
-def sorted_queues(idx: torch.Tensor, n_experts: int, cap: int):
+def sorted_queues(idx: torch.Tensor, n_experts: int, cap: int, offset=None):
     """The sorted dispatch's queues.  idx (T, K) -> (order (T·K,), the stable
     sort of the flat (token, k)'s by expert; slot (T·K,) in the (E·C + 1)
     buffer, E·C for a dropped one; keep (T·K,) bool), the last two in sorted
-    order."""
+    order.  ``offset`` (E,), where given, is each queue's length before the
+    first (token, k) here (the choices of earlier data shards' tokens)."""
     t, k = idx.shape
     e_flat = idx.reshape(t * k)
     order = torch.argsort(e_flat, stable=True)
@@ -157,20 +187,21 @@ def sorted_queues(idx: torch.Tensor, n_experts: int, cap: int):
     counts = torch.bincount(e_flat, minlength=n_experts)
     seg_start = torch.cumsum(counts, 0) - counts             # (E,)
     pos = torch.arange(t * k, device=idx.device) - seg_start[e_s]
+    if offset is not None:
+        pos = pos + offset[e_s]
     keep = pos < cap
     slot = torch.where(keep, e_s * cap + pos, n_experts * cap)
     return order, slot, keep
 
 
-def moe_ffn_sorted(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """Sort-based ragged dispatch (no dispatch matmul).  x: (B, S, D)."""
-    b, s, d = x.shape
-    t = b * s
-    xt = x.reshape(t, d)
-    gates, idx = _router(p, xt, cfg)                          # (T,K)
-    k, e = cfg.top_k, cfg.n_experts
-    cap = capacity(t, cfg)
-    order, slot, keep = sorted_queues(idx, e, cap)
+def _sorted_dispatch(p, xt: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor, cap: int,
+                     offset=None) -> torch.Tensor:
+    """The routed experts' output of the sorted dispatch, (T, D), from the
+    tokens xt (T, D) and their routing (T, K); ``p``'s expert leaves may hold
+    a slice of ``d_ff_expert`` (a partial output then)."""
+    t, d = xt.shape
+    k, e = idx.shape[1], p["w_gate"].shape[0]
+    order, slot, keep = sorted_queues(idx, e, cap, offset)
     tok_s = order // k
     g_s = gates.reshape(t * k)[order]
 
@@ -189,7 +220,16 @@ def moe_ffn_sorted(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     y = back[:, 0]
     for j in range(1, k):
         y = y + back[:, j]
-    y = y.reshape(b, s, d)
+    return y
+
+
+def moe_ffn_sorted(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Sort-based ragged dispatch (no dispatch matmul).  x: (B, S, D)."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    gates, idx = _router(p, xt, cfg)                          # (T,K)
+    y = _sorted_dispatch(p, xt, gates, idx, capacity(t, cfg)).reshape(b, s, d)
     if "shared" in p:
         y = y + _shared_ffn(p, x)
     return y
@@ -201,3 +241,112 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, backend: str = "einsum"):
     if backend == "sorted":
         return moe_ffn_sorted(p, x, cfg)
     raise ValueError(backend)
+
+
+# --------------------------------------------------------------------------
+# Over a mesh of shards (tensor parallel over d_ff_expert)
+# --------------------------------------------------------------------------
+def _earlier_counts(rules, counts: list) -> list:
+    """Each shard's exclusive sum, over the data shards before it, of the
+    per-expert counts ``counts`` (one integer tensor a shard): all-gathered
+    over the data axes, then summed up to the shard's own data index."""
+    from repro_torch.models.lm.collectives import all_gather
+
+    mesh, dp_axis = rules.mesh, rules.axis("batch")
+    gathered = all_gather([c[None] for c in counts], mesh, dp_axis, dim=0)
+    return [g[:mesh.axis_index(coord, dp_axis)].sum(0)
+            for coord, g in zip(mesh.coords, gathered)]
+
+
+def _einsum_shards(rules, leaves: list, hs: list, cfg: MoEConfig, batch_split: bool) -> list:
+    """Each shard's routed partial by the grouped dispatch, its tokens queued
+    at their places in the whole batch's groups."""
+    mesh = rules.mesh
+    b_loc, s, d = hs[0].shape
+    t_loc = b_loc * s
+    dp = rules.dp() if batch_split else 1
+    t = t_loc * dp
+    gsz = min(cfg.group_size, t)
+    if t % gsz:
+        raise ValueError(f"tokens {t} not divisible by group {gsz}")
+    cap, e, k = capacity(gsz, cfg), cfg.n_experts, cfg.top_k
+    # a group spans two data shards: each shard lays its tokens out at their
+    # places in its groups, the other shards' places empty (index -1, zero
+    # rows), and the counts of the shards before it offset its queues
+    straddle = t_loc % gsz != 0
+    placed, counts = [], []
+    for coord, p, h in zip(mesh.coords, leaves, hs):
+        x = h.reshape(t_loc, d)
+        gates, idx = _router(p, x, cfg)
+        lead = g0 = 0
+        if straddle:
+            t0 = mesh.axis_index(coord, rules.axis("batch")) * t_loc
+            lead, g0 = t0 % gsz, t0 // gsz
+            pad = (0, 0, lead, -(lead + t_loc) % gsz)
+            x, gates, idx = F.pad(x, pad), F.pad(gates, pad), F.pad(idx, pad, value=-1)
+            mine = F.one_hot(idx.clamp(min=0), e) * (idx >= 0)[..., None]
+            count = idx.new_zeros((t // gsz, e))
+            count[g0:g0 + idx.shape[0] // gsz] = mine.reshape(-1, gsz * k, e).sum(1)
+            counts.append(count)
+        n_loc = x.shape[0] // gsz
+        placed.append((lead, g0, x.reshape(n_loc, gsz, d), gates.reshape(n_loc, gsz, k),
+                       idx.reshape(n_loc, gsz, k)))
+    before = _earlier_counts(rules, counts) if straddle else [None] * len(hs)
+    outs = []
+    for p, off, (lead, g0, xg, gates, idx) in zip(leaves, before, placed):
+        if off is not None:
+            off = off[g0:g0 + xg.shape[0]].to(f32)
+        pos, within = einsum_queues(idx, e, cap, off)
+        y = _einsum_dispatch(p, xg, gates, pos, within, cap).reshape(-1, d)
+        outs.append(y[lead:lead + t_loc].reshape(b_loc, s, d))
+    return outs
+
+
+def _sorted_shards(rules, leaves: list, hs: list, cfg: MoEConfig, batch_split: bool) -> list:
+    """Each shard's routed partial by the sorted dispatch: the whole batch's
+    capacity, its queues offset by the earlier data shards' choices."""
+    b_loc, s, d = hs[0].shape
+    t_loc = b_loc * s
+    dp = rules.dp() if batch_split else 1
+    cap = capacity(t_loc * dp, cfg)
+    routed = [_router(p, h.reshape(t_loc, d), cfg) for p, h in zip(leaves, hs)]
+    if dp > 1:
+        before = _earlier_counts(rules, [torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+                                         for _, idx in routed])
+    else:
+        before = [None] * len(hs)
+    return [_sorted_dispatch(p, h.reshape(t_loc, d), gates, idx, cap, off).reshape(b_loc, s, d)
+            for p, h, (gates, idx), off in zip(leaves, hs, routed, before)]
+
+
+def moe_ffn_shards(rules, p: dict, hs: list, cfg: MoEConfig, backend: str = "einsum", *,
+                   batch_split: bool = True) -> list:
+    """:func:`moe_ffn` over the shards of ``rules.mesh`` (module docstring):
+    ``p`` holds ``sharding.Sharded`` leaves, ``hs`` one (B_loc, S, D) input a
+    shard, each the rows of its data shard where ``batch_split`` (else every
+    row); returns one output a shard.  The routed and shared partials are
+    summed by one all-reduce over "model"; a leaf that the divisibility guard
+    replicated gives a whole output, added after it."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    experts = {name: leaf.locals() for name, leaf in p.items() if name != "shared"}
+    leaves = [{name: blocks[n] for name, blocks in experts.items()} for n in range(len(hs))]
+    if backend == "einsum":
+        routed = _einsum_shards(rules, leaves, hs, cfg, batch_split)
+    elif backend == "sorted":
+        routed = _sorted_shards(rules, leaves, hs, cfg, batch_split)
+    else:
+        raise ValueError(backend)
+    partial, whole = [], []
+    (partial if p["w_down"].split_dim() is not None else whole).append(routed)
+    if "shared" in p:
+        sp = {name: leaf.locals() for name, leaf in p["shared"].items()}
+        shared = [_shared_ffn({"shared": {name: blocks[n] for name, blocks in sp.items()}}, h)
+                  for n, h in enumerate(hs)]
+        (partial if p["shared"]["w_down"].split_dim() is not None else whole).append(shared)
+    outs = [sum(parts[1:], parts[0]) for parts in zip(*partial)] if partial else None
+    if outs is not None:
+        outs = all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+    for part in whole:
+        outs = part if outs is None else [o + y for o, y in zip(outs, part)]
+    return outs

@@ -23,7 +23,7 @@ the first of them, and copied to the others inside the forward pass, so its
 gradient sums over them by itself), :func:`gather_params` puts them back
 together.  Activations are lists with one tensor a shard (``split_batch``);
 the collectives between them are in ``collectives.py``.  The model runs over
-a mesh under :func:`use_rules` (``model.py``: the dense and VLM families).
+a mesh under :func:`use_rules` (``model.py``: the dense, VLM and MoE families).
 """
 from __future__ import annotations
 
@@ -148,6 +148,8 @@ _PARAM_RULES: list[tuple[str, tuple]] = [
     (r"(w_gate|w_up)$", (None, "model")),          # dense FFN (D, F)
     (r"w_down$", ("model", None)),                 # (F, D)
     (r"router$", (None, None)),
+    # never reached, as in the reference: the two dense-FFN patterns above match
+    # the expert leaves first, which split d_ff_expert, not E (moe.py)
     (r"experts?/(w_gate|w_up)$", ("model", None, None)),  # (E, D, F) EP
     (r"experts?/w_down$", ("model", None, None)),
     (r"in_proj$", (None, "model")),                # mamba (D, d_in)

@@ -1657,13 +1657,15 @@ def test_train_step_kernel_matches_plain(dev, arch):
 
 
 @pytest.mark.parametrize("dims", [(1, 2), (1, 4), (2, 2)], ids=lambda d: f"{d[0]}x{d[1]}")
-@pytest.mark.parametrize("arch", ["qwen3-8b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "internvl2-1b", "granite-moe-1b-a400m",
+                                  "deepseek-v2-236b"])
 def test_tensor_parallel_float32_matches_unsharded(dev, arch, dims):
-    """Phase 18(a) at ``.reduced()``: float32, TF32 off, shards simulated on
-    the card against the unsharded port on the same weights: the last logits
-    within 1e-4, ``train_loss`` within 1e-5 and every gradient leaf, gathered,
-    within 1e-4 (max-normalised); one forward ``flash_attention`` launch a
-    layer a shard (the query heads of (1, 4) read replicated KV heads)."""
+    """Phases 18(a) and 19(a) at ``.reduced()``: float32, TF32 off, shards
+    simulated on the card against the unsharded port on the same weights: the
+    last logits within 1e-4, ``train_loss`` within 1e-5 and every gradient
+    leaf, gathered, within 1e-4 (max-normalised); one forward
+    ``flash_attention`` launch a layer a shard, deepseek's dense layer
+    included (the query heads of (1, 4) read replicated KV heads)."""
     from repro_torch.launch.mesh import make_lm_mesh
     from repro_torch.models.lm.sharding import (
         ShardingRules,

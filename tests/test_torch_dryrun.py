@@ -8,9 +8,13 @@
   reference's ``hlo_stats.CollectiveStats`` on the same bytes;
 * every one of the 40 cells gives a record at its config's and shape's
   ``.reduced()`` on the 16 × 16 production mesh: the 8 skips with the
-  reference's reason, the dense and VLM train and prefill cells traced
-  (``ok``, FLOPs and roofline terms against the H100's peaks), the rest
+  reference's reason, the dense, VLM and MoE train and prefill cells traced
+  (14 ``ok``, FLOPs and roofline terms against the H100's peaks), the rest
   ``specs_only`` with the reason;
+* ``run_cell``'s reference keywords: deepseek-v2-236b's full-scale train
+  cell placed with ``fsdp=True`` (the reference's ZeRO-3 note) holds at
+  most 16 GB of parameters and Adam moments a device, and ``tag``,
+  ``cfg_override`` and ``model_kwargs`` reach the record;
 * one full-scale cell (qwen1.5-0.5b × train_4k × 16 × 16) on the meta
   device, in a fresh interpreter: its per-device parameter bytes equal a
   count by hand from the reference's specs, and the process's peak RSS
@@ -119,9 +123,10 @@ def test_every_cell_gives_a_record_at_reduced_size(tmp_path):
             assert r["per_device_bytes"]["opt_state"] > 0
     assert len(by_status["skipped"]) == 8
     assert sorted(by_status["ok"]) == sorted(
-        (a, s) for a in ("qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b", "internvl2-1b")
+        (a, s) for a in ("qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b", "internvl2-1b",
+                         "granite-moe-1b-a400m", "deepseek-v2-236b")
         for s in ("train_4k", "prefill_32k"))
-    assert len(by_status["specs_only"]) == 22
+    assert len(by_status["specs_only"]) == 18
     assert cost.HW["peak_flops"] == 989e12 and cost.HW["hbm_bw"] == 3.35e12
     assert cost.HW["link_bw"] == 450e9
 
@@ -166,3 +171,30 @@ def test_full_scale_cell_on_the_meta_device(tmp_path):
     # the train step's FLOPs a device: at least the model's 6·N·tokens over 256 devices
     assert r["flops"] >= 6 * cfg.param_count() * 256 * 4096 / 256 * 0.99
     assert r["collectives"]["link_bytes"] > 0
+
+
+def test_run_cell_places_deepseek_train_with_fsdp(tmp_path, monkeypatch):
+    # placement only: the trace of 60 full-width layers belongs to the full
+    # dry run, not to a unit test
+    monkeypatch.setattr(dryrun, "TP_FAMILIES", ())
+    r = dryrun.run_cell("deepseek-v2-236b", "train_4k", False, str(tmp_path), fsdp=True,
+                        tag="fsdp")
+    assert r["status"] == "specs_only" and r["fsdp"] and r["tag"] == "fsdp"
+    assert (tmp_path / "deepseek-v2-236b__train_4k__16x16__fsdp.json").exists()
+    dev = r["per_device_bytes"]
+    assert dev["params"] + dev["opt_state"] <= 16e9, dev
+    plain = dryrun.run_cell("deepseek-v2-236b", "train_4k", False, str(tmp_path))
+    # without FSDP the same cell does not fit one card's 80 GB
+    assert plain["per_device_bytes"]["params"] + plain["per_device_bytes"]["opt_state"] > 80e9
+
+
+def test_run_cell_takes_the_reference_variant_keywords(tmp_path):
+    import dataclasses
+
+    r = dryrun.run_cell("qwen1.5-0.5b", "prefill_32k", False, str(tmp_path), reduced=True,
+                        tag="wide", cfg_override=lambda c: dataclasses.replace(c, d_ff=512),
+                        model_kwargs={"attn_block": 32})
+    assert r["status"] == "ok" and r["tag"] == "wide"
+    base = dryrun.run_cell("qwen1.5-0.5b", "prefill_32k", False, str(tmp_path), reduced=True)
+    assert r["flops"] > base["flops"] and r["params"] > base["params"]
+    assert (tmp_path / "qwen1.5-0.5b__prefill_32k__16x16__wide.json").exists()
