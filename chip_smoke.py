@@ -233,11 +233,12 @@ Phases (any failure exits non-zero before the result line is printed):
     tensor-core kernels fed by TMA and the float32 one on the scalar
     kernels (``build.PATHS``), each kernel timed beside its
     bound, the plain backward and SDPA's autograd backward; (b)
-    full-width qwen1.5-0.5b (bf16, float32 Adam moments, remat) through
+    full-width qwen1.5-0.5b (bf16, float32 Adam moments, remat), cut to 12
+    of its 24 layers since phase 20 joined, through
     ``Trainer`` at B = 4 x 1024 for 5 steps, the main path of the phase
     (counts reset just before, read just after): the step-0 loss within
-    1.5 of ln V, 24 launches of each backward kernel (every one on the
-    TMA path) and 48 forward launches a step, a checkpoint at step 3 from which a fresh ``Trainer``
+    1.5 of ln V, 12 launches of each backward kernel (every one on the
+    TMA path) and 24 forward launches a step, a checkpoint at step 3 from which a fresh ``Trainer``
     gives steps 4 and 5 bitwise, one step profiled, step 0 against the
     plain path (``use_kernel=False``) within ``TRAIN_REL_TOL`` and each
     attention projection's gradient, layer by layer, within
@@ -307,7 +308,61 @@ Phases (any failure exits non-zero before the result line is printed):
     bytes and the collectives' bytes; and each attention shape that (a)-(c)
     launched, the forward (and where a gradient was taken both backward
     kernels) against the plain versions through the wrappers;
-20. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+20. the SSM, hybrid and audio families tensor-parallel over a mesh of
+    shards (the reference's rules: Mamba2's ``in_proj`` products
+    all-gathered over "model" and each shard's heads run on its block of the
+    inner width, its RMS norm's sums of squares all-reduced; the mLSTM on
+    whole heads, or on the all-gathered q, k, v where a shard holds part of
+    a head; the sLSTM's input part all-gathered and its scan run on every
+    shard, its output MLP split where the guard splits it; the audio
+    encoder over the replicated frontend and the cross attention over each
+    shard's heads): (a) float32, TF32 off, against the unsharded port on the
+    same weights at full width and cut depth, B = 2 x 256: zamba2-2.7b's
+    first group (six Mamba2 blocks and the windowed shared block) on (1, 4),
+    (2, 2) and (1, 16); xlstm-1.3b's first group (seven mLSTM blocks and an
+    sLSTM) and a cut to one mLSTM and one sLSTM block, each on (1, 2)
+    (``up``/``down`` split), (1, 4) (whole heads, ``up``/``down``
+    replicated) and (1, 8) (a head's P over two shards);
+    seamless-m4t-large-v2 at 2 encoder and 2 decoder layers over 1024
+    frames on (1, 4), (2, 2) and (1, 16): the last logits within
+    ``TP_LOGITS_TOL``, ``train_loss`` within ``TP_LOSS_TOL`` and every
+    gradient leaf within ``TP_GRAD_TOL`` (zamba2's gradient is NaN at init
+    in both packages, ROADMAP Queue 3: the shards' NaNs at the unsharded
+    port's elements, the finite rest within the bound; xlstm's 8-layer
+    group's logits and gradients within ``FAM_REORDER_FACTOR`` times the
+    unsharded port's own gap when its weights move one ulp; the same group
+    in float64 (``FAM_FLOAT64``), where that amplified rounding is gone, at
+    the bounds above, the float32 runs' distances from it recorded);
+    planted faults (``tests/torch_tp_probes.py``, shared with the CPU
+    tests) beyond the gradient bound (Mamba2's and the mLSTM's norm over the
+    shard's slice alone, the mLSTM at tp 8 without the gather, a replicated
+    leaf's gradient summed over "model"), in xlstm's group in float64;
+    (b) bf16
+    at full width, the sharded forward at tp 4 (a main path: counts reset
+    just before each, read just after): zamba2 one group at B = 1 x 8192
+    (4 windowed ``flash_attention`` launches at (1, 8, 8192, 80), window
+    4096), seamless 4 + 4 layers at B = 2 x 256 over 1024 frames (16
+    bidirectional at (2, 4, 1024, 64), 16 causal at (2, 4, 256, 64) and 16
+    cross at (2, 4, 256 on 1024, 64)), xlstm one group at B = 2 x 512 (no
+    attention), all TMA, each within ``STATE_REL_TOL`` of the sharded plain
+    path and no further from a float32 run of the same weights than
+    ``ANCHOR_FACTOR`` times the unsharded kernel path, zamba2 and seamless
+    within ``STATE_REL_TOL`` of the unsharded kernel path too (xlstm's bf16
+    runs lie 0.28 from float32, ``FAM_REORDER_SENSITIVE``), wall ms and the
+    span between two events, parameter and peak bytes; (c) bf16
+    ``build_train_step`` at
+    tp 4, three steps each (a main path): seamless 4 + 4 layers at B = 4 x
+    256 over 1024 frames and zamba2 one group at B = 2 x 1024, step 0 within
+    ``TRAIN_REL_TOL`` of the unsharded step and the block weights'
+    gradients within ``ATTN_GRAD_TOL`` layer by layer (zamba2's NaNs at the
+    unsharded step's elements; its later losses NaN, as the unsharded
+    step's gradient is, and its steps 1-2 timed on NaN parameters, which
+    its record and line say), the forward and backward launches a step at the
+    shards' shapes, step wall ms, tokens/s, peak bytes and the collectives'
+    bytes; and each attention shape that (a)-(c) launched (causal,
+    bidirectional, cross or windowed) against the plain versions through
+    the wrappers, the forward and, for (c), both backward kernels;
+21. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -3636,8 +3691,10 @@ BWD_SHAPES = {
 # of each gradient: float32 differs in summation order only; bf16 gradients
 # are float32 sums rounded once to bf16 (2^-8 relative)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# full-width training: qwen1.5-0.5b through Trainer, B x S tokens a step
+# full-width training: qwen1.5-0.5b through Trainer, B x S tokens a step;
+# 12 of its 24 layers since phase 20 joined, to keep the script near 600 s
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE = "qwen1.5-0.5b", 4, 1024, 5, 3
+TRAIN_LAYERS = 12
 # kernel path against plain path on one bf16 step, loss and grad norm
 # relative: one bf16 ulp in an attention output moves later layers' bf16
 # roundings (the LM paths' STATE_REL_TOL)
@@ -3908,7 +3965,7 @@ def full_width_training(dev, card) -> dict:
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
     tc = TrainerConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, total_steps=TRAIN_STEPS + 1,
@@ -3998,7 +4055,7 @@ def full_width_training(dev, card) -> dict:
     # steps 1 .. TRAIN_SAVE - 1: after the first (cuBLAS and allocator
     # warm-up) and before the checkpoint's writer threads share the host
     steady = statistics.median(walls[1:TRAIN_SAVE])
-    rec = dict(arch=TRAIN_ARCH, batch=TRAIN_B, seq=TRAIN_S, params=n_params,
+    rec = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S, params=n_params,
                state_bytes=state_bytes, peak_bytes=peak, losses=[h["loss"] for h in hist],
                grad_norms=[h["grad_norm"] for h in hist], step_wall_ms=walls,
                step_wall_ms_median=steady, tokens_per_s=TRAIN_B * TRAIN_S / (steady / 1e3),
@@ -4008,7 +4065,8 @@ def full_width_training(dev, card) -> dict:
                resumed=got, checkpoint_bytes=ckpt_bytes,
                run_s=run_s, resume_s=resume_s, profile=prof, launches=launches, paths=paths,
                launches_per_step=per_step)
-    print(f"lm training {TRAIN_ARCH}: B={TRAIN_B} x {TRAIN_S}, {n_params} parameters, "
+    print(f"lm training {TRAIN_ARCH} {cfg.n_layers} layers: B={TRAIN_B} x {TRAIN_S}, "
+          f"{n_params} parameters, "
           f"{TRAIN_STEPS} steps, losses {[round(x, 4) for x in rec['losses']]}, step wall ms "
           f"{[round(w, 1) for w in walls]} (steps 1-{TRAIN_SAVE - 1}, no save in flight: median "
           f"{steady:.1f}, "
@@ -4118,23 +4176,35 @@ TP_GRAD_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 @contextlib.contextmanager
-def attention_shapes(with_dv: bool = False):
-    """Counts ``ops.attention``'s calls by (B, H, Hkv, S, D), with ``with_dv``
-    (B, H, Hkv, S, D, Dv), while active."""
+def attention_shapes():
+    """Counts ``ops.attention``'s calls by their shards' own shapes and
+    kinds, (B, H, Hkv, Sq, Sk, D, Dv, causal, window) (``attention_key``),
+    while active."""
     from repro_torch.kernels.flash_attention import ops
 
     seen, real = collections.Counter(), ops.attention
 
-    def recorded(q, k, v, **kwargs):
-        key = (q.shape[0], q.shape[2], k.shape[2], q.shape[1], q.shape[3])
-        seen[key + (v.shape[3],) if with_dv else key] += 1
-        return real(q, k, v, **kwargs)
+    def recorded(q, k, v, *, causal=True, window=0, **kwargs):
+        seen[attention_key(q.shape[0], q.shape[2], k.shape[2], q.shape[1], q.shape[3],
+                           sk=k.shape[1], dv=v.shape[3], causal=causal, window=window)] += 1
+        return real(q, k, v, causal=causal, window=window, **kwargs)
 
     ops.attention = recorded
     try:
         yield seen
     finally:
         ops.attention = real
+
+
+def attention_key(b, h, hkv, sq, d, *, sk=None, dv=None, causal=True, window=0) -> tuple:
+    """(B, H, Hkv, Sq, Sk, D, Dv, causal, window): Sk and Dv default to Sq and D."""
+    return (b, h, hkv, sq, sq if sk is None else sk, d, d if dv is None else dv, causal, window)
+
+
+def attention_kind(key) -> str:
+    *_, sq, sk, _, _, causal, window = key
+    return ("window" if window else "causal" if causal
+            else "cross" if sq != sk else "bidirectional")
 
 
 @contextlib.contextmanager
@@ -4209,33 +4279,41 @@ def tp_leaves(tree, keep=None) -> dict:
 
 def tp_kernel_checks(dev, shapes, dtype, card: str, backward: bool = True) -> dict:
     """The attention shapes that a tensor-parallel main path launched (each
-    shard's own head counts: (B, H, Hkv, S, D[, Dv]) from
-    ``attention_shapes``), the kernels against their plain versions through
-    their wrappers on seeded inputs: the forward (``attention_check``) and,
-    with ``backward``, both backward kernels (``backward_case``), each within
-    its phase-15 or phase-17 tolerance."""
+    shard's own head counts, causal or not, windowed or not, Sq ≠ Sk: the
+    keys of ``attention_shapes``), the kernels against their plain versions
+    through their wrappers on seeded inputs: the forward
+    (``attention_check``) and, with ``backward``, both backward kernels
+    (``backward_case``), each within its phase-15 or phase-17 tolerance."""
     out = {}
     for i, key in enumerate(sorted(shapes)):
-        b, h, hkv, s, d = key[:5]
-        dv = key[5] if len(key) > 5 else d
-        shape = (b, h, hkv, s, s, d, dv)
-        name = (f"tp_{b}x{h}on{hkv}x{s}x{d}" + (f"_v{dv}" if dv != d else "")
+        b, h, hkv, sq, sk, d, dv, causal, window = key
+        shape = (b, h, hkv, sq, sk, d, dv)
+        kind = attention_kind(key)
+        name = (f"tp_{b}x{h}on{hkv}x{sq}" + (f"on{sk}" if sk != sq else "") + f"x{d}"
+                + (f"_v{dv}" if dv != d else "")
+                + (f"_w{window}" if window else "" if kind == "causal" else f"_{kind}")
                 + f"_{str(dtype).removeprefix('torch.')}")
-        _, err = attention_check(dev, name, shape, dtype, True, 180 + i)
-        out[name] = dict(shape=list(shape), forward_max_abs_err=err)
+        _, err = attention_check(dev, name, shape, dtype, causal, 180 + i, window)
+        out[name] = dict(shape=list(shape), causal=causal, window=window,
+                         forward_max_abs_err=err)
         if backward:
-            bwd = backward_case(dev, name, shape, True, 0, dtype, 190 + i, card)
+            bwd = backward_case(dev, name, shape, causal, window, dtype, 190 + i, card)
             out[name].update(backward_rel_err=bwd["rel_err"], backward_max_abs_err=bwd["max_abs_err"],
                              backward_path=bwd["path"])
     return out
 
 
-def cache_free_logits(lm, params, tokens) -> torch.Tensor:
+def cache_free_logits(lm, params, tokens, frontend=None) -> torch.Tensor:
     """The unsharded counterpart of the sharded ``prefill_logits``: the
-    backbone and the last position's logits, with no KV cache built."""
+    backbone (the audio family's encoder over ``frontend`` and its decoder)
+    and the last position's logits, with no cache built."""
     from repro_torch.models.lm.layers import rms_norm
 
-    x = lm._backbone(params, lm.embed(params, tokens))
+    x = lm.embed(params, tokens)
+    if lm.cfg.family == "audio":
+        x = lm._decoder(params, x, lm._encode(params, frontend))
+    else:
+        x = lm._backbone(params, x)
     return lm.logits_last(params, rms_norm(x[:, -1], params["final_norm"], lm.cfg.norm_eps))
 
 
@@ -4254,6 +4332,7 @@ def tp_float32_check(dev, devices_for, card: str, what: str) -> dict:
     from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
     from repro_torch.train import synthetic_batch
     from repro_torch.train.step import loss_and_grads
+    from torch_tp_probes import planted
 
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -4414,7 +4493,7 @@ def tp_forward(dev, card: str) -> dict:
     err = rel_err(logits[:, :cfg.vocab], want)
     n_launch = cfg.n_layers * n
     h_loc, kv_loc = cfg.n_heads // n, cfg.n_kv_heads // n
-    shape = (TP_FWD_B, h_loc, kv_loc, TP_FWD_S, cfg.resolved_head_dim)
+    shape = attention_key(TP_FWD_B, h_loc, kv_loc, TP_FWD_S, cfg.resolved_head_dim)
     require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()) and err <= STATE_REL_TOL,
             f"tp forward {TP_FWD_ARCH}: sharded logits {err} beyond {STATE_REL_TOL}")
     require(launches == {"flash_attention": n_launch}
@@ -4688,6 +4767,7 @@ def moe_float32_check(dev, card: str) -> dict:
     from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
     from repro_torch.train import synthetic_batch
     from repro_torch.train.step import loss_and_grads
+    from torch_tp_probes import planted
 
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -4710,12 +4790,12 @@ def moe_float32_check(dev, card: str) -> dict:
                     rules = tp_rules(cfg, dims, simulated_devices(dims[0] * dims[1], dev))
                     placed = shard_params(rules, params)
                     with use_rules(rules):
-                        with torch.no_grad(), attention_shapes(with_dv=True) as seen:
+                        with torch.no_grad(), attention_shapes() as seen:
                             logits = lm.prefill_logits(placed, prompt)[:, live].to(dev)
                         fwd_shapes.update(seen)
                         rec = dict(logits_rel=rel_err(logits, want_logits))
                         if with_grads:
-                            with attention_shapes(with_dv=True) as seen:
+                            with attention_shapes() as seen:
                                 loss, m, grads = loss_and_grads(lm, placed, batch)
                             grad_shapes.update(seen)
                             got = tp_leaves(gather_params(grads))
@@ -4827,7 +4907,7 @@ def moe_forward(dev, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with attention_shapes(with_dv=True) as shapes, replay.run("replay"):
+        with attention_shapes() as shapes, replay.run("replay"):
             build.reset_launch_counts()  # the main path: counts set to 0 just before
             t0 = time.perf_counter()
             start.record()
@@ -4842,8 +4922,8 @@ def moe_forward(dev, card: str) -> dict:
     err = rel_err(logits[:, :vocab], want)
     n_launch = cfg.n_layers * n
     m = cfg.mla
-    shape = (MOE_FWD_B, cfg.n_heads // n, cfg.n_heads // n, MOE_FWD_S, m.nope_dim + m.rope_dim,
-             m.v_dim)
+    shape = attention_key(MOE_FWD_B, cfg.n_heads // n, cfg.n_heads // n, MOE_FWD_S,
+                          m.nope_dim + m.rope_dim, dv=m.v_dim)
     require(bool(torch.isfinite(logits[:, :vocab]).all()) and err <= STATE_REL_TOL,
             f"moe forward {MOE_FWD_ARCH}: sharded logits {err} beyond {STATE_REL_TOL}")
     require(launches == {"flash_attention": n_launch}
@@ -4955,8 +5035,8 @@ def moe_training(dev, card: str) -> dict:
     errs = {k: abs(hist[0][k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
     per_step = {k: c / MOE_TRAIN_STEPS for k, c in launches.items()}
     fwd, bwd = 2 * cfg.n_layers * n, cfg.n_layers * n
-    shape = (MOE_TRAIN_B, cfg.n_heads // n, cfg.n_kv_heads // n, MOE_TRAIN_S,
-             cfg.resolved_head_dim)
+    shape = attention_key(MOE_TRAIN_B, cfg.n_heads // n, cfg.n_kv_heads // n, MOE_TRAIN_S,
+                          cfg.resolved_head_dim)
     require(all(math.isfinite(h["loss"]) for h in hist)
             and all(e <= TRAIN_REL_TOL for e in errs.values()),
             f"moe training: step 0 sharded {hist[0]} against unsharded {want}: {errs}")
@@ -5018,6 +5098,587 @@ def lm_moe_tensor_parallel_phase(dev, card: str) -> dict:
     return out
 
 
+# phase 20: the SSM, hybrid and audio families over a mesh of tensor-parallel shards
+# (a) float32 at full width and cut depth against the unsharded port on the
+# same weights: case -> (arch, config changes, B, S, meshes)
+XLSTM_MESHES = {"1x2": (1, 2), "1x4": (1, 4), "1x8": (1, 8)}
+FAM_PROBE = {
+    # one group: six Mamba2 blocks, then the shared block (window 4096)
+    "zamba2-2.7b": ("zamba2-2.7b", dict(n_layers=6), 2, 256,
+                    {"1x4": (1, 4), "2x2": (2, 2), "1x16": (1, 16)}),
+    # one group: seven mLSTM blocks and one sLSTM (H = 4, P = 1024; the
+    # sLSTM's 2730 hidden units): up/down split at tp 2, replicated at 4;
+    # whole heads at tp 2 and 4, a head's P split over two shards at 8
+    "xlstm-1.3b": ("xlstm-1.3b", dict(n_layers=8), 2, 256, XLSTM_MESHES),
+    # the same group in float64 (FAM_FLOAT64)
+    "xlstm-1.3b float64": ("xlstm-1.3b", dict(n_layers=8), 2, 256, XLSTM_MESHES),
+    # one mLSTM block and one sLSTM: the same splits at a depth where the
+    # model is well conditioned (FAM_REORDER_SENSITIVE)
+    "xlstm-1.3b 1+1": ("xlstm-1.3b", dict(n_layers=2, slstm_every=2), 2, 256, XLSTM_MESHES),
+    # two encoder and two decoder layers, 256 text positions over 1024 frames
+    "seamless-m4t-large-v2": ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2), 2, 256,
+                              {"1x4": (1, 4), "2x2": (2, 2), "1x16": (1, 16)}),
+}
+# the planted faults (tests/torch_tp_probes.py, shared with the CPU tests),
+# each on one (case, mesh) of (a)
+FAM_FAULTS = {("zamba2-2.7b", "1x4"): ("norm_over_own_slice", "replicated_grad_summed"),
+              ("xlstm-1.3b float64", "1x4"): ("norm_over_own_slice", "replicated_grad_summed"),
+              ("xlstm-1.3b float64", "1x8"): ("p_split_without_gather",),
+              ("xlstm-1.3b 1+1", "1x8"): ("p_split_without_gather",)}
+# replicated leaves whose gradient the summed-over-"model" fault inflates
+FAM_REPLICATED = {"hybrid": ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip"),
+                  "ssm": ("w_i", "w_f", "b_i", "b_f", "r", "b", "out_norm")}
+# Full-width xlstm on random weights amplifies any change of rounding
+# (exponential gating), the more the deeper: (a) measures that its unsharded
+# port with every weight moved by one float32 ulp moves its own 8-layer
+# logits 1.1e-4 and gradients 1.7e-3 (NVIDIA H100 80GB HBM3, 700.00 W), past
+# TP_LOGITS_TOL and TP_GRAD_TOL, which no order of the shards' sums could
+# then meet, and (b) that its bf16 run lies 0.28 from a float32 run of the
+# same weights, so STATE_REL_TOL from the unsharded bf16 run says nothing.
+# So (a) also runs a cut to one mLSTM and one sLSTM block at the bounds
+# above, and holds the 8-layer group's float32 logits and gradients within
+# FAM_REORDER_FACTOR times the one-ulp gap, measured in the same run.  The
+# independent witness is the same group in float64 (``float64_port``, the
+# same code rounding at float64), where the amplified rounding is gone: the
+# sharded port against the unsharded port at the bounds above, and every
+# planted fault of the group beyond them.  The float32 runs' distances from
+# the float64 run are recorded beside (sharded and unsharded).  (b) holds
+# xlstm by the float32 anchor that every family of (b) also meets (phase
+# 16's ANCHOR_FACTOR).
+FAM_REORDER_SENSITIVE = ("xlstm-1.3b",)
+FAM_REORDER_FACTOR = 8.0
+FAM_FLOAT64 = ("xlstm-1.3b float64",)
+# (b) bf16 sharded forward at tp 4: arch -> (config changes, B, S); zamba2 at
+# 8192 positions so that its 4096 window binds
+FAM_FWD = {
+    "zamba2-2.7b": (dict(n_layers=6), 1, 8192),
+    "seamless-m4t-large-v2": (dict(n_layers=4, enc_layers=4), 2, 256),
+    "xlstm-1.3b": (dict(n_layers=8), 2, 512),
+}
+FAM_MESH = (1, 4)
+# (c) bf16 train steps at tp 4
+FAM_TRAIN = {
+    "seamless-m4t-large-v2": (dict(n_layers=4, enc_layers=4), 4, 256),
+    "zamba2-2.7b": (dict(n_layers=6), 2, 1024),
+}
+FAM_TRAIN_STEPS = 3
+FAM_GRAD_LEAVES = TP_GRAD_LEAVES + ("in_proj", "out_proj")
+# leading layer axes of a stacked tree, by its top-level key
+FAM_LEAD = {"enc_blocks": 1, "dec_blocks": 1, "blocks": 1, "mamba": 2, "mlstm": 2, "slstm": 1}
+
+
+def nan_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``rel_err`` over the elements where ``b`` is finite (in float64 where
+    either is), and inf unless ``a`` is NaN at exactly ``b``'s NaN
+    elements.  Full-width zamba2's gradient is NaN at init (each
+    256-position chunk's decay overflows, ROADMAP Queue 3): the shards must
+    reproduce it."""
+    dt = torch.float64 if torch.float64 in (a.dtype, b.dtype) else torch.float32
+    a, b = a.to(dt), b.to(dt)
+    nan = torch.isnan(b)
+    if not torch.equal(torch.isnan(a), nan):
+        return math.inf
+    if bool(nan.all()):
+        return 0.0
+    fin = ~nan
+    return float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp(min=1e-30))
+
+
+def scalar_rel(a: float, b: float) -> float:
+    """|a − b| / |b|; 0 where both are NaN, inf where one is."""
+    if math.isnan(a) or math.isnan(b):
+        return 0.0 if math.isnan(a) and math.isnan(b) else math.inf
+    return abs(a - b) / abs(b)
+
+
+def family_cfg(arch: str, changes: dict, dtype: str | None = None):
+    """``arch``'s config with ``changes`` (``slstm_every`` goes to its SSM
+    config) and, if given, ``dtype``."""
+    from repro_torch.configs import get_config
+
+    changes = dict(changes)
+    cfg = get_config(arch)
+    if "slstm_every" in changes:
+        changes["ssm"] = dataclasses.replace(cfg.ssm, slstm_every=changes.pop("slstm_every"))
+    cfg = dataclasses.replace(cfg, **changes)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def ulp_gaps(lm, params, batch, want_logits, want_g) -> dict:
+    """The unsharded port with every weight moved by one float32 ulp (a
+    seeded sign an element) against its run on the weights as they are: the
+    last logits' distance and the gradient leaves' largest."""
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step import loss_and_grads
+
+    gen = torch.Generator(device=want_logits.device).manual_seed(1)
+    moved = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.sign(
+        torch.randn(t.shape, generator=gen, device=t.device))), params)
+    with torch.no_grad():
+        logits = cache_free_logits(lm, moved, batch["tokens"][:, :-1], batch.get("frontend"))
+    _, _, grads = loss_and_grads(lm, moved, batch)
+    grads = tp_leaves(grads)
+    return dict(logits_rel=rel_err(logits[:, :want_logits.shape[-1]], want_logits),
+                grad_rel_max=max(nan_rel_err(grads[p], want_g[p]) for p in want_g))
+
+
+def float64_run(lm, params, batch, live) -> tuple:
+    """The unsharded port in float64 (``float64_port``) on ``params`` cast to
+    float64: the last logits and the gradient leaves."""
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step import loss_and_grads
+    from torch_tp_probes import float64_port
+
+    p64 = tree_map(lambda t: t.double(), params)
+    with float64_port(lm):
+        with torch.no_grad():
+            logits = cache_free_logits(lm, p64, batch["tokens"][:, :-1], batch.get("frontend"))
+        _, _, grads = loss_and_grads(lm, p64, batch)
+    return logits[:, live], tp_leaves(grads)
+
+
+def far_from(witness, logits, grads) -> dict:
+    """How far a float32 run's last logits and gradient leaves lie from the
+    float64 ``witness``: the logits', each leaf's and the worst leaf's
+    relative distance."""
+    logits64, g64 = witness
+    leaves = {p: nan_rel_err(grads[p].to(g64[p].device), g64[p]) for p in grads}
+    out = dict(grads=max(leaves.values()), leaves=leaves)
+    if logits is not None:
+        out["logits"] = nan_rel_err(logits, logits64)
+    return out
+
+
+def family_probe_case(dev, card: str, case: str, calls) -> dict:
+    """One case of phase 20(a) (``FAM_PROBE``), in float64 where the case is
+    in ``FAM_FLOAT64``: its meshes against the unsharded port on the same
+    weights, its planted faults; the attention calls added to ``calls``."""
+    import gc
+
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+    from torch_tp_probes import float64_port, planted
+
+    arch, changes, b, s, meshes = FAM_PROBE[case]
+    cfg = family_cfg(arch, changes, "float32")
+    lm = LM(cfg, remat=False, loss_chunk=s)
+    params = lm.init(torch.Generator(device=dev).manual_seed(40))
+    batch = synthetic_batch(lm, b, s, 40, 0, device=dev)
+    prompt, fe, live = batch["tokens"][:, :-1], batch.get("frontend"), slice(0, cfg.vocab)
+    wide = case in FAM_FLOAT64
+    if wide:
+        params = tree_map(lambda t: t.double(), params)
+    out = {}
+    with float64_port(lm) if wide else contextlib.nullcontext():
+        with torch.no_grad():
+            want_logits = cache_free_logits(lm, params, prompt, fe)[:, live]
+        want_loss, want_m, want_g = loss_and_grads(lm, params, batch)
+        want_g = tp_leaves(want_g)
+        nans = {p: int(torch.isnan(g).sum()) for p, g in want_g.items()}
+        nans = dict(leaves=sum(c > 0 for c in nans.values()), of_leaves=len(nans),
+                    elements=sum(nans.values()),
+                    of_elements=sum(g.numel() for g in want_g.values()))
+        logits_tol, grad_tol, witness = TP_LOGITS_TOL, TP_GRAD_TOL, None
+        if case in FAM_REORDER_SENSITIVE:
+            gaps = ulp_gaps(lm, params, batch, want_logits, want_g)
+            logits_tol = max(logits_tol, FAM_REORDER_FACTOR * gaps["logits_rel"])
+            grad_tol = max(grad_tol, FAM_REORDER_FACTOR * gaps["grad_rel_max"])
+            witness = float64_run(lm, params, batch, live)
+            unsharded_far = far_from(witness, want_logits, want_g)
+            out["one ulp"] = dict(gaps, logits_tol=logits_tol, grad_tol=grad_tol,
+                                  unsharded_from_float64=unsharded_far)
+            print(f"lm family tensor parallel float32 {case} {changes}: the unsharded port "
+                  f"with every weight moved one ulp: logits {gaps['logits_rel']:.3g}, "
+                  f"gradient leaves {gaps['grad_rel_max']:.3g} at worst from its own run; the "
+                  f"shards held within {logits_tol:.3g} and {grad_tol:.3g}; the unsharded "
+                  f"float32 run from the float64 run: logits {unsharded_far['logits']:.3g}, "
+                  f"gradient leaves {unsharded_far['grads']:.3g} at worst [{card}]", flush=True)
+        for name, dims in meshes.items():
+            rules = tp_rules(cfg, dims, simulated_devices(dims[0] * dims[1], dev))
+            placed = shard_params(rules, params)
+            with use_rules(rules):
+                with torch.no_grad(), attention_shapes() as seen:
+                    logits = lm.prefill_logits(placed, prompt, fe)[:, live].to(dev)
+                calls.update(seen)
+                with attention_shapes() as seen:
+                    loss, m, grads = loss_and_grads(lm, placed, batch)
+                calls.update(seen)
+                got = tp_leaves(gather_params(grads))
+                del grads
+                rec = dict(logits_rel=nan_rel_err(logits, want_logits),
+                           loss_rel=abs(float(loss) - float(want_loss)) / abs(float(want_loss)),
+                           acc_equal=float(m["acc"]) == float(want_m["acc"]),
+                           grad_rel={p: nan_rel_err(got[p].to(dev), want_g[p]) for p in want_g},
+                           unsharded_grad_nans=nans)
+                rec["grad_rel_max"] = max(rec["grad_rel"].values())
+                if witness is not None:  # recorded, not held: see FAM_FLOAT64
+                    rec["from_float64"] = far_from(witness, logits, got)
+                    rec["from_float64_ratio"] = {k: rec["from_float64"][k] / unsharded_far[k]
+                                                 for k in ("grads", "logits")}
+                    rec["from_float64_leaf_ratio"] = {
+                        p: d / unsharded_far["leaves"][p]
+                        for p, d in rec["from_float64"]["leaves"].items()}
+                del got
+                for fault in FAM_FAULTS.get((case, name), ()):
+                    # held to the gradient bound: at init a block's output is small
+                    # beside the residual, so a fault can move the loss less than
+                    # TP_LOSS_TOL (its loss is recorded beside it)
+                    with planted(fault):
+                        bad_loss, _, grads = loss_and_grads(lm, placed, batch)
+                    bad = tp_leaves(gather_params(grads), FAM_REPLICATED[cfg.family] if
+                                    fault == "replicated_grad_summed" else None)
+                    rec[f"planted_{fault}_grad_rel"] = max(
+                        nan_rel_err(bad[p].to(dev), want_g[p]) for p in bad)
+                    rec[f"planted_{fault}_loss_rel"] = abs(
+                        float(bad_loss) - float(want_loss)) / abs(float(want_loss))
+                    del grads, bad
+            del placed
+            gc.collect()
+            torch.cuda.empty_cache()
+            key = f"{case} {name}"
+            require(rec["logits_rel"] <= logits_tol,
+                    f"family float32 {key}: sharded logits {rec['logits_rel']} beyond {logits_tol}")
+            require(rec["loss_rel"] <= TP_LOSS_TOL and rec["acc_equal"],
+                    f"family float32 {key}: train_loss {rec['loss_rel']} beyond {TP_LOSS_TOL}")
+            require(rec["grad_rel_max"] <= grad_tol,
+                    f"family float32 {key}: gradient leaves beyond {grad_tol}: "
+                    f"{ {p: e for p, e in rec['grad_rel'].items() if e > grad_tol} }")
+            for k in rec:
+                if k.startswith("planted") and k.endswith("grad_rel"):
+                    require(rec[k] > grad_tol, f"family float32 {key}: {k} reads {rec[k]}")
+            out[name] = rec
+            print(f"lm family tensor parallel {'float64' if wide else 'float32'} {case} {changes} "
+                  f"B={b} x {s} {name}: logits {rec['logits_rel']:.3g}, train_loss "
+                  f"{rec['loss_rel']:.3g}, gradient leaves {rec['grad_rel_max']:.3g} at worst from "
+                  f"the unsharded port (its gradient NaN in {nans['leaves']} of "
+                  f"{nans['of_leaves']} leaves, {nans['elements']} of {nans['of_elements']} "
+                  "elements; the shards' NaNs at the same elements)"
+                  + (f"; from the float64 run: logits {rec['from_float64']['logits']:.3g}, "
+                     f"gradient leaves {rec['from_float64']['grads']:.3g} at worst, "
+                     f"{json.dumps(rec['from_float64_ratio'])} times the unsharded float32 "
+                     "run's; leaves furthest beyond it "
+                     + json.dumps({p: round(r, 2) for p, r in sorted(
+                         rec["from_float64_leaf_ratio"].items(), key=lambda kv: -kv[1])[:4]})
+                     if witness is not None else "")
+                  + "".join(f", {k} {rec[k]:.3g}" for k in rec if k.startswith("planted"))
+                  + f" relative [{card}]", flush=True)
+    return out
+
+
+def family_tp_float32_check(dev, card: str) -> dict:
+    """Phase 20(a): float32 zamba2-2.7b, xlstm-1.3b and seamless-m4t-large-v2
+    at full width and cut depth, TF32 off, over simulated shards against the
+    unsharded port on the same weights: the last logits, ``train_loss`` and
+    every gradient leaf gathered; the planted faults; xlstm's 8-layer group
+    also in float64."""
+    import gc
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, calls = {}, collections.Counter()
+    try:
+        for case in FAM_PROBE:
+            for name, rec in family_probe_case(dev, card, case, calls).items():
+                out[f"{case} {name}"] = rec
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["kernels"] = tp_kernel_checks(dev, calls, torch.float32, card, backward=False)
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def family_expected_calls(cfg, b: int, s: int, n: int) -> dict:
+    """The attention calls a forward of ``cfg`` over ``n`` model shards
+    makes: zamba2's windowed shared block once a group; seamless's
+    bidirectional encoder, causal decoder and cross attention once a layer
+    each (over ``n_frontend_tokens`` frames); none for xlstm."""
+    h, hkv, d = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.resolved_head_dim
+    if cfg.family == "hybrid":
+        return {attention_key(b, h, hkv, s, d, window=cfg.sliding_window):
+                n * cfg.n_layers // cfg.attn_every}
+    if cfg.family == "audio":
+        f = cfg.n_frontend_tokens
+        return {attention_key(b, h, hkv, f, d, causal=False): n * cfg.enc_layers,
+                attention_key(b, h, hkv, s, d): n * cfg.n_layers,
+                attention_key(b, h, hkv, s, d, sk=f, causal=False): n * cfg.n_layers}
+    return {}
+
+
+def family_tp_forward(dev, card: str) -> dict:
+    """Phase 20(b): bf16 zamba2-2.7b (one group at B = 1 x 8192), seamless
+    (4 + 4 layers, B = 2 x 256 over 1024 frames) and xlstm-1.3b (one group,
+    B = 2 x 512) at full width, the sharded forward at tp 4 (a main path of
+    the phase: counts reset just before each, read just after) against the
+    unsharded kernel path and the sharded plain path on the same weights."""
+    import gc
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import shard_params, use_rules
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    out, launches, calls = {}, collections.Counter(), collections.Counter()
+    n = FAM_MESH[0] * FAM_MESH[1]
+    for i, (arch, (changes, b, s)) in enumerate(FAM_FWD.items()):
+        cfg = family_cfg(arch, changes)
+        vocab = cfg.vocab
+        lm = LM(cfg)
+        params = lm.init(torch.Generator(device=dev).manual_seed(50 + i))
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        tokens = torch.randint(0, vocab, (b, s), device=dev, generator=gen)
+        fe = (torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen, device=dev)
+              if cfg.frontend else None)
+        with torch.no_grad():
+            want = cache_free_logits(lm, params, tokens, fe)[:, :vocab]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache_free_logits(lm, params, tokens, fe)
+            torch.cuda.synchronize()
+            unsharded_wall = (time.perf_counter() - t0) * 1e3
+            # the float32 anchor: the unsharded plain path in float32 on the same weights
+            params32 = tree_map(lambda t: t.float(), params)
+            lm32 = LM(family_cfg(arch, changes, "float32"), use_kernel=False)
+            anchor = cache_free_logits(lm32, params32, tokens, fe)[:, :vocab]
+            del params32
+        rules = tp_rules(cfg, FAM_MESH, simulated_devices(n, dev))
+        placed = shard_params(rules, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(placed))
+        with use_rules(rules), torch.no_grad():
+            lm.prefill_logits(placed, tokens, fe)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with attention_shapes() as seen:
+                build.reset_launch_counts()  # the main path: counts set to 0 just before
+                t0 = time.perf_counter()
+                start.record()
+                logits = lm.prefill_logits(placed, tokens, fe)
+                stop.record()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                got_launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+        peak = torch.cuda.max_memory_allocated()
+        err = rel_err(logits[:, :vocab], want)
+        anchored = dict(sharded=rel_err(logits[:, :vocab], anchor), unsharded=rel_err(want, anchor))
+        del anchor
+        expected = family_expected_calls(cfg, b, s, n)
+        n_launch = sum(expected.values())
+        require(bool(torch.isfinite(logits[:, :vocab]).all())
+                and (err <= STATE_REL_TOL or arch in FAM_REORDER_SENSITIVE),
+                f"family forward {arch}: sharded logits {err} beyond {STATE_REL_TOL}")
+        require(anchored["sharded"] <= ANCHOR_FACTOR * anchored["unsharded"],
+                f"family forward {arch}: from the float32 run, sharded {anchored['sharded']} "
+                f"against unsharded {anchored['unsharded']}: beyond {ANCHOR_FACTOR} times")
+        require(dict(seen) == expected
+                and got_launches == ({"flash_attention": n_launch} if n_launch else {})
+                and paths == ({"flash_attention.tma": n_launch} if n_launch else {}),
+                f"family forward {arch}: launches {got_launches}, paths {paths}, calls "
+                f"{dict(seen)}; expected {expected}, all on the TMA path")
+        with use_rules(rules), torch.no_grad():
+            plain = LM(cfg, use_kernel=False).prefill_logits(placed, tokens, fe)[:, :vocab]
+        plain_err = rel_err(logits[:, :vocab], plain)
+        del plain
+        require(plain_err <= STATE_REL_TOL,
+                f"family forward {arch}: sharded logits, kernel path against plain path, "
+                f"{plain_err} beyond {STATE_REL_TOL}")
+        launches.update(got_launches)
+        calls.update(seen)
+        kinds = {attention_kind(k): c for k, c in seen.items()}
+        rec = dict(arch=arch, changes=changes, mesh=list(FAM_MESH), batch=b, seq=s,
+                   logits_rel=err, kernel_vs_plain_logits_rel=plain_err,
+                   from_float32=anchored, launches=got_launches,
+                   paths=paths, shapes={str(k): c for k, c in seen.items()}, kinds=kinds,
+                   wall_ms=wall, event_span_ms=start.elapsed_time(stop),
+                   unsharded_wall_ms=unsharded_wall, param_bytes=param_bytes, peak_bytes=peak)
+        out[arch] = rec
+        print(f"lm family tensor parallel forward {arch} bf16 {changes} over {FAM_MESH} shards on "
+              f"one card: B={b} x {s}, logits {err:.4g} from the unsharded kernel path, "
+              f"{plain_err:.4g} from the sharded plain path; from a float32 run of the same "
+              f"weights sharded {anchored['sharded']:.4g}, unsharded {anchored['unsharded']:.4g};"
+              f" flash_attention launches "
+              f"{json.dumps(kinds)}, all TMA, at {sorted(seen)}; wall {wall:.1f} ms, "
+              f"{rec['event_span_ms']:.1f} ms between events (unsharded, no cache: wall "
+              f"{unsharded_wall:.1f} ms); {param_bytes} parameter bytes, peak {peak} bytes "
+              f"[{card}]", flush=True)
+        del placed, logits, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["shapes"] = {str(k): c for k, c in calls.items()}
+    out["kernels"] = tp_kernel_checks(dev, calls, torch.bfloat16, card, backward=False)
+    return out
+
+
+def layer_errs(got: dict, want: dict) -> dict:
+    """``nan_rel_err`` of each leaf, a stacked leaf layer by layer (its
+    leading axes by ``FAM_LEAD``), its largest kept."""
+    errs = {}
+    for name, w in want.items():
+        lead = FAM_LEAD.get(name.split("/")[0], 0)
+        g = got[name].reshape(-1, *w.shape[lead:])
+        errs[name] = max(nan_rel_err(a, c) for a, c in zip(g, w.reshape(-1, *w.shape[lead:])))
+    return errs
+
+
+def family_tp_training(dev, card: str) -> dict:
+    """Phase 20(c): bf16 seamless (4 + 4 layers, B = 4 x 256 over 1024
+    frames) and zamba2-2.7b (one group, B = 2 x 1024) at full width: three
+    ``build_train_step`` steps each under rules at tp 4 (a main path of the
+    phase), step 0 against the unsharded step and the block weights'
+    gradients layer by layer."""
+    import gc
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM, collectives
+    from repro_torch.models.lm.sharding import gather_params, shard_params, use_rules
+    from repro_torch.optim.adamw import adamw_init, linear_warmup_cosine, tree_leaves
+    from repro_torch.train import build_train_step, synthetic_batch
+    from repro_torch.train.step import loss_and_grads
+
+    out, launches, calls = {}, collections.Counter(), collections.Counter()
+    n = FAM_MESH[0] * FAM_MESH[1]
+    for i, (arch, (changes, b, s)) in enumerate(FAM_TRAIN.items()):
+        cfg = family_cfg(arch, changes)
+        lm = LM(cfg, remat=True)
+        params = lm.init(torch.Generator(device=dev).manual_seed(70 + i))
+        batches = [synthetic_batch(lm, b, s, 70 + i, st, device=dev)
+                   for st in range(FAM_TRAIN_STEPS)]
+        step_fn = build_train_step(lm, lr_schedule=linear_warmup_cosine(3e-4, 2, 10))
+        unsharded_ms = []
+        for _ in range(2):  # the second after the first's warm-up
+            t0 = time.perf_counter()
+            _, _, want = step_fn(params, adamw_init(params), batches[0], 0)
+            torch.cuda.synchronize()
+            unsharded_ms.append((time.perf_counter() - t0) * 1e3)
+        want = {k: float(v) for k, v in want.items()}
+        _, _, want_g = loss_and_grads(lm, params, batches[0])
+        want_g = {p: t.float() for p, t in tp_leaves(want_g, FAM_GRAD_LEAVES).items()}
+        grad_nans = sum(int(torch.isnan(g).sum()) for g in want_g.values())
+        rules = tp_rules(cfg, FAM_MESH, simulated_devices(n, dev))
+        placed = shard_params(rules, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        with use_rules(rules):
+            _, _, grads = loss_and_grads(lm, placed, batches[0])
+            grad_errs = layer_errs(tp_leaves(gather_params(grads), FAM_GRAD_LEAVES), want_g)
+            del grads
+            opt = adamw_init(placed)
+            state_bytes = sum(t.numel() * t.element_size() for t in
+                              tree_leaves(placed) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            collectives.reset_stats()
+            hist = []
+            with attention_shapes() as seen:
+                build.reset_launch_counts()  # the main path: counts set to 0 just before
+                for st, bt in enumerate(batches):
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    start.record()
+                    placed, opt, m = step_fn(placed, opt, bt, st)
+                    stop.record()
+                    torch.cuda.synchronize()
+                    hist.append(dict(step=st, wall_ms=(time.perf_counter() - t0) * 1e3,
+                                     event_span_ms=start.elapsed_time(stop),
+                                     **{k: float(v) for k, v in m.items()}))
+                got_launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+            coll = collectives.STATS.as_dict()
+            peak = torch.cuda.max_memory_allocated()
+        errs = {k: scalar_rel(hist[0][k], want[k]) for k in ("loss", "grad_norm")}
+        per_step = {k: c / FAM_TRAIN_STEPS for k, c in got_launches.items()}
+        expected = family_expected_calls(cfg, b, s, n)
+        # a NaN gradient (zamba2's, mirrored) makes every later parameter and loss NaN
+        finite_grads = math.isfinite(want["grad_norm"])
+        calls_once = sum(expected.values())
+        # remat recomputes each encoder and decoder block's attention; zamba2's
+        # shared block is never recomputed (the reference's sites)
+        fwd = calls_once * (2 if cfg.family == "audio" else 1)
+        require(math.isfinite(hist[0]["loss"])
+                and all(math.isfinite(h["loss"]) == finite_grads for h in hist[1:])
+                and all(e <= TRAIN_REL_TOL for e in errs.values()),
+                f"family training {arch}: step 0 sharded {hist[0]} against unsharded {want}: "
+                f"{errs}; losses {[h['loss'] for h in hist]}")
+        require(max(grad_errs.values()) <= ATTN_GRAD_TOL,
+                f"family training {arch}: block gradients {grad_errs} beyond {ATTN_GRAD_TOL}")
+        require(per_step == {"flash_attention": fwd, "flash_attention_bwd_dq": calls_once,
+                             "flash_attention_bwd_dkv": calls_once}
+                and set(seen) == set(expected),
+                f"family training {arch}: launches a step {per_step} at {dict(seen)}; expected "
+                f"{fwd} forward and {calls_once} of each backward kernel at {expected}")
+        for kname in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            require(paths.get(f"{kname}.tma") == got_launches.get(kname),
+                    f"family training {arch}: {kname} paths {paths}: every bf16 launch on TMA")
+        launches.update(got_launches)
+        calls.update(seen)
+        walls = [h["wall_ms"] for h in hist]
+        steady = statistics.median(walls[1:])
+        rec = dict(arch=arch, changes=changes, mesh=list(FAM_MESH), batch=b, seq=s, steps=hist,
+                   unsharded_step0=want, unsharded_step_wall_ms=unsharded_ms[1], step0_rel=errs,
+                   later_steps_on_nan_state=not finite_grads,
+                   grad_rel=grad_errs, unsharded_block_grad_nan_elements=grad_nans,
+                   launches=got_launches, launches_per_step=per_step,
+                   paths=paths, shapes={str(k): c for k, c in seen.items()},
+                   step_wall_ms_median=steady, tokens_per_s=b * s / (steady / 1e3),
+                   state_bytes=state_bytes, peak_bytes=peak, collectives=coll,
+                   collective_link_bytes_per_step=coll["link_bytes"] / FAM_TRAIN_STEPS)
+        out[arch] = rec
+        print(f"lm family tensor parallel training {arch} bf16 {changes} over {FAM_MESH} shards "
+              f"on one card: B={b} x {s}, losses {[round(h['loss'], 4) for h in hist]}, step 0 "
+              f"against unsharded: loss {errs['loss']:.3g}, grad norm {errs['grad_norm']:.3g} "
+              f"relative; block gradients {max(grad_errs.values()):.4g} at worst ({grad_nans} "
+              f"NaN elements in the unsharded step's, the shards' at the same); step wall ms "
+              f"{[round(w, 1) for w in walls]} (median of steps 1-{FAM_TRAIN_STEPS - 1} "
+              f"{steady:.1f}, {rec['tokens_per_s']:.0f} tokens/s; unsharded "
+              f"{unsharded_ms[1]:.1f}"
+              + ("" if finite_grads else "; steps 1-2 on the NaN parameters of step 0's NaN "
+                 "gradient") + "), ms between events "
+              f"{[round(h['event_span_ms'], 1) for h in hist]}; launches a step "
+              f"{json.dumps(per_step)} at {sorted(seen)}; collectives {json.dumps(coll)} over "
+              f"{FAM_TRAIN_STEPS} steps; peak {peak} bytes ({state_bytes} of parameters and "
+              f"moments) [{card}]", flush=True)
+        del placed, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["shapes"] = {str(k): c for k, c in calls.items()}
+    out["kernels"] = tp_kernel_checks(dev, calls, torch.bfloat16, card, backward=True)
+    return out
+
+
+def lm_family_tensor_parallel_phase(dev, card: str) -> dict:
+    """Phase 20: the SSM, hybrid and audio families tensor-parallel over a
+    mesh of shards."""
+    t0 = time.perf_counter()
+    out = {"float32": family_tp_float32_check(dev, card)}
+    out["forward"] = family_tp_forward(dev, card)
+    out["training"] = family_tp_training(dev, card)
+    out["launches"] = {k: out["forward"]["launches"].get(k, 0) + out["training"]["launches"].get(
+        k, 0) for k in set(out["forward"]["launches"]) | set(out["training"]["launches"])}
+    out["vs_plain"] = dict(
+        kernels={**out["float32"]["kernels"], **out["forward"]["kernels"],
+                 **out["training"]["kernels"]},
+        forward_logits_rel={a: r["kernel_vs_plain_logits_rel"]
+                            for a, r in out["forward"].items() if a in FAM_FWD})
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm family tensor parallel phase: {out['seconds']:.1f} s, launches on the main path "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -5028,6 +5689,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.append(str(ROOT / "tests"))  # torch_tp_probes: the probes shared with the CPU tests
     from repro_torch.core.executor import BiathlonConfig
     from repro_torch.core.guarantee import guarantee_prob
     from repro_torch.data.synthetic import make_pipeline
@@ -5227,6 +5889,7 @@ def main() -> int:
     lm_training = lm_training_phase(dev, card)
     lm_tp = lm_tensor_parallel_phase(dev, card)
     lm_moe_tp = lm_moe_tensor_parallel_phase(dev, card)
+    lm_fam_tp = lm_family_tensor_parallel_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -5330,6 +5993,10 @@ def main() -> int:
         lm_moe_tensor_parallel_shapes=dict(forward=lm_moe_tp["forward"]["shapes"],
                                            training=lm_moe_tp["training"]["shapes"]),
         lm_moe_tensor_parallel_vs_plain=lm_moe_tp["vs_plain"],
+        launches_lm_family_tensor_parallel=lm_fam_tp["launches"].get("flash_attention", 0),
+        lm_family_tensor_parallel_shapes=dict(forward=lm_fam_tp["forward"]["shapes"],
+                                              training=lm_fam_tp["training"]["shapes"]),
+        lm_family_tensor_parallel_vs_plain=lm_fam_tp["vs_plain"],
     ))
     qwen_case = lm_training["backward"]["qwen05b_4x16x1024x64_causal"]
     for kname, what in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dk dv")):
@@ -5348,6 +6015,10 @@ def main() -> int:
             lm_moe_tensor_parallel_vs_plain={
                 n: dict(shape=r["shape"], path=r["backward_path"], rel_err=r["backward_rel_err"])
                 for n, r in lm_moe_tp["vs_plain"]["kernels"].items() if "backward_path" in r},
+            launches_lm_family_tensor_parallel=lm_fam_tp["launches"].get(kname, 0),
+            lm_family_tensor_parallel_vs_plain={
+                n: dict(shape=r["shape"], path=r["backward_path"], rel_err=r["backward_rel_err"])
+                for n, r in lm_fam_tp["vs_plain"]["kernels"].items() if "backward_path" in r},
             paths={n: c for n, c in lm_training["qwen"]["paths"].items()
                    if n.startswith(kname + ".")},
             max_abs_err=max(max(r["max_abs_err"][g] for g in what.split())
@@ -5386,6 +6057,7 @@ def main() -> int:
     serve["lm_training"] = lm_training
     serve["lm_tensor_parallel"] = lm_tp
     serve["lm_moe_tensor_parallel"] = lm_moe_tp
+    serve["lm_family_tensor_parallel"] = lm_fam_tp
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

@@ -24,6 +24,7 @@ which holds between the 8 cards of one host only.
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 
 import torch
@@ -32,7 +33,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.models.lm import collectives
 
-__all__ = ["HW", "StepCost", "count"]
+__all__ = ["HW", "StepCost", "TRACE_LIMIT_S", "TraceCut", "count"]
 
 HW = {
     "card": "NVIDIA H100 SXM 80GB, 700 W",
@@ -54,15 +55,27 @@ def _bytes(tree) -> int:
     return 0
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Adds every dispatched operator's operand and result bytes."""
+# a trace still running after 20 minutes stops at its next operator
+# (:class:`TraceCut`): xlstm's full-scale cells, whose sLSTM scan is a Python
+# loop over positions on every shard, would take hours
+TRACE_LIMIT_S = 1200.0
 
-    def __init__(self):
+
+class _ByteCounter(TorchDispatchMode):
+    """Adds every dispatched operator's operand and result bytes; past
+    ``deadline`` (``time.monotonic()``) it raises at the next operator."""
+
+    def __init__(self, deadline: float):
         super().__init__()
         self.bytes = 0
         self.ops = 0
+        self.deadline = deadline
+        self.cut = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if time.monotonic() > self.deadline:
+            self.cut = True
+            raise TimeoutError("trace deadline")
         out = func(*args, **(kwargs or {}))
         if not func.is_view:
             self.bytes += _bytes((args, kwargs)) + _bytes(out)
@@ -78,18 +91,36 @@ class StepCost:
     collectives: dict
 
 
+class TraceCut(Exception):
+    """A trace stopped at its time limit; ``cost`` is what it had counted."""
+
+    def __init__(self, cost: StepCost):
+        super().__init__(f"trace stopped at its time limit after {cost.ops} operators")
+        self.cost = cost
+
+
 def count(fn, *args, **kwargs) -> tuple[object, StepCost]:
     """``fn(*args, **kwargs)`` and what it cost: FLOPs, bytes and operators
     dispatched, and the collectives it counted (``collectives.STATS`` is
-    reset before)."""
+    reset before).  A call still running after ``TRACE_LIMIT_S`` stops at
+    its next operator and raises :class:`TraceCut` with the counts so far."""
     _attention_ops()  # registered before the counter copies the formulas
     collectives.reset_stats()
     flops = FlopCounterMode(display=False)
-    nbytes = _ByteCounter()
-    with flops, nbytes:
-        out = fn(*args, **kwargs)
-    return out, StepCost(float(flops.get_total_flops()), float(nbytes.bytes), nbytes.ops,
-                         collectives.STATS.as_dict())
+    nbytes = _ByteCounter(time.monotonic() + TRACE_LIMIT_S)
+
+    def cost():
+        return StepCost(float(flops.get_total_flops()), float(nbytes.bytes), nbytes.ops,
+                        collectives.STATS.as_dict())
+
+    try:
+        with flops, nbytes:
+            out = fn(*args, **kwargs)
+    except Exception:  # the deadline's error may reach here wrapped by autograd
+        if nbytes.cut:
+            raise TraceCut(cost()) from None
+        raise
+    return out, cost()
 
 
 # --------------------------------------------------------------------------

@@ -12,25 +12,26 @@ no HLO.  For each cell the dry run:
   3. places them by the specs of ``models/lm/sharding.py`` and records each
      device's bytes of parameters, optimizer state, inputs and cache, for
      every applicable cell and every family,
-  4. for the families that the port runs tensor-parallel (dense, VLM, MoE)
-     and the train and prefill shapes, traces the cell's step on meta
-     shards (the train step with remat; the prefill's logits) and counts its
-     FLOPs, bytes and collective traffic (``launch/cost.py``).  One
-     data-parallel replica (the model axis's 16 shards) is traced, since the
-     others repeat it; the data axes' gradient all-reduce is added from the
-     specs.  The MoE family is traced with the einsum backend, the
-     reference's dry-run baseline (the sorted backend's ``bincount`` and
-     ``argsort`` depend on the data, which ``meta`` does not have),
+  4. for the train and prefill shapes of every family, traces the cell's
+     step on meta shards (the train step with remat; the prefill's logits)
+     and counts its FLOPs, bytes and collective traffic
+     (``launch/cost.py``).  One data-parallel replica (the model axis's 16
+     shards) is traced, since the others repeat it; the data axes' gradient
+     all-reduce is added from the specs.  The MoE family is traced with the
+     einsum backend, the reference's dry-run baseline (the sorted backend's
+     ``bincount`` and ``argsort`` depend on the data, which ``meta`` does not
+     have).  The SSM family's sLSTM scan is a Python loop over positions
+     that runs on each of the 16 shards, so its trace is the longest,
   5. writes ``roofline_terms`` against the H100's published peaks
      (``cost.HW``) to ``<out>/<arch>__<shape>__<mesh>.json``.
 
-Other cells are ``specs_only``, with the reason: the SSM, hybrid and audio
-families do not run tensor-parallel in the port yet, nor does decode (the
-sharded cache).  :func:`run_cell` takes the reference's variant keywords:
-``tag`` (a separate record), ``cfg_override``, ``fsdp`` (ZeRO-3 weight
-sharding over the data axes), ``model_kwargs`` and ``train_kwargs``.  The
-default output is ``build/dryrun/`` of the checkout (the reference's
-``experiments/dryrun/`` stays its own).
+The decode cells are ``specs_only``, with the reason: the port does not
+run decode over a mesh yet (the sharded cache).  :func:`run_cell` takes the
+reference's variant keywords: ``tag`` (a separate record), ``cfg_override``,
+``fsdp`` (ZeRO-3 weight sharding over the data axes), ``model_kwargs`` and
+``train_kwargs``.  A trace that outlasts ``cost.TRACE_LIMIT_S`` is recorded
+as ``cut``.  The default output is ``build/dryrun/`` of the checkout (the
+reference's ``experiments/dryrun/`` stays its own).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k [--multi-pod]
@@ -50,7 +51,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, cell_applicable, get_config
-from repro_torch.launch.cost import HW, count
+from repro_torch.launch import cost
+from repro_torch.launch.cost import HW, TraceCut, count
 from repro_torch.launch.mesh import DP_AXES, make_lm_mesh, make_production_mesh, simulated_devices
 from repro_torch.models.lm import LM
 from repro_torch.models.lm import collectives
@@ -131,7 +133,7 @@ def _merge(a: dict, b: dict) -> dict:
 
 def _trace(model, params, shape, rules, multi_pod: bool, placed, train_kwargs=None) -> dict:
     """Trace one data-parallel replica of the cell's step: per-device FLOPs,
-    bytes and collectives."""
+    bytes and collectives (:class:`cost.TraceCut` past its time limit)."""
     tp, dp = rules.tp, rules.dp()
     trace_rules = ShardingRules(_trace_mesh(multi_pod, tp), model.cfg, dp_axes=rules.dp_axes)
     rows = shape.global_batch // dp if shape.global_batch % dp == 0 else shape.global_batch
@@ -141,13 +143,13 @@ def _trace(model, params, shape, rules, multi_pod: bool, placed, train_kwargs=No
     with use_rules(trace_rules):
         if shape.kind == "train":
             step_fn = build_train_step(model, **(train_kwargs or {}))
-            _, cost = count(step_fn, params, adamw_init(params), batch, 0)
+            _, spent = count(step_fn, params, adamw_init(params), batch, 0)
         else:
             with torch.no_grad():
-                _, cost = count(model.prefill_logits, params, batch["tokens"],
+                _, spent = count(model.prefill_logits, params, batch["tokens"],
                                 batch.get("frontend"))
     trace_s = time.time() - t0
-    coll = cost.collectives
+    coll = spent.collectives
     note = (f"one data-parallel replica traced ({tp} shards on the model axis) of {dp}; "
             "per-device FLOPs and bytes are its totals over its shards")
     if shape.kind == "train" and dp > 1:
@@ -158,8 +160,8 @@ def _trace(model, params, shape, rules, multi_pod: bool, placed, train_kwargs=No
     if rules.fsdp and dp > 1:
         note += ("; FSDP's weight all-gathers and reduce-scatters over the data axes are not "
                  "counted (the traced replica has one data shard)")
-    return dict(trace_s=trace_s, flops=cost.flops / tp, bytes=cost.bytes / tp,
-                operators=cost.ops, collectives=coll, traced=note)
+    return dict(trace_s=trace_s, flops=spent.flops / tp, bytes=spent.bytes / tp,
+                operators=spent.ops, collectives=coll, traced=note)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR, *,
@@ -170,7 +172,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
     in the reference, variants pass ``tag`` (a separate record),
     ``cfg_override`` (ModelConfig -> ModelConfig), ``fsdp`` (ZeRO-3 weight
     sharding over the data axes), ``model_kwargs`` (``LM`` constructor knobs)
-    and ``train_kwargs`` (``build_train_step``'s)."""
+    and ``train_kwargs`` (``build_train_step``'s).  A trace still running
+    after ``cost.TRACE_LIMIT_S`` stops: the record's status is ``cut``,
+    with the operators and collectives it had counted."""
     cfg = _config(arch, reduced)
     if cfg_override is not None:
         cfg = cfg_override(cfg)
@@ -235,7 +239,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
         print(f"[dryrun] SPECS {arch} x {shape_name} x {mesh_name}: {record['reason']}")
         return record
 
-    record.update(_trace(model, params, shape, rules, multi_pod, placed, train_kwargs))
+    try:
+        record.update(_trace(model, params, shape, rules, multi_pod, placed, train_kwargs))
+    except TraceCut as cut:
+        limit = cost.TRACE_LIMIT_S
+        record.update({"status": "cut", "trace_s": limit, "operators": cut.cost.ops,
+                       "collectives": cut.cost.collectives,
+                       "reason": f"the trace was stopped at its limit of {limit} s, after "
+                                 f"{cut.cost.ops} operators"})
+        _write(record, out_dir)
+        print(f"[dryrun] CUT {arch} x {shape_name} x {mesh_name}: {record['reason']}")
+        return record
     record["status"] = "ok"
     record["terms"] = roofline_terms(record, cfg, shape)
     _write(record, out_dir)

@@ -35,7 +35,9 @@ shard's query heads read the KV heads of their own GQA group
 (:func:`kv_heads_of`), and the attention kernel sees the shard's own head
 counts.  :func:`mla_block_shards` runs MLA so: each shard computes the
 latent and the query's low-rank projection from the replicated leaves, and
-its own heads of ``wq_b``, ``wkv_b`` and ``wo``.
+its own heads of ``wq_b``, ``wkv_b`` and ``wo``.  :func:`cross_attention_shards`
+runs the audio decoder's cross attention so, its keys and values from each
+shard's copy of the encoder output.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ __all__ = [
     "attention_full",
     "attention_qkv",
     "cross_attention_decode",
+    "cross_attention_shards",
     "cross_attention_with_kv",
     "glu_ffn",
     "glu_ffn_shards",
@@ -580,6 +583,29 @@ def _select_heads(w: torch.Tensor, heads, dim: int) -> torch.Tensor:
     return w.index_select(dim, heads.to(w.device))
 
 
+def _head_locals(rules, p: dict) -> tuple[list, bool]:
+    """Each shard's attention leaves (one dict a shard) from ``p``'s
+    ``sharding.Sharded`` leaves: its own query heads, and its own KV heads
+    where they are split, else the KV heads that its query heads read (the
+    guard replicated them); and whether the query heads are split."""
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    q_split = p["wq"].split_dim() is not None
+    kv_split = p["wk"].split_dim() is not None
+    hp, hkv = p["wq"].shape[-2], p["wk"].shape[-2]
+    h_loc = hp // mesh.axis_size(tp_axis) if q_split else hp
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    locs = []
+    for n, coord in enumerate(mesh.coords):
+        loc = {name: blocks[n] for name, blocks in leaves.items()}
+        if q_split and not kv_split:
+            heads = kv_heads_of(mesh.axis_index(coord, tp_axis) * h_loc, h_loc, hp // hkv)
+            for name, dim in (("wk", -2), ("wv", -2), ("bk", 0), ("bv", 0)):
+                if name in loc:
+                    loc[name] = _select_heads(loc[name], heads, dim)
+        locs.append(loc)
+    return locs, q_split
+
+
 def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal: bool = True,
                            window: int = 0, block: int = 1024, use_kernel: bool = True) -> list:
     """:func:`attention_block` over the shards of ``rules.mesh``: ``p`` holds
@@ -587,23 +613,25 @@ def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal
     shard, all-reduced over "model" where the heads are split."""
     from repro_torch.models.lm.collectives import all_reduce_sum
 
-    mesh, tp_axis = rules.mesh, rules.tp_axis
-    q_split = p["wq"].split_dim() is not None
-    kv_split = p["wk"].split_dim() is not None
-    hp, hkv = p["wq"].shape[-2], p["wk"].shape[-2]
-    h_loc = hp // mesh.axis_size(tp_axis) if q_split else hp
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
-    outs = []
-    for n, (coord, h) in enumerate(zip(mesh.coords, hs)):
-        loc = {name: blocks[n] for name, blocks in leaves.items()}
-        if q_split and not kv_split:
-            heads = kv_heads_of(mesh.axis_index(coord, tp_axis) * h_loc, h_loc, hp // hkv)
-            for name, dim in (("wk", -2), ("wv", -2), ("bk", 0), ("bv", 0)):
-                if name in loc:
-                    loc[name] = _select_heads(loc[name], heads, dim)
-        outs.append(attention_block(loc, h, cfg, causal=causal, window=window, block=block,
-                                    use_kernel=use_kernel))
-    return all_reduce_sum(outs, mesh, tp_axis) if q_split else outs
+    locs, q_split = _head_locals(rules, p)
+    outs = [attention_block(loc, h, cfg, causal=causal, window=window, block=block,
+                            use_kernel=use_kernel) for loc, h in zip(locs, hs)]
+    return all_reduce_sum(outs, rules.mesh, rules.tp_axis) if q_split else outs
+
+
+def cross_attention_shards(rules, p: dict, hs: list, enc_outs: list, *,
+                           use_kernel: bool = True) -> list:
+    """:func:`cross_attention_with_kv` over the shards of ``rules.mesh``: each
+    shard's query heads from its decoder states ``hs``, their keys and values
+    from its copy of the encoder output ``enc_outs`` (replicated over
+    "model"), one non-causal attention a shard at its head count, and the
+    ``wo`` partial sums all-reduced over "model" where the heads are split."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    locs, q_split = _head_locals(rules, p)
+    outs = [cross_attention_with_kv(loc, h, e, use_kernel=use_kernel)[0]
+            for loc, h, e in zip(locs, hs, enc_outs)]
+    return all_reduce_sum(outs, rules.mesh, rules.tp_axis) if q_split else outs
 
 
 def glu_ffn_shards(rules, p: dict, hs: list, act: str) -> list:

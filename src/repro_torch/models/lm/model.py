@@ -35,20 +35,22 @@ it changes memory, not numbers.  On the card the attention's gradient
 is the ``flash_attention`` backward kernels (``kernels/flash_attention/
 autograd.py``).
 
-Tensor parallel: under ``sharding.use_rules(rules)`` the dense, VLM and MoE
-families run over ``rules.mesh`` with the parameters of
-``sharding.shard_params``: :meth:`LM.train_loss` (and so the train step) and
-:meth:`LM.prefill_logits`.  The residual stream is a list of one tensor a
-shard; the embedding is looked up in each shard's vocabulary rows and summed
-over "model", each block runs tensor-parallel (``layers.attention_block_shards``
-or ``layers.mla_block_shards``, ``layers.glu_ffn_shards`` or
-``moe.moe_ffn_shards``, DeepSeek's ``dense0`` first), and the loss is the
-reference's vocab-sharded branch (:func:`_sharded_chunk_xent`): local logits
-a shard and chunk, the max over "model" with its gradient stopped, the sum of
+Tensor parallel: under ``sharding.use_rules(rules)`` all six families run
+over ``rules.mesh`` with the parameters of ``sharding.shard_params``:
+:meth:`LM.train_loss` (and so the train step) and :meth:`LM.prefill_logits`.
+The residual stream is a list of one tensor a shard; the embedding is looked
+up in each shard's vocabulary rows and summed over "model", each block runs
+tensor-parallel (``layers.attention_block_shards`` or
+``layers.mla_block_shards``, ``layers.glu_ffn_shards`` or
+``moe.moe_ffn_shards``, DeepSeek's ``dense0`` first; ``ssm.mlstm_block_shards``
+and ``ssm.slstm_block_shards``, ``ssm.mamba2_block_shards`` and the hybrid's
+windowed shared block; the audio encoder over the replicated frontend, and
+``layers.cross_attention_shards``), and the loss is the reference's
+vocab-sharded branch (:func:`_sharded_chunk_xent`): local logits a shard and
+chunk, the max over "model" with its gradient stopped, the sum of
 exponentials and the gold logit summed over "model", the loss and
-``correct`` summed over "data".
-Any other family under rules raises ``NotImplementedError``: it does not run
-replicated instead.
+``correct`` summed over "data".  The cached ``prefill`` and ``decode_step``
+raise ``NotImplementedError`` under rules (the sharded decode cache).
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ from repro_torch.models.lm.collectives import (
 from repro_torch.models.lm.layers import (
     attention_block,
     attention_block_shards,
+    cross_attention_shards,
     cross_attention_with_kv,
     glu_ffn,
     glu_ffn_shards,
@@ -84,8 +87,8 @@ __all__ = ["FAMILIES", "LM", "TP_FAMILIES"]
 
 f32 = torch.float32
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
-#: The families that run tensor-parallel under sharding rules.
-TP_FAMILIES = ("dense", "vlm", "moe")
+#: The families that run tensor-parallel under sharding rules: all of them.
+TP_FAMILIES = FAMILIES
 
 
 def _padded_vocab(v: int, multiple: int = 256) -> int:
@@ -126,15 +129,6 @@ def _loss_chunk(s: int, loss_chunk: int) -> int:
     while s % c != 0:
         c -= 1
     return c
-
-
-def _block_offset(rules, w, n: int, dim: int) -> int:
-    """The first index along ``dim`` of shard ``n``'s block of ``w`` (0 where
-    ``dim`` is not split)."""
-    if w.split_dim() != dim:
-        return 0
-    mesh = rules.mesh
-    return mesh.axis_index(mesh.coords[n], rules.tp_axis) * (w.shape[dim] // w.grid[dim])
 
 
 def _unembed_vocab_blocks(rules, w) -> tuple[list, list, bool]:
@@ -361,13 +355,15 @@ class LM:
     def _maybe_remat(self, fn):
         """``fn`` recomputed in the backward pass under ``remat`` (the
         reference's ``_maybe_remat``), for the calls through which a
-        gradient is being taken: a tensor argument requires one."""
+        gradient is being taken: a tensor argument, or a tensor in a list
+        argument (one a shard), requires one."""
         if not self.remat:
             return fn
 
         def run(*args):
-            if torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad
-                                               for a in args):
+            tensors = (t for a in args for t in (a if isinstance(a, list) else [a]))
+            if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad
+                                               for t in tensors):
                 return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
             return fn(*args)
 
@@ -444,7 +440,6 @@ class LM:
         and so are the logits."""
         rules = active_rules()
         if rules is not None:
-            self._require_shards(rules)
             return self._logits_last_shards(rules, params["unembed"], h_last)
         logits = (h_last @ params["unembed"]).to(f32)
         live = torch.arange(self.vp, device=logits.device)[None, :] < self.cfg.vocab
@@ -528,20 +523,18 @@ class LM:
 
     def prefill_logits(self, params, tokens, frontend=None) -> torch.Tensor:
         """The last position's logits (B, Vp) of a prefill, without its cache;
-        under sharding rules over the mesh (the dense, VLM and MoE families)."""
+        under sharding rules over the mesh."""
         rules = active_rules()
         if rules is None:
             return self.prefill(params, tokens, frontend)[0]
-        self._require_shards(rules)
+        batch_split = tokens.shape[0] % rules.dp() == 0
         xs = self._embed_shards(rules, params["embed"], split_batch(rules, tokens))
-        if self.cfg.family == "vlm" and frontend is not None:
-            xs = self._prepend_frontend(rules, params, split_batch(rules, frontend), xs)
-        hs = self._backbone_shards(rules, params, xs, tokens.shape[0] % rules.dp() == 0)
+        hs = self._forward_shards(rules, params, xs, frontend, batch_split)
         norm = params["final_norm"].locals()
         outs = self.logits_last(params, [rms_norm(h[:, -1], norm[n], self.cfg.norm_eps)
                                          for n, h in enumerate(hs)])
         mesh = rules.mesh
-        if tokens.shape[0] % rules.dp() != 0:  # every shard holds every row
+        if not batch_split:  # every shard holds every row
             return outs[0]
         rows: dict = {}  # one shard of each data group, in data order
         for n, coord in enumerate(mesh.coords):
@@ -556,13 +549,6 @@ class LM:
                 "over 'model') is not executed by the port yet (ROADMAP Queue 1 item 9); "
                 "prefill_logits runs the prefill over the mesh")
 
-    def _require_shards(self, rules) -> None:
-        if self.cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.arch_id}: the {self.cfg.family} family does not run tensor-parallel "
-                f"in the port (ROADMAP Queue 1 item 9 lists what is left: the audio, SSM and "
-                f"hybrid families); only {', '.join(TP_FAMILIES)} run under sharding rules")
-
     def _embed_shards(self, rules, leaf, ids: list) -> list:
         """The embedding of each shard's token ids: each shard looks up the
         vocabulary rows it holds, zeroes the rest, and the shards are summed
@@ -573,7 +559,7 @@ class LM:
         for n, (tok, w) in enumerate(zip(ids, leaf.locals())):
             tok = torch.clamp(tok, 0, self.vp - 1)
             if split:
-                local = tok - _block_offset(rules, leaf, n, 0)
+                local = tok - leaf.offsets(0)[n]
                 held = (local >= 0) & (local < w.shape[0])
                 e = torch.where(held[..., None],
                                 F.embedding(local.clamp(0, w.shape[0] - 1), w), 0)
@@ -589,20 +575,23 @@ class LM:
         return [torch.cat([fe.to(self.dtype) @ a, x], dim=1)
                 for fe, a, x in zip(fes, adapter, xs)]
 
-    def _apply_attn_ffn_shards(self, rules, bp, xs: list, batch_split: bool) -> list:
+    def _norm_shards(self, xs: list, leaf) -> list:
+        return [rms_norm(x, w, self.cfg.norm_eps) for x, w in zip(xs, leaf.locals())]
+
+    def _apply_attn_ffn_shards(self, rules, bp, xs: list, batch_split: bool, causal: bool = True,
+                               window: int = 0) -> list:
         """:meth:`_apply_attn_ffn` over the mesh: MLA or GQA attention, the
         MoE or the dense FFN, each tensor-parallel."""
         cfg = self.cfg
-        eps = cfg.norm_eps
-        hs = [rms_norm(x, w, eps) for x, w in zip(xs, bp["ln1"].locals())]
+        hs = self._norm_shards(xs, bp["ln1"])
         if cfg.mla:
             a = mla_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
                                  use_kernel=self.use_kernel)
         else:
-            a = attention_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
-                                       use_kernel=self.use_kernel)
+            a = attention_block_shards(rules, bp["attn"], hs, cfg, causal=causal, window=window,
+                                       block=self.attn_block, use_kernel=self.use_kernel)
         xs = [x + y for x, y in zip(xs, a)]
-        hs = [rms_norm(x, w, eps) for x, w in zip(xs, bp["ln2"].locals())]
+        hs = self._norm_shards(xs, bp["ln2"])
         if "moe" in bp:
             f = moe_lib.moe_ffn_shards(rules, bp["moe"], hs, cfg.moe, self.moe_backend,
                                        batch_split=batch_split)
@@ -610,22 +599,87 @@ class LM:
             f = glu_ffn_shards(rules, bp["ffn"], hs, cfg.act)
         return [x + y for x, y in zip(xs, f)]
 
+    def _mlstm_body_shards(self, rules, mp, xs: list) -> list:
+        ys = ssm_lib.mlstm_block_shards(rules, mp["cell"], self._norm_shards(xs, mp["ln"]),
+                                        self.cfg)
+        return [x + y for x, y in zip(xs, ys)]
+
+    def _mamba_body_shards(self, rules, mp, xs: list) -> list:
+        ys = ssm_lib.mamba2_block_shards(rules, mp["cell"], self._norm_shards(xs, mp["ln"]),
+                                         self.cfg)
+        return [x + y for x, y in zip(xs, ys)]
+
     def _backbone_shards(self, rules, params, xs: list, batch_split: bool) -> list:
-        """:meth:`_backbone` over the mesh: ``dense0`` first (never
-        recomputed, as in the reference), then each stacked block, recomputed
-        in the backward pass under ``remat``.  ``batch_split``: each shard
-        holds its data shard's rows (else every row; the MoE's capacity
-        follows it)."""
-        body = self._apply_attn_ffn_shards
+        """:meth:`_backbone` over the mesh, family by family; under ``remat``
+        at the reference's sites only: each mLSTM and Mamba2 body and each
+        stacked attention + FFN block, never the sLSTM, the hybrid's shared
+        block or ``dense0``.  ``batch_split``: each shard holds its data
+        shard's rows (else every row; the MoE's capacity follows it)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            m_body = self._maybe_remat(self._mlstm_body_shards)
+            for mlstm, slstm in self.groups(params):
+                for mp in stacked(mlstm):
+                    xs = m_body(rules, mp, xs)
+                ys = ssm_lib.slstm_block_shards(rules, slstm["cell"],
+                                                self._norm_shards(xs, slstm["ln"]), cfg)
+                xs = [x + y for x, y in zip(xs, ys)]
+            return xs
+        if cfg.family == "hybrid":
+            m_body = self._maybe_remat(self._mamba_body_shards)
+            for mamba, _ in self.groups(params):
+                for mp in stacked(mamba):
+                    xs = m_body(rules, mp, xs)
+                xs = self._apply_attn_ffn_shards(rules, params["shared_block"], xs, batch_split,
+                                                 window=cfg.sliding_window)
+            return xs
         for bp in params.get("dense0", []):
-            xs = body(rules, bp, xs, batch_split)
+            xs = self._apply_attn_ffn_shards(rules, bp, xs, batch_split)
+        body = self._maybe_remat(self._apply_attn_ffn_shards)
         for bp in stacked(params["blocks"]):
-            if self.remat and torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-                xs = checkpoint(body, rules, bp, xs, batch_split, use_reentrant=False,
-                                preserve_rng_state=False)
-            else:
-                xs = body(rules, bp, xs, batch_split)
+            xs = body(rules, bp, xs, batch_split)
         return xs
+
+    def _encode_shards(self, rules, params, fes: list, batch_split: bool) -> list:
+        """:meth:`_encode` over the mesh: the replicated frontend adapter on
+        each shard's frames, then each bidirectional block tensor-parallel
+        (recomputed under ``remat``).  Returns each shard's copy of the
+        encoder output, whole over "model"."""
+        xs = [fe.to(self.dtype) @ a for fe, a in zip(fes, params["frontend_adapter"].locals())]
+        body = self._maybe_remat(self._apply_attn_ffn_shards)
+        for bp in stacked(params["enc_blocks"]):
+            xs = body(rules, bp, xs, batch_split, False)
+        return self._norm_shards(xs, params["enc_norm"])
+
+    def _apply_cross_block_shards(self, rules, bp, xs: list, enc_outs: list) -> list:
+        cfg = self.cfg
+        a = attention_block_shards(rules, bp["self_attn"], self._norm_shards(xs, bp["ln1"]), cfg,
+                                   causal=True, block=self.attn_block, use_kernel=self.use_kernel)
+        xs = [x + y for x, y in zip(xs, a)]
+        a = cross_attention_shards(rules, bp["cross_attn"], self._norm_shards(xs, bp["ln_x"]),
+                                   enc_outs, use_kernel=self.use_kernel)
+        xs = [x + y for x, y in zip(xs, a)]
+        f = glu_ffn_shards(rules, bp["ffn"], self._norm_shards(xs, bp["ln2"]), cfg.act)
+        return [x + y for x, y in zip(xs, f)]
+
+    def _decoder_shards(self, rules, params, xs: list, enc_outs: list) -> list:
+        """:meth:`_decoder` over the mesh, each block recomputed under
+        ``remat``."""
+        body = self._maybe_remat(self._apply_cross_block_shards)
+        for bp in stacked(params["dec_blocks"]):
+            xs = body(rules, bp, xs, enc_outs)
+        return xs
+
+    def _forward_shards(self, rules, params, xs: list, frontend, batch_split: bool) -> list:
+        """The embedded tokens ``xs`` through the model over the mesh: the
+        audio family's encoder over ``frontend`` and its decoder, else the
+        backbone (the VLM's ``frontend``, where given, before the tokens)."""
+        if self.cfg.family == "audio":
+            enc = self._encode_shards(rules, params, split_batch(rules, frontend), batch_split)
+            return self._decoder_shards(rules, params, xs, enc)
+        if self.cfg.family == "vlm" and frontend is not None:
+            xs = self._prepend_frontend(rules, params, split_batch(rules, frontend), xs)
+        return self._backbone_shards(rules, params, xs, batch_split)
 
     def _logits_last_shards(self, rules, w, h_last: list) -> list:
         """(B_loc, Vp) float32 logits a shard from one (B_loc, D) state a
@@ -636,7 +690,7 @@ class LM:
         outs = []
         for n, (h, wn) in enumerate(zip(h_last, w.locals())):
             if split:
-                h = h.narrow(-1, _block_offset(rules, w, n, 0), wn.shape[0])
+                h = h.narrow(-1, w.offsets(0)[n], wn.shape[0])
             outs.append((h @ wn).to(f32))
         if split:
             outs = all_reduce_sum(outs, mesh, rules.tp_axis)
@@ -646,20 +700,18 @@ class LM:
     def _train_loss_shards(self, rules, params, batch) -> tuple[torch.Tensor, dict]:
         """:meth:`train_loss` over the mesh of ``rules``."""
         cfg = self.cfg
-        self._require_shards(rules)
         tokens = batch["tokens"]
         denom = torch.clamp((tokens[:, 1:] >= 0).to(f32).sum(), min=1.0)
         toks = split_batch(rules, tokens)
         labels = [torch.clamp(t[:, 1:], min=0).to(torch.int64) for t in toks]
         masks = [(t[:, 1:] >= 0).to(f32) for t in toks]
         xs = self._embed_shards(rules, params["embed"], [t[:, :-1] for t in toks])
-        if cfg.family == "vlm":
-            xs = self._prepend_frontend(rules, params, split_batch(rules, batch["frontend"]), xs)
         batch_split = tokens.shape[0] % rules.dp() == 0
-        hs = self._backbone_shards(rules, params, xs, batch_split)
+        hs = self._forward_shards(rules, params, xs, batch["frontend"] if cfg.frontend else None,
+                                  batch_split)
         if cfg.family == "vlm":
             hs = [h[:, cfg.n_frontend_tokens:] for h in hs]  # loss only over text positions
-        hs = [rms_norm(h, w, cfg.norm_eps) for h, w in zip(hs, params["final_norm"].locals())]
+        hs = self._norm_shards(hs, params["final_norm"])
         s = hs[0].shape[1]
         n_chunks = s // _loss_chunk(s, self.loss_chunk)
         loss_sum, correct = _sharded_chunk_xent(rules, self.vp, cfg.vocab, n_chunks, batch_split)(

@@ -331,6 +331,15 @@ class Sharded:
         """The dim split over the model axis, if one is."""
         return self.spec.index(self.tp_axis) if self.tp_axis in self.spec else None
 
+    def offsets(self, dim: int) -> list:
+        """Each shard's first index along ``dim`` of its block, in the mesh's
+        order (all 0 where ``dim`` is not split over the model axis)."""
+        dim %= len(self.shape)
+        if self.split_dim() != dim:
+            return [0] * self.mesh.size
+        size = self.shape[dim] // self.grid[dim]
+        return [self.mesh.axis_index(c, self.tp_axis) * size for c in self.mesh.coords]
+
     def locals(self) -> list:
         """Every shard's tensor, in the mesh's order, on its device: its block
         along the model axis, the dims split over the data axes (FSDP)

@@ -9,7 +9,10 @@ on the carried state.  The sLSTM is a sequential loop over positions in
 both, as in the reference.
 
 These are plain PyTorch on either device: the reference computes them in
-``jnp`` and ``lax.scan`` with no Pallas kernel.  Numerics follow the
+``jnp`` and ``lax.scan`` with no Pallas kernel.  Over a mesh of shards
+(``sharding.py``), :func:`mamba2_block_shards`, :func:`mlstm_block_shards`
+and :func:`slstm_block_shards` run the three blocks tensor-parallel under
+the reference's rules (the section at the end of this module).  Numerics follow the
 reference: decays in log space and ≤ 0 before exponentiation (Mamba2), or
 stabilised by running maxima (mLSTM, sLSTM); states, gates and log
 arithmetic in float32.  Where the reference mixes bf16 and float32
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lm import collectives
 from repro_torch.models.lm.layers import _normal, rms_norm
 
 __all__ = [
@@ -30,10 +34,13 @@ __all__ = [
     "init_mlstm",
     "init_slstm",
     "mamba2_block",
+    "mamba2_block_shards",
     "mamba2_decode",
     "mlstm_block",
+    "mlstm_block_shards",
     "mlstm_decode",
     "slstm_block",
+    "slstm_block_shards",
     "slstm_decode",
 ]
 
@@ -144,6 +151,30 @@ def _ssd_chunked(
     return torch.cat(ys, dim=1), h
 
 
+def _mamba2_mix(p: dict, proj: torch.Tensor, cfg: ModelConfig, heads: slice):
+    """The causal conv and the SSD scan of the Mamba2 heads ``heads`` on the
+    whole in-projection ``proj`` (B, L, d_in), each head on its own x
+    channels and every head on the shared B and C.  Returns (y (B, L, n·P)
+    float32 with the skip, before the gate; the final state (B, n, N, P);
+    the conv's input (B, L, n·P + 2N))."""
+    s = cfg.ssm
+    _, xbc_raw, dtr, di, h, n = _split_mamba_proj(proj, cfg)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if heads != slice(0, h):
+        cols = slice(heads.start * s.head_dim, heads.stop * s.head_dim)
+        xbc_raw, conv_w, conv_b = (torch.cat([t[..., cols], t[..., di:]], dim=-1)
+                                   for t in (xbc_raw, conv_w, conv_b))
+    xbc = _causal_conv(xbc_raw, conv_w, conv_b)
+    width = xbc.shape[-1] - 2 * n
+    xs, b_, c_ = xbc.split([width, n, n], dim=-1)
+    dt = softplus(dtr[..., heads].to(f32) + p["dt_bias"][heads])      # (B,L,n)
+    a = -torch.exp(p["a_log"][heads])
+    xh = xs.reshape(*xs.shape[:2], -1, s.head_dim)
+    y, h_fin = _ssd_chunked(xh, dt, a, b_, c_, s.chunk)
+    y = y + p["d_skip"][heads][None, None, :, None] * xh.to(f32)
+    return y.reshape(*xs.shape[:2], width), h_fin, xbc_raw
+
+
 def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
     """Full-sequence Mamba2 block (prefill).  x: (B, L, D).
 
@@ -153,15 +184,9 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bo
     """
     s = cfg.ssm
     proj = x @ p["in_proj"]
-    z, xbc_raw, dtr, di, h, n = _split_mamba_proj(proj, cfg)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xs, b_, c_ = xbc.split([di, n, n], dim=-1)
-    dt = softplus(dtr.to(f32) + p["dt_bias"])      # (B,L,H)
-    a = -torch.exp(p["a_log"])
-    xh = xs.reshape(*xs.shape[:2], h, s.head_dim)
-    y, h_fin = _ssd_chunked(xh, dt, a, b_, c_, s.chunk)
-    y = y + p["d_skip"][None, None, :, None] * xh.to(f32)
-    y = y.reshape(*xs.shape[:2], di).to(x.dtype)
+    z, _, _, _, h, _ = _split_mamba_proj(proj, cfg)
+    y, h_fin, xbc_raw = _mamba2_mix(p, proj, cfg, slice(0, h))
+    y = y.to(x.dtype)
     y = y * F.silu(z.to(f32)).to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
@@ -361,18 +386,23 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> 
     }
 
 
-def _slstm_scan(p, x_seq: torch.Tensor, cfg: ModelConfig, state=None):
-    """x_seq: (B, L, D) -> (h (B, L, D) float32, final state (c, n, m, h)).
+def _slstm_input(p, x_seq: torch.Tensor) -> torch.Tensor:
+    """The recurrence's input part for every position: (B, L, 4D) float32."""
+    return x_seq.to(f32) @ p["w"] + p["b"]
+
+
+def _slstm_scan(p, wx: torch.Tensor, cfg: ModelConfig, state=None):
+    """wx: (B, L, 4D) (:func:`_slstm_input`) -> (h (B, L, D) float32, final
+    state (c, n, m, h)).
 
     A sequential loop over the L positions."""
-    bsz, length, d = x_seq.shape
+    bsz, length, d = wx.shape[0], wx.shape[1], wx.shape[2] // 4
     hs = cfg.n_heads
     dh = d // hs
     if state is None:
-        zeros = torch.zeros((bsz, d), dtype=f32, device=x_seq.device)
-        state = (zeros, zeros, torch.full((bsz, d), -1e30, dtype=f32, device=x_seq.device), zeros)
+        zeros = torch.zeros((bsz, d), dtype=f32, device=wx.device)
+        state = (zeros, zeros, torch.full((bsz, d), -1e30, dtype=f32, device=wx.device), zeros)
     c, n, m, h = state
-    wx = x_seq.to(f32) @ p["w"] + p["b"]  # (B,L,4D): the input part, precomputed
     r = p["r"]
     outs = []
     for t in range(length):
@@ -399,7 +429,7 @@ def _slstm_out(p, h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.T
 
 def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
     """Full-sequence sLSTM block (prefill).  x: (B, L, D)."""
-    h, state = _slstm_scan(p, x, cfg)
+    h, state = _slstm_scan(p, _slstm_input(p, x), cfg)
     out = _slstm_out(p, h, x, cfg)
     if return_state:
         return out, state
@@ -408,5 +438,139 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: boo
 
 def slstm_decode(p: dict, x: torch.Tensor, state: tuple, cfg: ModelConfig):
     """x: (B, 1, D); state: (c, n, m, h) -> (out (B, 1, D), new state)."""
-    h, new_state = _slstm_scan(p, x, cfg, state)
+    h, new_state = _slstm_scan(p, _slstm_input(p, x), cfg, state)
     return _slstm_out(p, h, x, cfg), new_state
+
+
+# ==========================================================================
+# Over a mesh of shards (tensor parallel)
+# ==========================================================================
+# ``p`` holds ``sharding.Sharded`` leaves laid out by the reference's rules,
+# ``hs`` one (B_loc, L, D) input a shard; each function returns one output a
+# shard.  A shard computes the heads that cover its block of the inner
+# width ``di`` (the rows of ``out_proj``), gates and normalises that block,
+# and multiplies it by its rows of ``out_proj``; one all-reduce over "model"
+# sums the partials.  Where the divisibility guard replicates a leaf, the
+# shard holds all of it and nothing is gathered or reduced for it.
+def _covering_heads(off: int, width: int, p_dim: int) -> slice:
+    """The heads of size ``p_dim`` that columns ``off .. off + width - 1`` of
+    the inner width lie in."""
+    return slice(off // p_dim, -(-(off + width) // p_dim))
+
+
+def _rms_norm_shards(rules, ys: list, ws: list, width: int, eps: float, split: bool) -> list:
+    """:func:`layers.rms_norm` of rows of ``width`` of which each shard holds
+    its block (``ys``, with its block of the scale ``ws``): where ``split``,
+    the sums of squares are all-reduced over "model" before the division by
+    the whole ``width``; else each shard holds whole rows."""
+    if not split:
+        return [rms_norm(y, w, eps) for y, w in zip(ys, ws)]
+    sq = [torch.sum(y.to(f32) * y.to(f32), dim=-1, keepdim=True) for y in ys]
+    sq = collectives.all_reduce_sum(sq, rules.mesh, rules.tp_axis)
+    return [((y.to(f32) * torch.rsqrt(q / width + eps)) * w.to(f32)).to(y.dtype)
+            for y, q, w in zip(ys, sq, ws)]
+
+
+def _out_shards(rules, p: dict, leaves: dict, ys: list, zs: list, width: int, eps: float) -> list:
+    """Each shard's block of y (B_loc, L, di_loc), gated by its block of z,
+    normalised over the whole inner ``width`` and multiplied by its rows of
+    ``out_proj``; the partials all-reduced over "model" where they are."""
+    split = p["out_proj"].split_dim() is not None
+    offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    ys = [(y.to(z.dtype) * F.silu(z.to(f32)).to(z.dtype)) for y, z in zip(ys, zs)]
+    norms = [w.narrow(-1, o, di_loc) for w, o in zip(leaves["out_norm"], offs)]
+    ys = _rms_norm_shards(rules, ys, norms, width, eps, split)
+    outs = [y @ w for y, w in zip(ys, leaves["out_proj"])]
+    return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis) if split else outs
+
+
+def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
+    """:func:`mamba2_block` over the shards of ``rules.mesh``.
+
+    ``in_proj``'s column blocks do not line up with ``z | x B C | dt`` (at tp
+    4 of zamba2's 10448 columns a shard holds 2612), so the shards' products
+    are all-gathered over "model" (one (B_loc, L, d_in) buffer a layer) and
+    each shard takes the columns its heads need: its block of z, its heads'
+    x and dt, and the B and C that every head shares.  The replicated
+    ``conv_w``, ``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip`` are sliced
+    to the same heads."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    proj = [h @ w for h, w in zip(hs, leaves["in_proj"])]
+    if p["in_proj"].split_dim() is not None:
+        proj = collectives.all_gather(proj, rules.mesh, rules.tp_axis, dim=-1)
+    offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    ys, zs = [], []
+    for n, (pr, off) in enumerate(zip(proj, offs)):
+        heads = _covering_heads(off, di_loc, s.head_dim)
+        y, _, _ = _mamba2_mix({k: v[n] for k, v in leaves.items()}, pr, cfg, heads)
+        ys.append(y.narrow(-1, off - heads.start * s.head_dim, di_loc))
+        zs.append(pr.narrow(-1, off, di_loc))
+    return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
+
+
+def _head_columns(rules, leaf, xs: list, p_dim: int) -> tuple[list, list]:
+    """Each shard's product with a (D, di) leaf split over its columns,
+    widened to whole heads of ``p_dim``: (the products, the first column each
+    holds).  Where a shard's block holds part of a head (tp above the head
+    count), the products are all-gathered over "model": the cell contracts
+    P in every chunk product, so P is not split inside it."""
+    offs = leaf.offsets(-1)
+    if leaf.split_dim() is None or (leaf.shape[-1] // leaf.grid[-1]) % p_dim == 0:
+        return xs, offs
+    return collectives.all_gather(xs, rules.mesh, rules.tp_axis, dim=-1), [0] * len(xs)
+
+
+def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
+    """:func:`mlstm_block` over the shards of ``rules.mesh``: each shard runs
+    the chunked cell on the heads that cover its block of ``di`` (its own
+    columns of ``w_q``, ``w_k`` and ``w_v`` where they are whole heads, else
+    the heads of the all-gathered products), with those heads' gates from
+    the replicated ``w_i`` and ``w_f``."""
+    s = cfg.ssm
+    n_heads = cfg.n_heads
+    di = s.expand * cfg.d_model
+    p_dim = di // n_heads
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    qkv = [_head_columns(rules, p[name], [h @ w for h, w in zip(hs, leaves[name])], p_dim)
+           for name in ("w_q", "w_k", "w_v")]
+    offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    ys, zs = [], []
+    for n, (h, off) in enumerate(zip(hs, offs)):
+        bsz, length, _ = h.shape
+        heads = _covering_heads(off, di_loc, p_dim)
+        width = (heads.stop - heads.start) * p_dim
+        q, k, v = (xs[n].narrow(-1, heads.start * p_dim - firsts[n], width)
+                   .reshape(bsz, length, -1, p_dim) for xs, firsts in qkv)
+        hf = h.to(f32)
+        li = (hf @ leaves["w_i"][n] + leaves["b_i"][n])[..., heads]
+        lf = F.logsigmoid(hf @ leaves["w_f"][n] + leaves["b_f"][n])[..., heads]
+        y, _ = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=h.dtype)
+        ys.append(y.reshape(bsz, length, width).narrow(-1, off - heads.start * p_dim, di_loc))
+        zs.append(h @ leaves["w_gate"][n])
+    return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
+
+
+def slstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
+    """:func:`slstm_block` over the shards of ``rules.mesh``.
+
+    The recurrence cannot be split over units: ``rec`` is computed per head
+    and then cut into the four gates, so gate g of every unit comes from
+    head g's whole state.  The input part ``x @ w + b`` (``w`` split over its
+    columns) is all-gathered over "model" once a layer, the scan runs on
+    every shard on the whole state, and the output MLP runs tensor-parallel:
+    ``up`` by columns and ``down`` by rows, all-reduced where the guard
+    splits them (at xlstm's 2730 hidden units: tp 2, not 4 or 16)."""
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    wx = [h.to(f32) @ w for h, w in zip(hs, leaves["w"])]
+    if p["w"].split_dim() is not None:
+        wx = collectives.all_gather(wx, rules.mesh, rules.tp_axis, dim=-1)
+    outs = []
+    for n, (h, w) in enumerate(zip(hs, wx)):
+        loc = {k: v[n] for k, v in leaves.items()}
+        seq, _ = _slstm_scan(loc, w + loc["b"], cfg)
+        outs.append(_slstm_out(loc, seq, h, cfg))
+    if p["down"].split_dim() is None:
+        return outs
+    return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis)

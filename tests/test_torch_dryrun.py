@@ -8,9 +8,11 @@
   reference's ``hlo_stats.CollectiveStats`` on the same bytes;
 * every one of the 40 cells gives a record at its config's and shape's
   ``.reduced()`` on the 16 × 16 production mesh: the 8 skips with the
-  reference's reason, the dense, VLM and MoE train and prefill cells traced
-  (14 ``ok``, FLOPs and roofline terms against the H100's peaks), the rest
-  ``specs_only`` with the reason;
+  reference's reason, the train and prefill cells of all ten configs traced
+  (20 ``ok``, FLOPs and roofline terms against the H100's peaks), the 12
+  decode cells ``specs_only`` with the reason;
+* a trace that outlasts ``cost.TRACE_LIMIT_S`` stops and is recorded as ``cut``
+  with the operators it had counted;
 * ``run_cell``'s reference keywords: deepseek-v2-236b's full-scale train
   cell placed with ``fsdp=True`` (the reference's ZeRO-3 note) holds at
   most 16 GB of parameters and Adam moments a device, and ``tag``,
@@ -124,11 +126,28 @@ def test_every_cell_gives_a_record_at_reduced_size(tmp_path):
     assert len(by_status["skipped"]) == 8
     assert sorted(by_status["ok"]) == sorted(
         (a, s) for a in ("qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b", "internvl2-1b",
-                         "granite-moe-1b-a400m", "deepseek-v2-236b")
+                         "granite-moe-1b-a400m", "deepseek-v2-236b", "xlstm-1.3b",
+                         "zamba2-2.7b", "seamless-m4t-large-v2")
         for s in ("train_4k", "prefill_32k"))
-    assert len(by_status["specs_only"]) == 18
+    assert len(by_status["specs_only"]) == 12
+    assert {s for _, s in by_status["specs_only"]} == {"decode_32k", "long_500k"}
     assert cost.HW["peak_flops"] == 989e12 and cost.HW["hbm_bw"] == 3.35e12
     assert cost.HW["link_bw"] == 450e9
+
+
+def test_a_trace_past_its_time_limit_is_recorded_as_cut(tmp_path, monkeypatch):
+    assert cost.TRACE_LIMIT_S == 1200.0
+    a = torch.empty((64, 64), device="meta")
+    monkeypatch.setattr(cost, "TRACE_LIMIT_S", 0.0)
+    with pytest.raises(cost.TraceCut) as cut:
+        cost.count(lambda: [a @ a for _ in range(10)])
+    assert cut.value.cost.ops == 0
+    monkeypatch.setattr(cost, "TRACE_LIMIT_S", 0.5)
+    r = dryrun.run_cell("xlstm-1.3b", "prefill_32k", False, str(tmp_path), reduced=True)
+    assert r["status"] == "cut" and r["trace_s"] == 0.5 and r["operators"] > 0
+    assert "0.5 s" in r["reason"] and r["collectives"]["per_op_count"]
+    assert json.loads((tmp_path / "xlstm-1.3b__prefill_32k__16x16.json").read_text()) == \
+        json.loads(json.dumps(r))
 
 
 # The peak is this process's own high-water mark since exec (VmHWM): Linux's

@@ -25,9 +25,11 @@ and re-split over the vocabulary for the loss.
   all-reduces, and KV heads taken from the shard's first group;
 * ``_sharded_chunk_xent`` on a simulated (2, 2) mesh against the reference's
   own on a (2, 2) mesh of forced CPU devices (a subprocess);
-* the families that do not run tensor-parallel (SSM, hybrid, audio) raise
-  ``NotImplementedError`` under rules, and so do the cached prefill and
-  decode (the MoE family: ``test_torch_tensor_parallel_moe.py``).
+* the cached prefill and decode raise ``NotImplementedError`` under rules,
+  for these configs and for the SSM, hybrid and audio families (whose loss,
+  step and prefill logits run over the mesh:
+  ``test_torch_tensor_parallel_ssm.py``; the MoE family:
+  ``test_torch_tensor_parallel_moe.py``).
 """
 import json
 import subprocess
@@ -203,15 +205,18 @@ def test_planted_faults_fail(monkeypatch, fault):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2"])
 def test_other_families_raise_under_rules(arch):
+    """The SSM, hybrid and audio families run tensor-parallel
+    (``test_torch_tensor_parallel_ssm.py``), but their cached prefill and
+    decode do not: the sharded decode cache is not executed yet."""
     _, _, lm, params = models(arch)
     rules = _rules(lm.cfg, "1x2")
     b = _torch_batch(batch(lm, seed=1))
-    placed = shard_params(rules, params)
+    tokens = b["tokens"][:, :-1].clamp(min=0)
     with use_rules(rules):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            lm.train_loss(placed, b)
+            lm.prefill(params, tokens, b.get("frontend"))
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            lm.prefill_logits(placed, b["tokens"][:, :-1].clamp(min=0), b.get("frontend"))
+            lm.decode_step(params, {}, tokens[:, :1])
 
 
 def test_cached_prefill_and_decode_raise_under_rules():
