@@ -362,7 +362,33 @@ Phases (any failure exits non-zero before the result line is printed):
     bytes; and each attention shape that (a)-(c) launched (causal,
     bidirectional, cross or windowed) against the plain versions through
     the wrappers, the forward and, for (c), both backward kernels;
-21. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
+21. LM decode over a mesh of shards (the cache placed leaf for leaf by
+    ``cache_pspecs``: the batch on the data axes, the cached sequence of every
+    k, v and MLA latent on "model", each decode step's attention a split-K
+    reduce over "model"; the cached prefill is the sharded forward with a
+    cache sink): (a) float32, TF32 off, against the unsharded port on the
+    same weights at full width and cut depth: qwen3-8b (4 layers) on (1, 4),
+    (2, 2) and (1, 16) (its 8 KV heads replicated), deepseek-v2-236b (its
+    dense layer and one MoE layer, MLA) and xlstm-1.3b (one mLSTM and one
+    sLSTM block) and seamless-m4t-large-v2 (2 + 2 layers over 1024 frames)
+    on (1, 4) and (2, 2), a cached prefill of B = 2 x 256 and 8
+    teacher-forced decode steps; zamba2-2.7b's first group at B = 1 x 4096
+    (its window: the steps wrap the ring; on (2, 2) the row is on no data
+    axis), every step's logits and every gathered cache leaf within
+    ``TP_LOGITS_TOL``; (c) on qwen3-8b (1, 4) the planted faults of
+    ``tests/torch_tp_probes.py`` beyond it (the combine with each shard's own
+    maximum, a shard's partial dropped, the new key written by every
+    shard); (b) bf16 qwen3-8b at full width, 12 layers, over (1, 4) shards
+    (a main path: counts reset just before the prefill, read after the last
+    step), at B = 2 and B = 8 a 1024-token cached prefill (48
+    ``flash_attention`` launches, all TMA, at the shards' (B, 8 on 2, 1024,
+    128), none in decode) and 16 decode steps within ``STATE_REL_TOL`` of
+    the unsharded kernel path, the steps of the two timed in turns (wall ms
+    and the span between two events), the cache bytes a shard (a quarter of
+    the unsharded k and v), the collectives a step and ``launch/cost.py``'s
+    count of the same step; (d) each attention shape that (a) and (b)
+    launched against the plain version through the wrapper;
+22. print the run's total seconds, one ``{"kernels": [...]}`` line, then the
     result line ``{"ok": true, "device": {...}}``.
 
 It refuses to run without a CUDA device, and imports nothing of JAX or of
@@ -5679,6 +5705,282 @@ def lm_family_tensor_parallel_phase(dev, card: str) -> dict:
     return out
 
 
+# phase 21: LM decode over a mesh of shards (the cache placed by
+# ``cache_pspecs``, each step's attention a split-K reduce over "model")
+# (a) float32 at full width and cut depth, TF32 off, against the unsharded
+# port on the same weights: case -> (arch, config changes, B, S, meshes)
+DEC_PROBE = {
+    "qwen3-8b": ("qwen3-8b", dict(n_layers=4), 2, 256,
+                 {"1x4": (1, 4), "2x2": (2, 2), "1x16": (1, 16)}),
+    # its dense layer and one MoE layer, MLA's latent cache
+    "deepseek-v2-236b": ("deepseek-v2-236b", dict(n_layers=2), 2, 256,
+                         {"1x4": (1, 4), "2x2": (2, 2)}),
+    # the first group at B = 1 x 4096 (the window): the 8 steps wrap the ring;
+    # on (2, 2) the one row is on no data axis, as long_500k's
+    "zamba2-2.7b": ("zamba2-2.7b", dict(n_layers=6), 1, 4096, {"1x4": (1, 4), "2x2": (2, 2)}),
+    "xlstm-1.3b": ("xlstm-1.3b", dict(n_layers=2, slstm_every=2), 2, 256,
+                   {"1x4": (1, 4), "2x2": (2, 2)}),
+    # two encoder and two decoder layers over 1024 frames
+    "seamless-m4t-large-v2": ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2), 2, 256,
+                              {"1x4": (1, 4), "2x2": (2, 2)}),
+}
+DEC_STEPS = 8
+# (c) the planted faults (tests/torch_tp_probes.py) on one case of (a): the
+# 320-slot cache splits 80 a shard, so the steps' slots 256-263 are the last
+# shard's and a key written by every shard lands on live slots of the others
+DEC_FAULT_CASE = ("qwen3-8b", "1x4")
+DEC_FAULTS = ("split_k_own_max", "split_k_dropped_partial", "new_key_on_every_shard")
+# (b) bf16 qwen3-8b, 12 of its 36 layers, tp 4: a 1024-token prefill, then
+# 16 decode steps, at B = 2 and B = 8
+DEC_FWD_ARCH, DEC_FWD_LAYERS, DEC_FWD_S, DEC_FWD_MESH = "qwen3-8b", 12, 1024, (1, 4)
+DEC_FWD_BATCHES, DEC_FWD_STEPS = (2, 8), 16
+
+
+def decode_run(lm, params, tokens, fe, s: int, steps: int):
+    """``lm.prefill`` of ``tokens[:, :s]`` (placed parameters under active
+    rules), then ``steps`` teacher-forced decode steps: (each step's logits,
+    the cache after the last)."""
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, tokens[:, :s], fe)
+        out = [logits]
+        for i in range(steps):
+            logits, cache = lm.decode_step(params, cache, tokens[:, s + i:s + i + 1])
+            out.append(logits)
+    return out, cache
+
+
+def decode_errors(logits, cache, want_logits, want_cache, vocab: int) -> dict:
+    """Each step's logits and every gathered cache leaf against the
+    unsharded run: their ``rel_err``, the worst of each."""
+    from repro_torch.models.lm.sharding import gather_cache
+
+    whole = gather_cache(cache)
+    require(whole["pos"] == want_cache["pos"], f"pos {whole['pos']} != {want_cache['pos']}")
+    steps = [rel_err(g[:, :vocab].to(w.device), w[:, :vocab]) for g, w in zip(logits, want_logits)]
+    leaves = {k: rel_err(whole[k].to(w.device), w) for k, w in want_cache.items() if k != "pos"}
+    return dict(steps=steps, logits_rel=max(steps), leaves=leaves,
+                cache_rel=max(leaves.values()))
+
+
+def decode_float32_check(dev, card: str) -> dict:
+    """Phase 21(a) and (c): the cases of ``DEC_PROBE`` in float32, TF32 off,
+    over simulated shards against the unsharded port on the same weights;
+    the planted faults on ``DEC_FAULT_CASE``."""
+    import gc
+
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import shard_params, use_rules
+    from torch_tp_probes import planted
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, shapes = {}, collections.Counter()
+    try:
+        for i, (case, (arch, changes, b, s, meshes)) in enumerate(DEC_PROBE.items()):
+            t0 = time.perf_counter()
+            cfg = family_cfg(arch, changes, "float32")
+            lm = LM(cfg, remat=False)
+            params = lm.init(torch.Generator(device=dev).manual_seed(70 + i))
+            gen = torch.Generator(device=dev).manual_seed(80 + i)
+            tokens = torch.randint(0, cfg.vocab, (b, s + DEC_STEPS), device=dev, generator=gen)
+            fe = (torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen, device=dev)
+                  if cfg.frontend else None)
+            want_logits, want_cache = decode_run(lm, params, tokens, fe, s, DEC_STEPS)
+            for name, dims in meshes.items():
+                rules = tp_rules(cfg, dims, simulated_devices(dims[0] * dims[1], dev))
+                placed = shard_params(rules, params)
+                with use_rules(rules), attention_shapes() as seen:
+                    logits, cache = decode_run(lm, placed, tokens, fe, s, DEC_STEPS)
+                shapes.update(seen)
+                rec = decode_errors(logits, cache, want_logits, want_cache, cfg.vocab)
+                del cache
+                require(rec["logits_rel"] <= TP_LOGITS_TOL and rec["cache_rel"] <= TP_LOGITS_TOL,
+                        f"decode float32 {case} {name}: steps {rec['steps']}, cache leaves "
+                        f"{rec['leaves']} beyond {TP_LOGITS_TOL}")
+                if (case, name) == DEC_FAULT_CASE:
+                    for fault in DEC_FAULTS:
+                        with planted(fault), use_rules(rules):
+                            bad = decode_errors(*decode_run(lm, placed, tokens, fe, s, DEC_STEPS),
+                                                want_logits, want_cache, cfg.vocab)
+                        rec[f"planted_{fault}"] = max(bad["steps"][1:])
+                        require(rec[f"planted_{fault}"] > TP_LOGITS_TOL,
+                                f"decode float32 {case} {name}: the planted {fault} reads "
+                                f"{rec[f'planted_{fault}']}, within {TP_LOGITS_TOL}")
+                out[f"{case} {name}"] = rec
+                print(f"lm decode tensor parallel float32 {case} {changes} {name}: B={b}, a "
+                      f"{s}-token prefill and {DEC_STEPS} decode steps: logits "
+                      f"{rec['logits_rel']:.3g} at worst over the steps, cache leaves "
+                      f"{rec['cache_rel']:.3g} at worst "
+                      f"({json.dumps({k: float(f'{v:.3g}') for k, v in rec['leaves'].items()})})"
+                      " from the unsharded port"
+                      + "".join(f", {k} {rec[k]:.3g}" for k in rec if k.startswith("planted"))
+                      + f" relative [{card}]", flush=True)
+                del placed
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[f"{case} seconds"] = time.perf_counter() - t0
+            del params, want_logits, want_cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["shapes"] = {str(k): c for k, c in shapes.items()}
+        out["kernels"] = tp_kernel_checks(dev, shapes, torch.float32, card, backward=False)
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def decode_step_cost(cfg, b: int, cap: int, pos: int) -> dict:
+    """``launch/cost.py``'s count of one sharded decode step of ``cfg`` at
+    batch ``b`` on a cache of ``cap`` slots at ``pos``, over (1, 4) meta
+    shards: per-shard FLOPs, bytes and link bytes, and the step's bound on
+    one card from ``cost.HW`` (the 4 shards share it)."""
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.sharding import shard_cache, shard_params, use_rules
+
+    meta = torch.device("meta")
+    lm = LM(cfg)
+    n = DEC_FWD_MESH[0] * DEC_FWD_MESH[1]
+    rules = tp_rules(cfg, DEC_FWD_MESH, simulated_devices(n, meta))
+    params = shard_params(rules, lm.init_shapes())
+    cache = shard_cache(rules, lm.init_cache(b, cap, meta))
+    cache["pos"] = pos
+    with use_rules(rules):
+        _, spent = cost.count(lm.decode_step, params, cache,
+                              torch.zeros((b, 1), dtype=torch.int64, device=meta))
+    hw = cost.HW
+    return dict(flops_per_shard=spent.flops / n, bytes_per_shard=spent.bytes / n,
+                link_bytes=spent.collectives["link_bytes"],
+                bound_ms_one_card=max(spent.flops / hw["peak_flops"],
+                                      spent.bytes / hw["hbm_bw"]) * 1e3,
+                peaks=hw["card"])
+
+
+def decode_forward(dev, card: str) -> dict:
+    """Phase 21(b): bf16 qwen3-8b at full width, 12 layers, over (1, 4)
+    shards on one card: at B = 2 and 8, the sharded cached prefill and 16
+    decode steps (a main path: counts reset just before the prefill, read
+    after the last step), against the unsharded kernel path; the steps of
+    the two timed in turns."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import simulated_devices
+    from repro_torch.models.lm import LM, collectives
+    from repro_torch.models.lm.sharding import shard_params, use_rules
+
+    cfg = dataclasses.replace(get_config(DEC_FWD_ARCH), n_layers=DEC_FWD_LAYERS)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(90))
+    n = DEC_FWD_MESH[0] * DEC_FWD_MESH[1]
+    rules = tp_rules(cfg, DEC_FWD_MESH, simulated_devices(n, dev))
+    placed = shard_params(rules, params)
+    out, calls, launches = {}, collections.Counter(), collections.Counter()
+    h_loc, kv_loc = cfg.n_heads // n, cfg.n_kv_heads // n
+    for b in DEC_FWD_BATCHES:
+        tokens = torch.randint(0, cfg.vocab, (b, DEC_FWD_S + DEC_FWD_STEPS), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(91 + b))
+        shape = attention_key(b, h_loc, kv_loc, DEC_FWD_S, cfg.resolved_head_dim)
+        with torch.no_grad():
+            want, want_cache = lm.prefill(params, tokens[:, :DEC_FWD_S])
+            with use_rules(rules), attention_shapes() as seen:
+                build.reset_launch_counts()  # the main path: counts set to 0 just before
+                got, cache = lm.prefill(placed, tokens[:, :DEC_FWD_S])
+                torch.cuda.synchronize()
+                prefill_launches, prefill_paths = dict(build.LAUNCHES), dict(build.PATHS)
+            errs = [rel_err(got[:, :cfg.vocab], want[:, :cfg.vocab])]
+            collectives.reset_stats()
+            timed = {"sharded": [], "unsharded": []}
+            for i in range(DEC_FWD_STEPS):  # in turns: the unsharded step, then the sharded
+                tok = tokens[:, DEC_FWD_S + i:DEC_FWD_S + i + 1]
+                for name in ("unsharded", "sharded"):
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    start.record()
+                    if name == "sharded":
+                        with use_rules(rules):
+                            got, cache = lm.decode_step(placed, cache, tok)
+                    else:
+                        want, want_cache = lm.decode_step(params, want_cache, tok)
+                    stop.record()
+                    torch.cuda.synchronize()
+                    timed[name].append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(stop)))
+                errs.append(rel_err(got[:, :cfg.vocab], want[:, :cfg.vocab]))
+            got_launches, paths = dict(build.LAUNCHES), dict(build.PATHS)
+        coll = collectives.STATS.as_dict()
+        kv_bytes = sum(want_cache[k].numel() * want_cache[k].element_size() for k in ("k", "v"))
+        shard_bytes = [sum(blk.numel() * blk.element_size()
+                           for blk in (cache["k"].own()[m], cache["v"].own()[m]))
+                       for m in range(n)]
+        cap = cache["k"].shape[2]
+        require(all(math.isfinite(e) for e in errs) and max(errs) <= STATE_REL_TOL,
+                f"decode forward B={b}: sharded logits {errs} beyond {STATE_REL_TOL}")
+        require(prefill_launches == got_launches == {"flash_attention": cfg.n_layers * n}
+                and prefill_paths == paths == {"flash_attention.tma": cfg.n_layers * n}
+                and dict(seen) == {shape: cfg.n_layers * n},
+                f"decode forward B={b}: launches {prefill_launches} in the prefill, "
+                f"{got_launches} after the decode steps, paths {paths}, shapes {dict(seen)}; "
+                f"expected {cfg.n_layers * n} on the TMA path at {shape} and none in decode")
+        require(all(x * n == kv_bytes for x in shard_bytes) and cap % n == 0,
+                f"decode forward B={b}: cache bytes a shard {shard_bytes}, unsharded {kv_bytes}")
+        calls.update(seen)
+        launches.update(got_launches)
+        med = {name: dict(wall_ms=statistics.median(w for w, _ in rows[1:]),
+                          event_span_ms=statistics.median(e for _, e in rows[1:]))
+               for name, rows in timed.items()}
+        rec = dict(arch=DEC_FWD_ARCH, layers=cfg.n_layers, mesh=list(DEC_FWD_MESH), batch=b,
+                   prefill=DEC_FWD_S, steps=DEC_FWD_STEPS, logits_rel=errs, launches=got_launches,
+                   paths=paths, shapes={str(k): c for k, c in seen.items()},
+                   step_ms=med, step_ms_all={k: [list(r) for r in v] for k, v in timed.items()},
+                   cache_bytes_per_shard=shard_bytes[0], unsharded_kv_bytes=kv_bytes,
+                   collectives_per_step=dict(
+                       link_bytes=coll["link_bytes"] / DEC_FWD_STEPS,
+                       **{k: {o: c / DEC_FWD_STEPS for o, c in coll[k].items()}
+                          for k in ("per_op_bytes", "per_op_count")}),
+                   cost=decode_step_cost(cfg, b, cap, DEC_FWD_S + DEC_FWD_STEPS // 2))
+        out[f"b{b}"] = rec
+        print(f"lm decode tensor parallel bf16 {DEC_FWD_ARCH} {cfg.n_layers} layers over "
+              f"{DEC_FWD_MESH} shards on one card: B={b}, a {DEC_FWD_S}-token prefill and "
+              f"{DEC_FWD_STEPS} decode steps, logits {max(errs):.4g} at worst from the unsharded "
+              f"kernel path; {cfg.n_layers * n} flash_attention launches in the prefill, all "
+              f"TMA, at {shape}, none in decode; a decode step (median of steps 2-"
+              f"{DEC_FWD_STEPS}, in turns) sharded {med['sharded']['wall_ms']:.2f} ms wall, "
+              f"{med['sharded']['event_span_ms']:.2f} ms between events; unsharded "
+              f"{med['unsharded']['wall_ms']:.2f} ms wall, "
+              f"{med['unsharded']['event_span_ms']:.2f} ms between events; cache "
+              f"{shard_bytes[0]} bytes a shard of {kv_bytes} ({cap} slots); collectives a step "
+              f"{json.dumps(rec['collectives_per_step'])}; launch/cost.py's count of the step: "
+              f"{json.dumps(rec['cost'])} [{card}]", flush=True)
+        del cache, want_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    del placed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = dict(launches)
+    out["shapes"] = {str(k): c for k, c in calls.items()}
+    out["kernels"] = tp_kernel_checks(dev, calls, torch.bfloat16, card, backward=False)
+    return out
+
+
+def lm_decode_tensor_parallel_phase(dev, card: str) -> dict:
+    """Phase 21: LM decode over a mesh of shards."""
+    t0 = time.perf_counter()
+    out = {"float32": decode_float32_check(dev, card)}
+    out["forward"] = decode_forward(dev, card)
+    out["launches"] = out["forward"]["launches"]
+    out["vs_plain"] = dict(kernels={**out["float32"]["kernels"], **out["forward"]["kernels"]})
+    out["seconds"] = time.perf_counter() - t0
+    print(f"lm decode tensor parallel phase: {out['seconds']:.1f} s, launches on the main path "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -5890,6 +6192,7 @@ def main() -> int:
     lm_tp = lm_tensor_parallel_phase(dev, card)
     lm_moe_tp = lm_moe_tensor_parallel_phase(dev, card)
     lm_fam_tp = lm_family_tensor_parallel_phase(dev, card)
+    lm_dec_tp = lm_decode_tensor_parallel_phase(dev, card)
 
     def per_request(run, kname, n_req):
         """Launches of a run's requests (its warm-up pass and the eager pass
@@ -5997,6 +6300,10 @@ def main() -> int:
         lm_family_tensor_parallel_shapes=dict(forward=lm_fam_tp["forward"]["shapes"],
                                               training=lm_fam_tp["training"]["shapes"]),
         lm_family_tensor_parallel_vs_plain=lm_fam_tp["vs_plain"],
+        launches_lm_decode_tensor_parallel=lm_dec_tp["launches"].get("flash_attention", 0),
+        lm_decode_tensor_parallel_shapes=dict(float32=lm_dec_tp["float32"]["shapes"],
+                                              forward=lm_dec_tp["forward"]["shapes"]),
+        lm_decode_tensor_parallel_vs_plain=lm_dec_tp["vs_plain"],
     ))
     qwen_case = lm_training["backward"]["qwen05b_4x16x1024x64_causal"]
     for kname, what in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dk dv")):
@@ -6058,6 +6365,7 @@ def main() -> int:
     serve["lm_tensor_parallel"] = lm_tp
     serve["lm_moe_tensor_parallel"] = lm_moe_tp
     serve["lm_family_tensor_parallel"] = lm_fam_tp
+    serve["lm_decode_tensor_parallel"] = lm_dec_tp
     seconds = time.perf_counter() - t_start
     print(json.dumps({"card": card, "build_s": build_s, "serve": serve, "profile": prof,
                       "afc_crossover": crossover,

@@ -12,12 +12,14 @@ no HLO.  For each cell the dry run:
   3. places them by the specs of ``models/lm/sharding.py`` and records each
      device's bytes of parameters, optimizer state, inputs and cache, for
      every applicable cell and every family,
-  4. for the train and prefill shapes of every family, traces the cell's
-     step on meta shards (the train step with remat; the prefill's logits)
-     and counts its FLOPs, bytes and collective traffic
-     (``launch/cost.py``).  One data-parallel replica (the model axis's 16
-     shards) is traced, since the others repeat it; the data axes' gradient
-     all-reduce is added from the specs.  The MoE family is traced with the
+  4. for every shape of every family, traces the cell's step on meta shards
+     (the train step with remat; the prefill's logits; one ``decode_step``
+     on a cache ``seq_len`` deep, placed by ``sharding.shard_cache``, its
+     attention split over the cached sequence on "model") and counts its
+     FLOPs, bytes and collective traffic (``launch/cost.py``).  One
+     data-parallel replica (the model axis's 16 shards) is traced, since the
+     others repeat it; the data axes' gradient all-reduce is added from the
+     specs.  The MoE family is traced with the
      einsum backend, the reference's dry-run baseline (the sorted backend's
      ``bincount`` and ``argsort`` depend on the data, which ``meta`` does not
      have).  The SSM family's sLSTM scan is a Python loop over positions
@@ -25,8 +27,7 @@ no HLO.  For each cell the dry run:
   5. writes ``roofline_terms`` against the H100's published peaks
      (``cost.HW``) to ``<out>/<arch>__<shape>__<mesh>.json``.
 
-The decode cells are ``specs_only``, with the reason: the port does not
-run decode over a mesh yet (the sharded cache).  :func:`run_cell` takes the
+:func:`run_cell` takes the
 reference's variant keywords: ``tag`` (a separate record), ``cfg_override``,
 ``fsdp`` (ZeRO-3 weight sharding over the data axes), ``model_kwargs`` and
 ``train_kwargs``.  A trace that outlasts ``cost.TRACE_LIMIT_S`` is recorded
@@ -56,12 +57,12 @@ from repro_torch.launch.cost import HW, TraceCut, count
 from repro_torch.launch.mesh import DP_AXES, make_lm_mesh, make_production_mesh, simulated_devices
 from repro_torch.models.lm import LM
 from repro_torch.models.lm import collectives
-from repro_torch.models.lm.model import TP_FAMILIES
 from repro_torch.models.lm.sharding import (
     ShardingRules,
     batch_pspec,
     cache_pspecs,
     param_pspecs,
+    shard_cache,
     shard_params,
     use_rules,
 )
@@ -139,11 +140,17 @@ def _trace(model, params, shape, rules, multi_pod: bool, placed, train_kwargs=No
     rows = shape.global_batch // dp if shape.global_batch % dp == 0 else shape.global_batch
     batch = {k: v[:rows] for k, v in _inputs(model.cfg, shape).items()}
     params = shard_params(trace_rules, params)
+    if shape.kind == "decode":  # the last slot of a cache seq_len deep
+        cache = shard_cache(trace_rules, model.init_cache(rows, shape.seq_len, META))
+        cache["pos"] = shape.seq_len - 1
     t0 = time.time()
     with use_rules(trace_rules):
         if shape.kind == "train":
             step_fn = build_train_step(model, **(train_kwargs or {}))
             _, spent = count(step_fn, params, adamw_init(params), batch, 0)
+        elif shape.kind == "decode":
+            with torch.no_grad():
+                _, spent = count(model.decode_step, params, cache, batch["tokens"])
         else:
             with torch.no_grad():
                 _, spent = count(model.prefill_logits, params, batch["tokens"],
@@ -229,16 +236,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
         "place_s": round(time.time() - t0, 2),
         "hw": HW,
     })
-    if shape.kind == "decode" or cfg.family not in TP_FAMILIES:
-        why = ("decode: the sharded cache (cache_pspecs, split-K over 'model') is not executed "
-               "by the port yet" if shape.kind == "decode" else
-               f"the {cfg.family} family does not run tensor-parallel in the port yet")
-        record.update({"status": "specs_only",
-                       "reason": why + " (ROADMAP Queue 1 item 9); per-device bytes from the specs"})
-        _write(record, out_dir)
-        print(f"[dryrun] SPECS {arch} x {shape_name} x {mesh_name}: {record['reason']}")
-        return record
-
     try:
         record.update(_trace(model, params, shape, rules, multi_pod, placed, train_kwargs))
     except TraceCut as cut:

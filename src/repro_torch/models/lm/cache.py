@@ -25,6 +25,19 @@ writes slot ``pos % w``.  So below the window (S < W) the first decode
 step overwrites position 0, and past it with S % W ≠ 0 the slots are
 misaligned with ``pos % W``; ``init_cache`` sizes its ring by ``max_seq``
 instead (ROADMAP Queue 3).
+
+Over a mesh of shards (under ``sharding.use_rules``, with the parameters of
+``sharding.shard_params``) the cache is a dict of ``sharding.Sharded`` leaves
+placed leaf for leaf by ``cache_pspecs`` (the batch on the data axes where
+it divides, the cached sequence of every k, v, ``ckv`` and ``kpe`` on
+"model", the SSM and conv states split as the spec says, ``ck``, ``cv``
+whole) and the Python int ``pos``; ``sharding.gather_cache`` gives the
+layout above again.  ``init_cache`` places an empty one; the cached prefill
+is the model's own forward over the mesh (``LM._forward_shards``) with a
+:class:`CacheSink`, to which each block hands its keys, values or final
+states; :func:`decode_step` runs the blocks' decode over the shards
+(``layers.attention_block_decode_shards`` and its MLA and cross-attention
+siblings, the split-K reduce over "model"; ``ssm.*_decode_shards``).
 """
 from __future__ import annotations
 
@@ -32,19 +45,25 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import ssm as ssm_lib
+from repro_torch.models.lm.collectives import all_gather, all_to_all
 from repro_torch.models.lm.layers import (
     attention_block_decode,
+    attention_block_decode_shards,
     attention_block_with_kv,
     cross_attention_decode,
+    cross_attention_decode_shards,
     cross_attention_with_kv,
     glu_ffn,
+    glu_ffn_shards,
     mla_block_decode,
+    mla_block_decode_shards,
     mla_block_with_cache,
     rms_norm,
 )
 from repro_torch.models.lm.model import stacked
+from repro_torch.models.lm.sharding import Sharded, active_rules, empty_cache, split_batch
 
-__all__ = ["DECODE_RESERVE", "build_prefill_cache", "decode_step", "init_cache"]
+__all__ = ["DECODE_RESERVE", "CacheSink", "build_prefill_cache", "decode_step", "init_cache"]
 
 f32 = torch.float32
 # Decode slots reserved past the prefill length when the caller does not pass
@@ -92,7 +111,14 @@ def _leaves(model, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(model, batch: int, max_seq: int, device=None) -> dict:
-    """An empty cache of ``max_seq`` positions on ``device`` (default the card)."""
+    """An empty cache of ``max_seq`` positions on ``device`` (default the
+    card); under sharding rules placed on their mesh's devices instead
+    (``device`` unused)."""
+    rules = active_rules()
+    if rules is not None:
+        cache = empty_cache(rules, _leaves(model, batch, max_seq), batch)
+        cache["pos"] = 0
+        return cache
     dev = resolve_device(device)
     cache = {name: torch.full(shape, fill, dtype=dtype, device=dev)
              for name, (shape, dtype, fill) in _leaves(model, batch, max_seq).items()}
@@ -117,8 +143,13 @@ def build_prefill_cache(model, params, tokens, frontend=None, max_seq=None):
     absolute-slot cache can hold; defaults to ``prefill_len +
     DECODE_RESERVE``.  The VLM prepends ``frontend @ frontend_adapter`` to
     the token embeddings; the audio family encodes ``frontend`` and
-    attends to it.  The SSM and hybrid families ignore ``max_seq``.
+    attends to it.  The SSM and hybrid families ignore ``max_seq``.  Under
+    sharding rules the forward runs over their mesh and the cache is placed
+    by ``cache_pspecs`` (:func:`_prefill_shards`).
     """
+    rules = active_rules()
+    if rules is not None:
+        return _prefill_shards(model, rules, params, tokens, frontend, max_seq)
     cfg = model.cfg
     x = model.embed(params, tokens)
     if cfg.family == "vlm" and frontend is not None:
@@ -247,12 +278,17 @@ def _check_cache_capacity(pos: int, limit: int) -> None:
 
 
 def decode_step(model, params, cache, tokens):
-    """tokens (B, 1) -> (logits (B, Vp), the cache updated in place)."""
+    """tokens (B, 1) -> (logits (B, Vp), the cache updated in place); under
+    sharding rules over their mesh, on a placed cache (module docstring)."""
     cfg = model.cfg
     pos = cache["pos"]
     fam = cfg.family
     if fam not in ("ssm", "hybrid"):
+        # the global capacity: a placed leaf's shape is the whole leaf's
         _check_cache_capacity(pos, cache["ckv" if cfg.mla else "k"].shape[2])
+    rules = active_rules()
+    if rules is not None:
+        return _decode_shards(model, rules, params, cache, tokens, pos)
     x = model.embed(params, tokens)
     step = {"ssm": _decode_ssm, "hybrid": _decode_hybrid, "audio": _decode_audio}.get(
         fam, _decode_attn)
@@ -325,3 +361,183 @@ def _decode_audio(model, params, cache, x, pos):
                                        cache["ck"][i], cache["cv"][i])
         x = x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps), cfg.act)
     return x
+
+
+# ==========================================================================
+# over a mesh of shards
+# ==========================================================================
+class CacheSink:
+    """Where the blocks of the sharded prefill (``LM._forward_shards``) leave
+    their keys, values and final states, one tensor a shard: it lays each out
+    in ``cache`` (``sharding.Sharded`` leaves placed by ``cache_pspecs``) at
+    the layer that :meth:`at` names.  Each block is written by its home shard
+    (a block that several shards share gets the same values from each)."""
+
+    def __init__(self, rules, cache: dict, batch_split: bool, layer: tuple = ()):
+        self.rules, self.cache, self.batch_split, self.layer = rules, cache, batch_split, layer
+
+    def at(self, *layer) -> "CacheSink":
+        """The sink for the leaves' layer ``layer`` (their leading indices)."""
+        return CacheSink(self.rules, self.cache, self.batch_split, layer)
+
+    def _leaf(self, name: str) -> Sharded:
+        leaf = self.cache[name]
+        for i in self.layer:
+            leaf = leaf[i]
+        return leaf
+
+    @staticmethod
+    def _write(leaf: Sharded, xs: list) -> None:
+        for blk, home, x in zip(leaf.own(), leaf.homes(), xs):
+            if tuple(x.shape) != tuple(blk.shape):
+                raise ValueError(f"a block of shape {tuple(x.shape)} for the cache's "
+                                 f"{tuple(blk.shape)} (spec {leaf.spec})")
+            if home:
+                blk.copy_(x)
+
+    def put(self, name: str, xs: list) -> None:
+        """Each shard's block of ``name``, already in the cache's layout."""
+        self._write(self._leaf(name), xs)
+
+    def put_cut(self, name: str, xs: list) -> None:
+        """Each shard's whole tensor of ``name`` (its rows): the block of the
+        dim that the leaf splits over "model" is cut out."""
+        leaf = self._leaf(name)
+        d = leaf.split_dim()
+        if d is not None:
+            size = leaf.shape[d] // leaf.grid[d]
+            xs = [x.narrow(d, off, size) for x, off in zip(xs, leaf.offsets(d))]
+        self._write(leaf, xs)
+
+    def put_seq(self, name: str, xs: list, *, heads_split: bool) -> None:
+        """Each shard's (B_loc, S, ...) keys of ``name`` for its rows: the last
+        positions that the leaf's sequence holds (the hybrid's ring keeps the
+        last w), zero-padded to its capacity, as ``_cache_len`` pads; where
+        ``heads_split`` (a shard holds its block of the KV heads) re-split
+        from heads to sequence blocks by one all-to-all over "model", else
+        (every head on every shard) cut to the shard's sequence block."""
+        leaf = self._leaf(name)
+        cap = leaf.shape[1]
+        xs = [x[:, -cap:] for x in xs]
+        if xs[0].shape[1] < cap:
+            xs = [torch.cat([x, x.new_zeros((x.shape[0], cap - x.shape[1], *x.shape[2:]))], dim=1)
+                  for x in xs]
+        if heads_split:
+            xs = all_to_all(xs, self.rules.mesh, self.rules.tp_axis, split_dim=1, concat_dim=2)
+            self._write(leaf, xs)
+        else:
+            self.put_cut(name, xs)
+
+    def put_whole(self, name: str, xs: list, *, heads_split: bool) -> None:
+        """A replicated leaf (the audio's cross cache) from each shard's KV
+        heads of its rows: gathered over "model" where the heads are split
+        and over the data axes where the rows are."""
+        rules = self.rules
+        if heads_split:
+            xs = all_gather(xs, rules.mesh, rules.tp_axis, dim=2)
+        if self.batch_split and rules.dp() > 1:
+            xs = all_gather(xs, rules.mesh, rules.axis("batch"), dim=0)
+        self._write(self._leaf(name), xs)
+
+
+def _prefill_shards(model, rules, params, tokens, frontend, max_seq):
+    """The cached prefill over the mesh of ``rules``: an empty placed cache
+    of the unsharded prefill's sizes, filled by the forward's blocks through
+    a :class:`CacheSink`; returns (last logits (B, Vp), cache)."""
+    cfg = model.cfg
+    fam = cfg.family
+    b, s = tokens.shape
+    if fam == "vlm" and frontend is not None:
+        s += frontend.shape[1]
+    if fam == "hybrid":
+        leaves = _leaves(model, b, min(cfg.sliding_window or s, s))
+    elif fam == "ssm":
+        leaves = _leaves(model, b, s)
+    else:
+        leaves = _leaves(model, b, _cache_len(s, max_seq))
+    if fam == "audio":
+        shape, dt, fill = leaves["ck"]
+        enc = (*shape[:2], frontend.shape[1], *shape[3:])
+        leaves.update(ck=(enc, dt, fill), cv=(enc, dt, fill))
+    cache = empty_cache(rules, leaves, b)
+    batch_split = b % rules.dp() == 0
+    xs = model._embed_shards(rules, params["embed"], split_batch(rules, tokens))
+    hs = model._forward_shards(rules, params, xs, frontend, batch_split,
+                               sink=CacheSink(rules, cache, batch_split))
+    cache["pos"] = s
+    return model._last_logits_shards(rules, params, hs, batch_split), cache
+
+
+def _decode_shards(model, rules, params, cache, tokens, pos):
+    bad = [name for name, leaf in cache.items() if name != "pos" and not isinstance(leaf, Sharded)]
+    if bad:
+        raise TypeError(f"decode_step under sharding rules takes a placed cache "
+                        f"(sharding.shard_cache or init_cache under the rules); {bad} are not")
+    batch_split = tokens.shape[0] % rules.dp() == 0
+    xs = model._embed_shards(rules, params["embed"], split_batch(rules, tokens))
+    step = {"ssm": _decode_ssm_shards, "hybrid": _decode_hybrid_shards,
+            "audio": _decode_audio_shards}.get(model.cfg.family, _decode_attn_shards)
+    xs = step(model, rules, params, cache, xs, pos, batch_split)
+    cache["pos"] = pos + 1
+    return model._last_logits_shards(rules, params, xs, batch_split), cache
+
+
+def _residual(xs: list, ys: list) -> list:
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _decode_attn_shards(model, rules, params, cache, xs, pos, batch_split):
+    cfg = model.cfg
+    for i, bp in enumerate(model.layers(params)):
+        hs = model._norm_shards(xs, bp["ln1"])
+        if cfg.mla:
+            a = mla_block_decode_shards(rules, bp["attn"], hs, cache["ckv"][i], cache["kpe"][i],
+                                        pos, cfg)
+        else:
+            a = attention_block_decode_shards(rules, bp["attn"], hs, cache["k"][i],
+                                              cache["v"][i], pos, cfg)
+        xs = model._ffn_shards(rules, bp, _residual(xs, a), batch_split)
+    return xs
+
+
+def _decode_hybrid_shards(model, rules, params, cache, xs, pos, batch_split):
+    cfg = model.cfg
+    shared = params["shared_block"]
+    w = cache["k"].shape[2]
+    for g, (mamba, _) in enumerate(model.groups(params)):
+        for j, mp in enumerate(stacked(mamba)):
+            xs = _residual(xs, ssm_lib.mamba2_decode_shards(
+                rules, mp["cell"], model._norm_shards(xs, mp["ln"]), cache["conv"][g][j],
+                cache["ssm"][g][j], cfg))
+        a = attention_block_decode_shards(rules, shared["attn"],
+                                          model._norm_shards(xs, shared["ln1"]), cache["k"][g],
+                                          cache["v"][g], pos, cfg, window=w)
+        xs = model._ffn_shards(rules, shared, _residual(xs, a), batch_split)
+    return xs
+
+
+def _decode_ssm_shards(model, rules, params, cache, xs, pos, batch_split):
+    cfg = model.cfg
+    for g, (mlstm, slstm) in enumerate(model.groups(params)):
+        for j, mp in enumerate(stacked(mlstm)):
+            state = tuple(cache[name][g][j] for name in ("mC", "mn", "mm"))
+            xs = _residual(xs, ssm_lib.mlstm_decode_shards(
+                rules, mp["cell"], model._norm_shards(xs, mp["ln"]), state, cfg))
+        state = tuple(cache[name][g] for name in ("sc", "sn", "sm", "sh"))
+        xs = _residual(xs, ssm_lib.slstm_decode_shards(
+            rules, slstm["cell"], model._norm_shards(xs, slstm["ln"]), state, cfg))
+    return xs
+
+
+def _decode_audio_shards(model, rules, params, cache, xs, pos, batch_split):
+    cfg = model.cfg
+    for i, bp in enumerate(stacked(params["dec_blocks"])):
+        xs = _residual(xs, attention_block_decode_shards(
+            rules, bp["self_attn"], model._norm_shards(xs, bp["ln1"]), cache["k"][i],
+            cache["v"][i], pos, cfg))
+        xs = _residual(xs, cross_attention_decode_shards(
+            rules, bp["cross_attn"], model._norm_shards(xs, bp["ln_x"]), cache["ck"][i],
+            cache["cv"][i], batch_split))
+        xs = _residual(xs, glu_ffn_shards(rules, bp["ffn"], model._norm_shards(xs, bp["ln2"]),
+                                          cfg.act))
+    return xs

@@ -37,7 +37,11 @@ counts.  :func:`mla_block_shards` runs MLA so: each shard computes the
 latent and the query's low-rank projection from the replicated leaves, and
 its own heads of ``wq_b``, ``wkv_b`` and ``wo``.  :func:`cross_attention_shards`
 runs the audio decoder's cross attention so, its keys and values from each
-shard's copy of the encoder output.
+shard's copy of the encoder output.  With a cache sink (the cached prefill)
+these blocks also hand over their keys and values.  Decode over the mesh
+(:func:`attention_block_decode_shards`, :func:`mla_block_decode_shards`,
+:func:`cross_attention_decode_shards`) reads a cache whose sequence is split
+over "model": the split-K reduce of the section at the end of this module.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from repro_torch.kernels.flash_attention import ops
 __all__ = [
     "attention_block",
     "attention_block_decode",
+    "attention_block_decode_shards",
     "attention_block_shards",
     "attention_block_with_kv",
     "attention_blockwise",
@@ -57,6 +62,7 @@ __all__ = [
     "attention_full",
     "attention_qkv",
     "cross_attention_decode",
+    "cross_attention_decode_shards",
     "cross_attention_shards",
     "cross_attention_with_kv",
     "glu_ffn",
@@ -68,6 +74,7 @@ __all__ = [
     "mla_block",
     "mla_block_shards",
     "mla_block_decode",
+    "mla_block_decode_shards",
     "mla_block_with_cache",
     "rms_norm",
     "rope",
@@ -313,6 +320,14 @@ def _attend(q, k, v, *, causal: bool, window: int, block: int, use_kernel: bool,
     return attention_full(q, k, v, causal=causal, window=window, scale=scale)
 
 
+def _read_heads(k, v, kv_heads) -> tuple:
+    """k and v narrowed to the KV heads ``kv_heads`` (all where None)."""
+    if kv_heads is None:
+        return k, v
+    return (_select_heads(k, kv_heads, -2).contiguous(),
+            _select_heads(v, kv_heads, -2).contiguous())
+
+
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     b, s = o.shape[:2]
@@ -349,12 +364,16 @@ def attention_block_with_kv(
     window: int = 0,
     block: int = 1024,
     use_kernel: bool = True,
+    kv_heads=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill attention that also returns (k, v) for cache population."""
+    """Prefill attention that also returns (k, v) for cache population;
+    ``kv_heads`` (a slice or index of ``p``'s KV heads) are the ones the
+    query heads read, where ``p`` holds more (:func:`attention_block_shards`)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = attention_qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, causal=causal, window=window, block=block, use_kernel=use_kernel)
+    o = _attend(q, *_read_heads(k, v, kv_heads), causal=causal, window=window, block=block,
+                use_kernel=use_kernel)
     return _out(o, p["wo"]), k, v
 
 
@@ -391,14 +410,17 @@ def cross_attention_with_kv(
     enc_out: torch.Tensor,     # (B, S_enc, D) encoder output
     *,
     use_kernel: bool = True,
+    kv_heads=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference's ``LM._cross_attention`` (projections without bias,
     norm or rope; no mask), also returning the encoder-side (k, v) that the
-    reference's prefill computes again for its cross cache."""
+    reference's prefill computes again for its cross cache; ``kv_heads`` as
+    in :func:`attention_block_with_kv`."""
     q = _project(x, p["wq"])
     k = _project(enc_out, p["wk"])
     v = _project(enc_out, p["wv"])
-    o = _attend(q, k, v, causal=False, window=0, block=0, use_kernel=use_kernel)
+    o = _attend(q, *_read_heads(k, v, kv_heads), causal=False, window=0, block=0,
+                use_kernel=use_kernel)
     return _out(o, p["wo"]), k, v
 
 
@@ -583,54 +605,105 @@ def _select_heads(w: torch.Tensor, heads, dim: int) -> torch.Tensor:
     return w.index_select(dim, heads.to(w.device))
 
 
-def _head_locals(rules, p: dict) -> tuple[list, bool]:
-    """Each shard's attention leaves (one dict a shard) from ``p``'s
-    ``sharding.Sharded`` leaves: its own query heads, and its own KV heads
-    where they are split, else the KV heads that its query heads read (the
-    guard replicated them); and whether the query heads are split."""
+def _kv_layout(rules, p: dict) -> tuple[bool, bool, list]:
+    """Whether ``p``'s query heads and KV heads are split over "model", and
+    each shard's KV heads, in the whole leaf's numbering, that its query heads
+    read: its own block where the KV heads are split; where the guard
+    replicated them, those of its query heads' GQA groups
+    (:func:`kv_heads_of`); all of them where the query heads are whole."""
     mesh, tp_axis = rules.mesh, rules.tp_axis
     q_split = p["wq"].split_dim() is not None
     kv_split = p["wk"].split_dim() is not None
     hp, hkv = p["wq"].shape[-2], p["wk"].shape[-2]
-    h_loc = hp // mesh.axis_size(tp_axis) if q_split else hp
+    tp = mesh.axis_size(tp_axis)
+    h_loc, kv_loc = (hp // tp if q_split else hp), (hkv // tp if kv_split else hkv)
+    heads = []
+    for coord in mesh.coords:
+        i = mesh.axis_index(coord, tp_axis)
+        if kv_split:
+            heads.append(slice(i * kv_loc, (i + 1) * kv_loc))
+        elif q_split:
+            heads.append(kv_heads_of(i * h_loc, h_loc, hp // hkv))
+        else:
+            heads.append(slice(0, hkv))
+    return q_split, kv_split, heads
+
+
+def _head_locals(rules, p: dict, *, whole_kv: bool = False) -> tuple[list, bool, list | None]:
+    """Each shard's attention leaves (one dict a shard) from ``p``'s
+    ``sharding.Sharded`` leaves: its own query heads, and its own KV heads
+    where they are split, else the KV heads that its query heads read (the
+    guard replicated them); whether the query heads are split; and where
+    ``whole_kv`` keeps every replicated KV head in the leaves (a cache stores
+    them all), the heads that each shard's query heads read among them
+    (None where the leaves hold just those)."""
+    q_split, kv_split, heads = _kv_layout(rules, p)
+    narrow = q_split and not kv_split
     leaves = {name: leaf.locals() for name, leaf in p.items()}
     locs = []
-    for n, coord in enumerate(mesh.coords):
+    for n in range(rules.mesh.size):
         loc = {name: blocks[n] for name, blocks in leaves.items()}
-        if q_split and not kv_split:
-            heads = kv_heads_of(mesh.axis_index(coord, tp_axis) * h_loc, h_loc, hp // hkv)
+        if narrow and not whole_kv:
             for name, dim in (("wk", -2), ("wv", -2), ("bk", 0), ("bv", 0)):
                 if name in loc:
-                    loc[name] = _select_heads(loc[name], heads, dim)
+                    loc[name] = _select_heads(loc[name], heads[n], dim)
         locs.append(loc)
-    return locs, q_split
+    return locs, q_split, (heads if narrow and whole_kv else None)
 
 
 def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal: bool = True,
-                           window: int = 0, block: int = 1024, use_kernel: bool = True) -> list:
+                           window: int = 0, block: int = 1024, use_kernel: bool = True,
+                           sink=None) -> list:
     """:func:`attention_block` over the shards of ``rules.mesh``: ``p`` holds
     ``sharding.Sharded`` leaves, ``hs`` one input a shard; returns one output a
-    shard, all-reduced over "model" where the heads are split."""
+    shard, all-reduced over "model" where the heads are split.
+
+    With a cache ``sink`` (the cached prefill, ``cache.CacheSink``) each
+    shard also hands it its keys and values: its own KV heads where they are
+    split (re-split over the sequence there), else every KV head, projected
+    from the replicated weights (the attention reads its group's among
+    them)."""
     from repro_torch.models.lm.collectives import all_reduce_sum
 
-    locs, q_split = _head_locals(rules, p)
-    outs = [attention_block(loc, h, cfg, causal=causal, window=window, block=block,
-                            use_kernel=use_kernel) for loc, h in zip(locs, hs)]
+    locs, q_split, sel = _head_locals(rules, p, whole_kv=sink is not None)
+    outs, ks, vs = [], [], []
+    for n, (loc, h) in enumerate(zip(locs, hs)):
+        o, k, v = attention_block_with_kv(loc, h, cfg, causal=causal, window=window,
+                                          block=block, use_kernel=use_kernel,
+                                          kv_heads=None if sel is None else sel[n])
+        outs.append(o)
+        ks.append(k)
+        vs.append(v)
+    if sink is not None:
+        kv_split = p["wk"].split_dim() is not None
+        sink.put_seq("k", ks, heads_split=kv_split)
+        sink.put_seq("v", vs, heads_split=kv_split)
     return all_reduce_sum(outs, rules.mesh, rules.tp_axis) if q_split else outs
 
 
 def cross_attention_shards(rules, p: dict, hs: list, enc_outs: list, *,
-                           use_kernel: bool = True) -> list:
+                           use_kernel: bool = True, sink=None) -> list:
     """:func:`cross_attention_with_kv` over the shards of ``rules.mesh``: each
     shard's query heads from its decoder states ``hs``, their keys and values
     from its copy of the encoder output ``enc_outs`` (replicated over
     "model"), one non-causal attention a shard at its head count, and the
-    ``wo`` partial sums all-reduced over "model" where the heads are split."""
+    ``wo`` partial sums all-reduced over "model" where the heads are split.
+    A cache ``sink`` gets the encoder-side keys and values (``ck``, ``cv``,
+    replicated: gathered over the heads and rows that the shards split)."""
     from repro_torch.models.lm.collectives import all_reduce_sum
 
-    locs, q_split = _head_locals(rules, p)
-    outs = [cross_attention_with_kv(loc, h, e, use_kernel=use_kernel)[0]
-            for loc, h, e in zip(locs, hs, enc_outs)]
+    locs, q_split, sel = _head_locals(rules, p, whole_kv=sink is not None)
+    outs, ks, vs = [], [], []
+    for n, (loc, h, e) in enumerate(zip(locs, hs, enc_outs)):
+        o, k, v = cross_attention_with_kv(loc, h, e, use_kernel=use_kernel,
+                                          kv_heads=None if sel is None else sel[n])
+        outs.append(o)
+        ks.append(k)
+        vs.append(v)
+    if sink is not None:
+        kv_split = p["wk"].split_dim() is not None
+        sink.put_whole("ck", ks, heads_split=kv_split)
+        sink.put_whole("cv", vs, heads_split=kv_split)
     return all_reduce_sum(outs, rules.mesh, rules.tp_axis) if q_split else outs
 
 
@@ -648,17 +721,215 @@ def glu_ffn_shards(rules, p: dict, hs: list, act: str) -> list:
 
 
 def mla_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, block: int = 1024,
-                     use_kernel: bool = True) -> list:
+                     use_kernel: bool = True, sink=None) -> list:
     """:func:`mla_block` over the shards of ``rules.mesh``: each shard its own
     heads of ``wq_b``, ``wkv_b`` and ``wo`` (one attention launch at the
     shard's head count), the ``wo`` partial sums all-reduced over "model"
-    where the heads are split."""
+    where the heads are split.  A cache ``sink`` gets the latent ``ckv`` and
+    ``kpe``, which every shard computes whole from the replicated
+    ``wkv_a``."""
     from repro_torch.models.lm.collectives import all_reduce_sum
 
     leaves = {name: leaf.locals() for name, leaf in p.items()}
-    outs = [mla_block({name: blocks[n] for name, blocks in leaves.items()}, h, cfg, block=block,
-                      use_kernel=use_kernel)
-            for n, h in enumerate(hs)]
+    outs, ckvs, kpes = [], [], []
+    for n, h in enumerate(hs):
+        loc = {name: blocks[n] for name, blocks in leaves.items()}
+        if sink is None:
+            outs.append(mla_block(loc, h, cfg, block=block, use_kernel=use_kernel))
+            continue
+        o, ckv, kpe = mla_block_with_cache(loc, h, cfg, block=block, use_kernel=use_kernel)
+        outs.append(o)
+        ckvs.append(ckv)
+        kpes.append(kpe)
+    if sink is not None:
+        sink.put_seq("ckv", ckvs, heads_split=False)
+        sink.put_seq("kpe", kpes, heads_split=False)
     if p["wo"].split_dim() is None:
         return outs
     return all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+
+
+# --------------------------------------------------------------------------
+# Decode over a mesh of shards: the cached sequence split over "model"
+# --------------------------------------------------------------------------
+# The cache (``sharding.cache_pspecs``) holds each shard's block of the
+# sequence for every head, so a decode step is the reference's split-K
+# (FlashDecoding) reduction: the step's queries (and its key and value) are
+# all-gathered over "model", tiny at one token; the shard whose block holds
+# the step's slot writes the key and value there; every shard computes the
+# softmax of all heads over its own slots in float32 (the slots after ``pos``
+# at the finite −1e30), its output against its values, its maximum and its
+# Σexp; an all-reduce of the maxima gives each partial its weight
+# ``Σexp · exp(max − global max)``, an all-reduce of those the total, and an
+# all-reduce of the weighted outputs the result.  A shard with no live slot
+# yet weighs exactly 0; on one shard the weight is exactly 1 and the step is
+# the unsharded one.  Each shard keeps its own heads' block of the result
+# for its rows of ``wo``, all-reduced as in the prefill.
+def _write_slot(blocks: list, offsets: list, slot: int, new: list) -> None:
+    """Each shard's ``new`` (B_loc, ...) into its cache block (B_loc, S_loc,
+    ...) at ``slot`` of the whole sequence, by the shard whose block holds
+    the slot (``offsets``: each block's first slot)."""
+    for blk, off, x in zip(blocks, offsets, new):
+        if off <= slot < off + blk.shape[1]:
+            blk[:, slot - off] = x.to(blk.dtype)
+
+
+def _global_max(rules, ms: list) -> list:
+    """The partials' maxima over "model"."""
+    from repro_torch.models.lm.collectives import all_reduce_max
+
+    return all_reduce_max(ms, rules.mesh, rules.tp_axis)
+
+
+def _split_k_sum(rules, parts: list) -> list:
+    """The partials' weights, or weighted outputs, summed over "model"."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    return all_reduce_sum(parts, rules.mesh, rules.tp_axis)
+
+
+def _partial(logits: torch.Tensor, first: int, pos: int, values: torch.Tensor, eq: str) -> tuple:
+    """One shard's partial over its slots ``first ..`` (the last dim of
+    ``logits``): (max, Σexp, the softmax's output against ``values`` by the
+    einsum ``eq``), the slots after ``pos`` masked."""
+    slots = first + torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(slots <= pos, logits, -1e30)
+    m = logits.amax(dim=-1)
+    total = torch.exp(logits - m[..., None]).sum(dim=-1)
+    return m, total, torch.einsum(eq, torch.softmax(logits, dim=-1), values)
+
+
+def _split_k_combine(rules, partials: list, align) -> list:
+    """FlashDecoding's reduce over "model" of one (max, Σexp, output)
+    partial a shard: the outputs weighted by ``Σexp · exp(max − global
+    max)`` over the weights' total (``align`` moves a weight to the output's
+    layout) and summed."""
+    ms = _global_max(rules, [m for m, _, _ in partials])
+    ws = [t * torch.exp(m_loc - m) for (m_loc, t, _), m in zip(partials, ms)]
+    totals = _split_k_sum(rules, ws)
+    return _split_k_sum(rules, [o * align(w / t) for (_, _, o), w, t in zip(partials, ws, totals)])
+
+
+def _own_heads(rules, o: list, h_loc: int, q_split: bool) -> list:
+    """Each shard's block of ``h_loc`` heads (dim 2) of a whole-head output."""
+    if not q_split:
+        return o
+    mesh = rules.mesh
+    return [x.narrow(2, mesh.axis_index(c, rules.tp_axis) * h_loc, h_loc)
+            for x, c in zip(o, mesh.coords)]
+
+
+def attention_block_decode_shards(rules, p: dict, hs: list, cache_k, cache_v, pos: int,
+                                  cfg: ModelConfig, *, window: int = 0) -> list:
+    """:func:`attention_block_decode` over the shards of ``rules.mesh``:
+    ``hs`` one (B_loc, 1, D) input a shard; ``cache_k``, ``cache_v`` one
+    layer's ``sharding.Sharded`` (B, S, Hkv, hd) leaves, S split over
+    "model", written in place (slot ``pos``, or ``pos % S`` for a
+    ``window``'s ring).  The split-K reduce above; where the guard
+    replicated the KV heads, every shard computes the step's KV heads from
+    the replicated weights."""
+    from repro_torch.models.lm.collectives import all_gather, all_reduce_sum
+
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    locs, q_split, _ = _head_locals(rules, p, whole_kv=True)
+    qs, kvs = [], []
+    for loc, h in zip(locs, hs):
+        positions = torch.full((h.shape[0], 1), pos, device=h.device)
+        q, k, v = attention_qkv(loc, h, cfg, positions)
+        qs.append(q)
+        kvs.append(torch.stack([k[:, 0], v[:, 0]]))       # (2, B_loc, Hkv_loc, hd)
+    h_loc = qs[0].shape[2]
+    if q_split:
+        qs = all_gather(qs, mesh, tp_axis, dim=2)
+    if p["wk"].split_dim() is not None:
+        kvs = all_gather(kvs, mesh, tp_axis, dim=2)
+    kb, vb = cache_k.own(), cache_v.own()
+    offs = cache_k.offsets(1)
+    slot = pos % cache_k.shape[1] if window > 0 else pos
+    _write_slot(kb, offs, slot, [kv[0] for kv in kvs])
+    _write_slot(vb, offs, slot, [kv[1] for kv in kvs])
+    partials = []
+    for q, kc, vc, off in zip(qs, kb, vb, offs):
+        b, _, h, d = q.shape
+        hkv = kc.shape[2]
+        qg = q.to(f32).reshape(b, 1, hkv, h // hkv, d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.to(f32)) * d ** -0.5
+        partials.append(_partial(logits, off, pos, vc.to(f32), "bhgqk,bkhd->bqhgd"))
+    outs = []
+    # a weight (B, Hkv, g, 1) against an output (B, 1, Hkv, g, dv)
+    for o, q in zip(_split_k_combine(rules, partials, lambda w: w.permute(0, 3, 1, 2)[..., None]),
+                    qs):
+        b, _, h, _ = q.shape
+        outs.append(o.reshape(b, 1, h, -1).to(q.dtype))
+    outs = [_out(o, loc["wo"]) for o, loc in zip(_own_heads(rules, outs, h_loc, q_split), locs)]
+    return all_reduce_sum(outs, mesh, tp_axis) if q_split else outs
+
+
+def mla_block_decode_shards(rules, p: dict, hs: list, cache_ckv, cache_kpe, pos: int,
+                            cfg: ModelConfig) -> list:
+    """:func:`mla_block_decode` over the shards of ``rules.mesh``, the latent
+    ``cache_ckv`` (B, S, kv_lora) and ``cache_kpe`` (B, S, rope) split over
+    "model" along S.  Each shard forms its heads' absorbed queries
+    (``q_nope · wkv_k``) and ``q_pe``, all-gathered over "model"; every shard
+    computes the step's latent entries from the replicated ``wkv_a`` and the
+    owner of slot ``pos`` writes them; the split-K reduce gives every head's
+    latent output, of which each shard applies its heads' value-up
+    projection and rows of ``wo``, all-reduced over "model"."""
+    from repro_torch.models.lm.collectives import all_gather, all_reduce_sum
+
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    m = cfg.mla
+    q_split = p["wq_b"].split_dim() is not None
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    locs = [{name: blocks[n] for name, blocks in leaves.items()} for n in range(mesh.size)]
+    qs, latents = [], []
+    for loc, h in zip(locs, hs):
+        positions = torch.full((h.shape[0], 1), pos, device=h.device)
+        q_nope, q_pe = _mla_query(loc, h, cfg, positions)      # (B,1,H_loc,nope), (B,1,H_loc,rope)
+        q_lat = torch.einsum("bshk,lhk->bshl", q_nope, loc["wkv_b"][..., : m.nope_dim])
+        qs.append(torch.cat([q_lat.to(f32), q_pe.to(f32)], dim=-1))
+        latents.append(_mla_latent(loc, h, cfg, positions))
+    h_loc = qs[0].shape[2]
+    if q_split:
+        qs = all_gather(qs, mesh, tp_axis, dim=2)
+    cb, kb = cache_ckv.own(), cache_kpe.own()
+    offs = cache_ckv.offsets(1)
+    _write_slot(cb, offs, pos, [c[:, 0] for c, _ in latents])
+    _write_slot(kb, offs, pos, [k[:, 0] for _, k in latents])
+    scale = (m.nope_dim + m.rope_dim) ** -0.5
+    partials = []
+    for q, ckv, kpe, off in zip(qs, cb, kb, offs):
+        ckv_f = ckv.to(f32)
+        logits = (torch.einsum("bshl,btl->bhst", q[..., : m.kv_lora], ckv_f)
+                  + torch.einsum("bshr,btr->bhst", q[..., m.kv_lora:], kpe.to(f32))) * scale
+        partials.append(_partial(logits, off, pos, ckv_f, "bhst,btl->bshl"))
+    # a weight (B, H, 1) against an output (B, 1, H, kv_lora)
+    o_lat = _split_k_combine(rules, partials, lambda w: w.transpose(1, 2)[..., None])
+    outs = []
+    for o, loc, h in zip(_own_heads(rules, o_lat, h_loc, q_split), locs, hs):
+        o = torch.einsum("bshl,lhk->bshk", o, loc["wkv_b"][..., m.nope_dim:].to(f32))
+        outs.append(_out(o.to(h.dtype), loc["wo"]))
+    return all_reduce_sum(outs, mesh, tp_axis) if q_split else outs
+
+
+def cross_attention_decode_shards(rules, p: dict, hs: list, ck, cv, batch_split: bool) -> list:
+    """:func:`cross_attention_decode` over the shards of ``rules.mesh``, the
+    cross cache ``ck``, ``cv`` (B, S_enc, Hkv, hd) replicated: each shard's
+    query heads against the KV heads they read, on its rows (where the batch
+    is split over the data axes), the ``wo`` partial sums all-reduced over
+    "model" where the heads are split."""
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    mesh = rules.mesh
+    locs, q_split, _ = _head_locals(rules, p, whole_kv=True)
+    _, _, heads = _kv_layout(rules, p)
+    outs = []
+    for loc, h, kc, vc, sel, coord in zip(locs, hs, ck.own(), cv.own(), heads, mesh.coords):
+        if batch_split:
+            b = h.shape[0]
+            row = mesh.axis_index(coord, rules.axis("batch")) * b
+            kc, vc = kc.narrow(0, row, b), vc.narrow(0, row, b)
+        kc, vc = _read_heads(kc, vc, sel)
+        o = attention_decode(_project(h, loc["wq"]), kc, vc, kc.shape[1] - 1)
+        outs.append(_out(o, loc["wo"]))
+    return all_reduce_sum(outs, mesh, rules.tp_axis) if q_split else outs

@@ -49,8 +49,13 @@ windowed shared block; the audio encoder over the replicated frontend, and
 vocab-sharded branch (:func:`_sharded_chunk_xent`): local logits a shard and
 chunk, the max over "model" with its gradient stopped, the sum of
 exponentials and the gold logit summed over "model", the loss and
-``correct`` summed over "data".  The cached ``prefill`` and ``decode_step``
-raise ``NotImplementedError`` under rules (the sharded decode cache).
+``correct`` summed over "data".  Serving runs over the mesh too:
+:meth:`LM.prefill` is the same forward (:meth:`LM._forward_shards`) with a
+cache sink (``cache.CacheSink``) to which each block hands its keys, values
+or final states, placed leaf for leaf by ``sharding.cache_pspecs``;
+:meth:`LM.init_cache` places an empty cache so, and :meth:`LM.decode_step`
+decodes on it, the attention's reduction over the cached sequence split
+over "model" (``cache.py``).
 """
 from __future__ import annotations
 
@@ -83,12 +88,10 @@ from repro_torch.models.lm.layers import (
 )
 from repro_torch.models.lm.sharding import active_rules, split_batch
 
-__all__ = ["FAMILIES", "LM", "TP_FAMILIES"]
+__all__ = ["FAMILIES", "LM"]
 
 f32 = torch.float32
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
-#: The families that run tensor-parallel under sharding rules: all of them.
-TP_FAMILIES = FAMILIES
 
 
 def _padded_vocab(v: int, multiple: int = 256) -> int:
@@ -360,12 +363,13 @@ class LM:
         if not self.remat:
             return fn
 
-        def run(*args):
+        def run(*args, **kwargs):
             tensors = (t for a in args for t in (a if isinstance(a, list) else [a]))
             if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad
                                                for t in tensors):
-                return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-            return fn(*args)
+                return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                                  **kwargs)
+            return fn(*args, **kwargs)
 
         return run
 
@@ -508,17 +512,17 @@ class LM:
         """Returns (last-position logits (B, Vp), populated cache).
 
         The cache reserves decode headroom up to ``max_seq`` total positions
-        (default: prefill length + ``cache.DECODE_RESERVE``)."""
+        (default: prefill length + ``cache.DECODE_RESERVE``).  Under sharding
+        rules over the mesh, the cache placed by ``cache_pspecs``."""
         from repro_torch.models.lm.cache import build_prefill_cache
 
-        self._no_sharded_cache("prefill")
         return build_prefill_cache(self, params, tokens, frontend, max_seq)
 
     def decode_step(self, params, cache, tokens):
-        """tokens: (B, 1) -> (logits (B, Vp), the cache, updated in place)."""
+        """tokens: (B, 1) -> (logits (B, Vp), the cache, updated in place);
+        under sharding rules over the mesh, on a placed cache."""
         from repro_torch.models.lm.cache import decode_step
 
-        self._no_sharded_cache("decode_step")
         return decode_step(self, params, cache, tokens)
 
     def prefill_logits(self, params, tokens, frontend=None) -> torch.Tensor:
@@ -530,6 +534,13 @@ class LM:
         batch_split = tokens.shape[0] % rules.dp() == 0
         xs = self._embed_shards(rules, params["embed"], split_batch(rules, tokens))
         hs = self._forward_shards(rules, params, xs, frontend, batch_split)
+        return self._last_logits_shards(rules, params, hs, batch_split)
+
+    # ------------------------------------------------------ tensor parallel
+    def _last_logits_shards(self, rules, params, hs: list, batch_split: bool) -> torch.Tensor:
+        """The last position's logits (B, Vp) of one (B_loc, S, D) state a
+        shard, the rows of the data groups gathered on the first shard's
+        device."""
         norm = params["final_norm"].locals()
         outs = self.logits_last(params, [rms_norm(h[:, -1], norm[n], self.cfg.norm_eps)
                                          for n, h in enumerate(hs)])
@@ -540,14 +551,6 @@ class LM:
         for n, coord in enumerate(mesh.coords):
             rows.setdefault(mesh.axis_index(coord, rules.axis("batch")), outs[n])
         return torch.cat([rows[d].to(mesh.devices[0]) for d in sorted(rows)], dim=0)
-
-    # ------------------------------------------------------ tensor parallel
-    def _no_sharded_cache(self, what: str) -> None:
-        if active_rules() is not None:
-            raise NotImplementedError(
-                f"{what} under sharding rules: the sharded decode cache (cache_pspecs, split-K "
-                "over 'model') is not executed by the port yet (ROADMAP Queue 1 item 9); "
-                "prefill_logits runs the prefill over the mesh")
 
     def _embed_shards(self, rules, leaf, ids: list) -> list:
         """The embedding of each shard's token ids: each shard looks up the
@@ -578,66 +581,77 @@ class LM:
     def _norm_shards(self, xs: list, leaf) -> list:
         return [rms_norm(x, w, self.cfg.norm_eps) for x, w in zip(xs, leaf.locals())]
 
+    def _ffn_shards(self, rules, bp, xs: list, batch_split: bool) -> list:
+        """``xs`` plus the block's MoE or dense FFN of its second norm, each
+        tensor-parallel."""
+        hs = self._norm_shards(xs, bp["ln2"])
+        if "moe" in bp:
+            f = moe_lib.moe_ffn_shards(rules, bp["moe"], hs, self.cfg.moe, self.moe_backend,
+                                       batch_split=batch_split)
+        else:
+            f = glu_ffn_shards(rules, bp["ffn"], hs, self.cfg.act)
+        return [x + y for x, y in zip(xs, f)]
+
     def _apply_attn_ffn_shards(self, rules, bp, xs: list, batch_split: bool, causal: bool = True,
-                               window: int = 0) -> list:
+                               window: int = 0, sink=None) -> list:
         """:meth:`_apply_attn_ffn` over the mesh: MLA or GQA attention, the
-        MoE or the dense FFN, each tensor-parallel."""
+        MoE or the dense FFN, each tensor-parallel; the attention hands a
+        cache ``sink`` its keys and values."""
         cfg = self.cfg
         hs = self._norm_shards(xs, bp["ln1"])
         if cfg.mla:
             a = mla_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
-                                 use_kernel=self.use_kernel)
+                                 use_kernel=self.use_kernel, sink=sink)
         else:
             a = attention_block_shards(rules, bp["attn"], hs, cfg, causal=causal, window=window,
-                                       block=self.attn_block, use_kernel=self.use_kernel)
-        xs = [x + y for x, y in zip(xs, a)]
-        hs = self._norm_shards(xs, bp["ln2"])
-        if "moe" in bp:
-            f = moe_lib.moe_ffn_shards(rules, bp["moe"], hs, cfg.moe, self.moe_backend,
-                                       batch_split=batch_split)
-        else:
-            f = glu_ffn_shards(rules, bp["ffn"], hs, cfg.act)
-        return [x + y for x, y in zip(xs, f)]
+                                       block=self.attn_block, use_kernel=self.use_kernel,
+                                       sink=sink)
+        return self._ffn_shards(rules, bp, [x + y for x, y in zip(xs, a)], batch_split)
 
-    def _mlstm_body_shards(self, rules, mp, xs: list) -> list:
+    def _mlstm_body_shards(self, rules, mp, xs: list, sink=None) -> list:
         ys = ssm_lib.mlstm_block_shards(rules, mp["cell"], self._norm_shards(xs, mp["ln"]),
-                                        self.cfg)
+                                        self.cfg, sink=sink)
         return [x + y for x, y in zip(xs, ys)]
 
-    def _mamba_body_shards(self, rules, mp, xs: list) -> list:
+    def _mamba_body_shards(self, rules, mp, xs: list, sink=None) -> list:
         ys = ssm_lib.mamba2_block_shards(rules, mp["cell"], self._norm_shards(xs, mp["ln"]),
-                                         self.cfg)
+                                         self.cfg, sink=sink)
         return [x + y for x, y in zip(xs, ys)]
 
-    def _backbone_shards(self, rules, params, xs: list, batch_split: bool) -> list:
+    def _backbone_shards(self, rules, params, xs: list, batch_split: bool, sink=None) -> list:
         """:meth:`_backbone` over the mesh, family by family; under ``remat``
         at the reference's sites only: each mLSTM and Mamba2 body and each
         stacked attention + FFN block, never the sLSTM, the hybrid's shared
         block or ``dense0``.  ``batch_split``: each shard holds its data
-        shard's rows (else every row; the MoE's capacity follows it)."""
+        shard's rows (else every row; the MoE's capacity follows it).  A
+        cache ``sink`` (the cached prefill) is handed to each block at its
+        layer of the cache."""
         cfg = self.cfg
+        at = sink.at if sink is not None else lambda *layer: None
         if cfg.family == "ssm":
             m_body = self._maybe_remat(self._mlstm_body_shards)
-            for mlstm, slstm in self.groups(params):
-                for mp in stacked(mlstm):
-                    xs = m_body(rules, mp, xs)
+            for g, (mlstm, slstm) in enumerate(self.groups(params)):
+                for j, mp in enumerate(stacked(mlstm)):
+                    xs = m_body(rules, mp, xs, sink=at(g, j))
                 ys = ssm_lib.slstm_block_shards(rules, slstm["cell"],
-                                                self._norm_shards(xs, slstm["ln"]), cfg)
+                                                self._norm_shards(xs, slstm["ln"]), cfg,
+                                                sink=at(g))
                 xs = [x + y for x, y in zip(xs, ys)]
             return xs
         if cfg.family == "hybrid":
             m_body = self._maybe_remat(self._mamba_body_shards)
-            for mamba, _ in self.groups(params):
-                for mp in stacked(mamba):
-                    xs = m_body(rules, mp, xs)
+            for g, (mamba, _) in enumerate(self.groups(params)):
+                for j, mp in enumerate(stacked(mamba)):
+                    xs = m_body(rules, mp, xs, sink=at(g, j))
                 xs = self._apply_attn_ffn_shards(rules, params["shared_block"], xs, batch_split,
-                                                 window=cfg.sliding_window)
+                                                 window=cfg.sliding_window, sink=at(g))
             return xs
-        for bp in params.get("dense0", []):
-            xs = self._apply_attn_ffn_shards(rules, bp, xs, batch_split)
+        dense0 = params.get("dense0", [])
+        for i, bp in enumerate(dense0):
+            xs = self._apply_attn_ffn_shards(rules, bp, xs, batch_split, sink=at(i))
         body = self._maybe_remat(self._apply_attn_ffn_shards)
-        for bp in stacked(params["blocks"]):
-            xs = body(rules, bp, xs, batch_split)
+        for i, bp in enumerate(stacked(params["blocks"]), start=len(dense0)):
+            xs = body(rules, bp, xs, batch_split, sink=at(i))
         return xs
 
     def _encode_shards(self, rules, params, fes: list, batch_split: bool) -> list:
@@ -651,35 +665,38 @@ class LM:
             xs = body(rules, bp, xs, batch_split, False)
         return self._norm_shards(xs, params["enc_norm"])
 
-    def _apply_cross_block_shards(self, rules, bp, xs: list, enc_outs: list) -> list:
+    def _apply_cross_block_shards(self, rules, bp, xs: list, enc_outs: list, sink=None) -> list:
         cfg = self.cfg
         a = attention_block_shards(rules, bp["self_attn"], self._norm_shards(xs, bp["ln1"]), cfg,
-                                   causal=True, block=self.attn_block, use_kernel=self.use_kernel)
+                                   causal=True, block=self.attn_block, use_kernel=self.use_kernel,
+                                   sink=sink)
         xs = [x + y for x, y in zip(xs, a)]
         a = cross_attention_shards(rules, bp["cross_attn"], self._norm_shards(xs, bp["ln_x"]),
-                                   enc_outs, use_kernel=self.use_kernel)
+                                   enc_outs, use_kernel=self.use_kernel, sink=sink)
         xs = [x + y for x, y in zip(xs, a)]
         f = glu_ffn_shards(rules, bp["ffn"], self._norm_shards(xs, bp["ln2"]), cfg.act)
         return [x + y for x, y in zip(xs, f)]
 
-    def _decoder_shards(self, rules, params, xs: list, enc_outs: list) -> list:
+    def _decoder_shards(self, rules, params, xs: list, enc_outs: list, sink=None) -> list:
         """:meth:`_decoder` over the mesh, each block recomputed under
-        ``remat``."""
+        ``remat``; a cache ``sink`` at each layer."""
         body = self._maybe_remat(self._apply_cross_block_shards)
-        for bp in stacked(params["dec_blocks"]):
-            xs = body(rules, bp, xs, enc_outs)
+        for i, bp in enumerate(stacked(params["dec_blocks"])):
+            xs = body(rules, bp, xs, enc_outs, sink=None if sink is None else sink.at(i))
         return xs
 
-    def _forward_shards(self, rules, params, xs: list, frontend, batch_split: bool) -> list:
+    def _forward_shards(self, rules, params, xs: list, frontend, batch_split: bool,
+                        sink=None) -> list:
         """The embedded tokens ``xs`` through the model over the mesh: the
         audio family's encoder over ``frontend`` and its decoder, else the
-        backbone (the VLM's ``frontend``, where given, before the tokens)."""
+        backbone (the VLM's ``frontend``, where given, before the tokens).
+        With a cache ``sink`` this is the cached prefill (``cache.py``)."""
         if self.cfg.family == "audio":
             enc = self._encode_shards(rules, params, split_batch(rules, frontend), batch_split)
-            return self._decoder_shards(rules, params, xs, enc)
+            return self._decoder_shards(rules, params, xs, enc, sink)
         if self.cfg.family == "vlm" and frontend is not None:
             xs = self._prepend_frontend(rules, params, split_batch(rules, frontend), xs)
-        return self._backbone_shards(rules, params, xs, batch_split)
+        return self._backbone_shards(rules, params, xs, batch_split, sink)
 
     def _logits_last_shards(self, rules, w, h_last: list) -> list:
         """(B_loc, Vp) float32 logits a shard from one (B_loc, D) state a
@@ -720,6 +737,7 @@ class LM:
         return loss_sum / denom, {"acc": correct / denom, "tokens": denom}
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
+        """An empty cache; under sharding rules placed on their mesh."""
         from repro_torch.models.lm.cache import init_cache
 
         return init_cache(self, batch, max_seq, device)

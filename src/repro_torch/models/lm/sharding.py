@@ -23,7 +23,14 @@ the first of them, and copied to the others inside the forward pass, so its
 gradient sums over them by itself), :func:`gather_params` puts them back
 together.  Activations are lists with one tensor a shard (``split_batch``);
 the collectives between them are in ``collectives.py``.  The model runs over
-a mesh under :func:`use_rules` (``model.py``: the dense, VLM and MoE families).
+a mesh under :func:`use_rules` (``model.py``: all six families).
+
+The serving cache is placed leaf for leaf by :func:`cache_pspecs`
+(:func:`shard_cache`, :func:`empty_cache`; :func:`gather_cache` puts it back
+together): each shard holds its own block (``Sharded.own``), the rows of its
+data shard and its block of the cached sequence.  A dimension split over an
+axis whose size does not divide it raises, as the reference's ``jit``
+refuses such an input.
 """
 from __future__ import annotations
 
@@ -48,7 +55,10 @@ __all__ = [
     "param_pspecs",
     "batch_pspec",
     "cache_pspecs",
+    "empty_cache",
+    "gather_cache",
     "gather_params",
+    "shard_cache",
     "shard_params",
     "split_batch",
 ]
@@ -352,6 +362,25 @@ class Sharded:
                 xs = collectives.all_gather(xs, mesh, e, dim=d)
         return xs
 
+    def own(self) -> list:
+        """Every shard's own block, in the mesh's order, on its device, with
+        nothing gathered: the cache's layout, whose dims split over the data
+        axes hold the shard's rows.  A block that several shards share is
+        the same tensor where they share its device (else a copy)."""
+        mesh = self.mesh
+        return [self.blocks[self._flat([mesh.axis_index(coord, e) for e in self.spec])].to(dev)
+                for coord, dev in zip(mesh.coords, mesh.devices)]
+
+    def homes(self) -> list:
+        """Whether each shard, in the mesh's order, is the first that holds
+        its block (the one whose device stores it)."""
+        mesh, seen, out = self.mesh, set(), []
+        for coord in mesh.coords:
+            idx = tuple(mesh.axis_index(coord, e) for e in self.spec)
+            out.append(idx not in seen)
+            seen.add(idx)
+        return out
+
     def __getitem__(self, i: int) -> "Sharded":
         """Layer ``i`` of a leaf stacked over its leading dim."""
         per = self.shape[0] // self.grid[0]
@@ -372,12 +401,26 @@ class Sharded:
         return build(0, [])
 
 
-def _cut(t: torch.Tensor, spec, mesh, tp_axis: str) -> Sharded:
-    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+def _layout(shape, spec, mesh) -> tuple:
+    """(spec padded to the dims, blocks along each dim, each block's home
+    device).  Raises ``ValueError`` where a dim split over an axis does not
+    divide by its size: the blocks must be equal, as the reference's ``jit``
+    requires of a sharded input."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     grid = [mesh.axis_size(a) for a in spec]
+    for d, (n, g) in enumerate(zip(shape, grid)):
+        if n % g:
+            raise ValueError(
+                f"a leaf of shape {tuple(shape)} cannot be placed by the spec {spec}: its dim "
+                f"{d} ({n}) does not divide over {spec[d]!r} ({g} shards)")
     homes: dict = {}
     for n, coord in enumerate(mesh.coords):
         homes.setdefault(tuple(mesh.axis_index(coord, e) for e in spec), mesh.devices[n])
+    return spec, grid, homes
+
+
+def _cut(t: torch.Tensor, spec, mesh, tp_axis: str) -> Sharded:
+    spec, grid, homes = _layout(t.shape, spec, mesh)
     blocks = []
     for idx in itertools.product(*(range(g) for g in grid)):
         b = t
@@ -387,6 +430,16 @@ def _cut(t: torch.Tensor, spec, mesh, tp_axis: str) -> Sharded:
                 b = b.narrow(d, i * size, size)
         blocks.append(torch.empty(b.shape, dtype=b.dtype, device=homes[idx]).copy_(b))
     return Sharded(blocks, spec, t.shape, mesh, tp_axis)
+
+
+def _filled(shape, dtype, fill, spec, mesh, tp_axis: str) -> Sharded:
+    """A leaf of ``shape`` placed by ``spec``, every element ``fill``, each
+    block allocated on its home device."""
+    spec, grid, homes = _layout(shape, spec, mesh)
+    local = [n // g for n, g in zip(shape, grid)]
+    blocks = [torch.full(local, fill, dtype=dtype, device=homes[idx])
+              for idx in itertools.product(*(range(g) for g in grid))]
+    return Sharded(blocks, spec, shape, mesh, tp_axis)
 
 
 def shard_params(rules: ShardingRules, params):
@@ -412,6 +465,47 @@ def gather_params(sharded):
     if isinstance(sharded, (list, tuple)):
         return type(sharded)(gather_params(v) for v in sharded)
     return sharded.full()
+
+
+def _cache_batch(rules: ShardingRules, cache) -> int | None:
+    """The global batch of a cache tree: the size of the dim that
+    :func:`cache_pspecs` puts on the data axes, in the first leaf that has
+    one (None without data axes)."""
+    axis = rules.axis("batch")
+    specs = cache_pspecs(rules, cache)
+    for name, spec in specs.items():
+        if axis is not None and axis in spec:
+            return cache[name].shape[spec.index(axis)]
+    return None
+
+
+def shard_cache(rules: ShardingRules, cache: dict) -> dict:
+    """A whole serving cache (``LM.init_cache`` or the unsharded
+    ``LM.prefill``'s: tensors and the Python int ``pos``) placed on
+    ``rules.mesh`` leaf for leaf by :func:`cache_pspecs`: ``Sharded`` leaves
+    and ``pos``.  The batch goes on the data axes where it divides by their
+    size, else on none."""
+    specs = cache_pspecs(rules, cache, _cache_batch(rules, cache))
+    return {name: _cut(t, specs[name], rules.mesh, rules.tp_axis) if hasattr(t, "shape") else t
+            for name, t in cache.items()}
+
+
+def empty_cache(rules: ShardingRules, leaves: dict, global_batch: int) -> dict:
+    """An empty cache placed by :func:`cache_pspecs`: ``leaves`` maps a leaf's
+    name to its global (shape, type, fill); each block is allocated on its
+    home shard's device (no whole tensor is made)."""
+    shapes = {name: torch.empty(shape, dtype=dtype, device="meta")
+              for name, (shape, dtype, _) in leaves.items()}
+    specs = cache_pspecs(rules, shapes, global_batch)
+    return {name: _filled(shape, dtype, fill, specs[name], rules.mesh, rules.tp_axis)
+            for name, (shape, dtype, fill) in leaves.items()}
+
+
+def gather_cache(cache: dict) -> dict:
+    """The inverse of :func:`shard_cache`: whole tensors in the reference's
+    layout, each on its first block's device, and ``pos``."""
+    return {name: leaf.full() if isinstance(leaf, Sharded) else leaf
+            for name, leaf in cache.items()}
 
 
 def split_batch(rules: ShardingRules, x: torch.Tensor) -> list:

@@ -12,7 +12,10 @@ These are plain PyTorch on either device: the reference computes them in
 ``jnp`` and ``lax.scan`` with no Pallas kernel.  Over a mesh of shards
 (``sharding.py``), :func:`mamba2_block_shards`, :func:`mlstm_block_shards`
 and :func:`slstm_block_shards` run the three blocks tensor-parallel under
-the reference's rules (the section at the end of this module).  Numerics follow the
+the reference's rules, handing a cache sink their final states in the
+layout of ``cache_pspecs``, and :func:`mamba2_decode_shards`,
+:func:`mlstm_decode_shards` and :func:`slstm_decode_shards` continue from
+those states (the two sections at the end of this module).  Numerics follow the
 reference: decays in log space and ≤ 0 before exponentiation (Mamba2), or
 stabilised by running maxima (mLSTM, sLSTM); states, gates and log
 arithmetic in float32.  Where the reference mixes bf16 and float32
@@ -36,12 +39,15 @@ __all__ = [
     "mamba2_block",
     "mamba2_block_shards",
     "mamba2_decode",
+    "mamba2_decode_shards",
     "mlstm_block",
     "mlstm_block_shards",
     "mlstm_decode",
+    "mlstm_decode_shards",
     "slstm_block",
     "slstm_block_shards",
     "slstm_decode",
+    "slstm_decode_shards",
 ]
 
 f32 = torch.float32
@@ -484,7 +490,7 @@ def _out_shards(rules, p: dict, leaves: dict, ys: list, zs: list, width: int, ep
     return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis) if split else outs
 
 
-def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
+def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None) -> list:
     """:func:`mamba2_block` over the shards of ``rules.mesh``.
 
     ``in_proj``'s column blocks do not line up with ``z | x B C | dt`` (at tp
@@ -493,7 +499,9 @@ def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
     each shard takes the columns its heads need: its block of z, its heads'
     x and dt, and the B and C that every head shares.  The replicated
     ``conv_w``, ``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip`` are sliced
-    to the same heads."""
+    to the same heads.  A cache ``sink`` gets each shard's heads' final
+    state (``ssm``, heads on "model") and its block of the conv window's
+    tail (``conv``, channels on "model"), cut from the gathered products."""
     s = cfg.ssm
     di = s.expand * cfg.d_model
     leaves = {name: leaf.locals() for name, leaf in p.items()}
@@ -501,12 +509,16 @@ def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
     if p["in_proj"].split_dim() is not None:
         proj = collectives.all_gather(proj, rules.mesh, rules.tp_axis, dim=-1)
     offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
-    ys, zs = [], []
+    ys, zs, states = [], [], []
     for n, (pr, off) in enumerate(zip(proj, offs)):
         heads = _covering_heads(off, di_loc, s.head_dim)
-        y, _, _ = _mamba2_mix({k: v[n] for k, v in leaves.items()}, pr, cfg, heads)
+        y, h_fin, _ = _mamba2_mix({k: v[n] for k, v in leaves.items()}, pr, cfg, heads)
         ys.append(y.narrow(-1, off - heads.start * s.head_dim, di_loc))
         zs.append(pr.narrow(-1, off, di_loc))
+        states.append(h_fin)
+    if sink is not None:
+        sink.put("ssm", states)
+        sink.put_cut("conv", [_split_mamba_proj(pr, cfg)[1][:, -(s.d_conv - 1):] for pr in proj])
     return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
 
 
@@ -522,12 +534,13 @@ def _head_columns(rules, leaf, xs: list, p_dim: int) -> tuple[list, list]:
     return collectives.all_gather(xs, rules.mesh, rules.tp_axis, dim=-1), [0] * len(xs)
 
 
-def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
+def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None) -> list:
     """:func:`mlstm_block` over the shards of ``rules.mesh``: each shard runs
     the chunked cell on the heads that cover its block of ``di`` (its own
     columns of ``w_q``, ``w_k`` and ``w_v`` where they are whole heads, else
     the heads of the all-gathered products), with those heads' gates from
-    the replicated ``w_i`` and ``w_f``."""
+    the replicated ``w_i`` and ``w_f``.  A cache ``sink`` gets the final
+    states in the cache's layout (:func:`_mlstm_cache_states`)."""
     s = cfg.ssm
     n_heads = cfg.n_heads
     di = s.expand * cfg.d_model
@@ -536,7 +549,7 @@ def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
     qkv = [_head_columns(rules, p[name], [h @ w for h, w in zip(hs, leaves[name])], p_dim)
            for name in ("w_q", "w_k", "w_v")]
     offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
-    ys, zs = [], []
+    ys, zs, states = [], [], []
     for n, (h, off) in enumerate(zip(hs, offs)):
         bsz, length, _ = h.shape
         heads = _covering_heads(off, di_loc, p_dim)
@@ -546,13 +559,46 @@ def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
         hf = h.to(f32)
         li = (hf @ leaves["w_i"][n] + leaves["b_i"][n])[..., heads]
         lf = F.logsigmoid(hf @ leaves["w_f"][n] + leaves["b_f"][n])[..., heads]
-        y, _ = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=h.dtype)
+        y, state = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=h.dtype)
         ys.append(y.reshape(bsz, length, width).narrow(-1, off - heads.start * p_dim, di_loc))
         zs.append(h @ leaves["w_gate"][n])
+        states.append(state)
+    if sink is not None:
+        _mlstm_cache_states(rules, sink, states, n_heads)
     return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
 
 
-def slstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
+def _mlstm_cache_states(rules, sink, states: list, n_heads: int) -> None:
+    """The mLSTM's final states, each shard's (C (B, h, P, P), n (B, h, P),
+    m (B, h)) for its covering heads, handed to ``sink`` in the cache's
+    layout: C and n split over their first P for every head, m whole.  Where
+    every shard ran every head, each cuts its block; where each ran its own
+    block of whole heads, one all-to-all over "model" a leaf turns heads into
+    P blocks; where ``r`` shards shared a head (tp above the head count),
+    the all-to-all brings each head ``r`` times and every ``r``-th is kept."""
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    cs, ns, ms = (list(t) for t in zip(*states))
+    h_cov, tp = cs[0].shape[1], mesh.axis_size(tp_axis)
+    if h_cov == n_heads:
+        for name, xs in (("mC", cs), ("mn", ns), ("mm", ms)):
+            sink.put_cut(name, xs)
+        return
+    if h_cov * tp == n_heads:
+        r = 1
+    elif h_cov == 1 and tp % n_heads == 0:
+        r = tp // n_heads
+    else:
+        raise NotImplementedError(
+            f"the mLSTM's cache layout: {n_heads} heads over {tp} shards, {h_cov} a shard")
+    cs = collectives.all_to_all(cs, mesh, tp_axis, split_dim=2, concat_dim=1)
+    ns = collectives.all_to_all(ns, mesh, tp_axis, split_dim=2, concat_dim=1)
+    ms = collectives.all_gather(ms, mesh, tp_axis, dim=1)
+    sink.put("mC", [c[:, ::r] for c in cs])
+    sink.put("mn", [n[:, ::r] for n in ns])
+    sink.put("mm", [m[:, ::r] for m in ms])
+
+
+def slstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None) -> list:
     """:func:`slstm_block` over the shards of ``rules.mesh``.
 
     The recurrence cannot be split over units: ``rec`` is computed per head
@@ -561,16 +607,172 @@ def slstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig) -> list:
     columns) is all-gathered over "model" once a layer, the scan runs on
     every shard on the whole state, and the output MLP runs tensor-parallel:
     ``up`` by columns and ``down`` by rows, all-reduced where the guard
-    splits them (at xlstm's 2730 hidden units: tp 2, not 4 or 16)."""
+    splits them (at xlstm's 2730 hidden units: tp 2, not 4 or 16).  A cache
+    ``sink`` gets each shard's block of the final state."""
     leaves = {name: leaf.locals() for name, leaf in p.items()}
     wx = [h.to(f32) @ w for h, w in zip(hs, leaves["w"])]
     if p["w"].split_dim() is not None:
         wx = collectives.all_gather(wx, rules.mesh, rules.tp_axis, dim=-1)
-    outs = []
+    outs, states = [], []
     for n, (h, w) in enumerate(zip(hs, wx)):
         loc = {k: v[n] for k, v in leaves.items()}
-        seq, _ = _slstm_scan(loc, w + loc["b"], cfg)
+        seq, state = _slstm_scan(loc, w + loc["b"], cfg)
         outs.append(_slstm_out(loc, seq, h, cfg))
+        states.append(state)
+    if sink is not None:
+        for name, xs in zip(("sc", "sn", "sm", "sh"), zip(*states)):
+            sink.put_cut(name, list(xs))
     if p["down"].split_dim() is None:
         return outs
     return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+
+
+# ==========================================================================
+# One-token decode over a mesh of shards
+# ==========================================================================
+# The states are ``sharding.Sharded`` leaves of one layer, laid out by the
+# reference's ``cache_pspecs``, and updated in place: every shard computes
+# its new blocks first and writes them after, since a block that several
+# shards share (``mm``; every leaf where the batch is not split) is one
+# tensor on their device.  Where the states' split does not line up with the
+# blocks' products, the one-token operands are all-gathered over "model".
+def _write(blocks: list, new: list) -> None:
+    for blk, x in zip(blocks, new):
+        blk.copy_(x)
+
+
+def mamba2_decode_shards(rules, p: dict, hs: list, conv, ssm_state, cfg: ModelConfig) -> list:
+    """:func:`mamba2_decode` over the shards of ``rules.mesh``: ``hs`` one
+    (B_loc, 1, D) input a shard, ``conv`` (B, K−1, C) with its channels on
+    "model" and ``ssm_state`` (B, H, N, P) with its heads on "model".
+
+    As in the prefill, ``in_proj``'s products are all-gathered.  Each shard
+    runs the causal conv on its block of channels and the conv outputs are
+    all-gathered (one (B_loc, C) buffer), since a shard's heads need the x
+    channels of their heads and the B and C channels of all of them, which
+    its block of channels does not hold; its heads' SSM step then updates its
+    block of the state, and the output is the prefill's (``_out_shards``)."""
+    s = cfg.ssm
+    di, n, p_dim = s.expand * cfg.d_model, s.d_state, s.head_dim
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    proj = [h[:, 0] @ w for h, w in zip(hs, leaves["in_proj"])]
+    if p["in_proj"].split_dim() is not None:
+        proj = collectives.all_gather(proj, mesh, tp_axis, dim=-1)
+    conv_b, ssm_b = conv.own(), ssm_state.own()
+    c_offs, c_loc = conv.offsets(-1), conv_b[0].shape[-1]
+    outs, wins = [], []
+    for k, pr in enumerate(proj):
+        cols = slice(c_offs[k], c_offs[k] + c_loc)
+        win = torch.cat([conv_b[k], _split_mamba_proj(pr, cfg)[1][:, None, cols]], dim=1)
+        w, b = leaves["conv_w"][k][:, cols], leaves["conv_b"][k][cols]
+        out = (win.to(f32) * w.to(f32)).sum(dim=1).to(win.dtype) + b
+        outs.append(F.silu(out.to(f32)).to(win.dtype))
+        wins.append(win)
+    if conv.split_dim() is not None:
+        outs = collectives.all_gather(outs, mesh, tp_axis, dim=-1)
+    h_offs, h_loc = ssm_state.offsets(1), ssm_b[0].shape[1]
+    o_offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    ys, zs, states = [], [], []
+    for k, (pr, out) in enumerate(zip(proj, outs)):
+        if (h_offs[k] * p_dim, h_loc * p_dim) != (o_offs[k], di_loc):
+            raise NotImplementedError(
+                f"Mamba2 decode: the state's heads {h_offs[k]}..+{h_loc} are not the block of "
+                f"out_proj's rows {o_offs[k]}..+{di_loc}")
+        z, _, dtr, _, _, _ = _split_mamba_proj(pr, cfg)
+        heads = slice(h_offs[k], h_offs[k] + h_loc)
+        xs, b_, c_ = out.split([di, n, n], dim=-1)
+        dt = softplus(dtr[:, heads].to(f32) + leaves["dt_bias"][k][heads])      # (B,h)
+        decay = torch.exp(dt * -torch.exp(leaves["a_log"][k][heads])[None, :])
+        xh = xs[:, o_offs[k]:o_offs[k] + di_loc].reshape(-1, h_loc, p_dim).to(f32)
+        st = decay[:, :, None, None] * ssm_b[k] + torch.einsum(
+            "bn,bhp->bhnp", b_.to(f32), xh * dt[..., None])
+        y = torch.einsum("bn,bhnp->bhp", c_.to(f32), st)
+        y = y + leaves["d_skip"][k][heads][None, :, None] * xh
+        ys.append(y.reshape(-1, 1, di_loc))
+        zs.append(z[:, None, o_offs[k]:o_offs[k] + di_loc])
+        states.append(st)
+    _write(conv_b, [w[:, 1:] for w in wins])
+    _write(ssm_b, states)
+    return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
+
+
+def mlstm_decode_shards(rules, p: dict, hs: list, state: tuple, cfg: ModelConfig) -> list:
+    """:func:`mlstm_decode` over the shards of ``rules.mesh``; ``state`` the
+    (mC (B, H, P, P), mn (B, H, P), mm (B, H)) leaves.
+
+    The cache splits C and n over their first P (the key's) for every head,
+    which the column blocks of ``w_q``, ``w_k``, ``w_v`` (whole heads, or
+    part of one) never line up with: the one-token q, k, v are all-gathered
+    over "model".  Each shard updates its P-block of C and n for every head
+    and forms its partials of ``q·C`` and ``q·n``, summed by one all-reduce;
+    m, replicated, every shard computes whole."""
+    s = cfg.ssm
+    n_heads, di = cfg.n_heads, s.expand * cfg.d_model
+    p_dim = di // n_heads
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    c_leaf, n_leaf, m_leaf = state
+    cb, nb, mb = c_leaf.own(), n_leaf.own(), m_leaf.own()
+    qkv = [torch.stack([h[:, 0] @ leaves[w][k] for w in ("w_q", "w_k", "w_v")])
+           for k, h in enumerate(hs)]                                    # (3, B, di_loc)
+    if p["w_q"].split_dim() is not None:
+        qkv = collectives.all_gather(qkv, mesh, tp_axis, dim=-1)
+    offs, p_loc = c_leaf.offsets(2), cb[0].shape[2]
+    new, parts = [], []
+    for k, (h, x) in enumerate(zip(hs, qkv)):
+        bsz = h.shape[0]
+        q, kk, v = (t.reshape(bsz, n_heads, p_dim).to(f32) for t in x)
+        q = q * p_dim ** -0.5
+        xf = h[:, 0].to(f32)
+        li = xf @ leaves["w_i"][k] + leaves["b_i"][k]                       # (B,H)
+        lf = F.logsigmoid(xf @ leaves["w_f"][k] + leaves["b_f"][k])
+        m_new = torch.maximum(lf + mb[k], li)
+        keep, take = torch.exp(lf + mb[k] - m_new), torch.exp(li - m_new)
+        kb, qb = kk.narrow(-1, offs[k], p_loc), q.narrow(-1, offs[k], p_loc)
+        c_new = keep[:, :, None, None] * cb[k] + take[:, :, None, None] * (
+            kb[..., :, None] * v[..., None, :])
+        n_new = keep[:, :, None] * nb[k] + take[:, :, None] * kb
+        num = (qb[:, :, None, :] @ c_new)[:, :, 0]                           # (B,H,P)
+        parts.append(torch.cat([num, (qb * n_new).sum(dim=-1)[..., None]], dim=-1))
+        new.append((c_new, n_new, m_new))
+    parts = collectives.all_reduce_sum(parts, mesh, tp_axis)
+    o_offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    ys, zs = [], []
+    for k, (h, part, (_, _, m_new)) in enumerate(zip(hs, parts, new)):
+        den = torch.maximum(part[..., -1].abs(), torch.exp(-m_new))
+        y = (part[..., :-1] / den[..., None]).reshape(h.shape[0], 1, di)
+        ys.append(y.narrow(-1, o_offs[k], di_loc))
+        zs.append(h @ leaves["w_gate"][k])
+    for blocks, i in ((cb, 0), (nb, 1), (mb, 2)):
+        _write(blocks, [t[i] for t in new])
+    return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
+
+
+def slstm_decode_shards(rules, p: dict, hs: list, state: tuple, cfg: ModelConfig) -> list:
+    """:func:`slstm_decode` over the shards of ``rules.mesh``; ``state`` the
+    (sc, sn, sm, sh) leaves (B, D), D on "model".  The recurrence needs the
+    whole state (gate g of every unit comes from head g's whole h), so the
+    four blocks are all-gathered over "model" (one (4, B_loc, D) buffer), the
+    step runs on every shard as in the prefill, and each keeps its block."""
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    wx = [h.to(f32) @ w for h, w in zip(hs, leaves["w"])]
+    if p["w"].split_dim() is not None:
+        wx = collectives.all_gather(wx, mesh, tp_axis, dim=-1)
+    blocks = [leaf.own() for leaf in state]
+    olds = [torch.stack([b[k] for b in blocks]) for k in range(len(hs))]   # (4, B, D_loc)
+    if state[0].split_dim() is not None:
+        olds = collectives.all_gather(olds, mesh, tp_axis, dim=-1)
+    offs, d_loc = state[0].offsets(-1), blocks[0][0].shape[-1]
+    outs, new = [], []
+    for k, (h, w, old) in enumerate(zip(hs, wx, olds)):
+        loc = {name: v[k] for name, v in leaves.items()}
+        seq, st = _slstm_scan(loc, w + loc["b"], cfg, tuple(old))
+        outs.append(_slstm_out(loc, seq, h, cfg))
+        new.append([t.narrow(-1, offs[k], d_loc) for t in st])
+    for i, b in enumerate(blocks):
+        _write(b, [t[i] for t in new])
+    if p["down"].split_dim() is None:
+        return outs
+    return collectives.all_reduce_sum(outs, mesh, tp_axis)

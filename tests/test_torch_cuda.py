@@ -6,6 +6,7 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import contextlib
 import dataclasses
 from types import SimpleNamespace
 
@@ -1654,6 +1655,64 @@ def test_train_step_kernel_matches_plain(dev, arch):
     for key in ("loss", "grad_norm"):
         a, b = float(out[True][key]), float(out[False][key])
         assert np.isfinite(a) and abs(a - b) <= 3e-2 * abs(b), key
+
+
+@pytest.mark.parametrize("dims", [(1, 4), (2, 2)], ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-236b", "zamba2-2.7b", "xlstm-1.3b",
+                                  "seamless-m4t-large-v2"])
+def test_tensor_parallel_decode_float32_matches_unsharded(dev, arch, dims):
+    """Phase 21(a) at ``.reduced()``: float32, TF32 off, shards simulated on
+    the card, the cache placed by ``cache_pspecs``: a cached prefill of
+    B = 2 x 32 and 4 decode steps against the unsharded port on the same
+    weights, every step's logits and every gathered cache leaf within 1e-4;
+    ``flash_attention`` launches in the prefill only, none in decode."""
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.lm.sharding import (
+        ShardingRules,
+        gather_cache,
+        shard_params,
+        use_rules,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        lm = LM(cfg, remat=False)
+        params = lm.init(torch.Generator(device=dev).manual_seed(6))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        s, steps = 32, 4
+        tokens = torch.randint(0, cfg.vocab, (2, s + steps), device=dev, generator=gen)
+        fe = (torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), device=dev, generator=gen)
+              if cfg.frontend else None)
+        n = dims[0] * dims[1]
+        rules = ShardingRules(make_lm_mesh(dims, devices=simulated_devices(n, dev)), cfg)
+        placed = shard_params(rules, params)
+        runs = {}
+        for name, p in (("unsharded", params), ("sharded", placed)):
+            with torch.no_grad(), (use_rules(rules) if name == "sharded" else
+                                   contextlib.nullcontext()):
+                build.reset_launch_counts()
+                logits, cache = lm.prefill(p, tokens[:, :s], fe)
+                at_prefill = build.LAUNCHES.get("flash_attention", 0)
+                out = [logits]
+                for i in range(steps):
+                    logits, cache = lm.decode_step(p, cache, tokens[:, s + i:s + i + 1])
+                    out.append(logits)
+                assert build.LAUNCHES.get("flash_attention", 0) == at_prefill
+                assert (at_prefill > 0) == (cfg.family != "ssm")
+            runs[name] = out, (gather_cache(cache) if name == "sharded" else cache)
+        for got, want in zip(runs["sharded"][0], runs["unsharded"][0]):
+            g, w = got[:, :cfg.vocab], want[:, :cfg.vocab]
+            assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+        got, want = runs["sharded"][1], runs["unsharded"][1]
+        assert got["pos"] == want["pos"]
+        for name, w in want.items():
+            if name != "pos":
+                err = (got[name].float() - w.float()).abs().max() / w.float().abs().max()
+                assert float(err) <= 1e-4, name
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 @pytest.mark.parametrize("dims", [(1, 2), (1, 4), (2, 2)], ids=lambda d: f"{d[0]}x{d[1]}")

@@ -8,15 +8,20 @@
   reference's ``hlo_stats.CollectiveStats`` on the same bytes;
 * every one of the 40 cells gives a record at its config's and shape's
   ``.reduced()`` on the 16 × 16 production mesh: the 8 skips with the
-  reference's reason, the train and prefill cells of all ten configs traced
-  (20 ``ok``, FLOPs and roofline terms against the H100's peaks), the 12
-  decode cells ``specs_only`` with the reason;
+  reference's reason, the train, prefill and decode cells of all ten
+  configs traced (32 ``ok``, FLOPs and roofline terms against the H100's
+  peaks; decode on its cache placed by ``cache_pspecs``);
+* the dense and VLM configs' decode cells against a count by hand from the
+  shapes: per-device FLOPs (the local projections, the partial attention
+  over S/tp slots, the FFN's slice and the unembedding's rows) within 10%,
+  and link bytes equal to the all-reduces that the decode performs;
 * a trace that outlasts ``cost.TRACE_LIMIT_S`` stops and is recorded as ``cut``
   with the operators it had counted;
 * ``run_cell``'s reference keywords: deepseek-v2-236b's full-scale train
   cell placed with ``fsdp=True`` (the reference's ZeRO-3 note) holds at
-  most 16 GB of parameters and Adam moments a device, and ``tag``,
-  ``cfg_override`` and ``model_kwargs`` reach the record;
+  most 16 GB of parameters and Adam moments a device (placement only: its
+  trace is stopped at once), and ``tag``, ``cfg_override`` and
+  ``model_kwargs`` reach the record;
 * one full-scale cell (qwen1.5-0.5b × train_4k × 16 × 16) on the meta
   device, in a fresh interpreter: its per-device parameter bytes equal a
   count by hand from the reference's specs, and the process's peak RSS
@@ -37,9 +42,10 @@ from repro.configs import get_config as ref_get_config
 from repro.launch.hlo_stats import CollectiveStats as RefCollectiveStats
 from repro.models.lm import LM as RefLM
 from repro.models.lm import sharding as ref_sharding
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import cost, dryrun
 from repro_torch.launch.mesh import make_lm_mesh, simulated_devices
-from repro_torch.models.lm import collectives
+from repro_torch.models.lm import LM, collectives
 from torch_pipeline_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -114,23 +120,22 @@ def test_every_cell_gives_a_record_at_reduced_size(tmp_path):
             assert r["reason"] == reasons[(r["arch"], r["shape"])]
             continue
         assert r["n_devices"] == 256 and r["per_device_bytes"]["params"] > 0
-        if r["status"] == "specs_only":
-            assert "ROADMAP Queue 1 item 9" in r["reason"]
-            continue
-        assert r["kind"] in ("train", "prefill")
         assert r["flops"] > 0 and r["bytes"] > 0
         assert r["terms"]["peaks"] == "NVIDIA H100 SXM 80GB, 700 W"
         assert r["terms"]["dominant"] in ("compute_s", "memory_s", "collective_s")
         if r["kind"] == "train":
             assert r["per_device_bytes"]["opt_state"] > 0
+        if r["kind"] == "decode":
+            assert r["per_device_bytes"]["cache"] > 0 and r["cache_bytes"] > 0
+            assert r["collectives"]["per_op_count"]["all-reduce"] > 0
     assert len(by_status["skipped"]) == 8
+    archs = ("qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b", "internvl2-1b",
+             "granite-moe-1b-a400m", "deepseek-v2-236b", "xlstm-1.3b", "zamba2-2.7b",
+             "seamless-m4t-large-v2")
     assert sorted(by_status["ok"]) == sorted(
-        (a, s) for a in ("qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b", "internvl2-1b",
-                         "granite-moe-1b-a400m", "deepseek-v2-236b", "xlstm-1.3b",
-                         "zamba2-2.7b", "seamless-m4t-large-v2")
-        for s in ("train_4k", "prefill_32k"))
-    assert len(by_status["specs_only"]) == 12
-    assert {s for _, s in by_status["specs_only"]} == {"decode_32k", "long_500k"}
+        [(a, s) for a in archs for s in ("train_4k", "prefill_32k", "decode_32k")]
+        + [(a, "long_500k") for a in ("xlstm-1.3b", "zamba2-2.7b")])
+    assert set(by_status) == {"ok", "skipped"}
     assert cost.HW["peak_flops"] == 989e12 and cost.HW["hbm_bw"] == 3.35e12
     assert cost.HW["link_bw"] == 450e9
 
@@ -148,6 +153,43 @@ def test_a_trace_past_its_time_limit_is_recorded_as_cut(tmp_path, monkeypatch):
     assert "0.5 s" in r["reason"] and r["collectives"]["per_op_count"]
     assert json.loads((tmp_path / "xlstm-1.3b__prefill_32k__16x16.json").read_text()) == \
         json.loads(json.dumps(r))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen1.5-0.5b", "gemma-7b", "qwen3-8b",
+                                  "internvl2-1b"])
+def test_decode_cell_matches_a_count_by_hand(arch, tmp_path):
+    """At reduced size on 16 × 16: B = 2 does not divide the 16 data shards,
+    so every shard holds both rows; the 4 query and 2 KV heads do not divide
+    the 16 model shards, so the guard replicates them (each shard projects
+    every head, and no query gather or ``wo`` all-reduce is needed); the 64
+    cached slots split 4 a shard; ``d_ff``, the vocabulary rows of the
+    embedding and the rows of the unembedding split 16 ways."""
+    r = dryrun.run_cell(arch, "decode_32k", False, str(tmp_path), reduced=True)
+    cfg = get_config(arch).reduced()
+    shape = SHAPES["decode_32k"].reduced()
+    tp, b, s = 16, shape.global_batch, shape.seq_len
+    d, f, n_layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    vp = LM(cfg).vp
+    assert b % tp and h % tp and hkv % tp and not (f % tp or d % tp or s % tp)
+    assert cfg.dtype == "bfloat16"
+    per_layer = (2 * b * d * (h + 2 * hkv) * hd + 2 * b * h * hd * d   # q, k, v and wo
+                 + 2 * 2 * b * h * (s // tp) * hd                      # q·k and p·v over S/tp
+                 + 3 * 2 * b * d * (f // tp))                          # the FFN's slice
+    flops = n_layers * per_layer + 2 * b * (d // tp) * vp             # the unembedding's rows
+    assert r["status"] == "ok" and abs(r["flops"] - flops) <= 0.1 * flops, (r["flops"], flops)
+
+    def all_reduce(nbytes):
+        return nbytes * 2 * (tp - 1) / tp
+
+    # the embedding's sum; a layer's max, weight totals and weighted outputs
+    # (float32) and the FFN's sum (bf16); the logits' sum over the rows
+    link = (all_reduce(b * d * 2) + all_reduce(b * vp * 4)
+            + n_layers * (2 * all_reduce(b * h * 4) + all_reduce(b * h * hd * 4)
+                          + all_reduce(b * d * 2)))
+    assert r["collectives"]["per_op_count"] == {"all-reduce": 2 + 4 * n_layers}
+    assert r["collectives"]["link_bytes"] == pytest.approx(link, rel=1e-12)
+    assert r["per_device_bytes"]["cache"] == 2 * n_layers * b * s * hkv * hd * 2 // tp
 
 
 # The peak is this process's own high-water mark since exec (VmHWM): Linux's
@@ -194,11 +236,11 @@ def test_full_scale_cell_on_the_meta_device(tmp_path):
 
 def test_run_cell_places_deepseek_train_with_fsdp(tmp_path, monkeypatch):
     # placement only: the trace of 60 full-width layers belongs to the full
-    # dry run, not to a unit test
-    monkeypatch.setattr(dryrun, "TP_FAMILIES", ())
+    # dry run, not to a unit test, so it is stopped at its first operator
+    monkeypatch.setattr(cost, "TRACE_LIMIT_S", 0.0)
     r = dryrun.run_cell("deepseek-v2-236b", "train_4k", False, str(tmp_path), fsdp=True,
                         tag="fsdp")
-    assert r["status"] == "specs_only" and r["fsdp"] and r["tag"] == "fsdp"
+    assert r["status"] == "cut" and r["fsdp"] and r["tag"] == "fsdp"
     assert (tmp_path / "deepseek-v2-236b__train_4k__16x16__fsdp.json").exists()
     dev = r["per_device_bytes"]
     assert dev["params"] + dev["opt_state"] <= 16e9, dev

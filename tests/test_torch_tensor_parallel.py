@@ -24,12 +24,11 @@ and re-split over the vocabulary for the loss.
 * planted faults must fail: one shard's partial dropped from the
   all-reduces, and KV heads taken from the shard's first group;
 * ``_sharded_chunk_xent`` on a simulated (2, 2) mesh against the reference's
-  own on a (2, 2) mesh of forced CPU devices (a subprocess);
-* the cached prefill and decode raise ``NotImplementedError`` under rules,
-  for these configs and for the SSM, hybrid and audio families (whose loss,
-  step and prefill logits run over the mesh:
-  ``test_torch_tensor_parallel_ssm.py``; the MoE family:
-  ``test_torch_tensor_parallel_moe.py``).
+  own on a (2, 2) mesh of forced CPU devices (a subprocess).
+
+The other families: ``test_torch_tensor_parallel_moe.py`` and
+``test_torch_tensor_parallel_ssm.py``; the cached prefill and decode over
+the mesh: ``test_torch_tensor_parallel_decode.py``.
 """
 import json
 import subprocess
@@ -201,32 +200,6 @@ def test_planted_faults_fail(monkeypatch, fault):
     ref, loss, _, grads = _sharded_loss_and_grads(arch, mesh_name)
     assert abs(float(loss) - ref["loss"]) > LOSS_RTOL * abs(ref["loss"])
     assert max(grad_errors(grads, ref["grads"]).values()) > GRAD_TOL
-
-
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-large-v2"])
-def test_other_families_raise_under_rules(arch):
-    """The SSM, hybrid and audio families run tensor-parallel
-    (``test_torch_tensor_parallel_ssm.py``), but their cached prefill and
-    decode do not: the sharded decode cache is not executed yet."""
-    _, _, lm, params = models(arch)
-    rules = _rules(lm.cfg, "1x2")
-    b = _torch_batch(batch(lm, seed=1))
-    tokens = b["tokens"][:, :-1].clamp(min=0)
-    with use_rules(rules):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            lm.prefill(params, tokens, b.get("frontend"))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            lm.decode_step(params, {}, tokens[:, :1])
-
-
-def test_cached_prefill_and_decode_raise_under_rules():
-    _, _, lm, params = models("qwen3-8b")
-    rules = _rules(lm.cfg, "1x2")
-    with use_rules(rules):
-        with pytest.raises(NotImplementedError, match="sharded decode cache"):
-            lm.prefill(params, torch.zeros((1, 4), dtype=torch.int64))
-        with pytest.raises(NotImplementedError, match="sharded decode cache"):
-            lm.decode_step(params, {}, torch.zeros((1, 1), dtype=torch.int64))
 
 
 # ---------------------------------------------- the loss against the reference's

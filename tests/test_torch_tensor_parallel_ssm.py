@@ -42,9 +42,10 @@ Checked:
 * in float64 (``torch_tp_probes.float64_port``, as ``chip_smoke.py`` phase
   20 holds xlstm's 8-layer group): xlstm's sharded gradients within 1e-4
   of the unsharded port's and far closer than its float32 run's, the
-  planted mLSTM faults beyond;
-* the cached ``prefill`` and ``decode_step`` still raise under rules
-  (``test_torch_tensor_parallel.py``).
+  planted mLSTM faults beyond.
+
+The cached ``prefill`` and ``decode_step`` over the mesh:
+``test_torch_tensor_parallel_decode.py``.
 """
 import dataclasses
 

@@ -1,7 +1,8 @@
-"""Probes of the tensor-parallel SSM and hybrid blocks, shared by
-``tests/test_torch_tensor_parallel_ssm.py`` (on the CPU) and
-``chip_smoke.py`` phase 20 (on the card); they import torch and the port
-only.
+"""Probes of the tensor-parallel blocks, shared by
+``tests/test_torch_tensor_parallel_ssm.py`` and
+``tests/test_torch_tensor_parallel_decode.py`` (on the CPU) and
+``chip_smoke.py`` phases 20 and 21 (on the card); they import torch and the
+port only.
 
 * ``planted(fault)``: a fault planted in the sharded program while active,
   which each check must see:
@@ -15,7 +16,14 @@ only.
   - ``replicated_grad_summed``: every replicated leaf's copy on a shard gets
     the sum over "model" of all the copies' gradients (a spurious
     all-reduce of a replicated weight's gradient), so the stored block's
-    gradient comes out tp times too large.
+    gradient comes out tp times too large;
+  - ``split_k_own_max``: decode's split-K combine without the all-reduce of
+    the partials' maxima, each shard weighing its partial by its own;
+  - ``split_k_dropped_partial``: the first shard's partial dropped from
+    the split-K sums (its slots' keys never count);
+  - ``new_key_on_every_shard``: decode's new key and value written by every
+    shard at its own local slot ``slot % S_loc``, not by the owner of the
+    slot alone.
 
 * ``float64_port(lm)``: the port's arithmetic in float64 while active, for
   the SSM family (no attention kernel takes float64).  Its float32 steps
@@ -72,11 +80,35 @@ def _replicated_grad_summed(real):
     return locals_
 
 
+def _split_k_own_max(real):
+    return lambda rules, ms: list(ms)
+
+
+def _split_k_dropped_partial(real):
+    def split_k_sum(rules, parts):
+        parts = list(parts)
+        parts[0] = torch.zeros_like(parts[0])
+        return real(rules, parts)
+
+    return split_k_sum
+
+
+def _new_key_on_every_shard(real):
+    def write_slot(blocks, offsets, slot, new):
+        for blk, x in zip(blocks, new):
+            blk[:, slot % blk.shape[1]] = x.to(blk.dtype)
+
+    return write_slot
+
+
 # fault -> (owner, attribute, the faulty attribute made from the real one)
 FAULTS = {
     "norm_over_own_slice": (ssm_lib, "_rms_norm_shards", _norm_over_own_slice),
     "p_split_without_gather": (ssm_lib, "_head_columns", _p_split_without_gather),
     "replicated_grad_summed": (Sharded, "locals", _replicated_grad_summed),
+    "split_k_own_max": (layers, "_global_max", _split_k_own_max),
+    "split_k_dropped_partial": (layers, "_split_k_sum", _split_k_dropped_partial),
+    "new_key_on_every_shard": (layers, "_write_slot", _new_key_on_every_shard),
 }
 
 
