@@ -14,7 +14,10 @@ HLO, so the port counts the operators that a step dispatches:
   ``hlo_stats.py``'s ring factors.
 
 Both modes run on ``meta`` tensors, so a full-scale step is counted without
-memory.
+memory.  A scan (``models/lm/scan.py``) on ``meta`` is priced as
+``hlo_cost.while_costs`` prices a ``while``: one trip is dispatched and its
+counts weighed by the trip count (the backward pass's by the same rule),
+and :attr:`StepCost.loops` lists each loop's trips and one trip's cost.
 
 :data:`HW` holds the NVIDIA H100 SXM 80GB's published peaks at its 700 W
 limit (not the TPU's of ``hlo_stats.py``): 989e12 dense bf16 FLOP/s on the
@@ -23,15 +26,16 @@ which holds between the 8 cards of one host only.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.models.lm import collectives
+from repro_torch.models.lm import collectives, scan
 
 __all__ = ["HW", "StepCost", "TRACE_LIMIT_S", "TraceCut", "count"]
 
@@ -56,8 +60,7 @@ def _bytes(tree) -> int:
 
 
 # a trace still running after 20 minutes stops at its next operator
-# (:class:`TraceCut`): xlstm's full-scale cells, whose sLSTM scan is a Python
-# loop over positions on every shard, would take hours
+# (:class:`TraceCut`): the guard for a trace that runs away
 TRACE_LIMIT_S = 1200.0
 
 
@@ -89,6 +92,64 @@ class StepCost:
     bytes: float
     ops: int
     collectives: dict
+    # one entry a priced loop kind: name, pass, trips, calls and one trip's
+    # flops, bytes and operators (the counterpart of ``while_costs``)
+    loops: list = field(default_factory=list)
+
+
+class _Tally(dict):
+    """Counts at a point of a trace, or the difference of two, by name:
+    they add, subtract and multiply by a trip count (exactly, but for the
+    collectives' link bytes, which are floats)."""
+
+    def __add__(self, other):
+        return _Tally({k: self.get(k, 0) + other.get(k, 0) for k in self.keys() | other.keys()})
+
+    def __sub__(self, other):
+        return self + other * -1
+
+    def __mul__(self, n: int):
+        return _Tally({k: v * n for k, v in self.items()})
+
+
+class _Pricer:
+    """What ``scan.pricing`` needs of a trace: its tally, additions to it
+    (the weighed trips), and the loops' records."""
+
+    def __init__(self, flops: FlopCounterMode, nbytes: "_ByteCounter"):
+        self.flops, self.nbytes = flops, nbytes
+        self.extra_flops = 0
+        self.loops: dict = {}
+
+    def total_flops(self) -> int:
+        return int(self.flops.get_total_flops()) + self.extra_flops
+
+    def tally(self) -> _Tally:
+        st = collectives.STATS
+        return _Tally({"flops": self.total_flops(), "bytes": self.nbytes.bytes,
+                       "ops": self.nbytes.ops, "link_bytes": st.link_bytes,
+                       **{("per_op_bytes", k): v for k, v in st.per_op_bytes.items()},
+                       **{("per_op_count", k): v for k, v in st.per_op_count.items()}})
+
+    def add(self, t: _Tally) -> None:
+        self.extra_flops += t.get("flops", 0)
+        self.nbytes.bytes += t.get("bytes", 0)
+        self.nbytes.ops += t.get("ops", 0)
+        st = collectives.STATS
+        st.link_bytes += t.get("link_bytes", 0)
+        for key, v in t.items():
+            if isinstance(key, tuple):
+                table = getattr(st, key[0])
+                table[key[1]] = table.get(key[1], 0) + v
+
+    def record(self, name: str, trips: int, pass_: str, trip: _Tally) -> None:
+        key = (name, pass_, trips, trip["flops"], trip["bytes"], trip["ops"])
+        self.loops[key] = self.loops.get(key, 0) + 1
+
+    def as_list(self) -> list:
+        return [{"name": n, "pass": p, "trips": t, "calls": c, "trip_flops": f,
+                 "trip_bytes": b, "trip_ops": o}
+                for (n, p, t, f, b, o), c in self.loops.items()]
 
 
 class TraceCut(Exception):
@@ -99,22 +160,26 @@ class TraceCut(Exception):
         self.cost = cost
 
 
-def count(fn, *args, **kwargs) -> tuple[object, StepCost]:
+def count(fn, *args, price_loops: bool = True, **kwargs) -> tuple[object, StepCost]:
     """``fn(*args, **kwargs)`` and what it cost: FLOPs, bytes and operators
     dispatched, and the collectives it counted (``collectives.STATS`` is
-    reset before).  A call still running after ``TRACE_LIMIT_S`` stops at
-    its next operator and raises :class:`TraceCut` with the counts so far."""
+    reset before).  Scans on ``meta`` are priced once a trip unless
+    ``price_loops`` is False (then every trip is dispatched).  A call still
+    running after ``TRACE_LIMIT_S`` stops at its next operator and raises
+    :class:`TraceCut` with the counts so far."""
     _attention_ops()  # registered before the counter copies the formulas
     collectives.reset_stats()
     flops = FlopCounterMode(display=False)
     nbytes = _ByteCounter(time.monotonic() + TRACE_LIMIT_S)
+    pricer = _Pricer(flops, nbytes)
 
     def cost():
-        return StepCost(float(flops.get_total_flops()), float(nbytes.bytes), nbytes.ops,
-                        collectives.STATS.as_dict())
+        return StepCost(float(pricer.total_flops()), float(nbytes.bytes), nbytes.ops,
+                        collectives.STATS.as_dict(), pricer.as_list())
 
+    priced = scan.pricing(pricer) if price_loops else contextlib.nullcontext()
     try:
-        with flops, nbytes:
+        with flops, nbytes, priced:
             out = fn(*args, **kwargs)
     except Exception:  # the deadline's error may reach here wrapped by autograd
         if nbytes.cut:

@@ -22,8 +22,8 @@ no HLO.  For each cell the dry run:
      specs.  The MoE family is traced with the
      einsum backend, the reference's dry-run baseline (the sorted backend's
      ``bincount`` and ``argsort`` depend on the data, which ``meta`` does not
-     have).  The SSM family's sLSTM scan is a Python loop over positions
-     that runs on each of the 16 shards, so its trace is the longest,
+     have).  The scans (SSD, mLSTM, sLSTM) are priced once a trip
+     (``models/lm/scan.py``); each cell's record lists them under ``loops``,
   5. writes ``roofline_terms`` against the H100's published peaks
      (``cost.HW``) to ``<out>/<arch>__<shape>__<mesh>.json``.
 
@@ -168,7 +168,7 @@ def _trace(model, params, shape, rules, multi_pod: bool, placed, train_kwargs=No
         note += ("; FSDP's weight all-gathers and reduce-scatters over the data axes are not "
                  "counted (the traced replica has one data shard)")
     return dict(trace_s=trace_s, flops=spent.flops / tp, bytes=spent.bytes / tp,
-                operators=spent.ops, collectives=coll, traced=note)
+                operators=spent.ops, collectives=coll, loops=spent.loops, traced=note)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR, *,

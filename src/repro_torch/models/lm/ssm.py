@@ -2,7 +2,7 @@
 
 Mamba2 (SSD) for the hybrid family (zamba2) and the xLSTM cells (mLSTM,
 sLSTM) for the SSM family (xlstm).  Prefill runs the chunked-parallel forms
-(a Python loop over chunks where the reference uses ``lax.scan``): within a
+(a loop over chunks, ``scan.scan``, where the reference uses ``lax.scan``): within a
 chunk the work is batched products, and only the O(L/Q) inter-chunk state
 recurrence is sequential.  Decode runs the exact O(1)-per-token recurrence
 on the carried state.  The sLSTM is a sequential loop over positions in
@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import collectives
+from repro_torch.models.lm import collectives, scan
 from repro_torch.models.lm.layers import _normal, rms_norm
 
 __all__ = [
@@ -136,9 +136,9 @@ def _ssd_chunked(
     xbar = x.to(f32) * dt[..., None]               # (B,L,H,P)
     h = torch.zeros((bsz, n_heads, b_.shape[-1], p_dim), dtype=f32, device=x.device)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    ys = []
-    for lg, xc, bc, cc in zip(_chunks(lga, q), _chunks(xbar, q), _chunks(b_.to(f32), q),
-                              _chunks(c_.to(f32), q)):
+
+    def trip(carry, xs):
+        (h,), (lg, xc, bc, cc) = carry, xs
         cum = torch.cumsum(lg, dim=1)              # (B,Q,H) inclusive
         cum_t = cum.transpose(1, 2)                # (B,H,Q)
         total = cum_t[:, :, -1]                    # (B,H)
@@ -153,7 +153,10 @@ def _ssd_chunked(
         to_end = torch.exp(total[:, None, :] - cum)  # (B,Q,H)
         xw = xc * to_end[..., None]
         h = torch.exp(total)[:, :, None, None] * h + torch.einsum("bjn,bjhp->bhnp", bc, xw)
-        ys.append(y)
+        return (h,), y
+
+    (h,), ys = scan.scan("ssd", trip, (h,), (_chunks(lga, q), _chunks(xbar, q),
+                                             _chunks(b_.to(f32), q), _chunks(c_.to(f32), q)))
     return torch.cat(ys, dim=1), h
 
 
@@ -281,9 +284,9 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk, compute_dtype=f32):
     n_mem = torch.zeros((bsz, n_heads, p_dim), dtype=f32, device=dev)
     m = torch.full((bsz, n_heads), -1e30, dtype=f32, device=dev)
     mask = torch.tril(torch.ones((q_len, q_len), dtype=torch.bool, device=dev))
-    hs = []
-    for qt, kt, vt, li, lf in zip(*(_chunks(t.to(compute_dtype), q_len) for t in (q, k, v)),
-                                  _chunks(log_i, q_len), _chunks(log_f, q_len)):
+
+    def trip(state, xs):
+        (c_mem, n_mem, m), (qt, kt, vt, li, lf) = state, xs
         kf, vf = kt.to(f32), vt.to(f32)
         qs = (qt * scale).to(f32)
         b = torch.cumsum(lf, dim=1).transpose(1, 2)        # (B,H,Q) inclusive
@@ -305,7 +308,7 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk, compute_dtype=f32):
             inter_scale.transpose(1, 2)[..., None])
         den = den + torch.einsum("bihp,bhp->bhi", qs, n_mem) * inter_scale
         hden = torch.maximum(den.abs(), torch.exp(-m_i))   # (B,H,Q)
-        hs.append(num / hden.transpose(1, 2)[..., None])   # (B,Q,H,P)
+        y = num / hden.transpose(1, 2)[..., None]          # (B,Q,H,P)
         # ---- state update -------------------------------------------------
         lw_state = total[:, :, None] - b + li_t            # (B,H,Q) log-weights
         m_new = torch.maximum(m + total, lw_state.amax(dim=-1))
@@ -314,8 +317,12 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk, compute_dtype=f32):
         carry = torch.exp(m + total - m_new)
         c_mem = carry[:, :, None, None] * c_mem + swk.permute(0, 2, 3, 1) @ vf.transpose(1, 2)
         n_mem = carry[:, :, None] * n_mem + swk.sum(dim=1)
-        m = m_new
-    return torch.cat(hs, dim=1), (c_mem, n_mem, m)
+        return (c_mem, n_mem, m_new), y
+
+    xs = (*(_chunks(t.to(compute_dtype), q_len) for t in (q, k, v)),
+          _chunks(log_i, q_len), _chunks(log_f, q_len))
+    state, hs = scan.scan("mlstm", trip, (c_mem, n_mem, m), xs)
+    return torch.cat(hs, dim=1), state
 
 
 def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
@@ -401,19 +408,18 @@ def _slstm_scan(p, wx: torch.Tensor, cfg: ModelConfig, state=None):
     """wx: (B, L, 4D) (:func:`_slstm_input`) -> (h (B, L, D) float32, final
     state (c, n, m, h)).
 
-    A sequential loop over the L positions."""
+    A sequential loop over the L positions (``scan.scan``)."""
     bsz, length, d = wx.shape[0], wx.shape[1], wx.shape[2] // 4
     hs = cfg.n_heads
     dh = d // hs
     if state is None:
         zeros = torch.zeros((bsz, d), dtype=f32, device=wx.device)
         state = (zeros, zeros, torch.full((bsz, d), -1e30, dtype=f32, device=wx.device), zeros)
-    c, n, m, h = state
-    r = p["r"]
-    outs = []
-    for t in range(length):
+
+    def trip(carry, xs, r):
+        (c, n, m, h), (x,) = carry, xs
         rec = torch.bmm(h.reshape(bsz, hs, dh).transpose(0, 1), r).transpose(0, 1)
-        za, ia, fa, oa = (wx[:, t] + rec.reshape(bsz, 4 * d)).chunk(4, dim=-1)
+        za, ia, fa, oa = (x + rec.reshape(bsz, 4 * d)).chunk(4, dim=-1)
         z = torch.tanh(za)
         log_f = F.logsigmoid(fa)
         o = torch.sigmoid(oa)
@@ -422,9 +428,10 @@ def _slstm_scan(p, wx: torch.Tensor, cfg: ModelConfig, state=None):
         c = keep * c + take * z
         n = keep * n + take
         h = o * c / torch.maximum(n, torch.exp(-m_new))
-        m = m_new
-        outs.append(h)
-    return torch.stack(outs, dim=1), (c, n, m, h)
+        return (c, n, m_new, h), h
+
+    state, outs = scan.scan("slstm", trip, tuple(state), (wx.unbind(1),), (p["r"],))
+    return torch.stack(outs, dim=1), state
 
 
 def _slstm_out(p, h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

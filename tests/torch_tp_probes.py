@@ -23,12 +23,17 @@ port only.
     the split-K sums (its slots' keys never count);
   - ``new_key_on_every_shard``: decode's new key and value written by every
     shard at its own local slot ``slot % S_loc``, not by the owner of the
-    slot alone.
+    slot alone;
+  - ``state_blocks_rotated``: the SSM decode's new state blocks each
+    written to the next shard's block (an off-by-one in the blocks'
+    order), the one decode fault above that reaches xlstm, which has no
+    attention.
 
 * ``float64_port(lm)``: the port's arithmetic in float64 while active, for
-  the SSM family (no attention kernel takes float64).  Its float32 steps
-  are written against each module's ``f32`` and ``lm.dtype``; both become
-  float64, so the same code on float64 weights rounds at float64.  Where
+  the SSM and hybrid families on the CPU (no attention kernel takes
+  float64).  Its float32 steps, the cache's states included, are written
+  against each module's ``f32`` and ``lm.dtype``; both become float64, so
+  the same code on float64 weights rounds at float64.  Where
   float32's rounding is amplified past a bound (full-width xlstm at
   depth), the sharded and unsharded programs in float64 still agree to
   far below it unless the layout is wrong.
@@ -40,7 +45,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.lm import layers, model
+from repro_torch.models.lm import cache, layers, model
 from repro_torch.models.lm import ssm as ssm_lib
 from repro_torch.models.lm.sharding import Sharded
 from repro_torch.train import step
@@ -93,6 +98,10 @@ def _split_k_dropped_partial(real):
     return split_k_sum
 
 
+def _state_blocks_rotated(real):
+    return lambda blocks, new: real(blocks, list(new[1:]) + list(new[:1]))
+
+
 def _new_key_on_every_shard(real):
     def write_slot(blocks, offsets, slot, new):
         for blk, x in zip(blocks, new):
@@ -109,6 +118,7 @@ FAULTS = {
     "split_k_own_max": (layers, "_global_max", _split_k_own_max),
     "split_k_dropped_partial": (layers, "_split_k_sum", _split_k_dropped_partial),
     "new_key_on_every_shard": (layers, "_write_slot", _new_key_on_every_shard),
+    "state_blocks_rotated": (ssm_lib, "_write", _state_blocks_rotated),
 }
 
 
@@ -127,7 +137,7 @@ def planted(fault: str):
 def float64_port(lm):
     """``lm`` and the port's modules compute in float64 while active (its
     weights must be cast by the caller)."""
-    modules = (ssm_lib, model, layers, step)
+    modules = (ssm_lib, model, layers, step, cache)
     saved = [m.f32 for m in modules], lm.dtype
     for m in modules:
         m.f32 = torch.float64
