@@ -3196,9 +3196,23 @@ def lm_timings(cfg, params, card: str) -> dict:
     return out
 
 
+# The profiled B = 1 decode step before the forward was one body (commit
+# 5c40f32; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
+# device launches and host operators as this phase counted them, and the
+# host's launch and copy calls (``lm_forward_ab.py decode-launches``).  The
+# profiler's device rows drop some launches in some steps (3652-3726 for one
+# tree's qwen3-8b steps), so the host's calls are the exact count.
+EARLIER_DECODE_B1 = {
+    "qwen3-8b": dict(device_launches=3714, host_operators=12651, launch_calls=3726),
+    "granite-moe-1b-a400m": dict(device_launches=2668, host_operators=11739, launch_calls=2681),
+}
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")
+
+
 def decode_profile(lm, params, cache, tok, arch: str) -> dict:
     """One decode step under ``torch.profiler``: its host wall time, device
-    busy time, host operators and the device's top entries."""
+    busy time, host operators, launch calls and the device's top entries (and
+    the earlier figures of ``EARLIER_DECODE_B1``, where the config has them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3209,10 +3223,13 @@ def decode_profile(lm, params, cache, tok, arch: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, device = profile_rows(prof, ROOT / "build" / f"chip_smoke_profile_decode_{arch}.txt")
     busy_ms = sum(r[0] for r in device) / 1e3
+    earlier = EARLIER_DECODE_B1.get(arch, {})
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
                 device_launches=sum(r[2] for r in device),
                 host_operators=sum(r[2] for r in rows if r[3] > 0.0 and r[1].startswith("aten::")),
+                launch_calls=sum(r[2] for r in rows if r[1].startswith(LAUNCH_CALLS)),
+                **{f"earlier_{k}": v for k, v in earlier.items()},
                 top_device=[[k[:60], d / 1e3, c] for d, k, c, _ in device[:5]],
                 top_host=[[k[:40], h / 1e3, c] for _, k, c, h in
                           sorted(rows, key=lambda r: -r[3])[:5]])

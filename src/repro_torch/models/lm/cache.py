@@ -26,18 +26,21 @@ step overwrites position 0, and past it with S % W ≠ 0 the slots are
 misaligned with ``pos % W``; ``init_cache`` sizes its ring by ``max_seq``
 instead (ROADMAP Queue 3).
 
-Over a mesh of shards (under ``sharding.use_rules``, with the parameters of
-``sharding.shard_params``) the cache is a dict of ``sharding.Sharded`` leaves
-placed leaf for leaf by ``cache_pspecs`` (the batch on the data axes where
-it divides, the cached sequence of every k, v, ``ckv`` and ``kpe`` on
+The cached prefill is the model's own forward (``LM._forward``) with a
+:class:`CacheSink`, to which each block hands its keys, values or final
+states, and :func:`decode_step` runs the blocks' decode
+(``layers.attention_block_decode_shards`` and its MLA and cross-attention
+siblings, ``ssm.*_decode_shards``), with or without sharding rules: with
+none, on one shard, the sink writes into the plain tensors of the layout
+above and each decode block is the unsharded step.  Over a mesh of shards
+(under ``sharding.use_rules``, with the parameters of
+``sharding.shard_params``) the cache is a dict of ``sharding.Sharded``
+leaves placed leaf for leaf by ``cache_pspecs`` (the batch on the data axes
+where it divides, the cached sequence of every k, v, ``ckv`` and ``kpe`` on
 "model", the SSM and conv states split as the spec says, ``ck``, ``cv``
 whole) and the Python int ``pos``; ``sharding.gather_cache`` gives the
-layout above again.  ``init_cache`` places an empty one; the cached prefill
-is the model's own forward over the mesh (``LM._forward_shards``) with a
-:class:`CacheSink`, to which each block hands its keys, values or final
-states; :func:`decode_step` runs the blocks' decode over the shards
-(``layers.attention_block_decode_shards`` and its MLA and cross-attention
-siblings, the split-K reduce over "model"; ``ssm.*_decode_shards``).
+layout above again, ``init_cache`` places an empty one, and the decode's
+attention reduces over the cached sequence split over "model" (split-K).
 """
 from __future__ import annotations
 
@@ -47,18 +50,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import ssm as ssm_lib
 from repro_torch.models.lm.collectives import all_gather, all_to_all
 from repro_torch.models.lm.layers import (
-    attention_block_decode,
     attention_block_decode_shards,
-    attention_block_with_kv,
-    cross_attention_decode,
     cross_attention_decode_shards,
-    cross_attention_with_kv,
-    glu_ffn,
     glu_ffn_shards,
-    mla_block_decode,
     mla_block_decode_shards,
-    mla_block_with_cache,
-    rms_norm,
 )
 from repro_torch.models.lm.model import stacked
 from repro_torch.models.lm.sharding import Sharded, active_rules, empty_cache, split_batch
@@ -110,20 +105,27 @@ def _leaves(model, batch: int, max_seq: int) -> dict:
     return leaves
 
 
+def _empty(rules, leaves: dict, batch: int, device, written=()) -> dict:
+    """An empty cache of ``leaves`` (name -> (shape, type, fill)): placed on
+    the mesh of ``rules``, else plain tensors on ``device``, those that the
+    caller writes whole (``written``) left unfilled; ``pos`` 0."""
+    if rules is not None:
+        cache = empty_cache(rules, leaves, batch)
+    else:
+        cache = {name: torch.empty(shape, dtype=dtype, device=device) if name in written
+                 else torch.full(shape, fill, dtype=dtype, device=device)
+                 for name, (shape, dtype, fill) in leaves.items()}
+    cache["pos"] = 0
+    return cache
+
+
 def init_cache(model, batch: int, max_seq: int, device=None) -> dict:
     """An empty cache of ``max_seq`` positions on ``device`` (default the
     card); under sharding rules placed on their mesh's devices instead
     (``device`` unused)."""
     rules = active_rules()
-    if rules is not None:
-        cache = empty_cache(rules, _leaves(model, batch, max_seq), batch)
-        cache["pos"] = 0
-        return cache
-    dev = resolve_device(device)
-    cache = {name: torch.full(shape, fill, dtype=dtype, device=dev)
-             for name, (shape, dtype, fill) in _leaves(model, batch, max_seq).items()}
-    cache["pos"] = 0
-    return cache
+    dev = None if rules is not None else resolve_device(device)
+    return _empty(rules, _leaves(model, batch, max_seq), batch, dev)
 
 
 # ==========================================================================
@@ -136,6 +138,91 @@ def _cache_len(s: int, max_seq: int | None) -> int:
     return max(s, target)
 
 
+class CacheSink:
+    """Where the blocks of the cached prefill (``LM._forward``) leave their
+    keys, values and final states, one tensor a shard: it lays each out in
+    ``cache`` at the layer that :meth:`at` names.  Over a mesh (``rules``)
+    the leaves are ``sharding.Sharded``, placed by ``cache_pspecs``, and each
+    block is written by its home shard (a block that several shards share
+    gets the same values from each); with no rules they are plain tensors,
+    written by the one shard."""
+
+    def __init__(self, rules, cache: dict, batch_split: bool, layer: tuple = ()):
+        self.rules, self.cache, self.batch_split, self.layer = rules, cache, batch_split, layer
+
+    def at(self, *layer) -> "CacheSink":
+        """The sink for the leaves' layer ``layer`` (their leading indices)."""
+        return CacheSink(self.rules, self.cache, self.batch_split, layer)
+
+    def _leaf(self, name: str):
+        leaf = self.cache[name]
+        for i in self.layer:
+            leaf = leaf[i]
+        return leaf
+
+    @staticmethod
+    def _write(leaf, xs: list) -> None:
+        if not isinstance(leaf, Sharded):
+            blocks, homes, spec = [leaf], [True], "whole"
+        else:
+            blocks, homes, spec = leaf.own(), leaf.homes(), leaf.spec
+        for blk, home, x in zip(blocks, homes, xs):
+            if tuple(x.shape) != tuple(blk.shape):
+                raise ValueError(f"a block of shape {tuple(x.shape)} for the cache's "
+                                 f"{tuple(blk.shape)} (spec {spec})")
+            if home:
+                blk.copy_(x)
+
+    def put(self, name: str, xs: list) -> None:
+        """Each shard's block of ``name``, already in the cache's layout."""
+        self._write(self._leaf(name), xs)
+
+    def put_cut(self, name: str, xs: list) -> None:
+        """Each shard's whole tensor of ``name`` (its rows): the block of the
+        dim that the leaf splits over "model" is cut out."""
+        leaf = self._leaf(name)
+        d = leaf.split_dim() if isinstance(leaf, Sharded) else None
+        if d is not None:
+            size = leaf.shape[d] // leaf.grid[d]
+            xs = [x.narrow(d, off, size) for x, off in zip(xs, leaf.offsets(d))]
+        self._write(leaf, xs)
+
+    def put_seq(self, name: str, xs: list, *, heads_split: bool) -> None:
+        """Each shard's (B_loc, S, ...) keys of ``name`` for its rows: the last
+        positions that the leaf's sequence holds (the hybrid's ring keeps the
+        last w), the slots past them zero, as ``_cache_len`` pads; where
+        ``heads_split`` (a shard holds its block of the KV heads) re-split
+        from heads to sequence blocks by one all-to-all over "model", else
+        (every head on every shard) cut to the shard's sequence block.  With
+        no rules they are written into their slots of the zeroed leaf."""
+        leaf = self._leaf(name)
+        cap = leaf.shape[1]
+        if not isinstance(leaf, Sharded):
+            x = xs[0] if xs[0].shape[1] <= cap else xs[0][:, -cap:]
+            leaf[:, :x.shape[1]] = x
+            return
+        xs = [x[:, -cap:] for x in xs]
+        if xs[0].shape[1] < cap:
+            xs = [torch.cat([x, x.new_zeros((x.shape[0], cap - x.shape[1], *x.shape[2:]))], dim=1)
+                  for x in xs]
+        if heads_split:
+            xs = all_to_all(xs, self.rules.mesh, self.rules.tp_axis, split_dim=1, concat_dim=2)
+            self._write(leaf, xs)
+        else:
+            self.put_cut(name, xs)
+
+    def put_whole(self, name: str, xs: list, *, heads_split: bool) -> None:
+        """A replicated leaf (the audio's cross cache) from each shard's KV
+        heads of its rows: gathered over "model" where the heads are split
+        and over the data axes where the rows are."""
+        rules = self.rules
+        if heads_split:
+            xs = all_gather(xs, rules.mesh, rules.tp_axis, dim=2)
+        if self.batch_split and rules is not None and rules.dp() > 1:
+            xs = all_gather(xs, rules.mesh, rules.axis("batch"), dim=0)
+        self._write(self._leaf(name), xs)
+
+
 def build_prefill_cache(model, params, tokens, frontend=None, max_seq=None):
     """Run the full-sequence forward, returning (last logits, decode cache).
 
@@ -143,126 +230,37 @@ def build_prefill_cache(model, params, tokens, frontend=None, max_seq=None):
     absolute-slot cache can hold; defaults to ``prefill_len +
     DECODE_RESERVE``.  The VLM prepends ``frontend @ frontend_adapter`` to
     the token embeddings; the audio family encodes ``frontend`` and
-    attends to it.  The SSM and hybrid families ignore ``max_seq``.  Under
-    sharding rules the forward runs over their mesh and the cache is placed
-    by ``cache_pspecs`` (:func:`_prefill_shards`).
+    attends to it.  The SSM and hybrid families ignore ``max_seq``.  The
+    cache is an empty one of these sizes (placed by ``cache_pspecs`` under
+    sharding rules, over their mesh), filled by the forward's blocks through
+    a :class:`CacheSink`.
     """
     rules = active_rules()
-    if rules is not None:
-        return _prefill_shards(model, rules, params, tokens, frontend, max_seq)
     cfg = model.cfg
-    x = model.embed(params, tokens)
-    if cfg.family == "vlm" and frontend is not None:
-        fe = frontend.to(model.dtype) @ params["frontend_adapter"]
-        x = torch.cat([fe, x], dim=1)
-    prefill = {"ssm": _prefill_ssm, "hybrid": _prefill_hybrid, "audio": _prefill_audio}.get(
-        cfg.family, _prefill_attn)
-    x, cache = prefill(model, params, x, frontend, max_seq)
-    cache["pos"] = x.shape[1]
-    h_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return model.logits_last(params, h_last), cache
-
-
-def _prefill_attn(model, params, x, frontend, max_seq):
-    b, s = x.shape[:2]
-    cache = init_cache(model, b, _cache_len(s, max_seq), x.device)
-    names = [n for n in cache if n != "pos"]
-    for i, bp in enumerate(model.layers(params)):
-        x, extra = _prefill_attn_ffn(model, bp, x)
-        for name, val in zip(names, extra):
-            cache[name][i, :, :s] = val
-    return x, cache
-
-
-def _prefill_attn_ffn(model, bp, x):
-    cfg = model.cfg
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if cfg.mla:
-        a, c1, c2 = mla_block_with_cache(bp["attn"], h, cfg, block=model.attn_block,
-                                         use_kernel=model.use_kernel)
+    fam = cfg.family
+    b, s = tokens.shape
+    if fam == "vlm" and frontend is not None:
+        s += frontend.shape[1]
+    if fam == "hybrid":
+        # the reference's ring: the last w keys, w = min(window or s, s) (module docstring)
+        leaves = _leaves(model, b, min(cfg.sliding_window or s, s))
+    elif fam == "ssm":
+        leaves = _leaves(model, b, s)
     else:
-        a, c1, c2 = attention_block_with_kv(bp["attn"], h, cfg, block=model.attn_block,
-                                            use_kernel=model.use_kernel)
-    x = x + a
-    return x + model._ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps)), (c1, c2)
-
-
-def _shared_block(model, shared, x, attend):
-    """The hybrid's shared attention + FFN block; ``attend(h)`` gives the
-    attention's (out, k, v)."""
-    cfg = model.cfg
-    a, k, v = attend(rms_norm(x, shared["ln1"], cfg.norm_eps))
-    x = x + a
-    return x + glu_ffn(shared["ffn"], rms_norm(x, shared["ln2"], cfg.norm_eps), cfg.act), k, v
-
-
-def _prefill_hybrid(model, params, x, frontend, max_seq):
-    cfg = model.cfg
-    eps = cfg.norm_eps
-    b, s = x.shape[:2]
-    # the reference's ring: the last w keys, w = min(window or s, s) (module docstring)
-    w = min(cfg.sliding_window or s, s)
-    cache = {name: torch.empty(shape, dtype=dtype, device=x.device)
-             for name, (shape, dtype, _) in _leaves(model, b, w).items()}
-    shared = params["shared_block"]
-    attend = lambda h: attention_block_with_kv(  # noqa: E731
-        shared["attn"], h, cfg, window=cfg.sliding_window, block=model.attn_block,
-        use_kernel=model.use_kernel)
-    for g, (mamba, _) in enumerate(model.groups(params)):
-        for j, mp in enumerate(stacked(mamba)):
-            out, ssm_state, conv_tail = ssm_lib.mamba2_block(
-                mp["cell"], rms_norm(x, mp["ln"], eps), cfg, return_state=True)
-            x = x + out
-            cache["ssm"][g, j] = ssm_state
-            cache["conv"][g, j] = conv_tail
-        x, k, v = _shared_block(model, shared, x, attend)
-        cache["k"][g] = k[:, -w:]
-        cache["v"][g] = v[:, -w:]
-    return x, cache
-
-
-def _prefill_ssm(model, params, x, frontend, max_seq):
-    cfg = model.cfg
-    eps = cfg.norm_eps
-    cache = {name: torch.empty(shape, dtype=dtype, device=x.device)
-             for name, (shape, dtype, _) in _leaves(model, x.shape[0], x.shape[1]).items()}
-    for g, (mlstm, slstm) in enumerate(model.groups(params)):
-        for j, mp in enumerate(stacked(mlstm)):
-            out, state = ssm_lib.mlstm_block(mp["cell"], rms_norm(x, mp["ln"], eps), cfg,
-                                             return_state=True)
-            x = x + out
-            for name, val in zip(("mC", "mn", "mm"), state):
-                cache[name][g, j] = val
-        out, state = ssm_lib.slstm_block(slstm["cell"], rms_norm(x, slstm["ln"], eps), cfg,
-                                         return_state=True)
-        x = x + out
-        for name, val in zip(("sc", "sn", "sm", "sh"), state):
-            cache[name][g] = val
-    return x, cache
-
-
-def _prefill_audio(model, params, x, frontend, max_seq):
-    cfg = model.cfg
-    eps = cfg.norm_eps
-    b, s = x.shape[:2]
-    enc_out = model._encode(params, frontend)
-    cache = init_cache(model, b, _cache_len(s, max_seq), x.device)
-    enc_shape = (cfg.n_layers, *enc_out.shape[:2], *cache["ck"].shape[3:])
-    cache["ck"], cache["cv"] = (torch.empty(enc_shape, dtype=model.dtype, device=x.device)
-                                for _ in range(2))
-    for i, bp in enumerate(stacked(params["dec_blocks"])):
-        a, k, v = attention_block_with_kv(bp["self_attn"], rms_norm(x, bp["ln1"], eps), cfg,
-                                          block=model.attn_block, use_kernel=model.use_kernel)
-        x = x + a
-        a, ck, cv = cross_attention_with_kv(bp["cross_attn"], rms_norm(x, bp["ln_x"], eps),
-                                            enc_out, use_kernel=model.use_kernel)
-        x = x + a
-        x = x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps), cfg.act)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        cache["ck"][i] = ck
-        cache["cv"][i] = cv
-    return x, cache
+        leaves = _leaves(model, b, _cache_len(s, max_seq))
+    if fam == "audio":
+        shape, dt, fill = leaves["ck"]
+        enc = (*shape[:2], frontend.shape[1], *shape[3:])
+        leaves.update(ck=(enc, dt, fill), cv=(enc, dt, fill))
+    batch_split = rules is None or b % rules.dp() == 0
+    xs = model._embed(rules, params["embed"], split_batch(rules, tokens))
+    # every state, ring slot and cross key is written; absolute slots past s stay zero
+    written = set(leaves) if fam in ("ssm", "hybrid") else {"ck", "cv"}
+    cache = _empty(rules, leaves, b, xs[0].device, written)
+    hs = model._forward(params, xs, frontend, batch_split,
+                        sink=CacheSink(rules, cache, batch_split))
+    cache["pos"] = s
+    return model._last_logits(params, hs, batch_split), cache
 
 
 # ==========================================================================
@@ -288,198 +286,19 @@ def decode_step(model, params, cache, tokens):
         _check_cache_capacity(pos, cache["ckv" if cfg.mla else "k"].shape[2])
     rules = active_rules()
     if rules is not None:
-        return _decode_shards(model, rules, params, cache, tokens, pos)
-    x = model.embed(params, tokens)
-    step = {"ssm": _decode_ssm, "hybrid": _decode_hybrid, "audio": _decode_audio}.get(
-        fam, _decode_attn)
-    x = step(model, params, cache, x, pos)
-    cache["pos"] = pos + 1
-    h_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return model.logits_last(params, h_last), cache
-
-
-def _decode_attn(model, params, cache, x, pos):
-    cfg = model.cfg
-    c1, c2 = ("ckv", "kpe") if cfg.mla else ("k", "v")
-    for i, bp in enumerate(model.layers(params)):
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        if cfg.mla:
-            a, _, _ = mla_block_decode(bp["attn"], h, cache[c1][i], cache[c2][i], pos, cfg)
-        else:
-            a, _, _ = attention_block_decode(bp["attn"], h, cache[c1][i], cache[c2][i], pos, cfg)
-        x = x + a
-        x = x + model._ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
-    return x
-
-
-def _decode_hybrid(model, params, cache, x, pos):
-    cfg = model.cfg
-    eps = cfg.norm_eps
-    shared = params["shared_block"]
-    w = cache["k"].shape[2]
-    for g, (mamba, _) in enumerate(model.groups(params)):
-        for j, mp in enumerate(stacked(mamba)):
-            out, conv, ssm_state = ssm_lib.mamba2_decode(
-                mp["cell"], rms_norm(x, mp["ln"], eps), cache["conv"][g, j], cache["ssm"][g, j],
-                cfg)
-            x = x + out
-            cache["conv"][g, j] = conv
-            cache["ssm"][g, j] = ssm_state
-        attend = lambda h, g=g: attention_block_decode(  # noqa: E731
-            shared["attn"], h, cache["k"][g], cache["v"][g], pos, cfg, window=w)
-        x, _, _ = _shared_block(model, shared, x, attend)
-    return x
-
-
-def _decode_ssm(model, params, cache, x, pos):
-    cfg = model.cfg
-    eps = cfg.norm_eps
-    for g, (mlstm, slstm) in enumerate(model.groups(params)):
-        for j, mp in enumerate(stacked(mlstm)):
-            state = tuple(cache[name][g, j] for name in ("mC", "mn", "mm"))
-            out, state = ssm_lib.mlstm_decode(mp["cell"], rms_norm(x, mp["ln"], eps), state, cfg)
-            x = x + out
-            for name, val in zip(("mC", "mn", "mm"), state):
-                cache[name][g, j] = val
-        state = tuple(cache[name][g] for name in ("sc", "sn", "sm", "sh"))
-        out, state = ssm_lib.slstm_decode(slstm["cell"], rms_norm(x, slstm["ln"], eps), state,
-                                          cfg)
-        x = x + out
-        for name, val in zip(("sc", "sn", "sm", "sh"), state):
-            cache[name][g] = val
-    return x
-
-
-def _decode_audio(model, params, cache, x, pos):
-    cfg = model.cfg
-    eps = cfg.norm_eps
-    for i, bp in enumerate(stacked(params["dec_blocks"])):
-        a, _, _ = attention_block_decode(bp["self_attn"], rms_norm(x, bp["ln1"], eps),
-                                         cache["k"][i], cache["v"][i], pos, cfg)
-        x = x + a
-        x = x + cross_attention_decode(bp["cross_attn"], rms_norm(x, bp["ln_x"], eps),
-                                       cache["ck"][i], cache["cv"][i])
-        x = x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps), cfg.act)
-    return x
-
-
-# ==========================================================================
-# over a mesh of shards
-# ==========================================================================
-class CacheSink:
-    """Where the blocks of the sharded prefill (``LM._forward_shards``) leave
-    their keys, values and final states, one tensor a shard: it lays each out
-    in ``cache`` (``sharding.Sharded`` leaves placed by ``cache_pspecs``) at
-    the layer that :meth:`at` names.  Each block is written by its home shard
-    (a block that several shards share gets the same values from each)."""
-
-    def __init__(self, rules, cache: dict, batch_split: bool, layer: tuple = ()):
-        self.rules, self.cache, self.batch_split, self.layer = rules, cache, batch_split, layer
-
-    def at(self, *layer) -> "CacheSink":
-        """The sink for the leaves' layer ``layer`` (their leading indices)."""
-        return CacheSink(self.rules, self.cache, self.batch_split, layer)
-
-    def _leaf(self, name: str) -> Sharded:
-        leaf = self.cache[name]
-        for i in self.layer:
-            leaf = leaf[i]
-        return leaf
-
-    @staticmethod
-    def _write(leaf: Sharded, xs: list) -> None:
-        for blk, home, x in zip(leaf.own(), leaf.homes(), xs):
-            if tuple(x.shape) != tuple(blk.shape):
-                raise ValueError(f"a block of shape {tuple(x.shape)} for the cache's "
-                                 f"{tuple(blk.shape)} (spec {leaf.spec})")
-            if home:
-                blk.copy_(x)
-
-    def put(self, name: str, xs: list) -> None:
-        """Each shard's block of ``name``, already in the cache's layout."""
-        self._write(self._leaf(name), xs)
-
-    def put_cut(self, name: str, xs: list) -> None:
-        """Each shard's whole tensor of ``name`` (its rows): the block of the
-        dim that the leaf splits over "model" is cut out."""
-        leaf = self._leaf(name)
-        d = leaf.split_dim()
-        if d is not None:
-            size = leaf.shape[d] // leaf.grid[d]
-            xs = [x.narrow(d, off, size) for x, off in zip(xs, leaf.offsets(d))]
-        self._write(leaf, xs)
-
-    def put_seq(self, name: str, xs: list, *, heads_split: bool) -> None:
-        """Each shard's (B_loc, S, ...) keys of ``name`` for its rows: the last
-        positions that the leaf's sequence holds (the hybrid's ring keeps the
-        last w), zero-padded to its capacity, as ``_cache_len`` pads; where
-        ``heads_split`` (a shard holds its block of the KV heads) re-split
-        from heads to sequence blocks by one all-to-all over "model", else
-        (every head on every shard) cut to the shard's sequence block."""
-        leaf = self._leaf(name)
-        cap = leaf.shape[1]
-        xs = [x[:, -cap:] for x in xs]
-        if xs[0].shape[1] < cap:
-            xs = [torch.cat([x, x.new_zeros((x.shape[0], cap - x.shape[1], *x.shape[2:]))], dim=1)
-                  for x in xs]
-        if heads_split:
-            xs = all_to_all(xs, self.rules.mesh, self.rules.tp_axis, split_dim=1, concat_dim=2)
-            self._write(leaf, xs)
-        else:
-            self.put_cut(name, xs)
-
-    def put_whole(self, name: str, xs: list, *, heads_split: bool) -> None:
-        """A replicated leaf (the audio's cross cache) from each shard's KV
-        heads of its rows: gathered over "model" where the heads are split
-        and over the data axes where the rows are."""
-        rules = self.rules
-        if heads_split:
-            xs = all_gather(xs, rules.mesh, rules.tp_axis, dim=2)
-        if self.batch_split and rules.dp() > 1:
-            xs = all_gather(xs, rules.mesh, rules.axis("batch"), dim=0)
-        self._write(self._leaf(name), xs)
-
-
-def _prefill_shards(model, rules, params, tokens, frontend, max_seq):
-    """The cached prefill over the mesh of ``rules``: an empty placed cache
-    of the unsharded prefill's sizes, filled by the forward's blocks through
-    a :class:`CacheSink`; returns (last logits (B, Vp), cache)."""
-    cfg = model.cfg
-    fam = cfg.family
-    b, s = tokens.shape
-    if fam == "vlm" and frontend is not None:
-        s += frontend.shape[1]
-    if fam == "hybrid":
-        leaves = _leaves(model, b, min(cfg.sliding_window or s, s))
-    elif fam == "ssm":
-        leaves = _leaves(model, b, s)
-    else:
-        leaves = _leaves(model, b, _cache_len(s, max_seq))
-    if fam == "audio":
-        shape, dt, fill = leaves["ck"]
-        enc = (*shape[:2], frontend.shape[1], *shape[3:])
-        leaves.update(ck=(enc, dt, fill), cv=(enc, dt, fill))
-    cache = empty_cache(rules, leaves, b)
-    batch_split = b % rules.dp() == 0
-    xs = model._embed_shards(rules, params["embed"], split_batch(rules, tokens))
-    hs = model._forward_shards(rules, params, xs, frontend, batch_split,
-                               sink=CacheSink(rules, cache, batch_split))
-    cache["pos"] = s
-    return model._last_logits_shards(rules, params, hs, batch_split), cache
-
-
-def _decode_shards(model, rules, params, cache, tokens, pos):
-    bad = [name for name, leaf in cache.items() if name != "pos" and not isinstance(leaf, Sharded)]
-    if bad:
-        raise TypeError(f"decode_step under sharding rules takes a placed cache "
-                        f"(sharding.shard_cache or init_cache under the rules); {bad} are not")
-    batch_split = tokens.shape[0] % rules.dp() == 0
-    xs = model._embed_shards(rules, params["embed"], split_batch(rules, tokens))
+        bad = [name for name, leaf in cache.items()
+               if name != "pos" and not isinstance(leaf, Sharded)]
+        if bad:
+            raise TypeError(f"decode_step under sharding rules takes a placed cache "
+                            f"(sharding.shard_cache or init_cache under the rules); "
+                            f"{bad} are not")
+    batch_split = rules is None or tokens.shape[0] % rules.dp() == 0
+    xs = model._embed(rules, params["embed"], split_batch(rules, tokens))
     step = {"ssm": _decode_ssm_shards, "hybrid": _decode_hybrid_shards,
-            "audio": _decode_audio_shards}.get(model.cfg.family, _decode_attn_shards)
+            "audio": _decode_audio_shards}.get(fam, _decode_attn_shards)
     xs = step(model, rules, params, cache, xs, pos, batch_split)
     cache["pos"] = pos + 1
-    return model._last_logits_shards(rules, params, xs, batch_split), cache
+    return model._last_logits(params, xs, batch_split), cache
 
 
 def _residual(xs: list, ys: list) -> list:
@@ -489,14 +308,14 @@ def _residual(xs: list, ys: list) -> list:
 def _decode_attn_shards(model, rules, params, cache, xs, pos, batch_split):
     cfg = model.cfg
     for i, bp in enumerate(model.layers(params)):
-        hs = model._norm_shards(xs, bp["ln1"])
+        hs = model._norm(xs, bp["ln1"])
         if cfg.mla:
             a = mla_block_decode_shards(rules, bp["attn"], hs, cache["ckv"][i], cache["kpe"][i],
                                         pos, cfg)
         else:
             a = attention_block_decode_shards(rules, bp["attn"], hs, cache["k"][i],
                                               cache["v"][i], pos, cfg)
-        xs = model._ffn_shards(rules, bp, _residual(xs, a), batch_split)
+        xs = model._ffn(rules, bp, _residual(xs, a), batch_split)
     return xs
 
 
@@ -507,12 +326,11 @@ def _decode_hybrid_shards(model, rules, params, cache, xs, pos, batch_split):
     for g, (mamba, _) in enumerate(model.groups(params)):
         for j, mp in enumerate(stacked(mamba)):
             xs = _residual(xs, ssm_lib.mamba2_decode_shards(
-                rules, mp["cell"], model._norm_shards(xs, mp["ln"]), cache["conv"][g][j],
+                rules, mp["cell"], model._norm(xs, mp["ln"]), cache["conv"][g][j],
                 cache["ssm"][g][j], cfg))
-        a = attention_block_decode_shards(rules, shared["attn"],
-                                          model._norm_shards(xs, shared["ln1"]), cache["k"][g],
-                                          cache["v"][g], pos, cfg, window=w)
-        xs = model._ffn_shards(rules, shared, _residual(xs, a), batch_split)
+        a = attention_block_decode_shards(rules, shared["attn"], model._norm(xs, shared["ln1"]),
+                                          cache["k"][g], cache["v"][g], pos, cfg, window=w)
+        xs = model._ffn(rules, shared, _residual(xs, a), batch_split)
     return xs
 
 
@@ -522,10 +340,10 @@ def _decode_ssm_shards(model, rules, params, cache, xs, pos, batch_split):
         for j, mp in enumerate(stacked(mlstm)):
             state = tuple(cache[name][g][j] for name in ("mC", "mn", "mm"))
             xs = _residual(xs, ssm_lib.mlstm_decode_shards(
-                rules, mp["cell"], model._norm_shards(xs, mp["ln"]), state, cfg))
+                rules, mp["cell"], model._norm(xs, mp["ln"]), state, cfg))
         state = tuple(cache[name][g] for name in ("sc", "sn", "sm", "sh"))
         xs = _residual(xs, ssm_lib.slstm_decode_shards(
-            rules, slstm["cell"], model._norm_shards(xs, slstm["ln"]), state, cfg))
+            rules, slstm["cell"], model._norm(xs, slstm["ln"]), state, cfg))
     return xs
 
 
@@ -533,11 +351,10 @@ def _decode_audio_shards(model, rules, params, cache, xs, pos, batch_split):
     cfg = model.cfg
     for i, bp in enumerate(stacked(params["dec_blocks"])):
         xs = _residual(xs, attention_block_decode_shards(
-            rules, bp["self_attn"], model._norm_shards(xs, bp["ln1"]), cache["k"][i],
+            rules, bp["self_attn"], model._norm(xs, bp["ln1"]), cache["k"][i],
             cache["v"][i], pos, cfg))
         xs = _residual(xs, cross_attention_decode_shards(
-            rules, bp["cross_attn"], model._norm_shards(xs, bp["ln_x"]), cache["ck"][i],
+            rules, bp["cross_attn"], model._norm(xs, bp["ln_x"]), cache["ck"][i],
             cache["cv"][i], batch_split))
-        xs = _residual(xs, glu_ffn_shards(rules, bp["ffn"], model._norm_shards(xs, bp["ln2"]),
-                                          cfg.act))
+        xs = _residual(xs, glu_ffn_shards(rules, bp["ffn"], model._norm(xs, bp["ln2"]), cfg.act))
     return xs

@@ -42,6 +42,9 @@ these blocks also hand over their keys and values.  Decode over the mesh
 (:func:`attention_block_decode_shards`, :func:`mla_block_decode_shards`,
 :func:`cross_attention_decode_shards`) reads a cache whose sequence is split
 over "model": the split-K reduce of the section at the end of this module.
+Each ``*_shards`` function is also the LM's unsharded block: with no rules
+(``rules`` None, tensor leaves, one input in the list) it runs the plain
+function once and calls no collective.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.models.lm.sharding import locals_of, own_of, split_dim_of
 
 __all__ = [
     "attention_block",
@@ -78,6 +82,7 @@ __all__ = [
     "mla_block_with_cache",
     "rms_norm",
     "rope",
+    "shard_dicts",
 ]
 
 f32 = torch.float32
@@ -203,6 +208,16 @@ def attention_blockwise(
     return torch.cat(blocks, dim=1).to(q.dtype)
 
 
+def _grouped_logits(q: torch.Tensor, k_cache: torch.Tensor, scale: float | None = None):
+    """(B, 1, H, D) queries against (B, S, Hkv, D) keys in float32: the
+    (B, Hkv, H / Hkv, 1, S) logits, scaled by ``scale`` (default D^-½)."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.to(f32).reshape(b, 1, hkv, h // hkv, d)
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.to(f32)) * scale
+
+
 def attention_decode(
     q: torch.Tensor,           # (B, 1, H, D)
     k_cache: torch.Tensor,     # (B, S, Hkv, D)
@@ -217,11 +232,9 @@ def attention_decode(
     Query head h reads KV head ``h // (H / Hkv)`` in place: the grouped
     product sums the same terms as the reference's repeat of the KV heads.
     """
-    b, _, h, d = q.shape
-    s, hkv, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
-    scale = scale if scale is not None else d ** -0.5
-    qg = q.to(f32).reshape(b, 1, hkv, h // hkv, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.to(f32)) * scale
+    b, _, h, _ = q.shape
+    s, dv = k_cache.shape[1], v_cache.shape[3]
+    logits = _grouped_logits(q, k_cache, scale)
     kpos = torch.arange(s, device=q.device)
     valid = kpos <= pos
     if window > 0:
@@ -347,12 +360,8 @@ def attention_block(
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """Full-sequence attention (prefill), routed by device (module docstring)."""
-    s = x.shape[1]
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = attention_qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, causal=causal, window=window, block=block, use_kernel=use_kernel)
-    return _out(o, p["wo"])
+    return attention_block_with_kv(p, x, cfg, causal=causal, positions=positions, window=window,
+                                   block=block, use_kernel=use_kernel)[0]
 
 
 def attention_block_with_kv(
@@ -361,6 +370,7 @@ def attention_block_with_kv(
     cfg: ModelConfig,
     *,
     causal: bool = True,
+    positions: torch.Tensor | None = None,
     window: int = 0,
     block: int = 1024,
     use_kernel: bool = True,
@@ -369,8 +379,8 @@ def attention_block_with_kv(
     """Prefill attention that also returns (k, v) for cache population;
     ``kv_heads`` (a slice or index of ``p``'s KV heads) are the ones the
     query heads read, where ``p`` holds more (:func:`attention_block_shards`)."""
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = attention_qkv(p, x, cfg, positions)
     o = _attend(q, *_read_heads(k, v, kv_heads), causal=causal, window=window, block=block,
                 use_kernel=use_kernel)
@@ -542,23 +552,33 @@ def mla_block_decode(
     cache_ckv[:, pos] = ckv_new[:, 0].to(cache_ckv.dtype)
     cache_kpe[:, pos] = kpe_new[:, 0].to(cache_kpe.dtype)
 
-    wkv_k = p["wkv_b"][..., : m.nope_dim]          # (kv_lora, H, nope)
-    wkv_v = p["wkv_b"][..., m.nope_dim:]           # (kv_lora, H, v)
-    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, wkv_k)  # (B,1,H,kv_lora)
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, p["wkv_b"][..., : m.nope_dim])  # (B,1,H,l)
 
     s = cache_ckv.shape[1]
-    scale = (m.nope_dim + m.rope_dim) ** -0.5
     ckv_f = cache_ckv.to(f32)
-    logits = (
-        torch.einsum("bshl,btl->bhst", q_lat.to(f32), ckv_f)
-        + torch.einsum("bshr,btr->bhst", q_pe.to(f32), cache_kpe.to(f32))
-    ) * scale
+    logits = _mla_logits(q_lat, q_pe, ckv_f, cache_kpe, cfg)
     valid = torch.arange(s, device=x.device) <= pos
     logits = torch.where(valid, logits, -1e30)
     pr = torch.softmax(logits, dim=-1)
     o_lat = torch.einsum("bhst,btl->bshl", pr, ckv_f)                 # (B,1,H,l)
-    o = torch.einsum("bshl,lhk->bshk", o_lat, wkv_v.to(f32))          # (B,1,H,v)
-    return _out(o.to(x.dtype), p["wo"]), cache_ckv, cache_kpe
+    return _mla_value_out(p, o_lat, x.dtype, cfg), cache_ckv, cache_kpe
+
+
+def _mla_logits(q_lat, q_pe, ckv_f, kpe, cfg: ModelConfig) -> torch.Tensor:
+    """The absorbed decode's float32 logits (B, H, 1, S) of the latent
+    queries ``q_lat`` (B, 1, H, kv_lora) and ``q_pe`` (B, 1, H, rope)
+    against the cached ``ckv_f`` (float32) and ``kpe``."""
+    m = cfg.mla
+    return (torch.einsum("bshl,btl->bhst", q_lat.to(f32), ckv_f)
+            + torch.einsum("bshr,btr->bhst", q_pe.to(f32), kpe.to(f32))
+            ) * (m.nope_dim + m.rope_dim) ** -0.5
+
+
+def _mla_value_out(p: dict, o_lat: torch.Tensor, dtype, cfg: ModelConfig) -> torch.Tensor:
+    """The latent output (B, 1, H, kv_lora) through ``p``'s heads' value-up
+    projection (``wkv_v``) and ``wo``."""
+    o = torch.einsum("bshl,lhk->bshk", o_lat, p["wkv_b"][..., cfg.mla.nope_dim:].to(f32))
+    return _out(o.to(dtype), p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -586,7 +606,7 @@ def glu_ffn(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Over a mesh of shards (tensor parallel)
+# Over a mesh of shards (tensor parallel), or one shard (no rules)
 # --------------------------------------------------------------------------
 def kv_heads_of(first: int, n: int, group: int):
     """The KV heads that the query heads ``first .. first + n - 1`` read under
@@ -605,12 +625,24 @@ def _select_heads(w: torch.Tensor, heads, dim: int) -> torch.Tensor:
     return w.index_select(dim, heads.to(w.device))
 
 
+def shard_dicts(p: dict) -> list:
+    """One dict of leaves a shard, in the mesh's order, from a dict of
+    ``sharding.Sharded`` leaves (each shard's tensors, ``locals_of``); ``[p]``
+    for a dict of tensors (one shard)."""
+    leaves = {name: locals_of(leaf) for name, leaf in p.items()}
+    n = len(next(iter(leaves.values())))
+    return [{name: blocks[i] for name, blocks in leaves.items()} for i in range(n)]
+
+
 def _kv_layout(rules, p: dict) -> tuple[bool, bool, list]:
     """Whether ``p``'s query heads and KV heads are split over "model", and
     each shard's KV heads, in the whole leaf's numbering, that its query heads
     read: its own block where the KV heads are split; where the guard
     replicated them, those of its query heads' GQA groups
-    (:func:`kv_heads_of`); all of them where the query heads are whole."""
+    (:func:`kv_heads_of`); all of them (None) where the query heads are
+    whole, and on the one shard of no rules."""
+    if rules is None:
+        return False, False, [None]
     mesh, tp_axis = rules.mesh, rules.tp_axis
     q_split = p["wq"].split_dim() is not None
     kv_split = p["wk"].split_dim() is not None
@@ -625,7 +657,7 @@ def _kv_layout(rules, p: dict) -> tuple[bool, bool, list]:
         elif q_split:
             heads.append(kv_heads_of(i * h_loc, h_loc, hp // hkv))
         else:
-            heads.append(slice(0, hkv))
+            heads.append(None)
     return q_split, kv_split, heads
 
 
@@ -636,19 +668,28 @@ def _head_locals(rules, p: dict, *, whole_kv: bool = False) -> tuple[list, bool,
     guard replicated them); whether the query heads are split; and where
     ``whole_kv`` keeps every replicated KV head in the leaves (a cache stores
     them all), the heads that each shard's query heads read among them
-    (None where the leaves hold just those)."""
+    (None where the leaves hold just those).  With no rules: ``[p]``."""
+    if rules is None:
+        return [p], False, None
     q_split, kv_split, heads = _kv_layout(rules, p)
     narrow = q_split and not kv_split
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
-    locs = []
-    for n in range(rules.mesh.size):
-        loc = {name: blocks[n] for name, blocks in leaves.items()}
-        if narrow and not whole_kv:
+    locs = shard_dicts(p)
+    if narrow and not whole_kv:
+        for loc, sel in zip(locs, heads):
             for name, dim in (("wk", -2), ("wv", -2), ("bk", 0), ("bv", 0)):
                 if name in loc:
-                    loc[name] = _select_heads(loc[name], heads[n], dim)
-        locs.append(loc)
+                    loc[name] = _select_heads(loc[name], sel, dim)
     return locs, q_split, (heads if narrow and whole_kv else None)
+
+
+def _reduce_heads(rules, outs: list, split: bool) -> list:
+    """The ``wo`` (or ``w_down``) partial sums all-reduced over "model" where
+    the heads (or ``d_ff``) are ``split``; else each shard's whole output."""
+    if not split:
+        return outs
+    from repro_torch.models.lm.collectives import all_reduce_sum
+
+    return all_reduce_sum(outs, rules.mesh, rules.tp_axis)
 
 
 def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal: bool = True,
@@ -656,15 +697,14 @@ def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal
                            sink=None) -> list:
     """:func:`attention_block` over the shards of ``rules.mesh``: ``p`` holds
     ``sharding.Sharded`` leaves, ``hs`` one input a shard; returns one output a
-    shard, all-reduced over "model" where the heads are split.
+    shard, all-reduced over "model" where the heads are split.  With no rules
+    (``rules`` None, ``p`` tensors, ``hs`` one input) it is the one shard.
 
     With a cache ``sink`` (the cached prefill, ``cache.CacheSink``) each
     shard also hands it its keys and values: its own KV heads where they are
     split (re-split over the sequence there), else every KV head, projected
     from the replicated weights (the attention reads its group's among
     them)."""
-    from repro_torch.models.lm.collectives import all_reduce_sum
-
     locs, q_split, sel = _head_locals(rules, p, whole_kv=sink is not None)
     outs, ks, vs = [], [], []
     for n, (loc, h) in enumerate(zip(locs, hs)):
@@ -675,23 +715,22 @@ def attention_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, causal
         ks.append(k)
         vs.append(v)
     if sink is not None:
-        kv_split = p["wk"].split_dim() is not None
+        kv_split = split_dim_of(p["wk"]) is not None
         sink.put_seq("k", ks, heads_split=kv_split)
         sink.put_seq("v", vs, heads_split=kv_split)
-    return all_reduce_sum(outs, rules.mesh, rules.tp_axis) if q_split else outs
+    return _reduce_heads(rules, outs, q_split)
 
 
 def cross_attention_shards(rules, p: dict, hs: list, enc_outs: list, *,
                            use_kernel: bool = True, sink=None) -> list:
-    """:func:`cross_attention_with_kv` over the shards of ``rules.mesh``: each
-    shard's query heads from its decoder states ``hs``, their keys and values
-    from its copy of the encoder output ``enc_outs`` (replicated over
-    "model"), one non-causal attention a shard at its head count, and the
-    ``wo`` partial sums all-reduced over "model" where the heads are split.
-    A cache ``sink`` gets the encoder-side keys and values (``ck``, ``cv``,
-    replicated: gathered over the heads and rows that the shards split)."""
-    from repro_torch.models.lm.collectives import all_reduce_sum
-
+    """:func:`cross_attention_with_kv` over the shards of ``rules.mesh`` (or
+    the one shard of no rules): each shard's query heads from its decoder
+    states ``hs``, their keys and values from its copy of the encoder output
+    ``enc_outs`` (replicated over "model"), one non-causal attention a shard
+    at its head count, and the ``wo`` partial sums all-reduced over "model"
+    where the heads are split.  A cache ``sink`` gets the encoder-side keys
+    and values (``ck``, ``cv``, replicated: gathered over the heads and rows
+    that the shards split)."""
     locs, q_split, sel = _head_locals(rules, p, whole_kv=sink is not None)
     outs, ks, vs = [], [], []
     for n, (loc, h, e) in enumerate(zip(locs, hs, enc_outs)):
@@ -701,39 +740,30 @@ def cross_attention_shards(rules, p: dict, hs: list, enc_outs: list, *,
         ks.append(k)
         vs.append(v)
     if sink is not None:
-        kv_split = p["wk"].split_dim() is not None
+        kv_split = split_dim_of(p["wk"]) is not None
         sink.put_whole("ck", ks, heads_split=kv_split)
         sink.put_whole("cv", vs, heads_split=kv_split)
-    return all_reduce_sum(outs, rules.mesh, rules.tp_axis) if q_split else outs
+    return _reduce_heads(rules, outs, q_split)
 
 
 def glu_ffn_shards(rules, p: dict, hs: list, act: str) -> list:
-    """:func:`glu_ffn` over the shards of ``rules.mesh``: each shard its slice
-    of ``d_ff``, the ``w_down`` partial sums all-reduced over "model"."""
-    from repro_torch.models.lm.collectives import all_reduce_sum
-
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
-    outs = [glu_ffn({name: blocks[n] for name, blocks in leaves.items()}, h, act)
-            for n, h in enumerate(hs)]
-    if p["w_down"].split_dim() is None:
-        return outs
-    return all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+    """:func:`glu_ffn` over the shards of ``rules.mesh`` (or the one shard of
+    no rules): each shard its slice of ``d_ff``, the ``w_down`` partial sums
+    all-reduced over "model"."""
+    outs = [glu_ffn(loc, h, act) for loc, h in zip(shard_dicts(p), hs)]
+    return _reduce_heads(rules, outs, split_dim_of(p["w_down"]) is not None)
 
 
 def mla_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, block: int = 1024,
                      use_kernel: bool = True, sink=None) -> list:
-    """:func:`mla_block` over the shards of ``rules.mesh``: each shard its own
-    heads of ``wq_b``, ``wkv_b`` and ``wo`` (one attention launch at the
-    shard's head count), the ``wo`` partial sums all-reduced over "model"
-    where the heads are split.  A cache ``sink`` gets the latent ``ckv`` and
-    ``kpe``, which every shard computes whole from the replicated
-    ``wkv_a``."""
-    from repro_torch.models.lm.collectives import all_reduce_sum
-
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    """:func:`mla_block` over the shards of ``rules.mesh`` (or the one shard
+    of no rules): each shard its own heads of ``wq_b``, ``wkv_b`` and ``wo``
+    (one attention launch at the shard's head count), the ``wo`` partial
+    sums all-reduced over "model" where the heads are split.  A cache
+    ``sink`` gets the latent ``ckv`` and ``kpe``, which every shard computes
+    whole from the replicated ``wkv_a``."""
     outs, ckvs, kpes = [], [], []
-    for n, h in enumerate(hs):
-        loc = {name: blocks[n] for name, blocks in leaves.items()}
+    for loc, h in zip(shard_dicts(p), hs):
         if sink is None:
             outs.append(mla_block(loc, h, cfg, block=block, use_kernel=use_kernel))
             continue
@@ -744,9 +774,7 @@ def mla_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, block: int =
     if sink is not None:
         sink.put_seq("ckv", ckvs, heads_split=False)
         sink.put_seq("kpe", kpes, heads_split=False)
-    if p["wo"].split_dim() is None:
-        return outs
-    return all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+    return _reduce_heads(rules, outs, split_dim_of(p["wo"]) is not None)
 
 
 # --------------------------------------------------------------------------
@@ -762,9 +790,16 @@ def mla_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, block: int =
 # Σexp; an all-reduce of the maxima gives each partial its weight
 # ``Σexp · exp(max − global max)``, an all-reduce of those the total, and an
 # all-reduce of the weighted outputs the result.  A shard with no live slot
-# yet weighs exactly 0; on one shard the weight is exactly 1 and the step is
-# the unsharded one.  Each shard keeps its own heads' block of the result
-# for its rows of ``wo``, all-reduced as in the prefill.
+# yet weighs exactly 0.  Where the sequence is one block (no rules, or a
+# model axis of one) one shard's softmax is the whole softmax: each shard
+# runs the unsharded step on its rows and no combine is made.  Each shard
+# keeps its own heads' block of the result for its rows of ``wo``,
+# all-reduced as in the prefill.
+def _seq_whole(rules) -> bool:
+    """Whether every shard holds the whole cached sequence."""
+    return rules is None or rules.tp == 1
+
+
 def _write_slot(blocks: list, offsets: list, slot: int, new: list) -> None:
     """Each shard's ``new`` (B_loc, ...) into its cache block (B_loc, S_loc,
     ...) at ``slot`` of the whole sequence, by the shard whose block holds
@@ -827,11 +862,16 @@ def attention_block_decode_shards(rules, p: dict, hs: list, cache_k, cache_v, po
     "model", written in place (slot ``pos``, or ``pos % S`` for a
     ``window``'s ring).  The split-K reduce above; where the guard
     replicated the KV heads, every shard computes the step's KV heads from
-    the replicated weights."""
-    from repro_torch.models.lm.collectives import all_gather, all_reduce_sum
+    the replicated weights.  With no rules (tensors, one input) it is
+    :func:`attention_block_decode`'s step."""
+    locs, q_split, _ = _head_locals(rules, p, whole_kv=True)
+    if _seq_whole(rules):
+        outs = [attention_block_decode(loc, h, kc, vc, pos, cfg, window=window)[0]
+                for loc, h, kc, vc in zip(locs, hs, own_of(cache_k), own_of(cache_v))]
+        return _reduce_heads(rules, outs, q_split)
+    from repro_torch.models.lm.collectives import all_gather
 
     mesh, tp_axis = rules.mesh, rules.tp_axis
-    locs, q_split, _ = _head_locals(rules, p, whole_kv=True)
     qs, kvs = [], []
     for loc, h in zip(locs, hs):
         positions = torch.full((h.shape[0], 1), pos, device=h.device)
@@ -848,13 +888,8 @@ def attention_block_decode_shards(rules, p: dict, hs: list, cache_k, cache_v, po
     slot = pos % cache_k.shape[1] if window > 0 else pos
     _write_slot(kb, offs, slot, [kv[0] for kv in kvs])
     _write_slot(vb, offs, slot, [kv[1] for kv in kvs])
-    partials = []
-    for q, kc, vc, off in zip(qs, kb, vb, offs):
-        b, _, h, d = q.shape
-        hkv = kc.shape[2]
-        qg = q.to(f32).reshape(b, 1, hkv, h // hkv, d)
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.to(f32)) * d ** -0.5
-        partials.append(_partial(logits, off, pos, vc.to(f32), "bhgqk,bkhd->bqhgd"))
+    partials = [_partial(_grouped_logits(q, kc), off, pos, vc.to(f32), "bhgqk,bkhd->bqhgd")
+                for q, kc, vc, off in zip(qs, kb, vb, offs)]
     outs = []
     # a weight (B, Hkv, g, 1) against an output (B, 1, Hkv, g, dv)
     for o, q in zip(_split_k_combine(rules, partials, lambda w: w.permute(0, 3, 1, 2)[..., None]),
@@ -862,7 +897,7 @@ def attention_block_decode_shards(rules, p: dict, hs: list, cache_k, cache_v, po
         b, _, h, _ = q.shape
         outs.append(o.reshape(b, 1, h, -1).to(q.dtype))
     outs = [_out(o, loc["wo"]) for o, loc in zip(_own_heads(rules, outs, h_loc, q_split), locs)]
-    return all_reduce_sum(outs, mesh, tp_axis) if q_split else outs
+    return _reduce_heads(rules, outs, q_split)
 
 
 def mla_block_decode_shards(rules, p: dict, hs: list, cache_ckv, cache_kpe, pos: int,
@@ -874,14 +909,18 @@ def mla_block_decode_shards(rules, p: dict, hs: list, cache_ckv, cache_kpe, pos:
     computes the step's latent entries from the replicated ``wkv_a`` and the
     owner of slot ``pos`` writes them; the split-K reduce gives every head's
     latent output, of which each shard applies its heads' value-up
-    projection and rows of ``wo``, all-reduced over "model"."""
-    from repro_torch.models.lm.collectives import all_gather, all_reduce_sum
+    projection and rows of ``wo``, all-reduced over "model".  With no rules
+    it is :func:`mla_block_decode`'s step."""
+    locs = shard_dicts(p)
+    q_split = split_dim_of(p["wq_b"]) is not None
+    if _seq_whole(rules):
+        outs = [mla_block_decode(loc, h, ckv, kpe, pos, cfg)[0]
+                for loc, h, ckv, kpe in zip(locs, hs, own_of(cache_ckv), own_of(cache_kpe))]
+        return _reduce_heads(rules, outs, q_split)
+    from repro_torch.models.lm.collectives import all_gather
 
     mesh, tp_axis = rules.mesh, rules.tp_axis
     m = cfg.mla
-    q_split = p["wq_b"].split_dim() is not None
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
-    locs = [{name: blocks[n] for name, blocks in leaves.items()} for n in range(mesh.size)]
     qs, latents = [], []
     for loc, h in zip(locs, hs):
         positions = torch.full((h.shape[0], 1), pos, device=h.device)
@@ -896,40 +935,31 @@ def mla_block_decode_shards(rules, p: dict, hs: list, cache_ckv, cache_kpe, pos:
     offs = cache_ckv.offsets(1)
     _write_slot(cb, offs, pos, [c[:, 0] for c, _ in latents])
     _write_slot(kb, offs, pos, [k[:, 0] for _, k in latents])
-    scale = (m.nope_dim + m.rope_dim) ** -0.5
     partials = []
     for q, ckv, kpe, off in zip(qs, cb, kb, offs):
         ckv_f = ckv.to(f32)
-        logits = (torch.einsum("bshl,btl->bhst", q[..., : m.kv_lora], ckv_f)
-                  + torch.einsum("bshr,btr->bhst", q[..., m.kv_lora:], kpe.to(f32))) * scale
+        logits = _mla_logits(q[..., : m.kv_lora], q[..., m.kv_lora:], ckv_f, kpe, cfg)
         partials.append(_partial(logits, off, pos, ckv_f, "bhst,btl->bshl"))
     # a weight (B, H, 1) against an output (B, 1, H, kv_lora)
     o_lat = _split_k_combine(rules, partials, lambda w: w.transpose(1, 2)[..., None])
-    outs = []
-    for o, loc, h in zip(_own_heads(rules, o_lat, h_loc, q_split), locs, hs):
-        o = torch.einsum("bshl,lhk->bshk", o, loc["wkv_b"][..., m.nope_dim:].to(f32))
-        outs.append(_out(o.to(h.dtype), loc["wo"]))
-    return all_reduce_sum(outs, mesh, tp_axis) if q_split else outs
+    outs = [_mla_value_out(loc, o, h.dtype, cfg)
+            for o, loc, h in zip(_own_heads(rules, o_lat, h_loc, q_split), locs, hs)]
+    return _reduce_heads(rules, outs, q_split)
 
 
 def cross_attention_decode_shards(rules, p: dict, hs: list, ck, cv, batch_split: bool) -> list:
-    """:func:`cross_attention_decode` over the shards of ``rules.mesh``, the
-    cross cache ``ck``, ``cv`` (B, S_enc, Hkv, hd) replicated: each shard's
-    query heads against the KV heads they read, on its rows (where the batch
-    is split over the data axes), the ``wo`` partial sums all-reduced over
-    "model" where the heads are split."""
-    from repro_torch.models.lm.collectives import all_reduce_sum
-
-    mesh = rules.mesh
+    """:func:`cross_attention_decode` over the shards of ``rules.mesh`` (or
+    the one shard of no rules), the cross cache ``ck``, ``cv`` (B, S_enc,
+    Hkv, hd) replicated: each shard's query heads against the KV heads they
+    read, on its rows (where the batch is split over the data axes), the
+    ``wo`` partial sums all-reduced over "model" where the heads are split."""
     locs, q_split, _ = _head_locals(rules, p, whole_kv=True)
     _, _, heads = _kv_layout(rules, p)
     outs = []
-    for loc, h, kc, vc, sel, coord in zip(locs, hs, ck.own(), cv.own(), heads, mesh.coords):
-        if batch_split:
-            b = h.shape[0]
-            row = mesh.axis_index(coord, rules.axis("batch")) * b
+    for n, (loc, h, kc, vc, sel) in enumerate(zip(locs, hs, own_of(ck), own_of(cv), heads)):
+        b = h.shape[0]
+        if batch_split and kc.shape[0] != b:
+            row = rules.mesh.axis_index(rules.mesh.coords[n], rules.axis("batch")) * b
             kc, vc = kc.narrow(0, row, b), vc.narrow(0, row, b)
-        kc, vc = _read_heads(kc, vc, sel)
-        o = attention_decode(_project(h, loc["wq"]), kc, vc, kc.shape[1] - 1)
-        outs.append(_out(o, loc["wo"]))
-    return all_reduce_sum(outs, mesh, rules.tp_axis) if q_split else outs
+        outs.append(cross_attention_decode(loc, h, *_read_heads(kc, vc, sel)))
+    return _reduce_heads(rules, outs, q_split)

@@ -35,27 +35,32 @@ it changes memory, not numbers.  On the card the attention's gradient
 is the ``flash_attention`` backward kernels (``kernels/flash_attention/
 autograd.py``).
 
-Tensor parallel: under ``sharding.use_rules(rules)`` all six families run
-over ``rules.mesh`` with the parameters of ``sharding.shard_params``:
-:meth:`LM.train_loss` (and so the train step) and :meth:`LM.prefill_logits`.
-The residual stream is a list of one tensor a shard; the embedding is looked
-up in each shard's vocabulary rows and summed over "model", each block runs
-tensor-parallel (``layers.attention_block_shards`` or
-``layers.mla_block_shards``, ``layers.glu_ffn_shards`` or
-``moe.moe_ffn_shards``, DeepSeek's ``dense0`` first; ``ssm.mlstm_block_shards``
-and ``ssm.slstm_block_shards``, ``ssm.mamba2_block_shards`` and the hybrid's
-windowed shared block; the audio encoder over the replicated frontend, and
-``layers.cross_attention_shards``), and the loss is the reference's
-vocab-sharded branch (:func:`_sharded_chunk_xent`): local logits a shard and
-chunk, the max over "model" with its gradient stopped, the sum of
-exponentials and the gold logit summed over "model", the loss and
-``correct`` summed over "data".  Serving runs over the mesh too:
-:meth:`LM.prefill` is the same forward (:meth:`LM._forward_shards`) with a
-cache sink (``cache.CacheSink``) to which each block hands its keys, values
-or final states, placed leaf for leaf by ``sharding.cache_pspecs``;
-:meth:`LM.init_cache` places an empty cache so, and :meth:`LM.decode_step`
-decodes on it, the attention's reduction over the cached sequence split
-over "model" (``cache.py``).
+One forward, as in the reference: :meth:`LM.train_loss`,
+:meth:`LM.prefill_logits`, the cached :meth:`LM.prefill` and
+:meth:`LM.decode_step` run the same body with or without sharding rules.
+The residual stream is a list of one tensor a shard.  Under
+``sharding.use_rules(rules)``, with the parameters of
+``sharding.shard_params``, all six families run over ``rules.mesh``: the
+embedding is looked up in each shard's vocabulary rows and summed over
+"model", each block runs tensor-parallel (``layers.attention_block_shards``
+or ``layers.mla_block_shards``, ``layers.glu_ffn_shards`` or
+``moe.moe_ffn_shards``, DeepSeek's ``dense0`` first;
+``ssm.mlstm_block_shards`` and ``ssm.slstm_block_shards``,
+``ssm.mamba2_block_shards`` and the hybrid's windowed shared block; the
+audio encoder over the replicated frontend, and
+``layers.cross_attention_shards``).  With no rules the leaves are tensors
+and the list holds one: each block is its one-shard case, the unsharded
+block, and no collective runs.  Only the loss head has the reference's two
+branches: :meth:`LM._chunked_xent` with no rules, and under rules the
+vocab-sharded :func:`_sharded_chunk_xent`: local logits a shard and chunk,
+the max over "model" with its gradient stopped, the sum of exponentials and
+the gold logit summed over "model", the loss and ``correct`` summed over
+"data".  The cached prefill is the same forward (:meth:`LM._forward`) with
+a cache sink (``cache.CacheSink``) to which each block hands its keys,
+values or final states, placed leaf for leaf by ``sharding.cache_pspecs``
+under rules; :meth:`LM.init_cache` places an empty cache so, and
+:meth:`LM.decode_step` decodes on it, the attention's reduction over the
+cached sequence split over "model" (``cache.py``).
 """
 from __future__ import annotations
 
@@ -73,20 +78,16 @@ from repro_torch.models.lm.collectives import (
     all_to_all,
 )
 from repro_torch.models.lm.layers import (
-    attention_block,
     attention_block_shards,
     cross_attention_shards,
-    cross_attention_with_kv,
-    glu_ffn,
     glu_ffn_shards,
     init_attention,
     init_ffn,
     init_mla,
-    mla_block,
     mla_block_shards,
     rms_norm,
 )
-from repro_torch.models.lm.sharding import active_rules, split_batch
+from repro_torch.models.lm.sharding import active_rules, locals_of, split_batch, split_dim_of
 
 __all__ = ["FAMILIES", "LM"]
 
@@ -323,25 +324,31 @@ class LM:
             return self.init(torch.Generator())
 
     # --------------------------------------------------------------- forward
-    def _ffn(self, bp, h):
-        if "moe" in bp:
-            return moe_lib.moe_ffn(bp["moe"], h, self.cfg.moe, self.moe_backend)
-        return glu_ffn(bp["ffn"], h, self.cfg.act)
-
-    def _apply_attn_ffn(self, bp, x, *, causal=True, window=0):
-        cfg = self.cfg
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        if cfg.mla:
-            a = mla_block(bp["attn"], h, cfg, block=self.attn_block, use_kernel=self.use_kernel)
-        else:
-            a = attention_block(bp["attn"], h, cfg, causal=causal, window=window,
-                                block=self.attn_block, use_kernel=self.use_kernel)
-        x = x + a
-        return x + self._ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
-
+    # One forward serves both: under sharding rules the residual stream is a
+    # list of one tensor a shard and the leaves are ``sharding.Sharded``; with
+    # none it is a list of one tensor and the leaves are tensors (one shard),
+    # and no collective runs (module docstring).
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) token ids -> (B, S, D) embeddings in the model's type."""
-        return F.embedding(torch.clamp(tokens, 0, self.vp - 1), params["embed"]).to(self.dtype)
+        return self._embed(None, params["embed"], [tokens])[0]
+
+    def _embed(self, rules, leaf, ids: list) -> list:
+        """The embedding of each shard's token ids: each shard looks up the
+        vocabulary rows it holds, zeroes the rest, and the shards are summed
+        over "model" (where the vocabulary is split)."""
+        split = split_dim_of(leaf) == 0
+        out = []
+        for n, (tok, w) in enumerate(zip(ids, locals_of(leaf))):
+            tok = torch.clamp(tok, 0, self.vp - 1)
+            if split:
+                local = tok - leaf.offsets(0)[n]
+                held = (local >= 0) & (local < w.shape[0])
+                e = torch.where(held[..., None],
+                                F.embedding(local.clamp(0, w.shape[0] - 1), w), 0)
+            else:
+                e = F.embedding(tok, w)
+            out.append(e.to(self.dtype))
+        return all_reduce_sum(out, rules.mesh, rules.tp_axis, backward=None) if split else out
 
     def layers(self, params):
         """Every attention + FFN block in order: ``dense0``, then ``blocks``."""
@@ -373,81 +380,169 @@ class LM:
 
         return run
 
-    def _mlstm_body(self, x, mp):
-        return x + ssm_lib.mlstm_block(mp["cell"], rms_norm(x, mp["ln"], self.cfg.norm_eps),
-                                       self.cfg)
+    def _norm(self, xs: list, leaf) -> list:
+        return [rms_norm(x, w, self.cfg.norm_eps) for x, w in zip(xs, locals_of(leaf))]
 
-    def _mamba_body(self, x, mp):
-        return x + ssm_lib.mamba2_block(mp["cell"], rms_norm(x, mp["ln"], self.cfg.norm_eps),
-                                        self.cfg)
+    def _ffn(self, rules, bp, xs: list, batch_split: bool) -> list:
+        """``xs`` plus the block's MoE or dense FFN of its second norm, each
+        tensor-parallel."""
+        hs = self._norm(xs, bp["ln2"])
+        if "moe" in bp:
+            f = moe_lib.moe_ffn_shards(rules, bp["moe"], hs, self.cfg.moe, self.moe_backend,
+                                       batch_split=batch_split)
+        else:
+            f = glu_ffn_shards(rules, bp["ffn"], hs, self.cfg.act)
+        return [x + y for x, y in zip(xs, f)]
 
-    def _backbone(self, params, x):
-        """Full-sequence forward through all blocks.  x: (B, S, D).  Under
-        remat: each scanned attention + FFN block (not ``dense0``), each
-        mLSTM and each Mamba2 block, as in the reference."""
+    def _apply_attn_ffn(self, rules, bp, xs: list, batch_split: bool = True, causal: bool = True,
+                        window: int = 0, sink=None) -> list:
+        """An attention + FFN block: MLA or GQA attention, the MoE or the
+        dense FFN, each tensor-parallel; the attention hands a cache ``sink``
+        its keys and values."""
         cfg = self.cfg
-        eps = cfg.norm_eps
+        hs = self._norm(xs, bp["ln1"])
+        if cfg.mla:
+            a = mla_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
+                                 use_kernel=self.use_kernel, sink=sink)
+        else:
+            a = attention_block_shards(rules, bp["attn"], hs, cfg, causal=causal, window=window,
+                                       block=self.attn_block, use_kernel=self.use_kernel,
+                                       sink=sink)
+        return self._ffn(rules, bp, [x + y for x, y in zip(xs, a)], batch_split)
+
+    def _mlstm_body(self, rules, mp, xs: list, sink=None) -> list:
+        ys = ssm_lib.mlstm_block_shards(rules, mp["cell"], self._norm(xs, mp["ln"]), self.cfg,
+                                        sink=sink)
+        return [x + y for x, y in zip(xs, ys)]
+
+    def _mamba_body(self, rules, mp, xs: list, sink=None) -> list:
+        ys = ssm_lib.mamba2_block_shards(rules, mp["cell"], self._norm(xs, mp["ln"]), self.cfg,
+                                         sink=sink)
+        return [x + y for x, y in zip(xs, ys)]
+
+    def _backbone(self, params, x, batch_split: bool = True, sink=None):
+        """Full-sequence forward through all blocks, family by family.  x:
+        (B, S, D), returned so; or one (B_loc, S, D) tensor a shard, the
+        list returned.  Under ``remat`` at the reference's sites only: each
+        mLSTM and Mamba2 body and each stacked attention + FFN block, never
+        the sLSTM, the hybrid's shared block or ``dense0``.  ``batch_split``:
+        each shard holds its data shard's rows (else every row; the MoE's
+        capacity follows it).  A cache ``sink`` (the cached prefill) is
+        handed to each block at its layer of the cache."""
+        rules, cfg = active_rules(), self.cfg
+        xs = x if isinstance(x, list) else [x]
+        at = sink.at if sink is not None else lambda *layer: None
         if cfg.family == "ssm":
             m_body = self._maybe_remat(self._mlstm_body)
-            for mlstm, slstm in self.groups(params):
-                for mp in stacked(mlstm):
-                    x = m_body(x, mp)
-                x = x + ssm_lib.slstm_block(slstm["cell"], rms_norm(x, slstm["ln"], eps), cfg)
-            return x
-        if cfg.family == "hybrid":
+            for g, (mlstm, slstm) in enumerate(self.groups(params)):
+                for j, mp in enumerate(stacked(mlstm)):
+                    xs = m_body(rules, mp, xs, sink=at(g, j))
+                ys = ssm_lib.slstm_block_shards(rules, slstm["cell"], self._norm(xs, slstm["ln"]),
+                                                cfg, sink=at(g))
+                xs = [x + y for x, y in zip(xs, ys)]
+        elif cfg.family == "hybrid":
             m_body = self._maybe_remat(self._mamba_body)
-            for mamba, _ in self.groups(params):
-                for mp in stacked(mamba):
-                    x = m_body(x, mp)
-                x = self._apply_attn_ffn(params["shared_block"], x, window=cfg.sliding_window)
-            return x
-        for bp in params.get("dense0", []):
-            x = self._apply_attn_ffn(bp, x)
-        body = self._maybe_remat(self._apply_attn_ffn)
-        for bp in stacked(params["blocks"]):
-            x = body(bp, x)
-        return x
+            for g, (mamba, _) in enumerate(self.groups(params)):
+                for j, mp in enumerate(stacked(mamba)):
+                    xs = m_body(rules, mp, xs, sink=at(g, j))
+                xs = self._apply_attn_ffn(rules, params["shared_block"], xs, batch_split,
+                                          window=cfg.sliding_window, sink=at(g))
+        else:
+            dense0 = params.get("dense0", [])
+            for i, bp in enumerate(dense0):
+                xs = self._apply_attn_ffn(rules, bp, xs, batch_split, sink=at(i))
+            body = self._maybe_remat(self._apply_attn_ffn)
+            for i, bp in enumerate(stacked(params["blocks"]), start=len(dense0)):
+                xs = body(rules, bp, xs, batch_split, sink=at(i))
+        return xs if isinstance(x, list) else xs[0]
 
     # ------------------------------------------------------- encoder-decoder
-    def _encode(self, params, frontend):
-        """Audio encoder over stub frame embeddings: (B, S_enc, D)."""
-        x = frontend.to(self.dtype) @ params["frontend_adapter"]
-        body = self._maybe_remat(self._apply_encoder_block)
+    def _encode(self, params, frontend, batch_split: bool = True):
+        """Audio encoder over stub frame embeddings (B, S_enc, D), or one a
+        shard: the frontend adapter (replicated), then each bidirectional
+        block (recomputed under ``remat``).  Under rules each shard's copy of
+        the encoder output is whole over "model"."""
+        rules = active_rules()
+        fes = frontend if isinstance(frontend, list) else [frontend]
+        xs = [fe.to(self.dtype) @ a for fe, a in zip(fes, locals_of(params["frontend_adapter"]))]
+        body = self._maybe_remat(self._apply_attn_ffn)
         for bp in stacked(params["enc_blocks"]):
-            x = body(bp, x)
-        return rms_norm(x, params["enc_norm"], self.cfg.norm_eps)
+            xs = body(rules, bp, xs, batch_split, False)
+        xs = self._norm(xs, params["enc_norm"])
+        return xs if isinstance(frontend, list) else xs[0]
 
-    def _apply_encoder_block(self, bp, x):
-        return self._apply_attn_ffn(bp, x, causal=False)
-
-    def _cross_attention(self, p, x, enc_out):
-        return cross_attention_with_kv(p, x, enc_out, use_kernel=self.use_kernel)[0]
-
-    def _apply_cross_block(self, bp, x, enc_out):
+    def _apply_cross_block(self, rules, bp, xs: list, enc_outs: list, sink=None) -> list:
         cfg = self.cfg
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        x = x + attention_block(bp["self_attn"], h, cfg, causal=True, block=self.attn_block,
-                                use_kernel=self.use_kernel)
-        h = rms_norm(x, bp["ln_x"], cfg.norm_eps)
-        x = x + self._cross_attention(bp["cross_attn"], h, enc_out)
-        return x + glu_ffn(bp["ffn"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg.act)
+        a = attention_block_shards(rules, bp["self_attn"], self._norm(xs, bp["ln1"]), cfg,
+                                   causal=True, block=self.attn_block, use_kernel=self.use_kernel,
+                                   sink=sink)
+        xs = [x + y for x, y in zip(xs, a)]
+        a = cross_attention_shards(rules, bp["cross_attn"], self._norm(xs, bp["ln_x"]), enc_outs,
+                                   use_kernel=self.use_kernel, sink=sink)
+        xs = [x + y for x, y in zip(xs, a)]
+        f = glu_ffn_shards(rules, bp["ffn"], self._norm(xs, bp["ln2"]), cfg.act)
+        return [x + y for x, y in zip(xs, f)]
 
-    def _decoder(self, params, x, enc_out):
+    def _decoder(self, params, x, enc_out, sink=None):
+        """The audio decoder over ``enc_out``: x (B, S, D) and enc_out
+        (B, S_enc, D), or one of each a shard; each block recomputed under
+        ``remat``; a cache ``sink`` at each layer."""
+        rules = active_rules()
+        xs = x if isinstance(x, list) else [x]
+        enc_outs = enc_out if isinstance(enc_out, list) else [enc_out]
         body = self._maybe_remat(self._apply_cross_block)
-        for bp in stacked(params["dec_blocks"]):
-            x = body(bp, x, enc_out)
-        return x
+        for i, bp in enumerate(stacked(params["dec_blocks"])):
+            xs = body(rules, bp, xs, enc_outs, sink=None if sink is None else sink.at(i))
+        return xs if isinstance(x, list) else xs[0]
+
+    def _forward(self, params, xs: list, frontend, batch_split: bool, sink=None) -> list:
+        """The embedded tokens ``xs`` (one a shard) through the model: the
+        audio family's encoder over ``frontend`` and its decoder, else the
+        backbone (the VLM's ``frontend``, where given, before the tokens).
+        With a cache ``sink`` this is the cached prefill (``cache.py``)."""
+        rules = active_rules()
+        if self.cfg.family == "audio":
+            enc = self._encode(params, split_batch(rules, frontend), batch_split)
+            return self._decoder(params, xs, enc, sink)
+        if self.cfg.family == "vlm" and frontend is not None:
+            adapter = locals_of(params["frontend_adapter"])
+            xs = [torch.cat([fe.to(self.dtype) @ a, x], dim=1)
+                  for fe, a, x in zip(split_batch(rules, frontend), adapter, xs)]
+        return self._backbone(params, xs, batch_split, sink)
 
     def logits_last(self, params, h_last):
         """h_last: (B, D) -> (B, Vp) f32 logits (vocab padded masked).  Under
         sharding rules ``h_last`` is a list of one (B_loc, D) state a shard,
-        and so are the logits."""
+        and so are the logits: the rules split the unembedding over its
+        rows, so each shard's partial logits are all-reduced over "model"."""
         rules = active_rules()
-        if rules is not None:
-            return self._logits_last_shards(rules, params["unembed"], h_last)
-        logits = (h_last @ params["unembed"]).to(f32)
-        live = torch.arange(self.vp, device=logits.device)[None, :] < self.cfg.vocab
-        return torch.where(live, logits, -1e30)
+        w = params["unembed"]
+        hs = h_last if isinstance(h_last, list) else [h_last]
+        split = split_dim_of(w) == 0
+        outs = []
+        for n, (h, wn) in enumerate(zip(hs, locals_of(w))):
+            if split:
+                h = h.narrow(-1, w.offsets(0)[n], wn.shape[0])
+            outs.append((h @ wn).to(f32))
+        if split:
+            outs = all_reduce_sum(outs, rules.mesh, rules.tp_axis)
+        live = torch.arange(self.vp, device=outs[0].device) < self.cfg.vocab
+        outs = [torch.where(live.to(o.device), o, -1e30) for o in outs]
+        return outs if isinstance(h_last, list) else outs[0]
+
+    def _last_logits(self, params, hs: list, batch_split: bool) -> torch.Tensor:
+        """The last position's logits (B, Vp) of one (B_loc, S, D) state a
+        shard, the rows of the data groups gathered on the first shard's
+        device."""
+        rules = active_rules()
+        outs = self.logits_last(params, self._norm([h[:, -1] for h in hs], params["final_norm"]))
+        if rules is None or not batch_split:  # every shard holds every row
+            return outs[0]
+        mesh = rules.mesh
+        rows: dict = {}  # one shard of each data group, in data order
+        for n, coord in enumerate(mesh.coords):
+            rows.setdefault(mesh.axis_index(coord, rules.axis("batch")), outs[n])
+        return torch.cat([rows[d].to(mesh.devices[0]) for d in sorted(rows)], dim=0)
 
     # ---------------------------------------------------------------- losses
     def _xent_chunk(self, hh, w, ll, mm):
@@ -484,28 +579,32 @@ class LM:
     def train_loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """batch: {"tokens": (B, S+1) [, "frontend": (B, P, D)]} -> (loss, metrics).
 
-        Labels below 0 are masked out of the loss.  Under sharding rules
-        ``params`` is ``shard_params``' tree and the loss runs over the mesh
-        (module docstring)."""
-        rules = active_rules()
-        if rules is not None:
-            return self._train_loss_shards(rules, params, batch)
-        cfg = self.cfg
+        Labels below 0 are masked out of the loss.  With no rules the head
+        is :meth:`_chunked_xent`; under sharding rules ``params`` is
+        ``shard_params``' tree, the forward runs over the mesh and the head
+        is the vocab-sharded :func:`_sharded_chunk_xent` (module
+        docstring), the reference's two branches."""
+        rules, cfg = active_rules(), self.cfg
         tokens = batch["tokens"]
-        inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        mask = (labels >= 0).to(f32)
-        labels = torch.clamp(labels, min=0).to(torch.int64)
-        x = self.embed(params, inputs)
-        if cfg.family == "audio":
-            h = self._decoder(params, x, self._encode(params, batch["frontend"]))
-        elif cfg.family == "vlm":
-            fe = batch["frontend"].to(self.dtype) @ params["frontend_adapter"]
-            h = self._backbone(params, torch.cat([fe, x], dim=1))
-            h = h[:, cfg.n_frontend_tokens:]  # loss only over text positions
-        else:
-            h = self._backbone(params, x)
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return self._chunked_xent(params, h, labels, mask)
+        toks = split_batch(rules, tokens)
+        labels = [t[:, 1:] for t in toks]
+        masks = [(lab >= 0).to(f32) for lab in labels]
+        labels = [torch.clamp(lab, min=0).to(torch.int64) for lab in labels]
+        batch_split = rules is None or tokens.shape[0] % rules.dp() == 0
+        xs = self._embed(rules, params["embed"], [t[:, :-1] for t in toks])
+        hs = self._forward(params, xs, batch["frontend"] if cfg.frontend else None, batch_split)
+        if cfg.family == "vlm":
+            hs = [h[:, cfg.n_frontend_tokens:] for h in hs]  # loss only over text positions
+        hs = self._norm(hs, params["final_norm"])
+        if rules is None:
+            return self._chunked_xent(params, hs[0], labels[0], masks[0])
+        denom = torch.clamp((tokens[:, 1:] >= 0).to(f32).sum(), min=1.0)
+        s = hs[0].shape[1]
+        n_chunks = s // _loss_chunk(s, self.loss_chunk)
+        loss_sum, correct = _sharded_chunk_xent(rules, self.vp, cfg.vocab, n_chunks, batch_split)(
+            hs, params["unembed"], labels, masks)
+        denom = denom.to(loss_sum.device)
+        return loss_sum / denom, {"acc": correct / denom, "tokens": denom}
 
     # --------------------------------------------------------------- serving
     def prefill(self, params, tokens, frontend=None, max_seq=None):
@@ -529,212 +628,10 @@ class LM:
         """The last position's logits (B, Vp) of a prefill, without its cache;
         under sharding rules over the mesh."""
         rules = active_rules()
-        if rules is None:
-            return self.prefill(params, tokens, frontend)[0]
-        batch_split = tokens.shape[0] % rules.dp() == 0
-        xs = self._embed_shards(rules, params["embed"], split_batch(rules, tokens))
-        hs = self._forward_shards(rules, params, xs, frontend, batch_split)
-        return self._last_logits_shards(rules, params, hs, batch_split)
-
-    # ------------------------------------------------------ tensor parallel
-    def _last_logits_shards(self, rules, params, hs: list, batch_split: bool) -> torch.Tensor:
-        """The last position's logits (B, Vp) of one (B_loc, S, D) state a
-        shard, the rows of the data groups gathered on the first shard's
-        device."""
-        norm = params["final_norm"].locals()
-        outs = self.logits_last(params, [rms_norm(h[:, -1], norm[n], self.cfg.norm_eps)
-                                         for n, h in enumerate(hs)])
-        mesh = rules.mesh
-        if not batch_split:  # every shard holds every row
-            return outs[0]
-        rows: dict = {}  # one shard of each data group, in data order
-        for n, coord in enumerate(mesh.coords):
-            rows.setdefault(mesh.axis_index(coord, rules.axis("batch")), outs[n])
-        return torch.cat([rows[d].to(mesh.devices[0]) for d in sorted(rows)], dim=0)
-
-    def _embed_shards(self, rules, leaf, ids: list) -> list:
-        """The embedding of each shard's token ids: each shard looks up the
-        vocabulary rows it holds, zeroes the rest, and the shards are summed
-        over "model" (where the vocabulary is split)."""
-        mesh = rules.mesh
-        split = leaf.split_dim() == 0
-        out = []
-        for n, (tok, w) in enumerate(zip(ids, leaf.locals())):
-            tok = torch.clamp(tok, 0, self.vp - 1)
-            if split:
-                local = tok - leaf.offsets(0)[n]
-                held = (local >= 0) & (local < w.shape[0])
-                e = torch.where(held[..., None],
-                                F.embedding(local.clamp(0, w.shape[0] - 1), w), 0)
-            else:
-                e = F.embedding(tok, w)
-            out.append(e.to(self.dtype))
-        return all_reduce_sum(out, mesh, rules.tp_axis, backward=None) if split else out
-
-    def _prepend_frontend(self, rules, params, fes: list, xs: list) -> list:
-        """The VLM's ``frontend @ frontend_adapter`` (replicated) before each
-        shard's token embeddings."""
-        adapter = params["frontend_adapter"].locals()
-        return [torch.cat([fe.to(self.dtype) @ a, x], dim=1)
-                for fe, a, x in zip(fes, adapter, xs)]
-
-    def _norm_shards(self, xs: list, leaf) -> list:
-        return [rms_norm(x, w, self.cfg.norm_eps) for x, w in zip(xs, leaf.locals())]
-
-    def _ffn_shards(self, rules, bp, xs: list, batch_split: bool) -> list:
-        """``xs`` plus the block's MoE or dense FFN of its second norm, each
-        tensor-parallel."""
-        hs = self._norm_shards(xs, bp["ln2"])
-        if "moe" in bp:
-            f = moe_lib.moe_ffn_shards(rules, bp["moe"], hs, self.cfg.moe, self.moe_backend,
-                                       batch_split=batch_split)
-        else:
-            f = glu_ffn_shards(rules, bp["ffn"], hs, self.cfg.act)
-        return [x + y for x, y in zip(xs, f)]
-
-    def _apply_attn_ffn_shards(self, rules, bp, xs: list, batch_split: bool, causal: bool = True,
-                               window: int = 0, sink=None) -> list:
-        """:meth:`_apply_attn_ffn` over the mesh: MLA or GQA attention, the
-        MoE or the dense FFN, each tensor-parallel; the attention hands a
-        cache ``sink`` its keys and values."""
-        cfg = self.cfg
-        hs = self._norm_shards(xs, bp["ln1"])
-        if cfg.mla:
-            a = mla_block_shards(rules, bp["attn"], hs, cfg, block=self.attn_block,
-                                 use_kernel=self.use_kernel, sink=sink)
-        else:
-            a = attention_block_shards(rules, bp["attn"], hs, cfg, causal=causal, window=window,
-                                       block=self.attn_block, use_kernel=self.use_kernel,
-                                       sink=sink)
-        return self._ffn_shards(rules, bp, [x + y for x, y in zip(xs, a)], batch_split)
-
-    def _mlstm_body_shards(self, rules, mp, xs: list, sink=None) -> list:
-        ys = ssm_lib.mlstm_block_shards(rules, mp["cell"], self._norm_shards(xs, mp["ln"]),
-                                        self.cfg, sink=sink)
-        return [x + y for x, y in zip(xs, ys)]
-
-    def _mamba_body_shards(self, rules, mp, xs: list, sink=None) -> list:
-        ys = ssm_lib.mamba2_block_shards(rules, mp["cell"], self._norm_shards(xs, mp["ln"]),
-                                         self.cfg, sink=sink)
-        return [x + y for x, y in zip(xs, ys)]
-
-    def _backbone_shards(self, rules, params, xs: list, batch_split: bool, sink=None) -> list:
-        """:meth:`_backbone` over the mesh, family by family; under ``remat``
-        at the reference's sites only: each mLSTM and Mamba2 body and each
-        stacked attention + FFN block, never the sLSTM, the hybrid's shared
-        block or ``dense0``.  ``batch_split``: each shard holds its data
-        shard's rows (else every row; the MoE's capacity follows it).  A
-        cache ``sink`` (the cached prefill) is handed to each block at its
-        layer of the cache."""
-        cfg = self.cfg
-        at = sink.at if sink is not None else lambda *layer: None
-        if cfg.family == "ssm":
-            m_body = self._maybe_remat(self._mlstm_body_shards)
-            for g, (mlstm, slstm) in enumerate(self.groups(params)):
-                for j, mp in enumerate(stacked(mlstm)):
-                    xs = m_body(rules, mp, xs, sink=at(g, j))
-                ys = ssm_lib.slstm_block_shards(rules, slstm["cell"],
-                                                self._norm_shards(xs, slstm["ln"]), cfg,
-                                                sink=at(g))
-                xs = [x + y for x, y in zip(xs, ys)]
-            return xs
-        if cfg.family == "hybrid":
-            m_body = self._maybe_remat(self._mamba_body_shards)
-            for g, (mamba, _) in enumerate(self.groups(params)):
-                for j, mp in enumerate(stacked(mamba)):
-                    xs = m_body(rules, mp, xs, sink=at(g, j))
-                xs = self._apply_attn_ffn_shards(rules, params["shared_block"], xs, batch_split,
-                                                 window=cfg.sliding_window, sink=at(g))
-            return xs
-        dense0 = params.get("dense0", [])
-        for i, bp in enumerate(dense0):
-            xs = self._apply_attn_ffn_shards(rules, bp, xs, batch_split, sink=at(i))
-        body = self._maybe_remat(self._apply_attn_ffn_shards)
-        for i, bp in enumerate(stacked(params["blocks"]), start=len(dense0)):
-            xs = body(rules, bp, xs, batch_split, sink=at(i))
-        return xs
-
-    def _encode_shards(self, rules, params, fes: list, batch_split: bool) -> list:
-        """:meth:`_encode` over the mesh: the replicated frontend adapter on
-        each shard's frames, then each bidirectional block tensor-parallel
-        (recomputed under ``remat``).  Returns each shard's copy of the
-        encoder output, whole over "model"."""
-        xs = [fe.to(self.dtype) @ a for fe, a in zip(fes, params["frontend_adapter"].locals())]
-        body = self._maybe_remat(self._apply_attn_ffn_shards)
-        for bp in stacked(params["enc_blocks"]):
-            xs = body(rules, bp, xs, batch_split, False)
-        return self._norm_shards(xs, params["enc_norm"])
-
-    def _apply_cross_block_shards(self, rules, bp, xs: list, enc_outs: list, sink=None) -> list:
-        cfg = self.cfg
-        a = attention_block_shards(rules, bp["self_attn"], self._norm_shards(xs, bp["ln1"]), cfg,
-                                   causal=True, block=self.attn_block, use_kernel=self.use_kernel,
-                                   sink=sink)
-        xs = [x + y for x, y in zip(xs, a)]
-        a = cross_attention_shards(rules, bp["cross_attn"], self._norm_shards(xs, bp["ln_x"]),
-                                   enc_outs, use_kernel=self.use_kernel, sink=sink)
-        xs = [x + y for x, y in zip(xs, a)]
-        f = glu_ffn_shards(rules, bp["ffn"], self._norm_shards(xs, bp["ln2"]), cfg.act)
-        return [x + y for x, y in zip(xs, f)]
-
-    def _decoder_shards(self, rules, params, xs: list, enc_outs: list, sink=None) -> list:
-        """:meth:`_decoder` over the mesh, each block recomputed under
-        ``remat``; a cache ``sink`` at each layer."""
-        body = self._maybe_remat(self._apply_cross_block_shards)
-        for i, bp in enumerate(stacked(params["dec_blocks"])):
-            xs = body(rules, bp, xs, enc_outs, sink=None if sink is None else sink.at(i))
-        return xs
-
-    def _forward_shards(self, rules, params, xs: list, frontend, batch_split: bool,
-                        sink=None) -> list:
-        """The embedded tokens ``xs`` through the model over the mesh: the
-        audio family's encoder over ``frontend`` and its decoder, else the
-        backbone (the VLM's ``frontend``, where given, before the tokens).
-        With a cache ``sink`` this is the cached prefill (``cache.py``)."""
-        if self.cfg.family == "audio":
-            enc = self._encode_shards(rules, params, split_batch(rules, frontend), batch_split)
-            return self._decoder_shards(rules, params, xs, enc, sink)
-        if self.cfg.family == "vlm" and frontend is not None:
-            xs = self._prepend_frontend(rules, params, split_batch(rules, frontend), xs)
-        return self._backbone_shards(rules, params, xs, batch_split, sink)
-
-    def _logits_last_shards(self, rules, w, h_last: list) -> list:
-        """(B_loc, Vp) float32 logits a shard from one (B_loc, D) state a
-        shard: the rules split the unembedding over its rows, so each shard's
-        partial logits are all-reduced over "model"."""
-        mesh = rules.mesh
-        split = w.split_dim() == 0
-        outs = []
-        for n, (h, wn) in enumerate(zip(h_last, w.locals())):
-            if split:
-                h = h.narrow(-1, w.offsets(0)[n], wn.shape[0])
-            outs.append((h @ wn).to(f32))
-        if split:
-            outs = all_reduce_sum(outs, mesh, rules.tp_axis)
-        live = torch.arange(self.vp, device=outs[0].device) < self.cfg.vocab
-        return [torch.where(live.to(o.device), o, -1e30) for o in outs]
-
-    def _train_loss_shards(self, rules, params, batch) -> tuple[torch.Tensor, dict]:
-        """:meth:`train_loss` over the mesh of ``rules``."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        denom = torch.clamp((tokens[:, 1:] >= 0).to(f32).sum(), min=1.0)
-        toks = split_batch(rules, tokens)
-        labels = [torch.clamp(t[:, 1:], min=0).to(torch.int64) for t in toks]
-        masks = [(t[:, 1:] >= 0).to(f32) for t in toks]
-        xs = self._embed_shards(rules, params["embed"], [t[:, :-1] for t in toks])
-        batch_split = tokens.shape[0] % rules.dp() == 0
-        hs = self._forward_shards(rules, params, xs, batch["frontend"] if cfg.frontend else None,
-                                  batch_split)
-        if cfg.family == "vlm":
-            hs = [h[:, cfg.n_frontend_tokens:] for h in hs]  # loss only over text positions
-        hs = self._norm_shards(hs, params["final_norm"])
-        s = hs[0].shape[1]
-        n_chunks = s // _loss_chunk(s, self.loss_chunk)
-        loss_sum, correct = _sharded_chunk_xent(rules, self.vp, cfg.vocab, n_chunks, batch_split)(
-            hs, params["unembed"], labels, masks)
-        denom = denom.to(loss_sum.device)
-        return loss_sum / denom, {"acc": correct / denom, "tokens": denom}
+        batch_split = rules is None or tokens.shape[0] % rules.dp() == 0
+        xs = self._embed(rules, params["embed"], split_batch(rules, tokens))
+        return self._last_logits(params, self._forward(params, xs, frontend, batch_split),
+                                 batch_split)
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
         """An empty cache; under sharding rules placed on their mesh."""

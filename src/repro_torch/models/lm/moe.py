@@ -34,6 +34,7 @@ output; the partials, routed and shared, are summed by one all-reduce over
 program's meaning: where the batch is split over the data axes, a shard's
 queue positions start after those that the tokens of the data shards
 before it took (their per-expert counts, exchanged by an all-gather).
+:func:`moe_ffn` is the one shard of :func:`moe_ffn_shards`.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.lm.layers import _normal
+from repro_torch.models.lm.layers import _normal, shard_dicts
+from repro_torch.models.lm.sharding import split_dim_of
 
 __all__ = ["capacity", "dropless", "init_moe", "moe_ffn", "moe_ffn_einsum", "moe_ffn_shards",
            "moe_ffn_sorted"]
@@ -153,27 +155,6 @@ def _einsum_dispatch(p, xg: torch.Tensor, gates: torch.Tensor, pos, within, cap:
     return torch.einsum("gtec,gecd->gtd", combine, out)      # (G,g,D)
 
 
-def moe_ffn_einsum(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """GShard grouped-einsum dispatch.  x: (B, S, D) -> (B, S, D)."""
-    b, s, d = x.shape
-    t = b * s
-    gsz = min(cfg.group_size, t)
-    n_groups = t // gsz
-    if n_groups * gsz != t:
-        raise ValueError(f"tokens {t} not divisible by group {gsz}")
-    cap = capacity(gsz, cfg)
-    xg = x.reshape(n_groups, gsz, d)
-
-    gates, idx = _router(p, xg.reshape(t, d), cfg)           # (T,K)
-    gates = gates.reshape(n_groups, gsz, cfg.top_k)
-    idx = idx.reshape(n_groups, gsz, cfg.top_k)
-    pos, within = einsum_queues(idx, cfg.n_experts, cap)
-    y = _einsum_dispatch(p, xg, gates, pos, within, cap).reshape(b, s, d)
-    if "shared" in p:
-        y = y + _shared_ffn(p, x)
-    return y
-
-
 def sorted_queues(idx: torch.Tensor, n_experts: int, cap: int, offset=None):
     """The sorted dispatch's queues.  idx (T, K) -> (order (T·K,), the stable
     sort of the flat (token, k)'s by expert; slot (T·K,) in the (E·C + 1)
@@ -223,28 +204,24 @@ def _sorted_dispatch(p, xt: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor
     return y
 
 
+def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, backend: str = "einsum"):
+    """The routed experts (and the shared ones) of ``x`` (B, S, D): the one
+    shard of :func:`moe_ffn_shards`."""
+    return moe_ffn_shards(None, p, [x], cfg, backend)[0]
+
+
+def moe_ffn_einsum(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """GShard grouped-einsum dispatch.  x: (B, S, D) -> (B, S, D)."""
+    return moe_ffn(p, x, cfg, "einsum")
+
+
 def moe_ffn_sorted(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Sort-based ragged dispatch (no dispatch matmul).  x: (B, S, D)."""
-    b, s, d = x.shape
-    t = b * s
-    xt = x.reshape(t, d)
-    gates, idx = _router(p, xt, cfg)                          # (T,K)
-    y = _sorted_dispatch(p, xt, gates, idx, capacity(t, cfg)).reshape(b, s, d)
-    if "shared" in p:
-        y = y + _shared_ffn(p, x)
-    return y
-
-
-def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, backend: str = "einsum"):
-    if backend == "einsum":
-        return moe_ffn_einsum(p, x, cfg)
-    if backend == "sorted":
-        return moe_ffn_sorted(p, x, cfg)
-    raise ValueError(backend)
+    return moe_ffn(p, x, cfg, "sorted")
 
 
 # --------------------------------------------------------------------------
-# Over a mesh of shards (tensor parallel over d_ff_expert)
+# Over a mesh of shards (tensor parallel over d_ff_expert), or one shard
 # --------------------------------------------------------------------------
 def _earlier_counts(rules, counts: list) -> list:
     """Each shard's exclusive sum, over the data shards before it, of the
@@ -260,11 +237,11 @@ def _earlier_counts(rules, counts: list) -> list:
 
 def _einsum_shards(rules, leaves: list, hs: list, cfg: MoEConfig, batch_split: bool) -> list:
     """Each shard's routed partial by the grouped dispatch, its tokens queued
-    at their places in the whole batch's groups."""
-    mesh = rules.mesh
+    at their places in the whole batch's groups (one shard: the batch's
+    groups)."""
     b_loc, s, d = hs[0].shape
     t_loc = b_loc * s
-    dp = rules.dp() if batch_split else 1
+    dp = rules.dp() if batch_split and rules is not None else 1
     t = t_loc * dp
     gsz = min(cfg.group_size, t)
     if t % gsz:
@@ -275,12 +252,12 @@ def _einsum_shards(rules, leaves: list, hs: list, cfg: MoEConfig, batch_split: b
     # rows), and the counts of the shards before it offset its queues
     straddle = t_loc % gsz != 0
     placed, counts = [], []
-    for coord, p, h in zip(mesh.coords, leaves, hs):
-        x = h.reshape(t_loc, d)
-        gates, idx = _router(p, x, cfg)
+    for n, (p, h) in enumerate(zip(leaves, hs)):
         lead = g0 = 0
         if straddle:
-            t0 = mesh.axis_index(coord, rules.axis("batch")) * t_loc
+            x = h.reshape(t_loc, d)
+            gates, idx = _router(p, x, cfg)
+            t0 = rules.mesh.axis_index(rules.mesh.coords[n], rules.axis("batch")) * t_loc
             lead, g0 = t0 % gsz, t0 // gsz
             pad = (0, 0, lead, -(lead + t_loc) % gsz)
             x, gates, idx = F.pad(x, pad), F.pad(gates, pad), F.pad(idx, pad, value=-1)
@@ -288,17 +265,22 @@ def _einsum_shards(rules, leaves: list, hs: list, cfg: MoEConfig, batch_split: b
             count = idx.new_zeros((t // gsz, e))
             count[g0:g0 + idx.shape[0] // gsz] = mine.reshape(-1, gsz * k, e).sum(1)
             counts.append(count)
-        n_loc = x.shape[0] // gsz
-        placed.append((lead, g0, x.reshape(n_loc, gsz, d), gates.reshape(n_loc, gsz, k),
-                       idx.reshape(n_loc, gsz, k)))
+            xg = x.reshape(-1, gsz, d)
+        else:
+            xg = h.reshape(-1, gsz, d)
+            gates, idx = _router(p, xg.reshape(t_loc, d), cfg)
+        n_loc = xg.shape[0]
+        placed.append((lead, g0, xg, gates.reshape(n_loc, gsz, k), idx.reshape(n_loc, gsz, k)))
     before = _earlier_counts(rules, counts) if straddle else [None] * len(hs)
     outs = []
     for p, off, (lead, g0, xg, gates, idx) in zip(leaves, before, placed):
         if off is not None:
             off = off[g0:g0 + xg.shape[0]].to(f32)
         pos, within = einsum_queues(idx, e, cap, off)
-        y = _einsum_dispatch(p, xg, gates, pos, within, cap).reshape(-1, d)
-        outs.append(y[lead:lead + t_loc].reshape(b_loc, s, d))
+        y = _einsum_dispatch(p, xg, gates, pos, within, cap)
+        if straddle:
+            y = y.reshape(-1, d)[lead:lead + t_loc]
+        outs.append(y.reshape(b_loc, s, d))
     return outs
 
 
@@ -307,16 +289,17 @@ def _sorted_shards(rules, leaves: list, hs: list, cfg: MoEConfig, batch_split: b
     capacity, its queues offset by the earlier data shards' choices."""
     b_loc, s, d = hs[0].shape
     t_loc = b_loc * s
-    dp = rules.dp() if batch_split else 1
+    dp = rules.dp() if batch_split and rules is not None else 1
     cap = capacity(t_loc * dp, cfg)
-    routed = [_router(p, h.reshape(t_loc, d), cfg) for p, h in zip(leaves, hs)]
+    xts = [h.reshape(t_loc, d) for h in hs]
+    routed = [_router(p, xt, cfg) for p, xt in zip(leaves, xts)]
     if dp > 1:
         before = _earlier_counts(rules, [torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
                                          for _, idx in routed])
     else:
         before = [None] * len(hs)
-    return [_sorted_dispatch(p, h.reshape(t_loc, d), gates, idx, cap, off).reshape(b_loc, s, d)
-            for p, h, (gates, idx), off in zip(leaves, hs, routed, before)]
+    return [_sorted_dispatch(p, xt, gates, idx, cap, off).reshape(b_loc, s, d)
+            for p, xt, (gates, idx), off in zip(leaves, xts, routed, before)]
 
 
 def moe_ffn_shards(rules, p: dict, hs: list, cfg: MoEConfig, backend: str = "einsum", *,
@@ -326,11 +309,11 @@ def moe_ffn_shards(rules, p: dict, hs: list, cfg: MoEConfig, backend: str = "ein
     shard, each the rows of its data shard where ``batch_split`` (else every
     row); returns one output a shard.  The routed and shared partials are
     summed by one all-reduce over "model"; a leaf that the divisibility guard
-    replicated gives a whole output, added after it."""
+    replicated gives a whole output, added after it.  With no rules
+    (``rules`` None, ``p`` tensors, ``hs`` one input) it is the one shard."""
     from repro_torch.models.lm.collectives import all_reduce_sum
 
-    experts = {name: leaf.locals() for name, leaf in p.items() if name != "shared"}
-    leaves = [{name: blocks[n] for name, blocks in experts.items()} for n in range(len(hs))]
+    leaves = shard_dicts({name: leaf for name, leaf in p.items() if name != "shared"})
     if backend == "einsum":
         routed = _einsum_shards(rules, leaves, hs, cfg, batch_split)
     elif backend == "sorted":
@@ -338,12 +321,10 @@ def moe_ffn_shards(rules, p: dict, hs: list, cfg: MoEConfig, backend: str = "ein
     else:
         raise ValueError(backend)
     partial, whole = [], []
-    (partial if p["w_down"].split_dim() is not None else whole).append(routed)
+    (partial if split_dim_of(p["w_down"]) is not None else whole).append(routed)
     if "shared" in p:
-        sp = {name: leaf.locals() for name, leaf in p["shared"].items()}
-        shared = [_shared_ffn({"shared": {name: blocks[n] for name, blocks in sp.items()}}, h)
-                  for n, h in enumerate(hs)]
-        (partial if p["shared"]["w_down"].split_dim() is not None else whole).append(shared)
+        shared = [_shared_ffn({"shared": sp}, h) for sp, h in zip(shard_dicts(p["shared"]), hs)]
+        (partial if split_dim_of(p["shared"]["w_down"]) is not None else whole).append(shared)
     outs = [sum(parts[1:], parts[0]) for parts in zip(*partial)] if partial else None
     if outs is not None:
         outs = all_reduce_sum(outs, rules.mesh, rules.tp_axis)

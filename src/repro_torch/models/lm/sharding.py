@@ -23,7 +23,10 @@ the first of them, and copied to the others inside the forward pass, so its
 gradient sums over them by itself), :func:`gather_params` puts them back
 together.  Activations are lists with one tensor a shard (``split_batch``);
 the collectives between them are in ``collectives.py``.  The model runs over
-a mesh under :func:`use_rules` (``model.py``: all six families).
+a mesh under :func:`use_rules` (``model.py``: all six families).  With no
+rules active the same forward runs as one shard: a plain tensor is a
+one-shard leaf (:func:`locals_of`, :func:`own_of`, :func:`split_dim_of`,
+:func:`offsets_of`) and ``split_batch(None, x)`` is ``[x]``.
 
 The serving cache is placed leaf for leaf by :func:`cache_pspecs`
 (:func:`shard_cache`, :func:`empty_cache`; :func:`gather_cache` puts it back
@@ -58,9 +61,13 @@ __all__ = [
     "empty_cache",
     "gather_cache",
     "gather_params",
+    "locals_of",
+    "offsets_of",
+    "own_of",
     "shard_cache",
     "shard_params",
     "split_batch",
+    "split_dim_of",
 ]
 
 _ACTIVE: list["ShardingRules"] = []
@@ -508,10 +515,12 @@ def gather_cache(cache: dict) -> dict:
             for name, leaf in cache.items()}
 
 
-def split_batch(rules: ShardingRules, x: torch.Tensor) -> list:
+def split_batch(rules: ShardingRules | None, x: torch.Tensor) -> list:
     """A global batch tensor as one tensor a shard, on the shard's device:
     the rows of its data shard when the batch divides by the data-parallel
-    size (``batch_pspec``), else every row."""
+    size (``batch_pspec``), else every row; ``[x]`` with no rules."""
+    if rules is None:
+        return [x]
     mesh, dp = rules.mesh, rules.dp()
     axis = rules.axis("batch")
     rows = x.shape[0] // dp if x.shape[0] % dp == 0 else None
@@ -520,3 +529,29 @@ def split_batch(rules: ShardingRules, x: torch.Tensor) -> list:
         part = x if rows is None else x.narrow(0, mesh.axis_index(coord, axis) * rows, rows)
         out.append(part.to(dev))
     return out
+
+
+# --------------------------------------------------------------------------
+# A leaf of either forward: a ``Sharded`` leaf, or a tensor (one shard)
+# --------------------------------------------------------------------------
+def locals_of(leaf) -> list:
+    """Every shard's tensor of a leaf (:meth:`Sharded.locals`); ``[leaf]``
+    for a tensor, the one shard of the forward with no rules active."""
+    return leaf.locals() if isinstance(leaf, Sharded) else [leaf]
+
+
+def own_of(leaf) -> list:
+    """Every shard's own block (:meth:`Sharded.own`); ``[leaf]`` for a tensor."""
+    return leaf.own() if isinstance(leaf, Sharded) else [leaf]
+
+
+def split_dim_of(leaf) -> int | None:
+    """The dim split over the model axis (:meth:`Sharded.split_dim`); None
+    for a tensor."""
+    return leaf.split_dim() if isinstance(leaf, Sharded) else None
+
+
+def offsets_of(leaf, dim: int) -> list:
+    """Each shard's first index along ``dim`` (:meth:`Sharded.offsets`);
+    ``[0]`` for a tensor."""
+    return leaf.offsets(dim) if isinstance(leaf, Sharded) else [0]

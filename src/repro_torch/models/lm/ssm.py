@@ -15,7 +15,11 @@ and :func:`slstm_block_shards` run the three blocks tensor-parallel under
 the reference's rules, handing a cache sink their final states in the
 layout of ``cache_pspecs``, and :func:`mamba2_decode_shards`,
 :func:`mlstm_decode_shards` and :func:`slstm_decode_shards` continue from
-those states (the two sections at the end of this module).  Numerics follow the
+those states, in place (the two sections at the end of this module).  Each
+is one body: with no rules it is the block on one shard, and the
+reference's :func:`mamba2_block`, :func:`mamba2_decode`,
+:func:`mlstm_block`, :func:`mlstm_decode`, :func:`slstm_block` and
+:func:`slstm_decode` call it so.  Numerics follow the
 reference: decays in log space and ≤ 0 before exponentiation (Mamba2), or
 stabilised by running maxima (mLSTM, sLSTM); states, gates and log
 arithmetic in float32.  Where the reference mixes bf16 and float32
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import collectives, scan
 from repro_torch.models.lm.layers import _normal, rms_norm
+from repro_torch.models.lm.sharding import locals_of, offsets_of, own_of, split_dim_of
 
 __all__ = [
     "init_mamba2",
@@ -185,22 +190,17 @@ def _mamba2_mix(p: dict, proj: torch.Tensor, cfg: ModelConfig, heads: slice):
 
 
 def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
-    """Full-sequence Mamba2 block (prefill).  x: (B, L, D).
+    """Full-sequence Mamba2 block (prefill).  x: (B, L, D): the one shard of
+    :func:`mamba2_block_shards`.
 
     With ``return_state`` also returns (final SSM state (B, H, N, P) float32,
     the conv window's tail (B, K−1, di + 2N)): what :func:`mamba2_decode`
     needs to continue the sequence.
     """
-    s = cfg.ssm
-    proj = x @ p["in_proj"]
-    z, _, _, _, h, _ = _split_mamba_proj(proj, cfg)
-    y, h_fin, xbc_raw = _mamba2_mix(p, proj, cfg, slice(0, h))
-    y = y.to(x.dtype)
-    y = y * F.silu(z.to(f32)).to(x.dtype)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    kept = _Kept() if return_state else None
+    out = mamba2_block_shards(None, p, [x], cfg, sink=kept)[0]
     if return_state:
-        return out, h_fin, xbc_raw[:, -(s.d_conv - 1):, :]
+        return out, kept.states["ssm"], kept.states["conv"]
     return out
 
 
@@ -211,30 +211,11 @@ def mamba2_decode(
     ssm_state: torch.Tensor,    # (B, H, N, P)
     cfg: ModelConfig,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """O(1) recurrent decode step: (out (B, 1, D), conv state, SSM state)."""
-    s = cfg.ssm
-    proj = x @ p["in_proj"]
-    z, xbc, dtr, di, h, n = _split_mamba_proj(proj[:, 0], cfg)
-    # conv over the ring of the last K inputs: float32 products of the
-    # model's values summed in float32, as the reference's einsum
-    win = torch.cat([conv_state, xbc[:, None, :]], dim=1)       # (B,K,C)
-    conv = (win.to(f32) * p["conv_w"].to(f32)).sum(dim=1).to(x.dtype) + p["conv_b"]
-    conv = F.silu(conv.to(f32)).to(x.dtype)
-    conv_state = win[:, 1:, :]
-    xs, b_, c_ = conv.split([di, n, n], dim=-1)
-    dt = softplus(dtr.to(f32) + p["dt_bias"])                    # (B,H)
-    a = -torch.exp(p["a_log"])
-    decay = torch.exp(dt * a[None, :])                           # (B,H)
-    xh = xs.reshape(-1, h, s.head_dim).to(f32)                   # (B,H,P)
-    xbar = xh * dt[..., None]
-    ssm_state = decay[:, :, None, None] * ssm_state + torch.einsum(
-        "bn,bhp->bhnp", b_.to(f32), xbar)
-    y = torch.einsum("bn,bhnp->bhp", c_.to(f32), ssm_state)
-    y = y + p["d_skip"][None, :, None] * xh
-    y = y.reshape(-1, 1, di).to(x.dtype)
-    y = y * F.silu(z.to(f32)).to(x.dtype)[:, None, :]
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], conv_state, ssm_state
+    """O(1) recurrent decode step: (out (B, 1, D), conv state, SSM state), the
+    one shard of :func:`mamba2_decode_shards` on copies of the states."""
+    conv_state, ssm_state = conv_state.clone(), ssm_state.clone()
+    out = mamba2_decode_shards(None, p, [x], conv_state, ssm_state, cfg)[0]
+    return out, conv_state, ssm_state
 
 
 # ==========================================================================
@@ -326,54 +307,20 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk, compute_dtype=f32):
 
 
 def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
-    """Full-sequence mLSTM block (prefill).  x: (B, L, D)."""
-    s = cfg.ssm
-    bsz, length, d = x.shape
-    n_heads = cfg.n_heads
-    di = s.expand * d
-    p_dim = di // n_heads
-    q = (x @ p["w_q"]).reshape(bsz, length, n_heads, p_dim)
-    k = (x @ p["w_k"]).reshape(bsz, length, n_heads, p_dim)
-    v = (x @ p["w_v"]).reshape(bsz, length, n_heads, p_dim)
-    # xLSTM's exponential input gate: log i is the preactivation itself
-    xf = x.to(f32)
-    li = xf @ p["w_i"] + p["b_i"]
-    lf = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
-    y, state = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=x.dtype)
-    y = y.reshape(bsz, length, di).to(x.dtype)
-    y = y * F.silu((x @ p["w_gate"]).to(f32)).to(x.dtype)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    """Full-sequence mLSTM block (prefill).  x: (B, L, D): the one shard of
+    :func:`mlstm_block_shards`; ``return_state`` adds the final (C, n, m)."""
+    kept = _Kept() if return_state else None
+    out = mlstm_block_shards(None, p, [x], cfg, sink=kept)[0]
     if return_state:
-        return out, state
+        return out, tuple(kept.states[name] for name in ("mC", "mn", "mm"))
     return out
 
 
 def mlstm_decode(p: dict, x: torch.Tensor, state: tuple, cfg: ModelConfig):
-    """x: (B, 1, D); state: (C, n, m) -> (out (B, 1, D), new state)."""
-    s = cfg.ssm
-    bsz, _, d = x.shape
-    n_heads = cfg.n_heads
-    di = s.expand * d
-    p_dim = di // n_heads
-    xt = x[:, 0]
-    q = (xt @ p["w_q"]).reshape(bsz, n_heads, p_dim).to(f32) * p_dim ** -0.5
-    k = (xt @ p["w_k"]).reshape(bsz, n_heads, p_dim).to(f32)
-    v = (xt @ p["w_v"]).reshape(bsz, n_heads, p_dim).to(f32)
-    xf = xt.to(f32)
-    li = xf @ p["w_i"] + p["b_i"]                                  # (B,H)
-    lf = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
-    c_mem, n_mem, m = state
-    m_new = torch.maximum(lf + m, li)
-    keep, take = torch.exp(lf + m - m_new), torch.exp(li - m_new)
-    c_mem = keep[:, :, None, None] * c_mem + take[:, :, None, None] * (k[..., :, None] * v[..., None, :])
-    n_mem = keep[:, :, None] * n_mem + take[:, :, None] * k
-    num = (q[:, :, None, :] @ c_mem)[:, :, 0]                      # (B,H,P)
-    den = torch.maximum((q * n_mem).sum(dim=-1).abs(), torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(bsz, 1, di).to(x.dtype)
-    y = y * F.silu((x @ p["w_gate"]).to(f32)).to(x.dtype)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], (c_mem, n_mem, m_new)
+    """x: (B, 1, D); state: (C, n, m) -> (out (B, 1, D), new state): the one
+    shard of :func:`mlstm_decode_shards` on copies of the states."""
+    state = tuple(t.clone() for t in state)
+    return mlstm_decode_shards(None, p, [x], state, cfg)[0], state
 
 
 # ==========================================================================
@@ -399,14 +346,9 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> 
     }
 
 
-def _slstm_input(p, x_seq: torch.Tensor) -> torch.Tensor:
-    """The recurrence's input part for every position: (B, L, 4D) float32."""
-    return x_seq.to(f32) @ p["w"] + p["b"]
-
-
 def _slstm_scan(p, wx: torch.Tensor, cfg: ModelConfig, state=None):
-    """wx: (B, L, 4D) (:func:`_slstm_input`) -> (h (B, L, D) float32, final
-    state (c, n, m, h)).
+    """wx: (B, L, 4D), the input part ``x @ w + b`` in float32 -> (h (B, L, D)
+    float32, final state (c, n, m, h)).
 
     A sequential loop over the L positions (``scan.scan``)."""
     bsz, length, d = wx.shape[0], wx.shape[1], wx.shape[2] // 4
@@ -441,22 +383,24 @@ def _slstm_out(p, h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.T
 
 
 def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
-    """Full-sequence sLSTM block (prefill).  x: (B, L, D)."""
-    h, state = _slstm_scan(p, _slstm_input(p, x), cfg)
-    out = _slstm_out(p, h, x, cfg)
+    """Full-sequence sLSTM block (prefill).  x: (B, L, D): the one shard of
+    :func:`slstm_block_shards`; ``return_state`` adds the final (c, n, m, h)."""
+    kept = _Kept() if return_state else None
+    out = slstm_block_shards(None, p, [x], cfg, sink=kept)[0]
     if return_state:
-        return out, state
+        return out, tuple(kept.states[name] for name in ("sc", "sn", "sm", "sh"))
     return out
 
 
 def slstm_decode(p: dict, x: torch.Tensor, state: tuple, cfg: ModelConfig):
-    """x: (B, 1, D); state: (c, n, m, h) -> (out (B, 1, D), new state)."""
-    h, new_state = _slstm_scan(p, _slstm_input(p, x), cfg, state)
-    return _slstm_out(p, h, x, cfg), new_state
+    """x: (B, 1, D); state: (c, n, m, h) -> (out (B, 1, D), new state): the
+    one shard of :func:`slstm_decode_shards` on copies of the states."""
+    state = tuple(t.clone() for t in state)
+    return slstm_decode_shards(None, p, [x], state, cfg)[0], state
 
 
 # ==========================================================================
-# Over a mesh of shards (tensor parallel)
+# Over a mesh of shards (tensor parallel), or one shard (no rules)
 # ==========================================================================
 # ``p`` holds ``sharding.Sharded`` leaves laid out by the reference's rules,
 # ``hs`` one (B_loc, L, D) input a shard; each function returns one output a
@@ -464,7 +408,28 @@ def slstm_decode(p: dict, x: torch.Tensor, state: tuple, cfg: ModelConfig):
 # width ``di`` (the rows of ``out_proj``), gates and normalises that block,
 # and multiplies it by its rows of ``out_proj``; one all-reduce over "model"
 # sums the partials.  Where the divisibility guard replicates a leaf, the
-# shard holds all of it and nothing is gathered or reduced for it.
+# shard holds all of it and nothing is gathered or reduced for it.  With no
+# rules (``rules`` None, ``p`` tensors, ``hs`` one input) each is the block
+# on one shard, which holds every head: the unsharded block.
+class _Kept:
+    """A cache sink that keeps the final states a block hands it (the
+    blocks' ``return_state``)."""
+
+    def __init__(self):
+        self.states: dict = {}
+
+    def put(self, name: str, xs: list) -> None:
+        self.states[name] = xs[0]
+
+    put_cut = put
+
+
+def _cols(t: torch.Tensor, off: int, width: int) -> torch.Tensor:
+    """Entries ``off .. off + width - 1`` of ``t``'s last dim (``t`` itself
+    where they are all of them)."""
+    return t if off == 0 and width == t.shape[-1] else t.narrow(-1, off, width)
+
+
 def _covering_heads(off: int, width: int, p_dim: int) -> slice:
     """The heads of size ``p_dim`` that columns ``off .. off + width - 1`` of
     the inner width lie in."""
@@ -488,13 +453,17 @@ def _out_shards(rules, p: dict, leaves: dict, ys: list, zs: list, width: int, ep
     """Each shard's block of y (B_loc, L, di_loc), gated by its block of z,
     normalised over the whole inner ``width`` and multiplied by its rows of
     ``out_proj``; the partials all-reduced over "model" where they are."""
-    split = p["out_proj"].split_dim() is not None
-    offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    split = split_dim_of(p["out_proj"]) is not None
+    offs, di_loc = offsets_of(p["out_proj"], 0), leaves["out_proj"][0].shape[0]
     ys = [(y.to(z.dtype) * F.silu(z.to(f32)).to(z.dtype)) for y, z in zip(ys, zs)]
-    norms = [w.narrow(-1, o, di_loc) for w, o in zip(leaves["out_norm"], offs)]
+    norms = [_cols(w, o, di_loc) for w, o in zip(leaves["out_norm"], offs)]
     ys = _rms_norm_shards(rules, ys, norms, width, eps, split)
     outs = [y @ w for y, w in zip(ys, leaves["out_proj"])]
     return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis) if split else outs
+
+
+def _leaves(p: dict) -> dict:
+    return {name: locals_of(leaf) for name, leaf in p.items()}
 
 
 def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None) -> list:
@@ -511,21 +480,25 @@ def mamba2_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None
     tail (``conv``, channels on "model"), cut from the gathered products."""
     s = cfg.ssm
     di = s.expand * cfg.d_model
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    n_heads = di // s.head_dim
+    leaves = _leaves(p)
     proj = [h @ w for h, w in zip(hs, leaves["in_proj"])]
-    if p["in_proj"].split_dim() is not None:
+    if split_dim_of(p["in_proj"]) is not None:
         proj = collectives.all_gather(proj, rules.mesh, rules.tp_axis, dim=-1)
-    offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
-    ys, zs, states = [], [], []
+    offs, di_loc = offsets_of(p["out_proj"], 0), leaves["out_proj"][0].shape[0]
+    ys, zs, states, convs = [], [], [], []
     for n, (pr, off) in enumerate(zip(proj, offs)):
         heads = _covering_heads(off, di_loc, s.head_dim)
-        y, h_fin, _ = _mamba2_mix({k: v[n] for k, v in leaves.items()}, pr, cfg, heads)
-        ys.append(y.narrow(-1, off - heads.start * s.head_dim, di_loc))
+        y, h_fin, xbc = _mamba2_mix({k: v[n] for k, v in leaves.items()}, pr, cfg, heads)
+        ys.append(_cols(y, off - heads.start * s.head_dim, di_loc))
         zs.append(pr.narrow(-1, off, di_loc))
         states.append(h_fin)
+        if sink is not None:  # the conv's whole input: xbc holds the heads' channels only
+            whole = heads == slice(0, n_heads)
+            convs.append((xbc if whole else _split_mamba_proj(pr, cfg)[1])[:, -(s.d_conv - 1):])
     if sink is not None:
         sink.put("ssm", states)
-        sink.put_cut("conv", [_split_mamba_proj(pr, cfg)[1][:, -(s.d_conv - 1):] for pr in proj])
+        sink.put_cut("conv", convs)
     return _out_shards(rules, p, leaves, ys, zs, di, cfg.norm_eps)
 
 
@@ -535,8 +508,8 @@ def _head_columns(rules, leaf, xs: list, p_dim: int) -> tuple[list, list]:
     holds).  Where a shard's block holds part of a head (tp above the head
     count), the products are all-gathered over "model": the cell contracts
     P in every chunk product, so P is not split inside it."""
-    offs = leaf.offsets(-1)
-    if leaf.split_dim() is None or (leaf.shape[-1] // leaf.grid[-1]) % p_dim == 0:
+    offs = offsets_of(leaf, -1)
+    if split_dim_of(leaf) is None or (leaf.shape[-1] // leaf.grid[-1]) % p_dim == 0:
         return xs, offs
     return collectives.all_gather(xs, rules.mesh, rules.tp_axis, dim=-1), [0] * len(xs)
 
@@ -552,22 +525,24 @@ def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None)
     n_heads = cfg.n_heads
     di = s.expand * cfg.d_model
     p_dim = di // n_heads
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    leaves = _leaves(p)
     qkv = [_head_columns(rules, p[name], [h @ w for h, w in zip(hs, leaves[name])], p_dim)
            for name in ("w_q", "w_k", "w_v")]
-    offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    offs, di_loc = offsets_of(p["out_proj"], 0), leaves["out_proj"][0].shape[0]
     ys, zs, states = [], [], []
     for n, (h, off) in enumerate(zip(hs, offs)):
         bsz, length, _ = h.shape
         heads = _covering_heads(off, di_loc, p_dim)
         width = (heads.stop - heads.start) * p_dim
-        q, k, v = (xs[n].narrow(-1, heads.start * p_dim - firsts[n], width)
+        q, k, v = (_cols(xs[n], heads.start * p_dim - firsts[n], width)
                    .reshape(bsz, length, -1, p_dim) for xs, firsts in qkv)
         hf = h.to(f32)
-        li = (hf @ leaves["w_i"][n] + leaves["b_i"][n])[..., heads]
-        lf = F.logsigmoid(hf @ leaves["w_f"][n] + leaves["b_f"][n])[..., heads]
+        # xLSTM's exponential input gate: log i is the preactivation itself
+        li = _cols(hf @ leaves["w_i"][n] + leaves["b_i"][n], heads.start, width // p_dim)
+        lf = _cols(F.logsigmoid(hf @ leaves["w_f"][n] + leaves["b_f"][n]), heads.start,
+                   width // p_dim)
         y, state = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=h.dtype)
-        ys.append(y.reshape(bsz, length, width).narrow(-1, off - heads.start * p_dim, di_loc))
+        ys.append(_cols(y.reshape(bsz, length, width), off - heads.start * p_dim, di_loc))
         zs.append(h @ leaves["w_gate"][n])
         states.append(state)
     if sink is not None:
@@ -583,13 +558,13 @@ def _mlstm_cache_states(rules, sink, states: list, n_heads: int) -> None:
     block of whole heads, one all-to-all over "model" a leaf turns heads into
     P blocks; where ``r`` shards shared a head (tp above the head count),
     the all-to-all brings each head ``r`` times and every ``r``-th is kept."""
-    mesh, tp_axis = rules.mesh, rules.tp_axis
     cs, ns, ms = (list(t) for t in zip(*states))
-    h_cov, tp = cs[0].shape[1], mesh.axis_size(tp_axis)
-    if h_cov == n_heads:
+    if cs[0].shape[1] == n_heads:
         for name, xs in (("mC", cs), ("mn", ns), ("mm", ms)):
             sink.put_cut(name, xs)
         return
+    mesh, tp_axis = rules.mesh, rules.tp_axis
+    h_cov, tp = cs[0].shape[1], mesh.axis_size(tp_axis)
     if h_cov * tp == n_heads:
         r = 1
     elif h_cov == 1 and tp % n_heads == 0:
@@ -616,9 +591,9 @@ def slstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None)
     ``up`` by columns and ``down`` by rows, all-reduced where the guard
     splits them (at xlstm's 2730 hidden units: tp 2, not 4 or 16).  A cache
     ``sink`` gets each shard's block of the final state."""
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    leaves = _leaves(p)
     wx = [h.to(f32) @ w for h, w in zip(hs, leaves["w"])]
-    if p["w"].split_dim() is not None:
+    if split_dim_of(p["w"]) is not None:
         wx = collectives.all_gather(wx, rules.mesh, rules.tp_axis, dim=-1)
     outs, states = [], []
     for n, (h, w) in enumerate(zip(hs, wx)):
@@ -629,20 +604,21 @@ def slstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None)
     if sink is not None:
         for name, xs in zip(("sc", "sn", "sm", "sh"), zip(*states)):
             sink.put_cut(name, list(xs))
-    if p["down"].split_dim() is None:
+    if split_dim_of(p["down"]) is None:
         return outs
     return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis)
 
 
 # ==========================================================================
-# One-token decode over a mesh of shards
+# One-token decode over a mesh of shards, or one shard
 # ==========================================================================
-# The states are ``sharding.Sharded`` leaves of one layer, laid out by the
-# reference's ``cache_pspecs``, and updated in place: every shard computes
-# its new blocks first and writes them after, since a block that several
-# shards share (``mm``; every leaf where the batch is not split) is one
-# tensor on their device.  Where the states' split does not line up with the
-# blocks' products, the one-token operands are all-gathered over "model".
+# The states are ``sharding.Sharded`` leaves of one layer (tensors on the
+# one shard of no rules), laid out by the reference's ``cache_pspecs``, and
+# updated in place: every shard computes its new blocks first and writes
+# them after, since a block that several shards share (``mm``; every leaf
+# where the batch is not split) is one tensor on their device.  Where the
+# states' split does not line up with the blocks' products, the one-token
+# operands are all-gathered over "model".
 def _write(blocks: list, new: list) -> None:
     for blk, x in zip(blocks, new):
         blk.copy_(x)
@@ -658,46 +634,48 @@ def mamba2_decode_shards(rules, p: dict, hs: list, conv, ssm_state, cfg: ModelCo
     all-gathered (one (B_loc, C) buffer), since a shard's heads need the x
     channels of their heads and the B and C channels of all of them, which
     its block of channels does not hold; its heads' SSM step then updates its
-    block of the state, and the output is the prefill's (``_out_shards``)."""
+    block of the state, and the output is the prefill's (``_out_shards``).
+    The conv over the ring of the last K inputs takes float32 products of
+    the model's values summed in float32, as the reference's einsum."""
     s = cfg.ssm
     di, n, p_dim = s.expand * cfg.d_model, s.d_state, s.head_dim
-    mesh, tp_axis = rules.mesh, rules.tp_axis
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    leaves = _leaves(p)
     proj = [h[:, 0] @ w for h, w in zip(hs, leaves["in_proj"])]
-    if p["in_proj"].split_dim() is not None:
-        proj = collectives.all_gather(proj, mesh, tp_axis, dim=-1)
-    conv_b, ssm_b = conv.own(), ssm_state.own()
-    c_offs, c_loc = conv.offsets(-1), conv_b[0].shape[-1]
-    outs, wins = [], []
+    if split_dim_of(p["in_proj"]) is not None:
+        proj = collectives.all_gather(proj, rules.mesh, rules.tp_axis, dim=-1)
+    conv_b, ssm_b = own_of(conv), own_of(ssm_state)
+    c_offs, c_loc = offsets_of(conv, -1), conv_b[0].shape[-1]
+    outs, wins, zdts = [], [], []
     for k, pr in enumerate(proj):
-        cols = slice(c_offs[k], c_offs[k] + c_loc)
-        win = torch.cat([conv_b[k], _split_mamba_proj(pr, cfg)[1][:, None, cols]], dim=1)
-        w, b = leaves["conv_w"][k][:, cols], leaves["conv_b"][k][cols]
+        z, xbc, dtr, _, _, _ = _split_mamba_proj(pr, cfg)
+        win = torch.cat([conv_b[k], _cols(xbc, c_offs[k], c_loc)[:, None, :]], dim=1)
+        w, b = (_cols(leaves[name][k], c_offs[k], c_loc) for name in ("conv_w", "conv_b"))
         out = (win.to(f32) * w.to(f32)).sum(dim=1).to(win.dtype) + b
         outs.append(F.silu(out.to(f32)).to(win.dtype))
         wins.append(win)
-    if conv.split_dim() is not None:
-        outs = collectives.all_gather(outs, mesh, tp_axis, dim=-1)
-    h_offs, h_loc = ssm_state.offsets(1), ssm_b[0].shape[1]
-    o_offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+        zdts.append((z, dtr))
+    if split_dim_of(conv) is not None:
+        outs = collectives.all_gather(outs, rules.mesh, rules.tp_axis, dim=-1)
+    h_offs, h_loc = offsets_of(ssm_state, 1), ssm_b[0].shape[1]
+    o_offs, di_loc = offsets_of(p["out_proj"], 0), leaves["out_proj"][0].shape[0]
     ys, zs, states = [], [], []
-    for k, (pr, out) in enumerate(zip(proj, outs)):
+    for k, (out, (z, dtr)) in enumerate(zip(outs, zdts)):
         if (h_offs[k] * p_dim, h_loc * p_dim) != (o_offs[k], di_loc):
             raise NotImplementedError(
                 f"Mamba2 decode: the state's heads {h_offs[k]}..+{h_loc} are not the block of "
                 f"out_proj's rows {o_offs[k]}..+{di_loc}")
-        z, _, dtr, _, _, _ = _split_mamba_proj(pr, cfg)
-        heads = slice(h_offs[k], h_offs[k] + h_loc)
+        head = lambda t, k=k: _cols(t, h_offs[k], h_loc)  # noqa: E731  (this shard's heads)
         xs, b_, c_ = out.split([di, n, n], dim=-1)
-        dt = softplus(dtr[:, heads].to(f32) + leaves["dt_bias"][k][heads])      # (B,h)
-        decay = torch.exp(dt * -torch.exp(leaves["a_log"][k][heads])[None, :])
-        xh = xs[:, o_offs[k]:o_offs[k] + di_loc].reshape(-1, h_loc, p_dim).to(f32)
-        st = decay[:, :, None, None] * ssm_b[k] + torch.einsum(
-            "bn,bhp->bhnp", b_.to(f32), xh * dt[..., None])
+        dt = softplus(head(dtr).to(f32) + head(leaves["dt_bias"][k]))               # (B,h)
+        a = -torch.exp(head(leaves["a_log"][k]))
+        decay = torch.exp(dt * a[None, :])
+        xh = _cols(xs, o_offs[k], di_loc).reshape(-1, h_loc, p_dim).to(f32)
+        xbar = xh * dt[..., None]
+        st = decay[:, :, None, None] * ssm_b[k] + torch.einsum("bn,bhp->bhnp", b_.to(f32), xbar)
         y = torch.einsum("bn,bhnp->bhp", c_.to(f32), st)
-        y = y + leaves["d_skip"][k][heads][None, :, None] * xh
+        y = y + head(leaves["d_skip"][k])[None, :, None] * xh
         ys.append(y.reshape(-1, 1, di_loc))
-        zs.append(z[:, None, o_offs[k]:o_offs[k] + di_loc])
+        zs.append(_cols(z, o_offs[k], di_loc)[:, None, :])
         states.append(st)
     _write(conv_b, [w[:, 1:] for w in wins])
     _write(ssm_b, states)
@@ -712,44 +690,48 @@ def mlstm_decode_shards(rules, p: dict, hs: list, state: tuple, cfg: ModelConfig
     which the column blocks of ``w_q``, ``w_k``, ``w_v`` (whole heads, or
     part of one) never line up with: the one-token q, k, v are all-gathered
     over "model".  Each shard updates its P-block of C and n for every head
-    and forms its partials of ``q·C`` and ``q·n``, summed by one all-reduce;
-    m, replicated, every shard computes whole."""
+    and forms its partials of ``q·C`` and ``q·n``, summed by one all-reduce
+    where C is split; m, replicated, every shard computes whole."""
     s = cfg.ssm
     n_heads, di = cfg.n_heads, s.expand * cfg.d_model
     p_dim = di // n_heads
-    mesh, tp_axis = rules.mesh, rules.tp_axis
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    leaves = _leaves(p)
     c_leaf, n_leaf, m_leaf = state
-    cb, nb, mb = c_leaf.own(), n_leaf.own(), m_leaf.own()
-    qkv = [torch.stack([h[:, 0] @ leaves[w][k] for w in ("w_q", "w_k", "w_v")])
-           for k, h in enumerate(hs)]                                    # (3, B, di_loc)
-    if p["w_q"].split_dim() is not None:
-        qkv = collectives.all_gather(qkv, mesh, tp_axis, dim=-1)
-    offs, p_loc = c_leaf.offsets(2), cb[0].shape[2]
+    cb, nb, mb = own_of(c_leaf), own_of(n_leaf), own_of(m_leaf)
+    xts = [h[:, 0] for h in hs]
+    qkv = [[xt @ leaves[w][k] for w in ("w_q", "w_k", "w_v")] for k, xt in enumerate(xts)]
+    if split_dim_of(p["w_q"]) is not None:                              # (3, B, di_loc) a shard
+        qkv = collectives.all_gather([torch.stack(x) for x in qkv], rules.mesh, rules.tp_axis,
+                                     dim=-1)
+    split = split_dim_of(c_leaf) is not None
+    offs, p_loc = offsets_of(c_leaf, 2), cb[0].shape[2]
     new, parts = [], []
-    for k, (h, x) in enumerate(zip(hs, qkv)):
-        bsz = h.shape[0]
+    for k, (xt, x) in enumerate(zip(xts, qkv)):
+        bsz = xt.shape[0]
         q, kk, v = (t.reshape(bsz, n_heads, p_dim).to(f32) for t in x)
         q = q * p_dim ** -0.5
-        xf = h[:, 0].to(f32)
+        xf = xt.to(f32)
         li = xf @ leaves["w_i"][k] + leaves["b_i"][k]                       # (B,H)
         lf = F.logsigmoid(xf @ leaves["w_f"][k] + leaves["b_f"][k])
         m_new = torch.maximum(lf + mb[k], li)
         keep, take = torch.exp(lf + mb[k] - m_new), torch.exp(li - m_new)
-        kb, qb = kk.narrow(-1, offs[k], p_loc), q.narrow(-1, offs[k], p_loc)
+        kb, qb = _cols(kk, offs[k], p_loc), _cols(q, offs[k], p_loc)
         c_new = keep[:, :, None, None] * cb[k] + take[:, :, None, None] * (
             kb[..., :, None] * v[..., None, :])
         n_new = keep[:, :, None] * nb[k] + take[:, :, None] * kb
         num = (qb[:, :, None, :] @ c_new)[:, :, 0]                           # (B,H,P)
-        parts.append(torch.cat([num, (qb * n_new).sum(dim=-1)[..., None]], dim=-1))
+        qn = (qb * n_new).sum(dim=-1)
+        parts.append(torch.cat([num, qn[..., None]], dim=-1) if split else (num, qn))
         new.append((c_new, n_new, m_new))
-    parts = collectives.all_reduce_sum(parts, mesh, tp_axis)
-    o_offs, di_loc = p["out_proj"].offsets(0), leaves["out_proj"][0].shape[0]
+    if split:
+        parts = [(t[..., :-1], t[..., -1])
+                 for t in collectives.all_reduce_sum(parts, rules.mesh, rules.tp_axis)]
+    o_offs, di_loc = offsets_of(p["out_proj"], 0), leaves["out_proj"][0].shape[0]
     ys, zs = [], []
-    for k, (h, part, (_, _, m_new)) in enumerate(zip(hs, parts, new)):
-        den = torch.maximum(part[..., -1].abs(), torch.exp(-m_new))
-        y = (part[..., :-1] / den[..., None]).reshape(h.shape[0], 1, di)
-        ys.append(y.narrow(-1, o_offs[k], di_loc))
+    for k, (h, (num, qn), (_, _, m_new)) in enumerate(zip(hs, parts, new)):
+        den = torch.maximum(qn.abs(), torch.exp(-m_new))
+        y = (num / den[..., None]).reshape(h.shape[0], 1, di)
+        ys.append(_cols(y, o_offs[k], di_loc))
         zs.append(h @ leaves["w_gate"][k])
     for blocks, i in ((cb, 0), (nb, 1), (mb, 2)):
         _write(blocks, [t[i] for t in new])
@@ -762,24 +744,24 @@ def slstm_decode_shards(rules, p: dict, hs: list, state: tuple, cfg: ModelConfig
     whole state (gate g of every unit comes from head g's whole h), so the
     four blocks are all-gathered over "model" (one (4, B_loc, D) buffer), the
     step runs on every shard as in the prefill, and each keeps its block."""
-    mesh, tp_axis = rules.mesh, rules.tp_axis
-    leaves = {name: leaf.locals() for name, leaf in p.items()}
+    leaves = _leaves(p)
     wx = [h.to(f32) @ w for h, w in zip(hs, leaves["w"])]
-    if p["w"].split_dim() is not None:
-        wx = collectives.all_gather(wx, mesh, tp_axis, dim=-1)
-    blocks = [leaf.own() for leaf in state]
-    olds = [torch.stack([b[k] for b in blocks]) for k in range(len(hs))]   # (4, B, D_loc)
-    if state[0].split_dim() is not None:
-        olds = collectives.all_gather(olds, mesh, tp_axis, dim=-1)
-    offs, d_loc = state[0].offsets(-1), blocks[0][0].shape[-1]
+    if split_dim_of(p["w"]) is not None:
+        wx = collectives.all_gather(wx, rules.mesh, rules.tp_axis, dim=-1)
+    blocks = [own_of(leaf) for leaf in state]
+    olds = [tuple(b[k] for b in blocks) for k in range(len(hs))]
+    if split_dim_of(state[0]) is not None:                             # (4, B_loc, D_loc) a shard
+        olds = collectives.all_gather([torch.stack(old) for old in olds], rules.mesh,
+                                      rules.tp_axis, dim=-1)
+    offs, d_loc = offsets_of(state[0], -1), blocks[0][0].shape[-1]
     outs, new = [], []
     for k, (h, w, old) in enumerate(zip(hs, wx, olds)):
         loc = {name: v[k] for name, v in leaves.items()}
         seq, st = _slstm_scan(loc, w + loc["b"], cfg, tuple(old))
         outs.append(_slstm_out(loc, seq, h, cfg))
-        new.append([t.narrow(-1, offs[k], d_loc) for t in st])
+        new.append([_cols(t, offs[k], d_loc) for t in st])
     for i, b in enumerate(blocks):
         _write(b, [t[i] for t in new])
-    if p["down"].split_dim() is None:
+    if split_dim_of(p["down"]) is None:
         return outs
-    return collectives.all_reduce_sum(outs, mesh, tp_axis)
+    return collectives.all_reduce_sum(outs, rules.mesh, rules.tp_axis)
