@@ -31,13 +31,19 @@ the host's aten operators.  The prefill's
 attention takes the plain path (``use_kernel=False``): a decode step runs
 none of the port's kernels, so nothing is built.
 
-    PYTHONPATH=src python3 lm_forward_ab.py walls
+    PYTHONPATH=src python3 lm_forward_ab.py prefill-launches ARCH
+
+on a card: the same count for one 2 × 1024 cached prefill of ARCH at full
+width (bf16, seeded weights, the kernels built first), after a warm-up one.
+
+    PYTHONPATH=src python3 lm_forward_ab.py walls [ARCH ...]
 
 on a card: phase 15's and 16's timings (``chip_smoke.lm_timings`` for
 qwen3-8b and granite-moe-1b-a400m, ``chip_smoke.family_timings`` for
 zamba2-2.7b at 2 × 1024, seamless-m4t-large-v2 at 2 × 256 and xlstm-1.3b at
-2 × 1024), the kernels built first, one model on the card at a time; run it
-with each checkout's ``src`` in turns to compare two trees on one card.
+2 × 1024), the kernels built first, one model on the card at a time (only
+the ARCHs named, if any); run it with each checkout's ``src`` in turns to
+compare two trees on one card.
 """
 from __future__ import annotations
 
@@ -193,20 +199,42 @@ def compare(path_a: str, path_b: str) -> int:
     return 1 if bad else 0
 
 
-def decode_launches(arch: str, repeats: int = 3) -> None:
-    import json
-    import subprocess
-
+def _profiled_launches(fn) -> dict:
+    """The kernel launch and copy calls of one ``fn()`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    device = {e.key: e.count for e in rows
+              if e.self_cpu_time_total == 0.0 and e.self_device_time_total > 0.0}
+    host = {e.key: e.count for e in rows if e.key.startswith(chip_smoke.LAUNCH_CALLS)}
+    aten = sum(e.count for e in rows if e.key.startswith("aten::")
+               and e.self_cpu_time_total > 0.0)
+    return {"device_rows": sum(device.values()), "host_calls": host, "host_operators": aten,
+            "device_by_name": device}
+
+
+def _card() -> str:
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def decode_launches(arch: str, repeats: int = 3) -> None:
+    import json
+
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
 
     if not torch.cuda.is_available():
         sys.exit("decode-launches needs a card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = _card()
     dev = torch.device("cuda")
     cfg = get_config(arch)
     lm = LM(cfg, use_kernel=False)
@@ -218,24 +246,35 @@ def decode_launches(arch: str, repeats: int = 3) -> None:
         lm.decode_step(params, cache, tokens[:, 1024:1025])
         for i in range(repeats):
             tok = tokens[:, 1025 + i:1026 + i]
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                lm.decode_step(params, cache, tok)
-                torch.cuda.synchronize()
-            rows = prof.key_averages()
-            device = {e.key: e.count for e in rows
-                      if e.self_cpu_time_total == 0.0 and e.self_device_time_total > 0.0}
-            host = {e.key: e.count for e in rows if e.key.startswith(chip_smoke.LAUNCH_CALLS)}
-            aten = sum(e.count for e in rows if e.key.startswith("aten::")
-                       and e.self_cpu_time_total > 0.0)
-            print(json.dumps({"arch": arch, "step": i, "device_rows": sum(device.values()),
-                              "host_calls": host, "host_operators": aten,
-                              "device_by_name": device, "card": card}), flush=True)
+            rec = _profiled_launches(lambda: lm.decode_step(params, cache, tok))
+            print(json.dumps({"arch": arch, "step": i, **rec, "card": card}), flush=True)
 
 
-def walls() -> None:
+def prefill_launches(arch: str) -> None:
+    import json
+
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import LM
+
+    if not torch.cuda.is_available():
+        sys.exit("prefill-launches needs a card")
+    card = _card()
+    build.build_all()
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    tokens, _, fe = chip_smoke.family_inputs(cfg, dev, 2, 1024, seed=11)
+    with torch.no_grad():
+        lm.prefill(params, tokens, fe)
+        rec = _profiled_launches(lambda: lm.prefill(params, tokens, fe))
+    print(json.dumps({"arch": arch, "prefill": [2, 1024], **rec, "card": card}), flush=True)
+
+
+def walls(archs=()) -> None:
     import gc
-    import subprocess
 
     import chip_smoke
     from repro_torch.configs import get_config
@@ -244,14 +283,15 @@ def walls() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("walls needs a card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = _card()
     build.build_all()
     dev = torch.device("cuda")
     cases = [("qwen3-8b", None), ("granite-moe-1b-a400m", None), ("zamba2-2.7b", 1024),
              ("seamless-m4t-large-v2", 256), ("xlstm-1.3b", 1024)]
     with torch.no_grad():
         for arch, s in cases:
+            if archs and arch not in archs:
+                continue
             cfg = get_config(arch)
             params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
             if s is None:
@@ -271,8 +311,10 @@ if __name__ == "__main__":
         dump(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "compare":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
-    elif len(sys.argv) == 2 and sys.argv[1] == "walls":
-        walls()
+    elif len(sys.argv) >= 2 and sys.argv[1] == "walls":
+        walls(sys.argv[2:])
+    elif len(sys.argv) == 3 and sys.argv[1] == "prefill-launches":
+        prefill_launches(sys.argv[2])
     elif len(sys.argv) in (3, 4) and sys.argv[1] == "decode-launches":
         decode_launches(sys.argv[2], *map(int, sys.argv[3:]))
     else:

@@ -65,6 +65,10 @@ class Pipeline:
     def k(self) -> int:
         return len(self.agg_features)
 
+    @property
+    def n_features(self) -> int:
+        return len(self.agg_features) + len(self.exact_features)
+
     def exact_feature_values(self, store: ColumnStore, request: dict) -> np.ndarray:
         out = np.zeros((len(self.exact_features),), np.float32)
         for i, f in enumerate(self.exact_features):

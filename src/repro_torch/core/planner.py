@@ -9,10 +9,16 @@ steps, each lane planned on its own (the batched fused executor).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["direction", "gamma_abs", "initial_plan", "next_plan"]
+__all__ = ["PlanState", "direction", "gamma_abs", "initial_plan", "next_plan"]
+
+
+class PlanState(NamedTuple):
+    z: torch.Tensor  # (..., k) int32 current sample sizes
+    n: torch.Tensor  # (..., k) int32 total records per feature
 
 
 def gamma_abs(n: torch.Tensor, gamma_frac: float) -> torch.Tensor:

@@ -6,6 +6,10 @@ intermediate masked to 32 bits); they are bit-exact with the reference's
 ``sobol_uint32`` (and so with ``scipy.stats.qmc.Sobol(scramble=False)``).
 On a CUDA device the grid comes from the ``sobol_points`` kernel
 (``kernels/sobol``); :func:`sobol_uint32` here is its plain version.
+:func:`sobol_sequence` and :func:`normal_qmc_samples`, the reference's
+public float32 grids, take the device policy of the port's entry points
+(``device.resolve_device``) and launch the kernel there;
+:func:`discrepancy_proxy` is host numpy, as in the reference.
 
 :func:`digital_shift` XORs a threefry draw into the points (the
 randomized QMC of the host-loop executor).  :func:`uniform_to_normal` is
@@ -25,9 +29,19 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.core.sobol_tables import BITS, DIRECTION_NUMBERS, MAX_DIM
+from repro_torch.device import resolve_device
 from repro_torch.numerics import fma
 
-__all__ = ["digital_shift", "direction_numbers", "sobol_uint32", "ndtri", "uniform_to_normal"]
+__all__ = [
+    "digital_shift",
+    "direction_numbers",
+    "discrepancy_proxy",
+    "ndtri",
+    "normal_qmc_samples",
+    "sobol_sequence",
+    "sobol_uint32",
+    "uniform_to_normal",
+]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -157,3 +171,55 @@ def uniform_to_normal(u: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF transform of uniforms in (0, 1) to standard normals."""
     eps = np.float32(1e-7)
     return ndtri(torch.clamp(u.to(torch.float32), float(eps), float(1 - eps)))
+
+
+def sobol_sequence(n: int, dim: int, skip: int = 0, *, shift_half: bool = True,
+                   device=None, use_kernel: bool = True) -> torch.Tensor:
+    """(n, dim) float32 Sobol points in [0, 1) on ``device`` (default the card).
+
+    ``shift_half=True`` gives the QMC uniforms ``(x + 0.5)·2⁻³²``, which the
+    ``sobol_points`` kernel writes in its one pass on the card;
+    ``shift_half=False`` gives ``x·2⁻³²`` of the kernel's raw points, equal
+    bit for bit to ``scipy.stats.qmc.Sobol(dim, scramble=False)``.  On the
+    CPU, or with ``use_kernel=False``, the plain :func:`sobol_uint32`.
+    """
+    from repro_torch.kernels.sobol import ops  # ops imports this module
+
+    device = resolve_device(device)
+    if shift_half:
+        return ops.uniforms(n, dim, skip, device=device, use_kernel=use_kernel)
+    x = ops.points(n, dim, skip, device=device, use_kernel=use_kernel)
+    return x.to(torch.float32) * 2.0**-32
+
+
+def normal_qmc_samples(n: int, dim: int, key=None, skip: int = 0, *, device=None,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """(n, dim) float32 standard-normal QMC samples on ``device`` (default the
+    card): the Sobol points, digitally shifted by the threefry ``key`` when
+    one is given (:func:`digital_shift`), as QMC uniforms through
+    :func:`uniform_to_normal`.  Without a key the kernel writes the uniforms
+    itself."""
+    from repro_torch.kernels.sobol import ops  # ops imports this module
+
+    device = resolve_device(device)
+    if key is None:
+        u = ops.uniforms(n, dim, skip, device=device, use_kernel=use_kernel)
+    else:
+        x = ops.points(n, dim, skip, device=device, use_kernel=use_kernel)
+        u = ops.to_uniforms(digital_shift(key, x))
+    return uniform_to_normal(u)
+
+
+def discrepancy_proxy(points) -> float:
+    """The L2-star discrepancy of ``points`` (n, d) in [0, 1) by Warnock's
+    O(n² d) formula, in float64 numpy on the host (for tests and checks)::
+
+        D² = 3⁻ᵈ − (2¹⁻ᵈ / n) Σᵢ Πₖ (1 − x²ᵢₖ) + (1 / n²) Σᵢⱼ Πₖ (1 − max(xᵢₖ, xⱼₖ))
+    """
+    if isinstance(points, torch.Tensor):
+        points = points.detach().cpu().numpy()
+    pts = np.asarray(points, dtype=np.float64)
+    n, d = pts.shape
+    t1 = (2.0 ** (1 - d) / n) * np.prod(1.0 - pts**2, axis=1).sum()
+    t2 = np.prod(1.0 - np.maximum(pts[:, None, :], pts[None, :, :]), axis=2).sum() / n**2
+    return float(3.0**-d - t1 + t2)

@@ -33,6 +33,7 @@ __all__ = [
     "beta_order_stat",
     "boot_key_table",
     "bootstrap_rank_targets",
+    "estimates_from_moments",
     "finish_quantile_estimates",
     "masked_estimates",
     "masked_quantile_estimates",
@@ -264,6 +265,26 @@ def bootstrap_rank_targets(z: torch.Tensor, qs: torch.Tensor, key, n_boot: int) 
     boot = torch.floor(zf[..., None] * v).to(torch.int32)
     boot = torch.minimum(torch.clamp(boot, min=0), zm1[..., None])
     return torch.cat([rank[..., None], boot], dim=-1)
+
+
+def estimates_from_moments(m: torch.Tensor, n: torch.Tensor):
+    """(mean, unbiased variance, standard error of the mean) a feature, float32,
+    from raw power sums ``m`` (k, ≥ 3) ``[count, Σu, Σu², ...]`` of a sample of
+    each feature's group of ``n`` (k,) records.
+
+    The reference's clamps: a count below 1 counts as 1, a negative variance
+    as 0, and the finite-population correction √((n − count) / (n − 1)) is
+    clipped to [0, 1] (0 where the sample is the whole group).  The second
+    moment about the mean is one FMA, as XLA contracts the reference's
+    ``m₂ / count − mean²``."""
+    m = m.to(f32)
+    count = torch.clamp(m[:, 0], min=1.0)
+    mean = m[:, 1] / count
+    var = torch.clamp(fma(-mean, mean, m[:, 2] / count), min=0.0) * count / torch.clamp(
+        count - 1.0, min=1.0)
+    nf = n.to(f32)
+    fpc = sqrt(torch.clamp((nf - count) / torch.clamp(nf - 1.0, min=1.0), 0.0, 1.0))
+    return mean, var, sqrt(var / count) * fpc
 
 
 def finish_quantile_estimates(sel: torch.Tensor, z: torch.Tensor, n: torch.Tensor):

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models.lm.sharding import locals_of, own_of, split_dim_of
+from repro_torch.numerics import rsqrt
 
 __all__ = [
     "attention_block",
@@ -92,9 +93,11 @@ f32 = torch.float32
 # Norms / positional
 # --------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x · rsqrt(mean(x²) + eps) · w`` in float32, the scale from
+    ``numerics.rsqrt``."""
     xf = x.to(f32)
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return ((xf * torch.rsqrt(var + eps)) * w.to(f32)).to(x.dtype)
+    return ((xf * rsqrt(var + eps)) * w.to(f32)).to(x.dtype)
 
 
 def _rotate_half(x):

@@ -36,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import collectives, scan
 from repro_torch.models.lm.layers import _normal, rms_norm
 from repro_torch.models.lm.sharding import locals_of, offsets_of, own_of, split_dim_of
+from repro_torch.numerics import rsqrt
 
 __all__ = [
     "init_mamba2",
@@ -245,6 +246,24 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> 
     }
 
 
+def _gate_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for the mLSTM's gate preactivations (``w`` (D, H), a column
+    a head), summed over D in XLA's order: four partial sums over the
+    interleaved rows ``l::4`` of ``w``, added as (s0 + s1) + (s2 + s3); a
+    product of one row in one running sum.  The exponential input gate
+    amplifies these products' rounding through every later state: summed in
+    one running sum, as PyTorch's CPU product of a few hundred terms is,
+    xlstm's float32 states lie about twice as far from float64 as the
+    reference's.  On the CPU this is XLA's dot bit for bit up to D = 1024;
+    beyond, PyTorch blocks each partial sum and XLA does not (ROADMAP
+    Queue 3).  One copy lays out x's four lanes."""
+    if x.numel() == x.shape[-1]:
+        return x @ w
+    xs = x.unflatten(-1, (-1, 4)).movedim(-1, 0).contiguous().unbind(0)
+    s = [a @ b for a, b in zip(xs, w.unflatten(0, (-1, 4)).unbind(1))]
+    return (s[0] + s[1]) + (s[2] + s[3])
+
+
 def _mlstm_chunked(q, k, v, log_i, log_f, chunk, compute_dtype=f32):
     """Stabilized chunkwise mLSTM from the empty state.
 
@@ -445,7 +464,7 @@ def _rms_norm_shards(rules, ys: list, ws: list, width: int, eps: float, split: b
         return [rms_norm(y, w, eps) for y, w in zip(ys, ws)]
     sq = [torch.sum(y.to(f32) * y.to(f32), dim=-1, keepdim=True) for y in ys]
     sq = collectives.all_reduce_sum(sq, rules.mesh, rules.tp_axis)
-    return [((y.to(f32) * torch.rsqrt(q / width + eps)) * w.to(f32)).to(y.dtype)
+    return [((y.to(f32) * rsqrt(q / width + eps)) * w.to(f32)).to(y.dtype)
             for y, q, w in zip(ys, sq, ws)]
 
 
@@ -538,9 +557,10 @@ def mlstm_block_shards(rules, p: dict, hs: list, cfg: ModelConfig, *, sink=None)
                    .reshape(bsz, length, -1, p_dim) for xs, firsts in qkv)
         hf = h.to(f32)
         # xLSTM's exponential input gate: log i is the preactivation itself
-        li = _cols(hf @ leaves["w_i"][n] + leaves["b_i"][n], heads.start, width // p_dim)
-        lf = _cols(F.logsigmoid(hf @ leaves["w_f"][n] + leaves["b_f"][n]), heads.start,
+        li = _cols(_gate_product(hf, leaves["w_i"][n]) + leaves["b_i"][n], heads.start,
                    width // p_dim)
+        lf = _cols(F.logsigmoid(_gate_product(hf, leaves["w_f"][n]) + leaves["b_f"][n]),
+                   heads.start, width // p_dim)
         y, state = _mlstm_chunked(q, k, v, li, lf, s.chunk, compute_dtype=h.dtype)
         ys.append(_cols(y.reshape(bsz, length, width), off - heads.start * p_dim, di_loc))
         zs.append(h @ leaves["w_gate"][n])
@@ -711,8 +731,8 @@ def mlstm_decode_shards(rules, p: dict, hs: list, state: tuple, cfg: ModelConfig
         q, kk, v = (t.reshape(bsz, n_heads, p_dim).to(f32) for t in x)
         q = q * p_dim ** -0.5
         xf = xt.to(f32)
-        li = xf @ leaves["w_i"][k] + leaves["b_i"][k]                       # (B,H)
-        lf = F.logsigmoid(xf @ leaves["w_f"][k] + leaves["b_f"][k])
+        li = _gate_product(xf, leaves["w_i"][k]) + leaves["b_i"][k]          # (B,H)
+        lf = F.logsigmoid(_gate_product(xf, leaves["w_f"][k]) + leaves["b_f"][k])
         m_new = torch.maximum(lf + mb[k], li)
         keep, take = torch.exp(lf + mb[k] - m_new), torch.exp(li - m_new)
         kb, qb = _cols(kk, offs[k], p_loc), _cols(q, offs[k], p_loc)

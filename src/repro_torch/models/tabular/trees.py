@@ -177,8 +177,9 @@ def _numpy_tree_predict(tree: dict, Xb: np.ndarray, depth: int) -> np.ndarray:
 class TreeModel(nn.Module):
     """Shared inference of the two ensembles: ``base + scale · Σ leaves``.
 
-    Their ``predict`` takes ``use_kernel`` (the ``ensemble_sum`` kernel or
-    its plain version on the card); the port's other models run no kernel.
+    Their ``predict``, ``predict_raw`` and ``predict_proba`` take
+    ``use_kernel`` (the ``ensemble_sum`` kernel or its plain version on the
+    card); the port's other models run no kernel.
     """
 
     task: str
@@ -231,6 +232,10 @@ class RandomForest(TreeModel):
             return (raw > 0.5).to(torch.int32)
         return raw
 
+    def predict_proba(self, x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+        """The positive class's probability: the leaf average clipped to [0, 1]."""
+        return torch.clamp(self.predict_raw(x, use_kernel=use_kernel), 0.0, 1.0)
+
 
 class GradientBoosting(TreeModel):
     """Second-order gradient boosting; squared loss or logistic loss."""
@@ -282,3 +287,7 @@ class GradientBoosting(TreeModel):
         if self.task == "classification":
             return (raw > 0.0).to(torch.int32)
         return raw
+
+    def predict_proba(self, x: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+        """The positive class's probability: the sigmoid of the raw score."""
+        return torch.sigmoid(self.predict_raw(x, use_kernel=use_kernel))

@@ -6,6 +6,7 @@ port reproduces their float32 roundings where its z-plans depend on them:
 * :func:`fma` — XLA contracts ``a·b + c`` into one fused multiply-add;
 * :func:`sqrt` — correctly rounded (PyTorch's vectorised CPU float32
   ``sqrt`` is not, on every input);
+* :func:`rsqrt` — float32, rounded as often as XLA's, for the LM's RMS norms;
 * :func:`log` / :func:`log1p` — the float32 polynomials XLA's CPU backend
   emits (the Cephes ``logf`` reduction and Cephes' rational ``log1p`` for
   small arguments), with their multiply-adds contracted as its compiler
@@ -19,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["fma", "log", "log1p", "sqrt"]
+__all__ = ["fma", "log", "log1p", "rsqrt", "sqrt"]
 
 f32 = torch.float32
 
@@ -42,6 +43,21 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (float64 root, one rounding)."""
     return torch.sqrt(x.to(torch.float64)).to(f32)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1/√x`` in ``x``'s type as ``√(1/x)``: the reciprocal rounded, then
+    its root, within one ulp of the exact value.
+
+    PyTorch's float32 ``rsqrt`` is ``1/√x`` rounded twice on the CPU (one
+    ulp off the nearest float32 on about 23% of inputs, XLA's on about 12%)
+    and an approximation on the card; ``√(1/x)`` is off on about 12%.  The
+    scale multiplies a whole row of an RMS norm.  In xlstm's ill-conditioned
+    training gradient the mLSTM leaves lie 1.61 × the reference's median
+    distance from float64 with ``torch.rsqrt`` and 1.56 × with this; a
+    correctly rounded scale, which needs a float64 root, gave 1.18
+    (``tests/torch_xlstm_envelope.py``, ROADMAP Queue 3)."""
+    return torch.sqrt(torch.reciprocal(x))
 
 
 def _c(x: float) -> float:

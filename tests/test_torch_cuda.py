@@ -120,6 +120,46 @@ def test_sobol_points_every_run_length_gives_the_plain_bits(dev, m, d, skip):
         assert torch.equal(bits.to(torch.int64) & 0xFFFFFFFF, want), run
 
 
+@pytest.mark.parametrize("m,d,skip", [(1000, 18, 0), (65536, 64, 0), (257, 21, 1000)])
+def test_public_qmc_grids_launch_sobol_points_and_equal_the_cpu(dev, m, d, skip):
+    """``sobol_sequence`` (both ``shift_half``) and ``normal_qmc_samples``
+    (with and without a key): one ``sobol_points`` launch each, bitwise the
+    plain version on the card and the CPU's grid."""
+    from repro_torch import core
+
+    key = threefry.PRNGKey(7)
+    calls = [lambda dv, k: core.sobol_sequence(m, d, skip, device=dv, use_kernel=k),
+             lambda dv, k: core.sobol_sequence(m, d, skip, shift_half=False, device=dv,
+                                               use_kernel=k),
+             lambda dv, k: core.normal_qmc_samples(m, d, None, skip, device=dv, use_kernel=k),
+             lambda dv, k: core.normal_qmc_samples(m, d, key, skip, device=dv, use_kernel=k)]
+    build.reset_launch_counts()
+    got = [f(dev, True) for f in calls]
+    assert build.PATHS == {"sobol_points.runs": 4}
+    for g, f in zip(got, calls):
+        assert torch.equal(g.view(torch.int32), f(dev, False).view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), f("cpu", True).view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["rf", "gbm"])
+def test_predict_proba_launches_ensemble_sum(dev, kind):
+    """A classifier's ``predict_proba``: one ``ensemble_sum`` launch, bitwise
+    the plain version's probabilities, in [0, 1]."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 1, (2000, 9)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] * x[:, 2] > 0).astype(np.float32)
+    model = (RandomForest(n_trees=16, max_depth=6, task="classification") if kind == "rf"
+             else GradientBoosting(n_trees=20, max_depth=5, task="classification")).fit(x, y)
+    model.to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (3817, 9)).astype(np.float32)).to(dev)
+    build.reset_launch_counts()
+    got = model.predict_proba(rows)
+    assert build.LAUNCHES == {"ensemble_sum": 1}
+    want = model.predict_proba(rows, use_kernel=False)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(((got >= 0) & (got <= 1)).all())
+
+
 def test_executor_build_launches_sobol_points_once(dev):
     """One launch covers the AMI and the Saltelli grids, and no request
     launches it again."""

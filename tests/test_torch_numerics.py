@@ -115,6 +115,36 @@ def test_ndtri_log_is_correctly_rounded():
     assert (got == np.log(u.astype(np.float64)).astype(np.float32)).all()
 
 
+# ------------------------------------------------------------ RMS norm scale
+def test_rsqrt_is_correctly_rounded():
+    """``numerics.rsqrt`` (the RMS norms' scale) is √(1/x), the reciprocal
+    correctly rounded: within one ulp of 1/√x, one ulp off the nearest
+    float32 on 12.3% of these inputs, as XLA's rsqrt is on 11.5%; PyTorch's
+    float32 ``rsqrt`` (1/√x rounded twice) on 23.0%.  A float64 input stays
+    float64."""
+    import jax
+
+    from repro_torch.numerics import rsqrt
+
+    x = np.random.default_rng(2).uniform(1e-6, 64.0, 200000).astype(np.float32)
+    exact = 1.0 / np.sqrt(x.astype(np.float64))
+    nearest = exact.astype(np.float32)
+    got = rsqrt(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    assert (torch.reciprocal(torch.from_numpy(x)).numpy()
+            == (1.0 / x.astype(np.float64)).astype(np.float32)).all()
+    assert (np.abs(got - exact) < np.spacing(got)).all()
+    off = {"port": float((got != nearest).mean()),
+           "torch": float((torch.rsqrt(torch.from_numpy(x)).numpy() != nearest).mean()),
+           "xla": float((np.asarray(jax.jit(jax.lax.rsqrt)(x)) != nearest).mean())}
+    assert 0.08 < off["port"] < 0.16 and 0.18 < off["torch"] < 0.3, off
+    assert 0.05 < off["xla"] < 0.25, off
+    x64 = torch.from_numpy(x.astype(np.float64))
+    assert rsqrt(x64).dtype == torch.float64
+    assert torch.equal(rsqrt(x64), torch.sqrt(1 / x64))
+
+
 # ----------------------------------------------------- Eq. 1, degenerate σ
 def test_guarantee_prob_degenerate_sigma_keeps_subnormal_bias():
     """ŷ = 0, mean = 1e-38 (a float32 subnormal), sd = 0, δ = 0: the bias is

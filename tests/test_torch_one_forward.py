@@ -5,7 +5,8 @@ of the forward as its one-shard case.
 For each of the ten configs at ``.reduced()`` size (their own bf16), the aten
 operators that one call dispatches, counted under a ``TorchDispatchMode``,
 are no more than those of the forward's earlier unsharded copy, pinned
-below, and no collective is called (``collectives.STATS`` records nothing,
+below, plus those that two later numerics repairs add (``ADDED``), and no
+collective is called (``collectives.STATS`` records nothing,
 and its counter is never reached).  The setting: ``LM(cfg, attn_block=64,
 loss_chunk=16)`` on ``init``'s weights from seed 0, B = 2, S = 32 tokens
 (the VLM's 8 frontend positions before them, the audio decoder over 8
@@ -42,6 +43,26 @@ EARLIER = {
     "zamba2-2.7b": (1085, 1065, 753),
     "internvl2-1b": (739, 706, 647),
     "seamless-m4t-large-v2": (1371, 1358, 891),
+}
+
+
+# (train_loss, prefill, decode_step) operators added since: each RMS norm's
+# scale is ``numerics.rsqrt``, a reciprocal and a root where ``torch.rsqrt``
+# was one operator (every config), and xlstm's mLSTM gate products are
+# ``ssm._gate_product``'s four partial products (a copy, views, four
+# products, three adds) where ``x @ w`` was one, except at one row.
+# Counted as this tree's operators less those at commit f5aecbc.
+ADDED = {
+    "deepseek-v2-236b": (22, 17, 17),
+    "granite-moe-1b-a400m": (10, 9, 9),
+    "qwen3-14b": (18, 17, 17),
+    "qwen1.5-0.5b": (10, 9, 9),
+    "gemma-7b": (10, 9, 9),
+    "qwen3-8b": (18, 17, 17),
+    "xlstm-1.3b": (120, 117, 81),
+    "zamba2-2.7b": (18, 13, 13),
+    "internvl2-1b": (10, 9, 9),
+    "seamless-m4t-large-v2": (20, 18, 13),
 }
 
 
@@ -115,6 +136,7 @@ def _leaves(tree):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_one_shard_forward_issues_no_more_operators(arch, entry):
     n, calls, stats = _counts(arch)[entry]
-    assert n <= EARLIER[arch][ENTRIES.index(entry)], (arch, entry, n)
+    i = ENTRIES.index(entry)
+    assert n <= EARLIER[arch][i] + ADDED[arch][i], (arch, entry, n)
     assert calls == 0, (arch, entry, calls)
     assert stats == {"per_op_bytes": {}, "per_op_count": {}, "link_bytes": 0.0}

@@ -16,9 +16,20 @@ the SSM and conv states split as the spec says, ``ck``, ``cv`` whole.
 * every step's logits within 1e-5 relative to their largest magnitude, and
   every cache leaf, gathered (``sharding.gather_cache``), within 1e-5 of the
   reference's leaf after the last step; xlstm, whose float32 rounding the
-  sLSTM's exponential gating amplifies past 1e-5 (its unsharded port alone
-  lies 1.07e-5 from the reference on ``sc`` at B = 1), against the float64
-  unsharded port instead (``test_sharded_prefill_and_decode_match_reference``);
+  exponential gates amplify to the order of 1e-5 in both packages, against
+  the float64 unsharded port instead, within twice the largest distance of
+  the reference's own float32 runs on 16 weight sets nudged by ±2⁻²⁴
+  (``test_sharded_prefill_and_decode_match_reference``);
+* xlstm's float32 envelope over those 16 weight sets at B = 1 and 2: the
+  port's median distance from the float64 port within 1.5 × the
+  reference's, logits and every cache leaf.  The mLSTM's gate products
+  ``x @ w_i``, ``x @ w_f`` (a column a head) once put the port at 2.0 /
+  1.8 / 1.6 / 1.6 × on ``sc`` / ``sn`` / ``sm`` / ``sh`` (B = 1): summed
+  in one running sum, where XLA's CPU dot sums a product that narrow in
+  four interleaved partial sums (``ssm._gate_product``, held to XLA's dot
+  bitwise below up to width 1024; at the published 2048 PyTorch's product
+  blocks each partial sum and XLA's does not), their rounding reached every
+  later state through the exponential input gate;
 * xlstm in float64 (``torch_tp_probes.float64_port``): the sharded decode
   within 1e-10 of the unsharded port on every mesh, and the planted faults
   beyond that bound;
@@ -65,7 +76,9 @@ from repro_torch.models.lm.sharding import (
 from torch_pipeline_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.optim.adamw import tree_map
 from torch_tp_probes import float64_port, planted
-from torch_train_parity import float32_params, models, to_numpy, walk
+from repro_torch.bridge import lm_params_from_numpy
+from repro_torch.models.lm import ssm as ssm_lib
+from torch_train_parity import float32_params, models, to_numpy, to_ref, walk
 
 # name -> (mesh, global batch)
 MESHES = {"1x2": ((1, 2), 2), "1x4": ((1, 4), 2), "2x2": ((2, 2), 2), "2x2_b1": ((2, 2), 1)}
@@ -78,6 +91,10 @@ F64_TOL = 1e-10
 # test's bound), for the configs whose float32 rounding passes REL_TOL
 F32_TO_F64_TOL = 1e-4
 FLOAT64_YARDSTICK = ("xlstm-1.3b",)
+# xlstm's float32 envelope: weight sets nudged by ±2⁻²⁴ relative, element by
+# element; the port's median distance from float64 against the reference's
+N_NUDGED = 16
+ENVELOPE_RATIO = 1.5
 S_WINDOW = 96            # zamba2's reduced window of 64 binds: the ring wraps
 
 
@@ -104,17 +121,19 @@ def _reference(arch, b, s=S, max_seq=None):
     key = (arch, b, s, max_seq)
     if key not in _REF:
         ref_lm, ref_p, lm, _ = models(arch)
-        tokens, fe = _inputs(lm.cfg, b, s)
-        logits, cache = jax.jit(ref_lm.prefill, static_argnums=3)(
-            ref_p, jnp.asarray(tokens[:, :s]), None if fe is None else jnp.asarray(fe), max_seq)
-        out = [to_numpy(logits)]
-        step = jax.jit(ref_lm.decode_step)
-        for i in range(N_DECODE):
-            logits, cache = step(ref_p, cache, jnp.asarray(tokens[:, s + i:s + i + 1]))
-            out.append(to_numpy(logits))
-        _REF[key] = (out, {k: to_numpy(v) for k, v in cache.items() if k != "pos"},
-                     int(cache["pos"]))
+        _REF[key] = _reference_run(ref_lm, ref_p, *_inputs(lm.cfg, b, s), s, max_seq)
     return _REF[key]
+
+
+def _reference_run(ref_lm, ref_p, tokens, fe, s=S, max_seq=None):
+    logits, cache = jax.jit(ref_lm.prefill, static_argnums=3)(
+        ref_p, jnp.asarray(tokens[:, :s]), None if fe is None else jnp.asarray(fe), max_seq)
+    out = [to_numpy(logits)]
+    step = jax.jit(ref_lm.decode_step)
+    for i in range(N_DECODE):
+        logits, cache = step(ref_p, cache, jnp.asarray(tokens[:, s + i:s + i + 1]))
+        out.append(to_numpy(logits))
+    return out, {k: to_numpy(v) for k, v in cache.items() if k != "pos"}, int(cache["pos"])
 
 
 def _port(lm, params, tokens, fe, s, max_seq=None):
@@ -162,11 +181,59 @@ _YARD: dict = {}
 def _yardstick(arch, b):
     """The float64 unsharded port's logits and cache, in ``_errors``' form."""
     if (arch, b) not in _YARD:
-        logits, cache = _float64(arch, None, b)[0]
-        assert logits[0].dtype == torch.float64
-        _YARD[(arch, b)] = ([t.numpy() for t in logits],
-                            {k: v.numpy() for k, v in cache.items() if k != "pos"}, cache["pos"])
+        _YARD[(arch, b)] = _as_reference(*_float64(arch, None, b)[0])
     return _YARD[(arch, b)]
+
+
+def _as_reference(logits, cache):
+    """The port's float64 (logits, cache) in the form of ``_reference``'s."""
+    assert logits[0].dtype == torch.float64
+    return ([t.numpy() for t in logits],
+            {k: v.numpy() for k, v in cache.items() if k != "pos"}, cache["pos"])
+
+
+def _nudged(tree, k: int):
+    """The numpy weight tree with each element moved by ±2⁻²⁴ relative, the
+    signs drawn from seed ``k``."""
+    rng = np.random.default_rng(1000 + k)
+
+    def move(t):
+        if isinstance(t, dict):
+            return {name: move(v) for name, v in t.items()}
+        if isinstance(t, list):
+            return [move(v) for v in t]
+        sign = rng.choice([-1.0, 1.0], t.shape)
+        return (t.astype(np.float64) * (1.0 + sign * 2.0 ** -24)).astype(np.float32)
+
+    return move(tree)
+
+
+_ENV: dict = {}
+
+
+def _envelope(arch, b):
+    """Over ``N_NUDGED`` nudged weight sets, the reference's and the port's
+    float32 runs (unsharded) against the float64 port on the same weights:
+    two lists of (step distances, leaf distances), one entry a weight set."""
+    if (arch, b) not in _ENV:
+        ref_lm, _, lm, _ = models(arch)
+        shapes = jax.eval_shape(ref_lm.init, jax.random.PRNGKey(0))
+        tokens, fe = _inputs(lm.cfg, b, S)
+        base, ref_rows, port_rows = float32_params(arch), [], []
+        for k in range(N_NUDGED):
+            tree = _nudged(base, k)
+            params = lm_params_from_numpy(tree, lm.dtype)
+            with float64_port(lm):
+                want = _as_reference(*_port(lm, tree_map(lambda t: t.double(), params),
+                                            tokens, fe, S))
+            ref_logits, ref_cache, ref_pos = _reference_run(ref_lm, to_ref(tree, shapes),
+                                                            tokens, fe)
+            ref_rows.append(_errors([torch.tensor(x) for x in ref_logits],
+                                    {"pos": ref_pos, **{n: torch.tensor(v)
+                                                        for n, v in ref_cache.items()}}, want))
+            port_rows.append(_errors(*_port(lm, params, tokens, fe, S), want))
+        _ENV[(arch, b)] = (ref_rows, port_rows)
+    return _ENV[(arch, b)]
 
 
 def _logits_err(got: torch.Tensor, want: np.ndarray) -> float:
@@ -195,18 +262,18 @@ def _errors(logits, cache, ref) -> tuple[list, dict]:
 @pytest.mark.parametrize("mesh_name", MESHES)
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_sharded_prefill_and_decode_match_reference(arch, mesh_name):
-    """Against the reference within ``REL_TOL``.  xlstm's float32 rounding,
-    amplified by the sLSTM's exponential gating over 36 steps, puts the
-    unsharded port alone 1.07e-5 from the reference (``sc``, B = 1), and
-    the sharded one 1.12e-5 (logits, 1 × 4): both round at float32's grain
-    in the transcendentals, in different directions.  So xlstm is held to
-    the float64 unsharded port, which does not round at that grain: (a) the
-    reference's float32 run within ``F32_TO_F64_TOL`` of it, step by step
-    and leaf by leaf, and (b) the port's float32 sharded run no farther
-    from it than twice the reference's own distance, or ``REL_TOL``.
-    Measured on the four meshes: the reference 8.3e-7-7.4e-6 (logits
-    1.6e-6-6.7e-6), the sharded port 9.8e-7-9.9e-6, at most 1.8× the
-    reference's distance, step by step and leaf by leaf."""
+    """Against the reference within ``REL_TOL``.  xlstm's float32 runs lie
+    of the order of 1e-5 from float64 in both packages (the exponential
+    gates amplify every rounding through 36 steps), and one draw of weights
+    puts the two on either side of it: so xlstm is held to the float64
+    unsharded port, which does not round at that grain: (a) the reference's
+    float32 run within ``F32_TO_F64_TOL`` of it, step by step and leaf by
+    leaf, and (b) the port's float32 sharded run no farther from it than
+    twice the largest distance of the reference's own float32 runs on the
+    ``N_NUDGED`` nudged weight sets (``_envelope``), step by step and leaf
+    by leaf: the yardstick is the JAX package's.  Measured on the four
+    meshes: the sharded port 8.3e-7-1.3e-5 from the float64 port, at most
+    0.67 × its bound."""
     dims, b = MESHES[mesh_name]
     lm, rules, logits, cache = _sharded(arch, dims, b)
     if arch in FLOAT64_YARDSTICK:
@@ -217,10 +284,12 @@ def test_sharded_prefill_and_decode_match_reference(arch, mesh_name):
                                                             for k, v in ref_cache.items()}}, want)
         assert max(ref_steps) <= F32_TO_F64_TOL, ref_steps
         assert max(ref_leaves.values()) <= F32_TO_F64_TOL, ref_leaves
+        ref_rows = _envelope(arch, b)[0]
+        bound_steps = [2 * max(row[0][i] for row in ref_rows) for i in range(N_DECODE + 1)]
+        bound_leaves = {k: 2 * max(row[1][k] for row in ref_rows) for k in ref_leaves}
         steps, leaves = _errors(logits, cache, want)
-        assert all(e <= max(2 * r, REL_TOL) for e, r in zip(steps, ref_steps)), (steps, ref_steps)
-        assert all(leaves[k] <= max(2 * ref_leaves[k], REL_TOL) for k in leaves), (
-            leaves, ref_leaves)
+        assert all(e <= r for e, r in zip(steps, bound_steps)), (steps, bound_steps)
+        assert all(leaves[k] <= bound_leaves[k] for k in leaves), (leaves, bound_leaves)
     else:
         steps, leaves = _errors(logits, cache, _reference(arch, b))
         assert max(steps) <= REL_TOL, steps
@@ -231,6 +300,82 @@ def test_sharded_prefill_and_decode_match_reference(arch, mesh_name):
         if name in cache:
             assert cache[name].split_dim() == 2 and cache[name].grid[2] == dims[1]
             assert cache[name].grid[1] == (dims[0] if b % dims[0] == 0 else 1)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_xlstm_float32_envelope_is_the_references(b):
+    """Over the ``N_NUDGED`` nudged weight sets, the port's float32 xlstm
+    (unsharded) lies no farther from the float64 port than 1.5 × the
+    reference's float32 run, in the median of each leaf and of the logits
+    (the largest step).  Measured: B = 1 the ratios 1.10 (logits), 1.24 /
+    1.20 / 1.22 / 1.20 (``sc`` / ``sn`` / ``sm`` / ``sh``), 0.76-0.99 (mLSTM
+    states); B = 2 at most 1.16.  Summed in one running sum, the mLSTM's gate
+    products had put ``sc`` / ``sn`` / ``sm`` / ``sh`` at 2.0 / 1.8 / 1.6 /
+    1.6 (B = 1)."""
+    ref_rows, port_rows = _envelope("xlstm-1.3b", b)
+    names = ["logits", *ref_rows[0][1]]
+
+    def medians(rows):
+        return {n: float(np.median([max(r[0]) if n == "logits" else r[1][n] for r in rows]))
+                for n in names}
+
+    ref, port = medians(ref_rows), medians(port_rows)
+    ratios = {n: port[n] / ref[n] for n in names}
+    print(f"xlstm B={b} port/reference median distance from float64:",
+          {n: round(r, 3) for n, r in ratios.items()})
+    assert set(names) >= {"logits", "sc", "sn", "sm", "sh", "mC", "mn", "mm"}
+    assert all(r <= ENVELOPE_RATIO for r in ratios.values()), ratios
+
+
+# (rows, width, columns) of the mLSTM's gate products: prefill at B = 1, 2, 4
+# (the tests' batches) and decode at B = 1, 2; and at widths up to 1024
+GATE_SHAPES = [(32, 128, 4), (64, 128, 4), (128, 128, 4), (1, 128, 4), (2, 128, 4),
+               (2, 1024, 4), (64, 1024, 4)]
+
+
+@pytest.mark.parametrize("rows,width,cols", GATE_SHAPES)
+def test_gate_product_is_xlas_dot_bitwise(rows, width, cols):
+    """``ssm._gate_product`` equals XLA's CPU float32 dot bit for bit at the
+    mLSTM's gate shapes (four interleaved partial sums over the width,
+    (s0 + s1) + (s2 + s3), where the product has more than one row); one
+    PyTorch product, one running sum, does not where it has more than one."""
+    rng = np.random.default_rng(rows)
+    x = rng.normal(size=(rows, width)).astype(np.float32)
+    w = (rng.normal(size=(width, cols)) * width ** -0.5).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, c: a @ c)(x, w))
+    got = ssm_lib._gate_product(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, want)
+    one_sum = (torch.from_numpy(x) @ torch.from_numpy(w)).numpy()
+    assert (one_sum == want).all() == (rows == 1)
+
+
+def _four_lanes(x, w):
+    """XLA's CPU float32 dot, emulated in numpy: four running sums over the
+    interleaved columns ``l::4`` of x, each step one fused multiply-add (a
+    float32 product is exact in float64), added as (s0 + s1) + (s2 + s3)."""
+    lanes = [np.zeros((x.shape[0], w.shape[1]), np.float32) for _ in range(4)]
+    for k in range(x.shape[1]):
+        lanes[k % 4] = (x[:, k:k + 1].astype(np.float64) * w[k:k + 1] + lanes[k % 4]).astype(
+            np.float32)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+@pytest.mark.parametrize("rows", [2, 64])
+def test_gate_product_at_the_published_width(rows):
+    """At xlstm-1.3b's published width (D = 2048) XLA's dot still sums in
+    four running sums (bitwise :func:`_four_lanes`), but PyTorch's CPU
+    product blocks each lane's 512 terms, so ``ssm._gate_product`` is not
+    XLA's bit for bit there (ROADMAP Queue 3); it lies no farther from the
+    exact product than XLA's does."""
+    rng = np.random.default_rng(rows)
+    x = rng.normal(size=(rows, 2048)).astype(np.float32)
+    w = (rng.normal(size=(2048, 4)) * 2048 ** -0.5).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, c: a @ c)(x, w))
+    np.testing.assert_array_equal(_four_lanes(x, w), want)
+    got = ssm_lib._gate_product(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    assert not (got == want).all()
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    assert np.abs(got - exact).max() <= np.abs(want - exact).max()
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
